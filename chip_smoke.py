@@ -11,13 +11,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    that computes the same function, whose arithmetic is independent of
    the kernel's; times the kernel, the plain version and that call (a
    yardstick only) beside the least time the card could take;
-3. checks the port on a small uneven input against numpy's float64 fftn
+3. holds the two fused stage+codec kernels (``csrc/fuse.cu``) against
+   their plain versions at every shape and codec the compressed path
+   gives them: sidecars bit-identical, mantissas at most one level apart,
+   decoded outputs within 5e-4 (max-norm and L2) of the plain decode,
+   and the codec's own bound against the exact transform;
+4. checks the port on a small uneven input against numpy's float64 fftn
    (single device and the 4-rank slab; the repo's seeded world data);
-4. drives the main path: the single-device plan at 512^3 forward and
+5. drives the C2C main path: the single-device plan at 512^3 forward and
    backward, then the slab chain on a loopback world of 4 ranks at 512^3
    and at (510, 510, 512), each checked against torch.fft.fftn and by a
-   round trip; every kernel must have been launched in that run;
-5. prints one JSON line of the kernels and, last, the device line.
+   round trip; every four-step kernel must have been launched in that
+   run;
+6. drives the compressed and real path at 512^3 on a loopback world of
+   4: the C2C plans with the split codec fused, the R2C/C2R plans exact
+   and with each codec fused and unfused, and the single-device R2C/C2R;
+   checked against torch.fft.fftn/rfftn/irfftn, the port's exact plan and
+   round trips; the fused sites must take the routes of the JAX package
+   and both fused kernels must have been launched in that run;
+7. times the plans and their t0..t3 stages, prints one JSON line of the
+   five kernels and, last, the device line.
 
 Any failed check exits nonzero before the last line. Without a CUDA
 device, or without the package beside it, it exits nonzero at once.
@@ -36,11 +49,19 @@ TOL = 5e-4          # complex64 tier of distributedfft_tpu/testing.py
 SEED = 4242
 SLAB_RANKS = 4
 SOURCE = "distributedfft_tpu_torch/csrc/four_step.cu"
+FUSE_SOURCE = "distributedfft_tpu_torch/csrc/fuse.cu"
 REPLACES = {
     "fft2_last": "distributedfft_tpu/ops/pallas_fft.py:488",
     "fft_axis0": "distributedfft_tpu/ops/pallas_fft.py:580",
     "fft_last": "distributedfft_tpu/ops/pallas_fft.py:406",
+    "fft_encode": "distributedfft_tpu/ops/pallas_fuse.py:254",
+    "decode_fft": "distributedfft_tpu/ops/pallas_fuse.py:293",
 }
+CODECS = ("bf16", "int8", "split")
+# The codecs' bounds of tests/test_a2q_fusion.py:308 (_ENC_BOUNDS): a
+# decoded wire block against the exact transform, over its max |.|.
+ENC_BOUNDS = {"bf16": 8e-3, "int8": 2e-2, "split": 2e-4}
+PAIR_BYTES = {"bf16": 4, "int8": 2, "split": 4}   # wire bytes per c64
 
 
 def fail(msg: str) -> None:
@@ -232,16 +253,267 @@ def time_plans(torch, timing, fwd, bwd, x, label):
           f"({timing.gflops(shape, t_b / 1e3):.1f} GFlop/s)", flush=True)
 
 
-def stage_split(torch, timing, fwd, bwd, x, label):
-    """t0..t3 of one forward and one backward run of a slab plan."""
-    for plan, what in ((fwd, "forward"), (bwd, "backward")):
-        plan(x)  # warm
+def stage_split(torch, timing, fwd, bwd, x, label, x_bwd=None):
+    """t0..t3 of one forward and one backward run of a slab plan
+    (``x_bwd``: the backward's input, ``x`` when None)."""
+    for plan, what, inp in ((fwd, "forward", x),
+                            (bwd, "backward", x if x_bwd is None else x_bwd)):
+        plan(inp)  # warm
         timer = timing.StageTimer(x.device)
-        y = plan(x, timer=timer)
+        y = plan(inp, timer=timer)
         times = timer.times()
         del y
         print(f"{label} {what} stages (CUDA events, ms): " + " ".join(
             f"{k}={v * 1e3:.3f}" for k, v in times.items()), flush=True)
+
+
+# Every (kernel, codec, forward, shape, axis, where) the compressed path
+# launches at 512^3 on 4 ranks (tiles = 4, the tile axis is the FFT
+# axis). The first case of each kernel is its record's shape.
+FUSED_CASES = (
+    [("decode_fft", "split", True, (512, 128, 512), 0, "C2C fwd t3_fft_x"),
+     ("decode_fft", "split", False, (128, 512, 512), 1, "C2C bwd t3_fft_y")]
+    + [("decode_fft", c, True, (512, 128, 257), 0, "R2C fwd t3_fft_x")
+       for c in CODECS]
+    + [("decode_fft", c, False, (128, 512, 257), 1, "C2R bwd t0_ifft_y")
+       for c in CODECS]
+    + [("fft_encode", c, False, (512, 128, 257), 0, "C2R bwd t3_ifft_x")
+       for c in ("split", "bf16", "int8")])
+FUSED_TILES = 4
+
+
+def exact_dft(torch, x, axis, fwd):
+    """The exact-arithmetic yardstick of a fused kernel: torch.fft."""
+    return (torch.fft.fft if fwd else torch.fft.ifft)(x, dim=axis)
+
+
+def check_fused_kernels(torch, cfu, wire_codec, timing, rates):
+    """Phase 3: the fused stage+codec kernels against their plain
+    versions at every (shape, codec) the compressed path gives them.
+    Returns one record per kernel."""
+    hbm, fp32, _ = rates
+    dev = torch.device("cuda", torch.cuda.current_device())
+    records = {}
+    for i, (name, codec, fwd, shape, axis, where) in enumerate(FUSED_CASES):
+        kw = dict(fft_axis=axis, forward=fwd, tile_axis=axis,
+                  tiles=FUSED_TILES, wire_dtype=codec)
+        cw = wire_codec(codec)
+        dec = lambda parts: cw.decode(parts, torch.complex64, tile_axis=axis,
+                                      tiles=FUSED_TILES)
+        label = (f"{codec:5s} {'fwd' if fwd else 'inv'} axis {axis} "
+                 f"[{','.join(map(str, shape))}] ({where})")
+        x = seeded(torch, shape, dev, SEED + 100 + i)
+        exact = exact_dft(torch, x, axis, fwd)
+        if name == "fft_encode":
+            kernel = lambda: cfu.fused_fft_encode(x, **kw)
+            plain = lambda: cfu.fused_fft_encode_plain(x, **kw)
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            if [(g.shape, g.dtype) for g in got] != [
+                    (w.shape, w.dtype) for w in want]:
+                fail(f"{name} {label}: wire parts differ in shape or dtype")
+            if codec == "bf16":
+                # One level of bf16 at each value, plus the fp32 difference
+                # of the two transforms before the cast (~2e-7 of the
+                # block's max; 1e-6 allowed), which is all there is near 0.
+                g, w = got[0].float(), want[0].float()
+                off = int(((g - w).abs() > 0).sum())
+                apart = bool(((g - w).abs() <= 2.0 ** -8 * (g.abs() + w.abs())
+                              + 1e-6 * float(w.abs().max())).all())
+                side = "no sidecar"
+            else:
+                d = (got[0].int() - want[0].int()).abs()
+                off, apart = int((d > 0).sum()), int(d.max()) <= 1
+                if not torch.equal(got[1], want[1]):
+                    fail(f"{name} {label}: sidecars differ")
+                side = "sidecars bit-identical"
+            if not apart:
+                fail(f"{name} {label}: mantissas more than one level apart")
+            got_y, want_y = dec(got), dec(want)
+            err, l2, abs_err = rel_err(torch, got_y, want_y)
+            detail = (f"{side}; {off} of {got[0].numel()} mantissas one "
+                      f"level apart; decoded vs plain decoded")
+            wire_rw = 8 + PAIR_BYTES[codec]
+        else:
+            parts = cw.encode(x, tile_axis=axis, tiles=FUSED_TILES)
+            kernel = lambda: cfu.fused_decode_fft(parts, torch.complex64,
+                                                  **kw)
+            plain = lambda: cfu.fused_decode_fft_plain(parts,
+                                                       torch.complex64, **kw)
+            got_y, want_y = kernel(), plain()
+            torch.cuda.synchronize()
+            err, l2, abs_err = rel_err(torch, got_y, want_y)
+            if not max(err, l2) <= TOL:
+                fail(f"{name} {label}: vs plain max {err:.3e} l2 {l2:.3e} "
+                     f"> {TOL}")
+            detail = "vs plain"
+            wire_rw = PAIR_BYTES[codec] + 8
+        codec_err = float((got_y - exact).abs().max() / exact.abs().max())
+        if not codec_err <= ENC_BOUNDS[codec]:
+            fail(f"{name} {label}: decoded vs torch.fft {codec_err:.3e} > "
+                 f"codec bound {ENC_BOUNDS[codec]}")
+        del got_y, want_y, exact
+        ms = timing.cuda_time_ms(kernel, iters=10)
+        plain_ms = timing.cuda_time_ms(plain, iters=10)
+        numel, n = math.prod(shape), shape[axis]
+        t_bytes = numel * wire_rw / hbm * 1e3
+        t_ops = 5.0 * numel * math.log2(n) / fp32 * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"kernel {name:10s} {label:54s} {detail} max_rel_err={err:.3e} "
+              f"l2_rel_err={l2:.3e} max_abs_err={abs_err:.3e} "
+              f"vs_torch_fft_max_rel={codec_err:.3e} (codec bound "
+              f"{ENC_BOUNDS[codec]}) kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+              f"({bound_by})", flush=True)
+        rec = records.setdefault(name, dict(
+            name=name, route="cuda", source=FUSE_SOURCE,
+            replaces=REPLACES[name], launches=0, max_abs_err=0.0, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None))
+        rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+        del x
+        if name == "decode_fft":
+            del parts
+        torch.cuda.empty_cache()
+    return records
+
+
+def seeded_real(torch, shape, device, seed=SEED):
+    """Standard normal float32 data (zero mean)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return torch.randn(shape, generator=g, device=device,
+                       dtype=torch.float32)
+
+
+#: The fused sites' (sender, receiver) routes the JAX package takes on
+#: these slab plans (a 4-device CPU mesh at 64^3 with pallas, split, fuse).
+SITE_ROUTES = {"c2c fwd": ("multi_axis", "kernel"),
+               "c2c bwd": ("multi_axis", "kernel"),
+               "r2c fwd": ("ops", "kernel"),
+               "c2r bwd": ("kernel", "kernel")}
+
+
+def check_sites(plan, key, label):
+    sites = list(plan.graph.meta["fusion"]["sites"].values())
+    routes = [(s["sender"], s["receiver"]) for s in sites]
+    print(f"{label}: fusion sites {sites}", flush=True)
+    if routes != [SITE_ROUTES[key]]:
+        fail(f"{label}: fused sites {routes}, expected {[SITE_ROUTES[key]]}")
+
+
+def check_fused_plans(torch, dfft, world, n=512):
+    """Phase 6: the compressed and real plans at n^3. Returns the plans
+    the timing phase times."""
+    shape = (n, n, n)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    plans = {}
+
+    # C2C with the split codec fused, forward and backward.
+    x = seeded(torch, shape, dev)
+    fwd = dfft.plan_dft_c2c_3d(shape, world, wire_dtype="split", fuse=True)
+    bwd = dfft.plan_dft_c2c_3d(shape, world, wire_dtype="split", fuse=True,
+                               direction=dfft.BACKWARD)
+    y = fwd(x)
+    errs = rel_err(torch, y, torch.fft.fftn(x))[:2]
+    errs += rel_err(torch, bwd(y), x)[:2]
+    del y
+    print(f"c2c split fused {n}^3 P={SLAB_RANKS}: forward vs torch.fft.fftn "
+          f"max rel err={errs[0]:.3e} l2 rel err={errs[1]:.3e}; roundtrip "
+          f"max rel err={errs[2]:.3e} l2 rel err={errs[3]:.3e}", flush=True)
+    if not max(errs) <= TOL:
+        fail(f"c2c split fused: error over {TOL}")
+    check_sites(fwd, "c2c fwd", "c2c split fused fwd")
+    check_sites(bwd, "c2c bwd", "c2c split fused bwd")
+    plans["c2c split fused"] = (fwd, bwd, "c2c")
+    del x
+    torch.cuda.empty_cache()
+
+    # R2C / C2R: exact, then each codec unfused and fused.
+    xr = seeded_real(torch, shape, dev)
+    spec = torch.fft.rfftn(xr)
+    back_ref = torch.fft.irfftn(spec, s=shape)
+    exact_f = dfft.plan_dft_r2c_3d(shape, world)
+    exact_b = dfft.plan_dft_c2r_3d(shape, world)
+    y_exact = exact_f(xr)
+    r_exact = exact_b(spec)
+    results = {}
+    for codec in (None,) + CODECS:
+        for fuse in ((False,) if codec is None else (False, True)):
+            f = dfft.plan_dft_r2c_3d(shape, world, wire_dtype=codec,
+                                     fuse=fuse)
+            b = dfft.plan_dft_c2r_3d(shape, world, wire_dtype=codec,
+                                     fuse=fuse)
+            y = f(xr)
+            if tuple(y.shape) != (n, n, n // 2 + 1) or not bool(
+                    torch.isfinite(torch.view_as_real(y)).all()):
+                fail(f"r2c {codec}: output not finite or of shape "
+                     f"{tuple(y.shape)}")
+            r = b(spec)
+            rt = b(y)
+            errs = (rel_err(torch, y, spec)[:2] + rel_err(torch, r, back_ref)[:2]
+                    + rel_err(torch, rt, xr)[:2])
+            vs_exact = (rel_err(torch, y, y_exact)[0],
+                        rel_err(torch, r, r_exact)[0])
+            del y, r, rt
+            label = (f"r2c/c2r {codec or 'exact'}"
+                     f"{' fused' if fuse else ''} {n}^3 P={SLAB_RANKS}")
+            print(f"{label}: r2c vs torch.fft.rfftn max rel err={errs[0]:.3e}"
+                  f" l2 rel err={errs[1]:.3e}; c2r vs torch.fft.irfftn max "
+                  f"rel err={errs[2]:.3e} l2 rel err={errs[3]:.3e}; "
+                  f"roundtrip max rel err={errs[4]:.3e} l2 rel err="
+                  f"{errs[5]:.3e}; vs the exact port plan max rel err "
+                  f"r2c={vs_exact[0]:.3e} c2r={vs_exact[1]:.3e}", flush=True)
+            results[(codec, fuse)] = errs
+            if fuse:
+                check_sites(f, "r2c fwd", f"{label} fwd")
+                check_sites(b, "c2r bwd", f"{label} bwd")
+            if codec in (None, "split") and not max(errs) <= TOL:
+                fail(f"{label}: error over {TOL}")
+            if codec is not None:
+                plans[f"r2c/c2r {codec}{' fused' if fuse else ''}"] = (
+                    f, b, "r2c")
+            torch.cuda.empty_cache()
+    plans["r2c/c2r exact"] = (exact_f, exact_b, "r2c")
+    for codec in CODECS:
+        unfused, fused = results[(codec, False)], results[(codec, True)]
+        print(f"r2c/c2r {codec}: fused vs unfused errors (r2c max, l2; c2r "
+              f"max, l2; roundtrip max, l2): "
+              + " ".join(f"{a:.3e}/{b:.3e}" for a, b in zip(fused, unfused)),
+              flush=True)
+        if codec != "split" and not all(
+                a <= 1.1 * b for a, b in zip(fused, unfused)):
+            fail(f"r2c/c2r {codec}: the fused plan is less accurate than "
+                 f"the unfused one by more than 10%")
+    del y_exact, r_exact
+
+    # R2C / C2R on a single device.
+    f = dfft.plan_dft_r2c_3d(shape)
+    b = dfft.plan_dft_c2r_3d(shape)
+    y = f(xr)
+    errs = (rel_err(torch, y, spec)[:2] + rel_err(torch, b(spec), back_ref)[:2]
+            + rel_err(torch, b(y), xr)[:2])
+    print(f"r2c/c2r single {n}^3: r2c vs torch.fft.rfftn max rel err="
+          f"{errs[0]:.3e} l2 rel err={errs[1]:.3e}; c2r vs torch.fft.irfftn "
+          f"max rel err={errs[2]:.3e} l2 rel err={errs[3]:.3e}; roundtrip "
+          f"max rel err={errs[4]:.3e} l2 rel err={errs[5]:.3e}", flush=True)
+    if not max(errs) <= TOL:
+        fail(f"r2c/c2r single: error over {TOL}")
+    plans["r2c/c2r single"] = (f, b, "r2c")
+    del xr, spec, back_ref, y
+    torch.cuda.empty_cache()
+    return plans
+
+
+def time_real(torch, timing, fwd, bwd, x, label):
+    """CUDA-event times of an R2C and a C2R plan (median of 10)."""
+    y = fwd(x)
+    t_f = timing.cuda_time_ms(lambda: fwd(x), iters=10)
+    t_b = timing.cuda_time_ms(lambda: bwd(y), iters=10)
+    del y
+    torch.cuda.empty_cache()
+    print(f"{label}: r2c_ms={t_f:.3f} c2r_ms={t_b:.3f}", flush=True)
 
 
 def main() -> None:
@@ -255,6 +527,8 @@ def main() -> None:
     sys.path.insert(0, here)
     import distributedfft_tpu_torch as dfft
     from distributedfft_tpu_torch.ops import _build, cuda_fft as cf
+    from distributedfft_tpu_torch.ops import cuda_fuse as cfu
+    from distributedfft_tpu_torch.parallel.exchange import wire_codec
     from distributedfft_tpu_torch.utils import timing
 
     smi = subprocess.run(
@@ -270,9 +544,11 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.library()
     print(f"kernel build+load: {time.perf_counter() - t0:.1f} s "
-          f"({_build.SOURCE})", flush=True)
+          f"({', '.join(os.path.relpath(p, here) for p in _build.sources())}"
+          f")", flush=True)
 
     records = check_kernels(torch, cf, timing, rates)
+    records.update(check_fused_kernels(torch, cfu, wire_codec, timing, rates))
     check_small(torch, dfft)
 
     # ---- the main path: counts from 0, single then slab, each once ----
@@ -318,6 +594,42 @@ def main() -> None:
     time_plans(torch, timing, *slab, x, f"slab 512^3 loopback P={SLAB_RANKS}")
     stage_split(torch, timing, *slab, x, f"slab 512^3 loopback P={SLAB_RANKS}")
     del x
+    torch.cuda.empty_cache()
+
+    # ---- the compressed and real path: counts from 0, each plan once ----
+    cf.reset_launches()
+    cfu.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    plans = check_fused_plans(torch, dfft, world)
+    path = {**cf.launches(), **cfu.launches()}
+    print(f"launches on the compressed and real path: {path}", flush=True)
+    print(f"peak device memory of the compressed and real path: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for k in cfu.KERNELS:
+        if path[k] <= 0:
+            fail(f"kernel {k} was not launched on the compressed path")
+    for k, v in path.items():
+        records[k]["launches"] += v
+
+    # ---- times of the compressed and real plans ----
+    x = seeded(torch, (n, n, n), dev)
+    c2c_f, c2c_b, _ = plans.pop("c2c split fused")
+    time_plans(torch, timing, c2c_f, c2c_b, x,
+               f"c2c split fused 512^3 loopback P={SLAB_RANKS}")
+    stage_split(torch, timing, c2c_f, c2c_b, x,
+                f"c2c split fused 512^3 loopback P={SLAB_RANKS}")
+    del x
+    torch.cuda.empty_cache()
+    xr = seeded_real(torch, (n, n, n), dev)
+    for label, (f, b, _) in plans.items():
+        time_real(torch, timing, f, b, xr, f"{label} 512^3"
+                  + ("" if "single" in label else f" loopback P={SLAB_RANKS}"))
+    spec = plans["r2c/c2r exact"][0](xr)
+    for label in ("r2c/c2r exact", "r2c/c2r split fused"):
+        f, b, _ = plans[label]
+        stage_split(torch, timing, f, b, xr,
+                    f"{label} 512^3 loopback P={SLAB_RANKS}", x_bwd=spec)
+    del xr, spec
     torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": [

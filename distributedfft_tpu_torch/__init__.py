@@ -1,9 +1,12 @@
 """distributedfft_tpu_torch -- the PyTorch/CUDA port of distributedfft_tpu.
 
-The slab-decomposed distributed 3D C2C FFT, forward and backward,
-complex64, on an NVIDIA H100. Its local transforms run through three
-four-step kernels written in CUDA C++ for ``sm_90a``
-(``csrc/four_step.cu``), built with ``nvcc`` at first use.
+The slab-decomposed distributed 3D C2C and real-to-complex FFTs,
+forward and backward, complex64, on an NVIDIA H100, with an optional
+compressed exchange (``wire_dtype`` bf16/int8/split) whose codec can be
+fused into the stages beside it (``fuse=True``). Its local transforms
+run through three four-step kernels written in CUDA C++ for ``sm_90a``
+(``csrc/four_step.cu``), the fused stage+codec pairs through two more
+(``csrc/fuse.cu``), all built with ``nvcc`` at first use.
 
 Quick start::
 
@@ -13,6 +16,9 @@ Quick start::
     plan = dfft.plan_dft_c2c_3d((512, 512, 512), dfft.make_world(4))
     x = torch.randn(512, 512, 512, dtype=torch.complex64, device="cuda")
     y = plan(x)                                    # X-slabs in, Y-slabs out
+    real = dfft.plan_dft_r2c_3d((512, 512, 512), 4, wire_dtype="split",
+                                fuse=True)
+    h = real(torch.randn(512, 512, 512, device="cuda"))   # [512, 512, 257]
 
 Entry points run on the card; ``device="cpu"`` runs the kernels' plain
 PyTorch versions instead. This package imports neither JAX nor
@@ -25,6 +31,8 @@ from .api import (  # noqa: F401
     Plan3D,
     execute,
     plan_dft_c2c_3d,
+    plan_dft_c2r_3d,
+    plan_dft_r2c_3d,
     plan_from_reference,
 )
 from .ops.executors import Scale  # noqa: F401

@@ -1,12 +1,19 @@
-"""Plan and execute distributed 3D C2C FFTs -- the port of
-``Plan3D`` / ``plan_dft_c2c_3d`` / ``execute`` of
-``distributedfft_tpu/api.py``.
+"""Plan and execute distributed 3D FFTs -- the port of ``Plan3D`` /
+``plan_dft_c2c_3d`` / ``plan_dft_r2c_3d`` / ``plan_dft_c2r_3d`` /
+``execute`` of ``distributedfft_tpu/api.py``.
 
 A plan runs on ``torch.device("cuda")`` unless the caller passes another
 device; without a device and without CUDA, planning raises. On a world of
 one rank (or none) the plan is ``"single"``: one executor call over axes
-(0, 1, 2). On a larger 1D world it is the slab chain of
-:mod:`.parallel.slab`.
+(0, 1, 2), or for a real plan the r2c along axis 2 and the C2C over (0,
+1). On a larger 1D world it is the slab chain of :mod:`.parallel.slab`.
+
+``wire_dtype`` (``"bf16"``, ``"int8"``, ``"split"``) compresses the slab
+chain's exchange; ``fuse=True`` (the ``cuda:fuse`` executor label) asks
+the stage graph to fuse the codec into the stages beside the exchange.
+A single-device plan has no exchange and drops the codec. The JAX
+package's ``DFFT_FUSE`` / ``DFFT_WIRE_DTYPE`` environment defaults are
+not read.
 
 I/O of a slab plan: on a loopback world ``execute`` takes and returns the
 global array (X-slabs in and Y-slabs out, forward); on a process-group
@@ -23,12 +30,13 @@ import torch
 
 from . import geometry as geo
 from .ops.cuda_fft import eligible
-from .ops.executors import Scale, apply_scale, get_executor
-from .parallel.exchange import _crop_axis, _pad_axis
+from .ops.executors import (Scale, apply_scale, fused_name, get_c2r,
+                            get_executor, get_r2c, split_fuse)
+from .parallel.exchange import _crop_axis, _pad_axis, wire_codec
 from .parallel.mesh import World, make_world
-from .parallel.slab import SlabSpec, build_slab_fft3d
+from .parallel.slab import SlabSpec, build_slab_fft3d, build_slab_rfft3d
 from .plan_logic import io_boxes, logic_plan3d
-from .stagegraph import StageGraph, run_graph
+from .stagegraph import StageGraph, plan_fusion, run_graph
 
 # FFTW sign convention.
 FORWARD = -1
@@ -51,7 +59,10 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclass
 class Plan3D:
-    """A distributed 3D FFT plan (one direction)."""
+    """A distributed 3D FFT plan (one direction). ``shape`` is the
+    real-space world; ``kind`` is ``"c2c"`` or ``"r2c"`` (a real plan:
+    forward real in, complex half-spectrum out along axis 2, backward
+    the mirror); ``dtype`` is the complex working dtype."""
 
     shape: tuple[int, int, int]
     direction: int
@@ -60,6 +71,8 @@ class Plan3D:
     executor: str
     world: World | None
     device: torch.device
+    kind: str = "c2c"
+    wire_dtype: str | None = None
     graph: StageGraph | None = None
     spec: SlabSpec | None = None
     in_boxes: list[geo.Box3] = field(default_factory=list)
@@ -73,16 +86,47 @@ class Plan3D:
     def world_size(self) -> int:
         return math.prod(self.shape)
 
+    @property
+    def complex_shape(self) -> tuple[int, int, int]:
+        """The complex side's global shape (axis 2 shrunk on r2c)."""
+        n0, n1, n2 = self.shape
+        return (n0, n1, n2 // 2 + 1) if self.kind == "r2c" else self.shape
+
+    @property
+    def in_shape(self) -> tuple[int, int, int]:
+        return self.shape if self.forward else self.complex_shape
+
+    @property
+    def out_shape(self) -> tuple[int, int, int]:
+        return self.complex_shape if self.forward else self.shape
+
+    @property
+    def in_dtype(self) -> torch.dtype:
+        return (torch.float32 if self.kind == "r2c" and self.forward
+                else self.dtype)
+
+    @property
+    def out_dtype(self) -> torch.dtype:
+        return (torch.float32 if self.kind == "r2c" and not self.forward
+                else self.dtype)
+
     def describe(self) -> dict[str, Any]:
-        """The plan's geometry as plain values (see
+        """The plan's geometry and routing as plain values (see
         :func:`plan_from_reference`)."""
         box = lambda b: (tuple(b.low), tuple(b.high))
+        fusion = self.graph.meta["fusion"] if self.graph is not None else {
+            "requested": split_fuse(self.executor)[1], "active": False,
+            "reasons": ()}
         return dict(
             shape=self.shape,
             world_size=1 if self.world is None else self.world.size,
             direction=self.direction,
             dtype=str(self.dtype).removeprefix("torch."),
+            kind=self.kind,
             decomposition=self.decomposition,
+            executor=self.executor,
+            wire_dtype=self.wire_dtype,
+            fusion={k: fusion[k] for k in ("requested", "active", "reasons")},
             in_boxes=[box(b) for b in self.in_boxes],
             out_boxes=[box(b) for b in self.out_boxes],
         )
@@ -90,6 +134,63 @@ class Plan3D:
     def __call__(self, x: torch.Tensor, *, scale: Scale = Scale.NONE,
                  timer=None) -> torch.Tensor:
         return execute(self, x, scale=scale, timer=timer)
+
+
+def _executor_label(executor: str, fuse: bool | None) -> str:
+    """The executor label with the fuse flag normalised in (the port of
+    ``_apply_fuse``, without its ``DFFT_FUSE`` default): ``fuse=True``
+    adds ``:fuse`` to a fusable base and raises on any other;
+    ``fuse=False`` beside a label that pins ``:fuse`` raises; ``None``
+    keeps the label's own flag."""
+    executor = fused_name(executor, fuse)
+    get_executor(executor)
+    return executor
+
+
+def _plan(shape, world, *, kind: str, direction: int, executor: str,
+          dtype: torch.dtype, device, wire_dtype: str | None,
+          fuse: bool | None) -> Plan3D:
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != 3:
+        raise ValueError("3D plans require a 3D shape")
+    if direction not in (FORWARD, BACKWARD):
+        raise ValueError("direction must be FORWARD (-1) or BACKWARD (+1)")
+    if dtype != torch.complex64:
+        raise ValueError(
+            f"cuda executor: dtype {dtype} is not kernel-eligible (reason: "
+            f"dtype); the port runs complex64 only")
+    n2 = shape[2]
+    # The lengths the kernels transform: axis 2 of a real plan through
+    # the half-length packed C2C when it is even, else promoted whole.
+    lengths = shape if kind == "c2c" else (
+        shape[0], shape[1], n2 // 2 if n2 % 2 == 0 and n2 > 2 else n2)
+    for n in lengths:
+        if not eligible(n):
+            raise ValueError(
+                f"cuda executor: length {n} of {shape} is not kernel-eligible "
+                f"(reason: length); the dft_matmul route is not ported yet")
+    executor = _executor_label(executor, fuse)
+    if wire_dtype is not None:
+        wire_codec(wire_dtype)
+    device = resolve_device(device)
+    if isinstance(world, int):
+        world = make_world(world)
+    forward = direction == FORWARD
+    lp = logic_plan3d(shape, world, forward=forward)
+    graph = spec = None
+    if lp.decomposition == "slab":
+        build = build_slab_fft3d if kind == "c2c" else build_slab_rfft3d
+        graph, spec = build(lp.world, shape, executor=executor,
+                            forward=forward, wire_dtype=wire_dtype)
+        graph.meta["fusion"] = plan_fusion(graph)
+    else:
+        wire_dtype = None          # no exchange, nothing to compress
+    in_boxes, out_boxes = io_boxes(lp, forward=forward, real=kind == "r2c")
+    return Plan3D(shape=shape, direction=direction, dtype=dtype,
+                  decomposition=lp.decomposition, executor=executor,
+                  world=lp.world, device=device, kind=kind,
+                  wire_dtype=wire_dtype, graph=graph, spec=spec,
+                  in_boxes=in_boxes, out_boxes=out_boxes)
 
 
 def plan_dft_c2c_3d(
@@ -100,59 +201,96 @@ def plan_dft_c2c_3d(
     executor: str = "cuda",
     dtype: torch.dtype = torch.complex64,
     device=None,
+    wire_dtype: str | None = None,
+    fuse: bool | None = None,
 ) -> Plan3D:
     """Create a 3D complex-to-complex FFT plan over ``world`` (a
     :class:`~.parallel.mesh.World`, an int for a loopback world of that
     many ranks, or None for one device). ``direction`` uses the FFTW sign
     convention (-1 forward). Forward is unnormalized and backward scaled
     1/N (numpy convention), as the JAX package's executors are;
-    ``execute``'s ``scale`` multiplies on top of that."""
-    shape = tuple(int(s) for s in shape)
-    if len(shape) != 3:
-        raise ValueError("3D plans require a 3D shape")
-    if direction not in (FORWARD, BACKWARD):
-        raise ValueError("direction must be FORWARD (-1) or BACKWARD (+1)")
-    if dtype != torch.complex64:
+    ``execute``'s ``scale`` multiplies on top of that. ``wire_dtype`` and
+    ``fuse`` as in the module docstring."""
+    return _plan(shape, world, kind="c2c", direction=direction,
+                 executor=executor, dtype=dtype, device=device,
+                 wire_dtype=wire_dtype, fuse=fuse)
+
+
+def plan_dft_r2c_3d(
+    shape: Sequence[int],
+    world: World | int | None = None,
+    *,
+    direction: int = FORWARD,
+    executor: str = "cuda",
+    dtype: torch.dtype = torch.complex64,
+    device=None,
+    wire_dtype: str | None = None,
+    fuse: bool | None = None,
+    r2c_axis: int = 2,
+) -> Plan3D:
+    """Create a real-to-complex (forward) / complex-to-real (backward) 3D
+    FFT plan. ``shape`` is the real-space world; the complex side is
+    shrunk along axis 2 to n2//2+1. Forward takes float32 and returns
+    complex64; backward the mirror, scaled 1/N. Only the canonical
+    ``r2c_axis=2`` chain is ported."""
+    if r2c_axis != 2:
         raise ValueError(
-            f"cuda executor: dtype {dtype} is not kernel-eligible (reason: "
-            f"dtype); this slice runs complex64 only")
-    for n in shape:
-        if not eligible(n):
-            raise ValueError(
-                f"cuda executor: length {n} of {shape} is not kernel-eligible "
-                f"(reason: length); the dft_matmul route is not ported yet")
-    get_executor(executor)
-    device = resolve_device(device)
-    if isinstance(world, int):
-        world = make_world(world)
-    forward = direction == FORWARD
-    lp = logic_plan3d(shape, world, forward=forward)
-    graph = spec = None
-    if lp.decomposition == "slab":
-        graph, spec = build_slab_fft3d(lp.world, shape, executor=executor,
-                                       forward=forward)
-    in_boxes, out_boxes = io_boxes(lp)
-    return Plan3D(shape=shape, direction=direction, dtype=dtype,
-                  decomposition=lp.decomposition, executor=executor,
-                  world=lp.world, device=device, graph=graph, spec=spec,
-                  in_boxes=in_boxes, out_boxes=out_boxes)
+            f"r2c_axis={r2c_axis}: the port runs the canonical r2c_axis=2 "
+            f"chain only")
+    return _plan(shape, world, kind="r2c", direction=direction,
+                 executor=executor, dtype=dtype, device=device,
+                 wire_dtype=wire_dtype, fuse=fuse)
+
+
+def plan_dft_c2r_3d(shape, world=None, **kw) -> Plan3D:
+    """The inverse of :func:`plan_dft_r2c_3d` (complex half-spectrum in,
+    real out)."""
+    kw.setdefault("direction", BACKWARD)
+    return plan_dft_r2c_3d(shape, world, **kw)
+
+
+def _port_executor(label: str) -> str:
+    """The port's label for a JAX executor label: ``pallas`` is ``cuda``,
+    its flags carried over."""
+    base, *mods = str(label).split(":")
+    if base == "pallas":
+        base = "cuda"
+    if base != "cuda":
+        raise ValueError(
+            f"reference executor {label!r} has no port counterpart; the port "
+            f"runs the pallas executor's kernels as 'cuda'")
+    return ":".join([base] + mods)
 
 
 def plan_from_reference(desc: dict, *, device=None) -> Plan3D:
     """Build the port's plan, on a loopback world, from a JAX
     ``Plan3D``'s description in plain values: ``shape``, ``world_size``,
     ``direction``, ``dtype`` and the ``in_boxes`` / ``out_boxes`` as
-    ((low), (high)) tuples. Raises when the port's geometry differs from
-    the description's."""
+    ((low), (high)) tuples; optionally ``kind`` (``"c2c"`` or ``"r2c"``),
+    ``wire_dtype``, the ``executor`` label and the ``fusion`` decision
+    (``requested``, ``active``, ``reasons``). Raises when the port's
+    geometry or fusion decision differs from the description's."""
     if str(desc["dtype"]) != "complex64":
-        raise ValueError(f"this slice runs complex64 only, got {desc['dtype']}")
-    plan = plan_dft_c2c_3d(desc["shape"], int(desc["world_size"]),
-                           direction=desc["direction"], device=device)
+        raise ValueError(f"the port runs complex64 only, got {desc['dtype']}")
+    kind = desc.get("kind", "c2c")
+    if kind not in ("c2c", "r2c"):
+        raise ValueError(f"unknown plan kind {kind!r}")
+    planner = plan_dft_c2c_3d if kind == "c2c" else plan_dft_r2c_3d
+    plan = planner(desc["shape"], int(desc["world_size"]),
+                   direction=desc["direction"], device=device,
+                   executor=_port_executor(desc.get("executor", "cuda")),
+                   wire_dtype=desc.get("wire_dtype"))
     mine = plan.describe()
     for key in ("in_boxes", "out_boxes"):
         theirs = [(tuple(lo), tuple(hi)) for lo, hi in desc[key]]
         if mine[key] != theirs:
             raise ValueError(f"{key} differ: port {mine[key]}, reference {theirs}")
+    if "fusion" in desc:
+        theirs = {k: desc["fusion"][k] for k in ("requested", "active")}
+        theirs["reasons"] = tuple(desc["fusion"]["reasons"])
+        if mine["fusion"] != theirs:
+            raise ValueError(
+                f"fusion differs: port {mine['fusion']}, reference {theirs}")
     return plan
 
 
@@ -162,22 +300,31 @@ def execute(plan: Plan3D, x: torch.Tensor, *, scale: Scale = Scale.NONE,
     each stage under t0..t3."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"execute takes a torch.Tensor, got {type(x).__name__}")
-    if x.dtype != plan.dtype or x.device != plan.device:
+    if x.dtype != plan.in_dtype or x.device != plan.device:
         raise ValueError(
-            f"plan takes {plan.dtype} on {plan.device}, got {x.dtype} on "
+            f"plan takes {plan.in_dtype} on {plan.device}, got {x.dtype} on "
             f"{x.device}")
     if plan.decomposition == "single":
-        if tuple(x.shape) != plan.shape:
-            raise ValueError(f"plan input shape is {plan.shape}, got {tuple(x.shape)}")
-        ex = get_executor(plan.executor)
+        if tuple(x.shape) != plan.in_shape:
+            raise ValueError(
+                f"plan input shape is {plan.in_shape}, got {tuple(x.shape)}")
         if timer is not None:
             with timer.stage("t0"):
-                y = ex(x.contiguous(), (0, 1, 2), plan.forward)
+                y = _execute_single(plan, x.contiguous())
         else:
-            y = ex(x.contiguous(), (0, 1, 2), plan.forward)
+            y = _execute_single(plan, x.contiguous())
     else:
         y = _execute_slab(plan, x, timer)
     return apply_scale(y, scale, plan.world_size)
+
+
+def _execute_single(plan: Plan3D, x: torch.Tensor) -> torch.Tensor:
+    ex = get_executor(plan.executor)
+    if plan.kind == "c2c":
+        return ex(x, (0, 1, 2), plan.forward)
+    if plan.forward:
+        return ex(get_r2c(plan.executor)(x, 2), (0, 1), True)
+    return get_c2r(plan.executor)(ex(x, (0, 1), False), plan.shape[2], 2)
 
 
 def _execute_slab(plan: Plan3D, x: torch.Tensor, timer) -> torch.Tensor:
@@ -185,8 +332,9 @@ def _execute_slab(plan: Plan3D, x: torch.Tensor, timer) -> torch.Tensor:
     ax_in, ax_out = spec.in_axis, spec.out_axis
     in_to = spec.in_padded_extent
     if world.loopback:
-        if tuple(x.shape) != plan.shape:
-            raise ValueError(f"plan input shape is {plan.shape}, got {tuple(x.shape)}")
+        if tuple(x.shape) != plan.in_shape:
+            raise ValueError(
+                f"plan input shape is {plan.in_shape}, got {tuple(x.shape)}")
         blocks = list(_pad_axis(x, ax_in, in_to).chunk(world.size, dim=ax_in))
         out = run_graph(graph, blocks, timer)
         return _crop_axis(torch.cat(out, dim=ax_out), ax_out,

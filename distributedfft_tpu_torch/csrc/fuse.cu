@@ -1,0 +1,355 @@
+// Fused stage+codec kernels for Hopper (sm_90a): the port of the two
+// Pallas mega-kernels of distributedfft_tpu/ops/pallas_fuse.py.
+//
+// Replaces (TPU kernel -> launcher here):
+//   pallas_fuse.py:_make_encode_kernel (_encode_tiles)  -> dfft_fft_encode
+//   pallas_fuse.py:_make_decode_kernel (_decode_tiles)  -> dfft_decode_fft
+//
+// Both work on the strided layout [lead, n, cols] with the DFT over the
+// middle axis (the four-step routine of four_step.cuh, each block owning
+// `seqs` neighbouring columns), so an axis-0, middle-axis or last-axis
+// (cols = 1) transform needs no transposing copy. The wire payload keeps
+// that layout with a trailing (re, im) pair: [lead, n, cols, 2]. Tiles
+// cut the DFT axis into `tiles` segments of seg = n / tiles: the tile of
+// an element is its OUTPUT index k for encode and its INPUT index j for
+// decode (pallas_fuse.py:158-172, :207-210). The sidecar is [tiles, 2]
+// f32: one power-of-two step per (tile, plane).
+//
+// fft_encode:
+//   bf16        one launch: the transform, then an epilogue that rounds
+//               each component to nearest even into the bf16 pair.
+//   int8/split  three launches. The TPU kernel held the whole block in
+//               VMEM for one grid step because the per-(tile, plane) amax
+//               is a reduction over the block. Here launch A transforms
+//               (inverse scale 1/n applied in the routine, before any
+//               quantizing), writes the c64 result to device scratch `y`,
+//               and takes each block's amax per (tile, plane) in shared
+//               memory, then one atomicMax per slot on the uint32 bits
+//               (valid because amax >= 0; the result does not depend on
+//               the order of the blocks). Launch B turns the 2*tiles amax
+//               slots into the sidecar's steps; launch C quantizes element
+//               by element: rintf (half to even), clamp to +-levels.
+// decode_fft: one launch. Each block unpacks its columns' wire values into
+//   shared memory exactly (bf16 -> f32, or mantissa * pow2 step), runs
+//   the four-step routine with the inverse 1/n applied in it, and writes
+//   c64.
+//
+// What bounds them on an H100: the same direct sums as four_step.cu
+// (8*(n1+n2) flops per complex element, limited by shared-memory and L1
+// traffic, ~8x the device-memory bound at n = 512). The design keeps the
+// c64 intermediate out of device memory on bf16 encode and on every
+// decode; the quantized encode pays one extra c64 write and read of the
+// block (launch A -> C), which a single-pass design (amax from a cheap
+// pre-pass, or a cluster-wide reduction) would remove. Sequences longer
+// than fit a block's shared memory run on device scratch, as in
+// four_step.cu.
+//
+// Every launcher returns cudaGetLastError() of its own launches.
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include "four_step.cuh"
+
+namespace {
+
+// The pow2 quantization step of `amax` in `levels` signed levels:
+// 2^ceil(log2(amax / levels)), exponent clamped to [-126, 127], built from
+// the exponent bits, 1.0 where amax == 0 (pallas_fuse.py:_pow2_step_block).
+// log2 is evaluated as the JAX package's XLA evaluates it and as the plain
+// codec (parallel/exchange.py:_pow2_step_levels) does: log(q) times f32
+// 1/ln 2. Where q is within a few ulp of a power of two that expression
+// can round to the integer, where an exact ceil (frexpf) would take the
+// next power: the two steps differ by 2x there. A quantized round trip
+// lands on exactly such q (amax = levels * 2^k up to fp32 noise), so only
+// the same expression keeps the kernel's steps equal to the plain
+// codec's and to the reference's.
+__device__ __forceinline__ float pow2_step(float amax, float levels) {
+  if (!(amax > 0.f)) return 1.0f;
+  const float k = fminf(fmaxf(ceilf(logf(amax / levels) * 0x1.715476p+0f),
+                              -126.f), 127.f);
+  return __int_as_float(((int)k + 127) << 23);
+}
+
+// Block geometry of the strided layout: block -> (lead index, first
+// column, columns held).
+struct Cols {
+  long long base;
+  int cnt;
+};
+
+__device__ __forceinline__ Cols block_cols(long long cols, int n, int seqs) {
+  const long long nt = (cols + seqs - 1) / seqs;
+  const long long l = blockIdx.x / nt;
+  const long long c0 = (blockIdx.x % nt) * seqs;
+  Cols c;
+  c.base = l * n * cols + c0;
+  c.cnt = (int)min((long long)seqs, cols - c0);
+  return c;
+}
+
+// Launch A of fft_encode. MODE 0 (bf16): the transform, then the bf16
+// pair of each element into q. MODE 1 (int8/split): the transform into
+// y, and the per-(tile, plane) amax into `amax` (uint32 bits of |v|).
+// scratch == nullptr: sequences in shared memory; otherwise the routine
+// runs on device memory (scratch for its stage-1 result, y for output).
+template <int MODE>
+__global__ void __launch_bounds__(kThreads)
+encode_fft_kernel(const float2* x, float2* y, float2* scratch,
+                  __nv_bfloat162* q, unsigned* amax, long long cols, int n1,
+                  int n2, int seqs, int tiles, const float2* w1,
+                  const float2* tw, const float2* w2, float scale) {
+  extern __shared__ float2 smem[];
+  const int n = n1 * n2;
+  const Cols blk = block_cols(cols, n, seqs);
+  const int cnt = blk.cnt;
+  const bool in_smem = scratch == nullptr;
+  unsigned* bmax =
+      reinterpret_cast<unsigned*>(smem + (in_smem ? 2LL * seqs * n : 0));
+  if (MODE == 1)
+    for (int i = threadIdx.x; i < 2 * tiles; i += blockDim.x) bmax[i] = 0u;
+  const float2* out;
+  long long sj;
+  if (in_smem) {
+    float2* a = smem;
+    float2* b = smem + (long long)seqs * n;
+    for (int i = threadIdx.x; i < cnt * n; i += blockDim.x) {
+      const int s = i % cnt, j = i / cnt;
+      a[s + j * seqs] = x[blk.base + (long long)j * cols + s];
+    }
+    __syncthreads();
+    four_step<true>(a, b, a, 1, seqs, cnt, n1, n2, w1, tw, w2, scale);
+    out = a;
+    sj = seqs;
+  } else {
+    __syncthreads();
+    four_step<true>(x + blk.base, scratch + blk.base, y + blk.base, 1, cols,
+                    cnt, n1, n2, w1, tw, w2, scale);
+    out = y + blk.base;
+    sj = cols;
+  }
+  __syncthreads();
+  if (MODE == 0) {
+    for (int i = threadIdx.x; i < cnt * n; i += blockDim.x) {
+      const int s = i % cnt, k = i / cnt;
+      const float2 v = out[s + k * sj];
+      q[blk.base + (long long)k * cols + s] = __floats2bfloat162_rn(v.x, v.y);
+    }
+    return;
+  }
+  // Each thread's items step through k in order, so it keeps a running
+  // max and flushes it to shared memory when its tile changes.
+  const int seg = n / tiles;
+  int cur = -1;
+  float mr = 0.f, mi = 0.f;
+  for (int i = threadIdx.x; i < cnt * n; i += blockDim.x) {
+    const int s = i % cnt, k = i / cnt;
+    const float2 v = out[s + k * sj];
+    if (in_smem) y[blk.base + (long long)k * cols + s] = v;
+    const int t = k / seg;
+    if (t != cur) {
+      if (cur >= 0) {
+        atomicMax(&bmax[2 * cur], __float_as_uint(mr));
+        atomicMax(&bmax[2 * cur + 1], __float_as_uint(mi));
+      }
+      cur = t;
+      mr = 0.f;
+      mi = 0.f;
+    }
+    mr = fmaxf(mr, fabsf(v.x));
+    mi = fmaxf(mi, fabsf(v.y));
+  }
+  if (cur >= 0) {
+    atomicMax(&bmax[2 * cur], __float_as_uint(mr));
+    atomicMax(&bmax[2 * cur + 1], __float_as_uint(mi));
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * tiles; i += blockDim.x)
+    if (bmax[i] != 0u) atomicMax(&amax[i], bmax[i]);
+}
+
+// Launch B of fft_encode: the [tiles, 2] sidecar of pow2 steps from the
+// amax slots, one thread per slot.
+__global__ void __launch_bounds__(kThreads)
+steps_kernel(const unsigned* amax, float* side, int slots, float levels) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < slots) side[i] = pow2_step(__uint_as_float(amax[i]), levels);
+}
+
+// Launch C of fft_encode: quantize y [lead, n, cols] into q
+// [lead, n, cols, 2] with the step of each element's (tile, plane).
+template <typename Q>
+__global__ void __launch_bounds__(kThreads)
+quantize_kernel(const float2* y, Q* q, const float* side, long long total,
+                long long cols, int n, int seg, float levels) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int t = (int)((i / cols) % n) / seg;
+  const float sr = __ldg(&side[2 * t]), si = __ldg(&side[2 * t + 1]);
+  const float2 v = y[i];
+  q[2 * i] = (Q)fminf(fmaxf(rintf(v.x / sr), -levels), levels);
+  q[2 * i + 1] = (Q)fminf(fmaxf(rintf(v.y / si), -levels), levels);
+}
+
+// One wire element e (its input index in tile t) as c64: exact.
+template <int CODEC>
+__device__ __forceinline__ float2 unpack(const void* q, const float* side,
+                                         long long e, int t) {
+  if (CODEC == 0)
+    return __bfloat1622float2(static_cast<const __nv_bfloat162*>(q)[e]);
+  const float sr = side[2 * t], si = side[2 * t + 1];
+  if (CODEC == 1) {
+    const int8_t* p = static_cast<const int8_t*>(q) + 2 * e;
+    return make_float2((float)p[0] * sr, (float)p[1] * si);
+  }
+  const int16_t* p = static_cast<const int16_t*>(q) + 2 * e;
+  return make_float2((float)p[0] * sr, (float)p[1] * si);
+}
+
+// decode_fft: CODEC 0 bf16, 1 int8, 2 int16 (split). The unpacked block
+// goes into shared memory, or into y itself when the sequences do not fit
+// (the routine then runs in place on y with `scratch` for stage 1).
+template <int CODEC>
+__global__ void __launch_bounds__(kThreads)
+decode_fft_kernel(const void* q, const float* side, float2* y,
+                  float2* scratch, long long cols, int n1, int n2, int seqs,
+                  int tiles, const float2* w1, const float2* tw,
+                  const float2* w2, float scale) {
+  extern __shared__ float2 smem[];
+  const int n = n1 * n2;
+  const int seg = n / tiles;
+  const Cols blk = block_cols(cols, n, seqs);
+  const int cnt = blk.cnt;
+  if (scratch != nullptr) {
+    for (int i = threadIdx.x; i < cnt * n; i += blockDim.x) {
+      const int s = i % cnt, j = i / cnt;
+      const long long e = blk.base + (long long)j * cols + s;
+      y[e] = unpack<CODEC>(q, side, e, j / seg);
+    }
+    __syncthreads();
+    four_step<true>(y + blk.base, scratch + blk.base, y + blk.base, 1, cols,
+                    cnt, n1, n2, w1, tw, w2, scale);
+    return;
+  }
+  float2* a = smem;
+  float2* b = smem + (long long)seqs * n;
+  for (int i = threadIdx.x; i < cnt * n; i += blockDim.x) {
+    const int s = i % cnt, j = i / cnt;
+    a[s + j * seqs] = unpack<CODEC>(
+        q, side, blk.base + (long long)j * cols + s, j / seg);
+  }
+  __syncthreads();
+  four_step<true>(a, b, a, 1, seqs, cnt, n1, n2, w1, tw, w2, scale);
+  __syncthreads();
+  for (int i = threadIdx.x; i < cnt * n; i += blockDim.x) {
+    const int s = i % cnt, j = i / cnt;
+    y[blk.base + (long long)j * cols + s] = a[s + j * seqs];
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t shm) {
+  if (shm == 0) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Wire-encode the DFT over the middle axis of x [lead, n, cols] (n =
+// n1*n2, scaled by `scale`) into q [lead, n, cols, 2]: codec 0 bf16, 1
+// int8, 2 int16 (split), `levels` signed levels. For codecs 1-2, `y` is a
+// c64 scratch of x's size, `amax` 2*tiles zeroed uint32 and `side` the
+// [tiles, 2] f32 sidecar out. scratch == nullptr: sequences in shared
+// memory (then `y` may be nullptr for bf16).
+int dfft_fft_encode(const void* x, void* y, void* scratch, void* q,
+                    void* amax, void* side, long long lead, long long cols,
+                    int n1, int n2, int seqs, int tiles, int codec,
+                    float levels, const void* w1, const void* tw,
+                    const void* w2, float scale, void* stream) {
+  const int n = n1 * n2;
+  const long long blocks = lead * ((cols + seqs - 1) / seqs);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t seq_shm =
+      scratch == nullptr ? 2ull * seqs * n * sizeof(float2) : 0;
+  const float2 *fx = (const float2*)x, *fw1 = (const float2*)w1,
+               *ftw = (const float2*)tw, *fw2 = (const float2*)w2;
+  float2 *fy = (float2*)y, *fs = (float2*)scratch;
+  cudaError_t e;
+  if (codec == 0) {
+    e = allow_smem(encode_fft_kernel<0>, seq_shm);
+    if (e != cudaSuccess) return (int)e;
+    if (blocks > 0)
+      encode_fft_kernel<0><<<(unsigned)blocks, kThreads, seq_shm, st>>>(
+          fx, fy, fs, (__nv_bfloat162*)q, nullptr, cols, n1, n2, seqs, tiles,
+          fw1, ftw, fw2, scale);
+    return (int)cudaGetLastError();
+  }
+  const size_t shm = seq_shm + 2ull * tiles * sizeof(unsigned);
+  e = allow_smem(encode_fft_kernel<1>, shm);
+  if (e != cudaSuccess) return (int)e;
+  if (blocks > 0)
+    encode_fft_kernel<1><<<(unsigned)blocks, kThreads, shm, st>>>(
+        fx, fy, fs, nullptr, (unsigned*)amax, cols, n1, n2, seqs, tiles, fw1,
+        ftw, fw2, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int slots = 2 * tiles;
+  steps_kernel<<<(slots + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      (const unsigned*)amax, (float*)side, slots, levels);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long total = lead * n * cols;
+  const unsigned grid = (unsigned)((total + kThreads - 1) / kThreads);
+  const int seg = n / tiles;
+  if (codec == 1)
+    quantize_kernel<int8_t><<<grid, kThreads, 0, st>>>(
+        fy, (int8_t*)q, (const float*)side, total, cols, n, seg, levels);
+  else
+    quantize_kernel<int16_t><<<grid, kThreads, 0, st>>>(
+        fy, (int16_t*)q, (const float*)side, total, cols, n, seg, levels);
+  return (int)cudaGetLastError();
+}
+
+// Decode q [lead, n, cols, 2] (codec 0 bf16, 1 int8, 2 int16; `side` the
+// [tiles, 2] f32 steps, unused for bf16) and DFT the middle axis into y
+// [lead, n, cols] c64, scaled by `scale`. scratch == nullptr: sequences
+// in shared memory; otherwise a c64 scratch of y's size.
+int dfft_decode_fft(const void* q, const void* side, void* y, void* scratch,
+                    long long lead, long long cols, int n1, int n2, int seqs,
+                    int tiles, int codec, const void* w1, const void* tw,
+                    const void* w2, float scale, void* stream) {
+  const int n = n1 * n2;
+  const long long blocks = lead * ((cols + seqs - 1) / seqs);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t shm = scratch == nullptr ? 2ull * seqs * n * sizeof(float2) : 0;
+  const float* fside = (const float*)side;
+  const float2 *fw1 = (const float2*)w1, *ftw = (const float2*)tw,
+               *fw2 = (const float2*)w2;
+  float2 *fy = (float2*)y, *fs = (float2*)scratch;
+  cudaError_t e;
+  if (codec == 0) {
+    e = allow_smem(decode_fft_kernel<0>, shm);
+    if (e != cudaSuccess) return (int)e;
+    if (blocks > 0)
+      decode_fft_kernel<0><<<(unsigned)blocks, kThreads, shm, st>>>(
+          q, fside, fy, fs, cols, n1, n2, seqs, tiles, fw1, ftw, fw2, scale);
+  } else if (codec == 1) {
+    e = allow_smem(decode_fft_kernel<1>, shm);
+    if (e != cudaSuccess) return (int)e;
+    if (blocks > 0)
+      decode_fft_kernel<1><<<(unsigned)blocks, kThreads, shm, st>>>(
+          q, fside, fy, fs, cols, n1, n2, seqs, tiles, fw1, ftw, fw2, scale);
+  } else {
+    e = allow_smem(decode_fft_kernel<2>, shm);
+    if (e != cudaSuccess) return (int)e;
+    if (blocks > 0)
+      decode_fft_kernel<2><<<(unsigned)blocks, kThreads, shm, st>>>(
+          q, fside, fy, fs, cols, n1, n2, seqs, tiles, fw1, ftw, fw2, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

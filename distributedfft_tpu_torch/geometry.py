@@ -36,6 +36,14 @@ class Box3:
         """Slices selecting this box out of the world array."""
         return tuple(slice(l, h) for l, h in zip(self.low, self.high))  # type: ignore[return-value]
 
+    def r2c(self, axis: int) -> "Box3":
+        """Shrink along ``axis`` to the r2c non-redundant half, size n//2+1
+        (cf. ``box3d::r2c``, ``heffte_geometry.h:94``)."""
+        n = self.high[axis] - self.low[axis]
+        high = list(self.high)
+        high[axis] = self.low[axis] + n // 2 + 1
+        return Box3(self.low, tuple(high))  # type: ignore[arg-type]
+
 
 def world_box(shape: Sequence[int]) -> Box3:
     """The full-problem index box for a global grid ``shape``."""

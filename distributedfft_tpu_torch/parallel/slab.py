@@ -13,7 +13,9 @@ emitted as a :class:`~..stagegraph.StageGraph` with the JAX package's
 node names. Forward runs X-slabs -> Y-slabs, ``(in_axis, out_axis) =
 (0, 1)``; backward (1, 0). Uneven extents are ceil-padded before an axis
 is split and cropped before it is transformed, so the pads never touch a
-transform.
+transform. :func:`build_slab_rfft3d` is the real-to-complex chain
+(``t0_r2c_zy`` ... ``t3_fft_x`` forward, ``t3_ifft_x`` ... ``t0_c2r_z``
+backward). Every builder takes the exchange's ``wire_dtype``.
 """
 
 from __future__ import annotations
@@ -59,11 +61,13 @@ class SlabSpec:
 
 def build_slab_general(world: World, shape: tuple[int, int, int], *,
                        in_axis: int, out_axis: int, executor="cuda",
-                       forward: bool = True) -> tuple[StageGraph, SlabSpec]:
+                       forward: bool = True, wire_dtype: str | None = None
+                       ) -> tuple[StageGraph, SlabSpec]:
     """The slab chain for any ordered pair of distinct axes: the input is
     sharded along ``in_axis``, the other two axes are transformed
     locally, one exchange reshards ``in_axis`` <-> ``out_axis``, and
-    ``in_axis`` is transformed last."""
+    ``in_axis`` is transformed last. ``wire_dtype`` compresses the
+    exchange."""
     if in_axis == out_axis or not (0 <= in_axis < 3 and 0 <= out_axis < 3):
         raise ValueError(f"need distinct 3D axes, got {in_axis}, {out_axis}")
     p = world.size
@@ -80,7 +84,8 @@ def build_slab_general(world: World, shape: tuple[int, int, int], *,
                    ("crop", in_axis, n_in), ("fft", (in_axis,), forward),
                    fuse=True),
     )
-    graph = StageGraph(world=world, nodes=nodes, executor=executor)
+    graph = StageGraph(world=world, nodes=nodes, executor=executor,
+                       wire_dtype=wire_dtype)
     return graph.validate(), spec
 
 
@@ -91,10 +96,50 @@ def slab_axes(forward: bool) -> tuple[int, int]:
 
 
 def build_slab_fft3d(world: World, shape: tuple[int, int, int], *,
-                     executor="cuda", forward: bool = True
+                     executor="cuda", forward: bool = True,
+                     wire_dtype: str | None = None
                      ) -> tuple[StageGraph, SlabSpec]:
     """The slab chain in the canonical orientation (:func:`slab_axes`)."""
     in_axis, out_axis = slab_axes(forward)
     return build_slab_general(world, shape, in_axis=in_axis,
                               out_axis=out_axis, executor=executor,
-                              forward=forward)
+                              forward=forward, wire_dtype=wire_dtype)
+
+
+def build_slab_rfft3d(world: World, shape: tuple[int, int, int], *,
+                      executor="cuda", forward: bool = True,
+                      wire_dtype: str | None = None
+                      ) -> tuple[StageGraph, SlabSpec]:
+    """The slab real-to-complex (forward) / complex-to-real (backward)
+    chain, the port of ``build_slab_rfft3d``: the real axis is axis 2,
+    device-local in both slab layouts, so the r2c shrink to n2//2+1
+    happens before the exchange (forward) or after it (backward).
+    Forward maps real X-slabs [N0, N1, N2] to complex Y-slabs
+    [N0, N1, N2//2+1]; backward is its inverse (real out, 1/N)."""
+    in_axis, out_axis = slab_axes(forward)
+    spec = SlabSpec(tuple(int(s) for s in shape), world.size, in_axis,
+                    out_axis)
+    n0, n1, n2 = spec.shape
+    p = world.size
+    if forward:
+        nodes = (
+            local_node("t0", "t0_r2c_zy", ("r2c", 2), ("fft", (1,), True)),
+            local_node("t1", "t1_pack", ("pack", 1, spec.out_padded_extent)),
+            exchange_node("t2", "t2_exchange_slab", parts=p, split=1,
+                          concat=0),
+            local_node("t3", "t3_fft_x", ("crop", 0, n0),
+                       ("fft", (0,), True), fuse=True),
+        )
+    else:
+        nodes = (
+            local_node("t3", "t3_ifft_x", ("fft", (0,), False)),
+            local_node("t1", "t1_pack", ("pack", 0, spec.out_padded_extent)),
+            exchange_node("t2", "t2_exchange_slab", parts=p, split=0,
+                          concat=1),
+            local_node("t0", "t0_ifft_y", ("crop", 1, n1),
+                       ("fft", (1,), False), fuse=True),
+            local_node("t0", "t0_c2r_z", ("c2r", n2, 2)),
+        )
+    graph = StageGraph(world=world, nodes=nodes, executor=executor,
+                       wire_dtype=wire_dtype)
+    return graph.validate(), spec

@@ -10,6 +10,9 @@ It holds each kernel against its plain PyTorch version on ragged
 batches and column counts (a block's tail), on odd lengths, and on
 lengths whose sequences do not fit a block's shared memory (the
 device-scratch route), plus the plans against the same plans on the CPU.
+The fused stage+codec kernels are held the same way for each codec, both
+directions, and a transform along axis 0, a middle axis and the last
+axis; the fused real plans against the unfused ones.
 """
 
 import numpy as np
@@ -110,3 +113,128 @@ def test_plans_on_the_card_match_the_cpu(card, shape, p):
     assert testing.rel_error(y_gpu.numpy(),
                              np.fft.fftn(x.astype(np.complex128))) < C64
     assert testing.rel_error(r_gpu.numpy(), x) < C64
+
+
+# ------------------------------------------------ fused stage+codec kernels
+
+# (shape, axis, tiles): axis 0 (lead 1), a middle axis with ragged
+# columns, the last axis (cols 1), and sequences too long for a block's
+# shared memory (the device-scratch route).
+FUSED_SITES = [((64, 37, 3), 0, 4), ((3, 66, 37), 1, 2), ((5, 7, 128), 2, 4),
+               ((2, 8192, 3), 1, 4)]
+LEVELS = {"bf16": None, "int8": 127, "split": 32767}
+
+
+def _rel_l2(got, want):
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+@pytest.mark.parametrize("codec", ["bf16", "int8", "split"])
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("shape,axis,tiles", FUSED_SITES)
+def test_fft_encode_kernel_matches_plain(card, codec, forward, shape, axis,
+                                         tiles):
+    """Sidecars bit-identical, mantissas at most one level apart (the
+    kernel's and the plain version's fp32 sums differ in rounding before
+    the quantizer), the decoded payloads within one level."""
+    from distributedfft_tpu_torch.ops import cuda_fuse
+    from distributedfft_tpu_torch.parallel.exchange import wire_codec
+
+    x = _c64(sum(shape) + tiles, shape, card)
+    kw = dict(fft_axis=axis, forward=forward, tile_axis=axis, tiles=tiles,
+              wire_dtype=codec)
+    before = cuda_fuse.fused_fft_encode.launches
+    got = cuda_fuse.fused_fft_encode(x, **kw)
+    torch.cuda.synchronize()
+    assert cuda_fuse.fused_fft_encode.launches == before + 1
+    want = cuda_fuse.fused_fft_encode_plain(x, **kw)
+    assert [(g.shape, g.dtype) for g in got] == [(w.shape, w.dtype)
+                                                 for w in want]
+    codec_ = wire_codec(codec)
+    dec = lambda p: codec_.decode(p, torch.complex64, tile_axis=axis,
+                                  tiles=tiles)
+    if codec == "bf16":
+        # One bf16 level at each value, plus the fp32 difference of the
+        # two transforms before the cast (which is all there is near 0).
+        g, w = got[0].float(), want[0].float()
+        slack = 1e-6 * w.abs().max()
+        assert bool(torch.all((g - w).abs()
+                              <= 2.0 ** -8 * (g.abs() + w.abs()) + slack))
+    else:
+        assert torch.equal(got[1], want[1])
+        diff = (got[0].int() - want[0].int()).abs().max().item()
+        assert diff <= 1
+    step = 2.0 ** -8 if codec == "bf16" else 1.0 / LEVELS[codec]
+    ref = dec(want)
+    assert (dec(got) - ref).abs().max().item() <= 2 * step * \
+        ref.abs().max().item()
+
+
+@pytest.mark.parametrize("codec", ["bf16", "int8", "split"])
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("shape,axis,tiles", FUSED_SITES)
+def test_decode_fft_kernel_matches_plain(card, codec, forward, shape, axis,
+                                         tiles):
+    """The unpack is exact, so the kernel and the plain version agree to
+    fp32 rounding of the same four-step sums."""
+    from distributedfft_tpu_torch.ops import cuda_fuse
+    from distributedfft_tpu_torch.parallel.exchange import wire_codec
+
+    y = _c64(sum(shape) + tiles + 1, shape, card)
+    parts = wire_codec(codec).encode(y, tile_axis=axis, tiles=tiles)
+    kw = dict(fft_axis=axis, forward=forward, tile_axis=axis, tiles=tiles,
+              wire_dtype=codec)
+    before = cuda_fuse.fused_decode_fft.launches
+    got = cuda_fuse.fused_decode_fft(parts, torch.complex64, **kw)
+    torch.cuda.synchronize()
+    assert cuda_fuse.fused_decode_fft.launches == before + 1
+    want = cuda_fuse.fused_decode_fft_plain(parts, torch.complex64, **kw)
+    assert _err(got, want) < C64 and _rel_l2(got, want) < C64
+
+
+@pytest.mark.parametrize("codec", ["bf16", "int8", "split"])
+@pytest.mark.parametrize("p,shape", [(2, (64, 64, 128)), (4, (66, 70, 128))])
+def test_fused_real_plans_on_the_card(card, codec, p, shape):
+    """R2C forward and C2R backward with the fused codec on the card: as
+    accurate as the unfused chain with the same codec (within 10%)."""
+    x = testing.make_world_data(shape, np.float32, seed=3)
+    x = torch.from_numpy((x - x.mean()).astype(np.float32)).to(card)
+    spec = torch.fft.rfftn(x.double())
+    errs = {}
+    for fuse in (False, True):
+        fwd = tdfft.plan_dft_r2c_3d(shape, p, wire_dtype=codec, fuse=fuse,
+                                    device=card)
+        bwd = tdfft.plan_dft_c2r_3d(shape, p, wire_dtype=codec, fuse=fuse,
+                                    device=card)
+        y = fwd(x)
+        errs[fuse] = (_rel_l2(y.to(torch.complex128), spec),
+                      _rel_l2(bwd(y).double(), x.double()))
+    for unfused, fused in zip(errs[False], errs[True]):
+        assert fused <= 1.1 * unfused
+
+
+@pytest.mark.parametrize("codec", ["int8", "split"])
+def test_fft_encode_steps_match_the_codec_at_powers_of_two(card, codec):
+    """A quantized round trip makes amax / levels land on a power of two
+    up to fp32 noise. There the kernel's step must still be the plain
+    codec's on the same card: both evaluate log(q) * (1/ln 2) with the
+    card's logf. (At an exact power of two the CPU's log can give the
+    next step up, as XLA's does; the card's gives the exact one.) The
+    input is a delta, whose DFT is the constant x[0] exactly, so each
+    tile's amax is |Re x[0]| and |Im x[0]|."""
+    from distributedfft_tpu_torch.ops import cuda_fuse
+
+    levels = np.float32(LEVELS[codec])
+    for k in range(-20, 20):
+        a = np.float32(levels * np.float32(2.0) ** k)
+        for re, im in ((a, np.nextafter(a, np.float32(np.inf))),
+                       (np.nextafter(a, np.float32(0)), a)):
+            x = torch.zeros((64, 1), dtype=torch.complex64, device=card)
+            x[0, 0] = complex(float(re), float(im))
+            kw = dict(fft_axis=0, forward=True, tile_axis=0, tiles=4,
+                      wire_dtype=codec)
+            got = cuda_fuse.fused_fft_encode(x, **kw)
+            want = cuda_fuse.fused_fft_encode_plain(x, **kw)
+            assert torch.equal(got[1], want[1]), (k, re, im)
+            assert torch.equal(got[0], want[0]), (k, re, im)

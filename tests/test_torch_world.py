@@ -5,7 +5,8 @@
 - The process-group backend: two ranks spawned with
   ``torch.multiprocessing`` over gloo, meeting at a ``file://`` store
   under ``tmp_path`` (the test workers run in parallel, so no fixed
-  port), running the slab chain and held against the JAX plan.
+  port), running the slab chain and held against the JAX plan, and a
+  compressed exchange held against the loopback one.
 - No JAX: the port imports neither ``jax`` nor ``distributedfft_tpu``.
 - The card by default: planning without a device raises when CUDA is
   absent, and dtypes and lengths the kernels do not take raise with the
@@ -181,3 +182,60 @@ def test_execute_checks_input():
         plan(torch.zeros((64, 64, 66), dtype=torch.complex64))
     with pytest.raises(ValueError, match="unknown executor"):
         tdfft.plan_dft_c2c_3d((64, 64, 64), executor="xla", device="cpu")
+
+
+def _wire_rank(rank, size, backend, init, blocks, out_dir):
+    """One rank of a compressed exchange (gloo on the CPU, NCCL on card
+    ``rank``): every codec, its own block in, the received block saved."""
+    device = torch.device("cpu")
+    if backend == "nccl":
+        device = torch.device("cuda", rank)
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=size)
+    try:
+        world = tdfft.process_group_world()
+        for codec in ("bf16", "int8", "split"):
+            (out,) = exchange([torch.from_numpy(blocks[rank]).to(device)],
+                              world, split_axis=1, concat_axis=0,
+                              wire_dtype=codec)
+            np.save(os.path.join(out_dir, f"{codec}{rank}.npy"),
+                    out.cpu().numpy())
+    finally:
+        dist.destroy_process_group()
+
+
+def _check_compressed_exchange(tmp_path, size, backend):
+    """Each wire part (bf16, int8, int16, f32 sidecar) crosses the group
+    as a uint8 view of its trailing axis; the received blocks must be bit
+    for bit those of the loopback exchange of the same blocks."""
+    rng = np.random.default_rng(13)
+    blocks = [((rng.standard_normal((3, 4 * size, 5))
+                + 1j * rng.standard_normal((3, 4 * size, 5))) * 10.0 ** r
+               ).astype(np.complex64) for r in range(size)]
+    init = f"file://{tmp_path / 'store'}"
+    mp.start_processes(_wire_rank,
+                       args=(size, backend, init, blocks, str(tmp_path)),
+                       nprocs=size, join=True, start_method="spawn")
+    for codec in ("bf16", "int8", "split"):
+        want = exchange([torch.from_numpy(b) for b in blocks],
+                        tdfft.make_world(size), split_axis=1, concat_axis=0,
+                        wire_dtype=codec)
+        for rank in range(size):
+            got = np.load(tmp_path / f"{codec}{rank}.npy")
+            assert got.tobytes() == want[rank].numpy().tobytes()
+
+
+def test_process_group_compressed_exchange_matches_loopback(tmp_path):
+    _check_compressed_exchange(tmp_path, 2, "gloo")
+
+
+@pytest.mark.cuda
+def test_process_group_compressed_exchange_over_nccl(tmp_path):
+    """The same over NCCL, one rank per card, on every card of the host
+    (at least two). The encode runs on the card there, the reference on
+    the CPU: bit-identical unless a step lands on a power of two, which
+    seeded data does not reach."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs at least two NVIDIA cards")
+    _check_compressed_exchange(tmp_path, torch.cuda.device_count(), "nccl")
