@@ -10,7 +10,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and L2 relative error each <= 5e-4), and against the torch.fft call
    that computes the same function, whose arithmetic is independent of
    the kernel's; times the kernel, the plain version and that call (a
-   yardstick only) beside the least time the card could take;
+   yardstick only) beside the least time the card could take and a
+   device copy of the same tensor (one read, one write), the kernel and
+   that call also back to back (device time without the host's launch
+   time), and the plane kernel both walking the batch in L2-sized chunks
+   and in one go;
 3. holds the two fused stage+codec kernels (``csrc/fuse.cu``) against
    their plain versions at every shape and codec the compressed path
    gives them: sidecars bit-identical, mantissas at most one level apart,
@@ -21,14 +25,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 5. drives the C2C main path: the single-device plan at 512^3 forward and
    backward, then the slab chain on a loopback world of 4 ranks at 512^3
    and at (510, 510, 512), each checked against torch.fft.fftn and by a
-   round trip; every four-step kernel must have been launched in that
-   run;
+   round trip; every row, strided and plane kernel must have been
+   launched in that run, the row and plane kernels by the radix route
+   only;
 6. drives the compressed and real path at 512^3 on a loopback world of
    4: the C2C plans with the split codec fused, the R2C/C2R plans exact
    and with each codec fused and unfused, and the single-device R2C/C2R;
    checked against torch.fft.fftn/rfftn/irfftn, the port's exact plan and
-   round trips; the fused sites must take the routes of the JAX package
-   and both fused kernels must have been launched in that run;
+   round trips; the fused sites must take the routes of the JAX package,
+   both fused kernels must have been launched in that run, and the row
+   and plane kernels by the radix route only;
 7. times the plans and their t0..t3 stages, prints one JSON line of the
    five kernels and, last, the device line.
 
@@ -49,6 +55,7 @@ TOL = 5e-4          # complex64 tier of distributedfft_tpu/testing.py
 SEED = 4242
 SLAB_RANKS = 4
 SOURCE = "distributedfft_tpu_torch/csrc/four_step.cu"
+RADIX_SOURCE = "distributedfft_tpu_torch/csrc/radix.cuh"
 FUSE_SOURCE = "distributedfft_tpu_torch/csrc/fuse.cu"
 REPLACES = {
     "fft2_last": "distributedfft_tpu/ops/pallas_fft.py:488",
@@ -96,10 +103,11 @@ def seeded(torch, shape, device, seed=SEED):
                        dtype=torch.complex64)
 
 
-# Every (kernel, direction, shape) the main path launches, and where:
+# Every (kernel, direction, shape) the main paths launch, and where:
 # the slab chain at 512^3 and (510, 510, 512) on 4 ranks, the single
-# device at 512^3. The first case of each kernel is its record's shape.
-# Three more (marked "also") are the other direction at a slab shape.
+# device at 512^3, and the half-length rows of the R2C/C2R plans. The
+# first case of each kernel is its record's shape. Three more (marked
+# "also") are the other direction at a slab shape.
 KERNEL_CASES = [
     ("fft2_last", True, (128, 512, 512), "slab fwd t0"),
     ("fft2_last", False, (128, 512, 512), "also"),
@@ -118,7 +126,27 @@ KERNEL_CASES = [
     ("fft_last", False, (65536, 512), "slab bwd t0"),
     ("fft_last", True, (65536, 512), "also"),
     ("fft_last", False, (65280, 512), "uneven slab bwd t0"),
+    ("fft_last", True, (65536, 256), "slab r2c t0"),
+    ("fft_last", False, (65536, 256), "slab c2r t0"),
+    ("fft_last", True, (262144, 256), "single r2c"),
+    ("fft_last", False, (262144, 256), "single c2r"),
 ]
+
+
+def steady_ms(torch, fn, reps=20):
+    """Device time per call of ``fn`` launched ``reps`` times back to back
+    between two CUDA events: the host's time to launch each call hides
+    behind the device's work, where the one-call times of
+    ``timing.cuda_time_ms`` include it."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def library_call(torch, name, fwd):
@@ -130,7 +158,7 @@ def library_call(torch, name, fwd):
     return lambda x: f(x, dim=dim)
 
 
-def check_kernels(torch, cf, timing, rates):
+def check_kernels(torch, cf, radix, timing, rates):
     """Phase 2: each kernel against its plain version at every shape the
     main path gives it. Returns one record per kernel."""
     hbm, fp32, _ = rates
@@ -157,36 +185,75 @@ def check_kernels(torch, cf, timing, rates):
         ms = timing.cuda_time_ms(lambda: kernel(x, fwd), iters=10)
         plain_ms = timing.cuda_time_ms(lambda: plain(x, fwd), iters=10)
         library_ms = timing.cuda_time_ms(lambda: lib(x), iters=10)
+        steady = (steady_ms(torch, lambda: kernel(x, fwd)),
+                  steady_ms(torch, lambda: lib(x)))
+        # a device copy reads x once and writes it once: the rate one pass
+        # over this tensor can reach on this card
+        out = torch.empty_like(x)
+        copy_ms = timing.cuda_time_ms(lambda: out.copy_(x), iters=10)
+        del out
         numel = math.prod(shape)
         if name == "fft2_last":
             n = shape[1] * shape[2]
-            facs = cf.split_for(shape[1]) + cf.split_for(shape[2])
+            lengths = tuple((m, numel // m) for m in shape[1:])
         else:
             n = shape[1] if name == "fft_axis0" else shape[-1]
-            facs = cf.split_for(n)
+            lengths = ((n, numel // n),)
+        how = cf.route(n) if name == "fft_last" else (
+            cf.route2d(*shape[1:]) if name == "fft2_last" else "direct")
+        # the route's own arithmetic: radix stages, or 8 n (n1 + n2) per
+        # row of the direct four-step sums
+        kernel_flops = sum(
+            seqs * (radix.plan_flops(m) if how == "radix"
+                    else 8 * m * sum(cf.split_for(m)))
+            for m, seqs in lengths)
         model_flops = 5.0 * numel * math.log2(n)
-        kernel_flops = 8.0 * numel * sum(facs)   # 8 n (n1 + n2) per row
         bytes_moved = 2 * numel * 8               # read once, write once
         t_bytes, t_ops = bytes_moved / hbm * 1e3, model_flops / fp32 * 1e3
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"kernel {name:9s} {label:40s} max_rel_err={err:.3e} "
+        forms = ""
+        if name == "fft2_last":   # the plane in L2-sized chunks, in one go
+            chunk = radix.plane_chunk(*shape[1:])
+            for tag, c in ((f"chunk{chunk}", chunk), ("one_go", shape[0])):
+                t = timing.cuda_time_ms(lambda: cf.plane_launch(x, fwd, c),
+                                        iters=10)
+                forms += f"plane_{tag}_ms={t:.4f} "
+        print(f"kernel {name:9s} {label:40s} route={how} "
+              f"max_rel_err={err:.3e} "
               f"l2_rel_err={l2:.3e} max_abs_err={abs_err:.3e} "
               f"vs_torch_fft_max_rel={lib_err:.3e} "
               f"vs_torch_fft_l2_rel={lib_l2:.3e} "
-              f"kernel_ms={ms:.4f} "
+              f"kernel_ms={ms:.4f} {forms}"
               f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+              f"copy_ms={copy_ms:.4f} kernel_steady_ms={steady[0]:.4f} "
+              f"library_steady_ms={steady[1]:.4f} "
               f"bound_ms={bound_ms:.4f} ({bound_by}) "
               f"kernel_gflop={kernel_flops / 1e9:.3f} "
               f"kernel_gflops_rate={kernel_flops / ms / 1e6:.1f}", flush=True)
         rec = records.setdefault(name, dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
+            name=name, route="cuda",
+            source=SOURCE if name == "fft_axis0" else RADIX_SOURCE,
+            replaces=REPLACES[name],
             launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
         rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
         del x
         torch.cuda.empty_cache()
     return records
+
+
+def check_routes(cf, path, first, total):
+    """Print the launches of each wrapper by route (``first``: the counts
+    of the path's first part, the single device) and fail if a row or
+    plane kernel took the direct route."""
+    rest = {k: v - first.get(k, 0) for k, v in total.items()}
+    print(f"routes on {path} (wrapper, route): "
+          + (f"single {first}; rest {rest}; " if first else "")
+          + f"all {total}", flush=True)
+    for (wrapper, how), v in total.items():
+        if wrapper in ("fft_last", "fft2_last") and how != "radix" and v:
+            fail(f"{wrapper} took the {how} route {v} times on {path}")
 
 
 def check_small(torch, dfft):
@@ -527,7 +594,7 @@ def main() -> None:
     sys.path.insert(0, here)
     import distributedfft_tpu_torch as dfft
     from distributedfft_tpu_torch.ops import _build, cuda_fft as cf
-    from distributedfft_tpu_torch.ops import cuda_fuse as cfu
+    from distributedfft_tpu_torch.ops import cuda_fuse as cfu, radix
     from distributedfft_tpu_torch.parallel.exchange import wire_codec
     from distributedfft_tpu_torch.utils import timing
 
@@ -547,7 +614,7 @@ def main() -> None:
           f"({', '.join(os.path.relpath(p, here) for p in _build.sources())}"
           f")", flush=True)
 
-    records = check_kernels(torch, cf, timing, rates)
+    records = check_kernels(torch, cf, radix, timing, rates)
     records.update(check_fused_kernels(torch, cfu, wire_codec, timing, rates))
     check_small(torch, dfft)
 
@@ -560,6 +627,7 @@ def main() -> None:
     single = run_plan_pair(torch, dfft, (n, n, n), None, x,
                            "single 512^3")
     after_single = cf.launches()
+    routes_single = dict(cf.ROUTES)
     world = dfft.make_world(SLAB_RANKS)
     slab = run_plan_pair(torch, dfft, (n, n, n), world, x,
                          f"slab 512^3 loopback P={SLAB_RANKS}")
@@ -576,6 +644,7 @@ def main() -> None:
           f"{after_single}; slab 512^3 "
           f"{ {k: after_slab[k] - after_single[k] for k in counts} }; "
           f"all {counts}", flush=True)
+    check_routes(cf, "the main path", routes_single, dict(cf.ROUTES))
     for k, v in counts.items():
         if v <= 0:
             fail(f"kernel {k} was not launched on the main path")
@@ -603,6 +672,7 @@ def main() -> None:
     plans = check_fused_plans(torch, dfft, world)
     path = {**cf.launches(), **cfu.launches()}
     print(f"launches on the compressed and real path: {path}", flush=True)
+    check_routes(cf, "the compressed and real path", {}, dict(cf.ROUTES))
     print(f"peak device memory of the compressed and real path: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     for k in cfu.KERNELS:

@@ -1,54 +1,75 @@
-// Four-step DFT kernels for Hopper (sm_90a): the port of the three
-// four-step Pallas kernels of distributedfft_tpu/ops/pallas_fft.py.
+// The row, strided and plane DFT kernels for Hopper (sm_90a): the port of
+// the three Pallas kernels of distributedfft_tpu/ops/pallas_fft.py.
 //
 // Replaces (TPU kernel -> launcher here):
 //   pallas_fft.py:_make_kernel          (1D rows)       -> dfft_fft_rows
 //   pallas_fft.py:_make_kernel_strided  (leading axis)  -> dfft_fft_strided
 //   pallas_fft.py:_make_kernel2d        (fused plane)   -> dfft_fft_plane
 //
-// Math (pallas_fft.py:_four_step_pass): a length-n axis, n = n1*n2 with
-// both factors <= 256, is viewed as A[j1, j2] (j = j1*n2 + j2) and
+// Two routes. The radix route (dfft_fft_rows, dfft_fft_plane; device
+// code in radix.cuh) takes every length n <= 8192 whose prime factors
+// are all <= 17, with the stage plan and twiddles the host gives it
+// (ops/radix.py). Every other kernel-eligible length takes the direct
+// route (dfft_fft_rows_direct, dfft_fft_plane_direct), and the strided
+// kernel always does: the four-step sums below.
+//
+// What bounds the radix route on an H100: bytes, 16 per element per pass
+// (one complex64 read, one written; 3.35 TB/s). A mixed-radix Stockham
+// transform does 33 flops per element at n = 512 (ops/radix.py:
+// plan_flops), about two per byte, far under the card's fp32 balance of
+// 20 flops per byte. So the design keeps everything but the one read and
+// one write on the SM and keeps device memory busy: persistent blocks
+// of 512 threads walk groups of whole sequences (rows, or 8-16
+// neighbouring columns: 64-128-byte row segments); a group's input lands
+// in shared memory by 16-byte cp.async copies while the block still works
+// on the group before; every stage runs its butterflies in registers and
+// exchanges through shared memory (padded against bank conflicts); the
+// last stage writes device memory straight from registers, the inverse's
+// 1/n applied there. The twiddles are read from shared memory, copied
+// once per block.
+//
+// The plane is two passes of that routine: rows over Z (x -> y), then
+// columns over Y in place on y. A 512 x 512 plane (2 MiB) does not fit
+// one block's 227 KB, where the TPU kernel kept it whole in VMEM, so the
+// intermediate makes a round trip. The launcher can walk the batch in
+// chunks of planes so that the round trip stays in the 50 MB L2
+// (ops/radix.py:plane_chunk); on the H100 the chunked form measured
+// slower than one pass over the whole batch (its launches are each under
+// one wave of blocks; PERF.md), so fft2_last passes the whole batch.
+//
+// The direct route (pallas_fft.py:_four_step_pass): a length-n axis,
+// n = n1*n2 with both factors <= 256, is viewed as A[j1, j2]
+// (j = j1*n2 + j2) and
 //   G[j2, k1] = sum_j1 A[j1, j2] W1[j1, k1]      stage 1
 //   H[j2, k1] = G[j2, k1] T[j2, k1]              twiddle
 //   Z[k1, k2] = sum_j2 H[j2, k1] W2[j2, k2]      stage 2
 //   X[k1 + n1*k2] = Z[k1, k2]                    natural output order.
 // The sums are direct fp32 FMAs in the device routine `four_step`
 // (four_step.cuh, shared with fuse.cu): no tensor cores, no TF32 (the TPU
-// kernel contracts at `highest` precision), no library call.
-// The LUTs W1, T, W2 are complex64, built on the host in float64.
+// kernel contracts at `highest` precision), no library call. The LUTs
+// W1, T, W2 are complex64, built on the host in float64. It does
+// 8*(n1+n2) flops per element (384 at n = 512), each complex
+// multiply-add loading its operand from shared memory and its LUT entry
+// through L1, so it runs at the SM's L1/shared-memory bandwidth, several
+// times its memory bound. Each block holds whole sequences in shared
+// memory, so device memory is read once and written once per pass.
 //
-// What bounds it on an H100: at n = 512 a transform does 8*(n1+n2) = 384
-// flops per complex element against 16 bytes of device traffic (one read,
-// one write), 24 flops/byte; the card's fp32 balance is 67e12/3.35e12 =
-// 20 flops/byte, so the direct sums sit just past the memory bound. In
-// this first version the limit is the SM's L1/shared-memory bandwidth:
-// every complex multiply-add (4 FMAs) loads its operand from shared
-// memory and its LUT entry through L1, 16 bytes against the SM's 128
-// bytes per clock, a quarter of the FMA rate. What the design does about
-// device memory: each block holds whole sequences in shared memory, so
-// device memory is read once and written once per pass; loads and stores
-// are coalesced (the strided kernel gives neighbouring threads
-// neighbouring columns). Register blocking of the sums, butterflies
-// inside each factor, and clusters that hold a whole plane in
-// distributed shared memory are later work.
-//
-// Shared memory: a block takes S sequences of length n and needs 2*S*n
-// complex64 (input/output buffer plus the stage-1 result). When even one
-// sequence does not fit (n above ~6000), the same routine runs with its
-// three buffers in device memory: the input, a caller-allocated scratch
-// the size of the data, and the output. __syncthreads orders the block's
-// device-memory writes as it does shared ones, and each block reads only
-// the region it writes, so every launcher may also run in place (y == x).
-//
-// The fused plane is two launches: rows over Z into y, then the strided
-// kernel over Y on y in place. A 512x512 plane (2 MiB) does not fit a
-// block's 227 KB, where the TPU kernel kept it whole in VMEM, so the
-// intermediate makes one round trip through device memory: the plane
-// costs two passes where the TPU kernel took one.
+// Shared memory of the direct route: a block takes S sequences of length
+// n and needs 2*S*n complex64. When even one sequence does not fit (n
+// above ~6000), the same routine runs with its three buffers in device
+// memory: the input, a caller-allocated scratch the size of the data,
+// and the output. __syncthreads orders the block's device-memory writes
+// as it does shared ones, and each block reads only the region it
+// writes, so every launcher may also run in place (y == x).
 //
 // Every launcher returns cudaGetLastError() of its own launches.
 
+#include <algorithm>
+#include <mutex>
+#include <vector>
+
 #include "four_step.cuh"
+#include "radix.cuh"
 
 namespace {
 
@@ -150,14 +171,182 @@ cudaError_t launch_strided(const float2* x, float2* y, float2* scratch,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------ radix route
+
+// Shared memory a radix block may take: two row blocks of 512 threads,
+// or one column block of 16 columns of 512 points, fit one SM. A
+// sequence longer than that allows runs one per block (up to the 227 KB
+// maximum, n = 8192), with two buffers instead of three when three do not
+// fit (no prefetch).
+constexpr size_t kRadixSmem = 200 * 1024;
+constexpr size_t kMaxSmem = 227 * 1024;
+
+radix::Plan make_plan(int n, int stages, const int* radices) {
+  radix::Plan p{};
+  p.n = n;
+  p.stages = stages;
+  for (int k = 0; k < stages && k < radix::kMaxStages; ++k)
+    p.radix[k] = radices[k];
+  return p;
+}
+
+int max_radix(const radix::Plan& p) {
+  int r = 2;
+  for (int k = 0; k < p.stages; ++k) r = std::max(r, p.radix[k]);
+  return r;
+}
+
+// `nbuf` buffers of `buf` complex64 and the n - 1 twiddles.
+size_t radix_smem(int n, int buf, int nbuf) {
+  return ((size_t)nbuf * buf + (n - 1)) * sizeof(float2);
+}
+
+// Rows per group: enough that the widest stage gives every thread a
+// butterfly, as far as kRadixSmem allows with three buffers.
+int rows_per_group(const radix::Plan& p) {
+  int seqs = 1;
+  while ((long long)seqs * p.n < (long long)radix::kThreads * max_radix(p))
+    seqs *= 2;
+  while (seqs > 1 &&
+         radix_smem(p.n, seqs * radix::padded_ld(p.n), 3) > kRadixSmem)
+    seqs /= 2;
+  return seqs;
+}
+
+// Columns per group: 16 (128-byte row segments) down to 1, the most that
+// fit kRadixSmem with three buffers.
+int cols_per_group(int n) {
+  int cols = 16;
+  while (cols > 1 && radix_smem(n, n * cols, 3) > kRadixSmem) cols /= 2;
+  return cols;
+}
+
+// Resident blocks of a persistent launch with `shm` bytes of shared
+// memory: as many as fit the card at once. Found once per (device,
+// kernel, shm) and kept, so that a call costs the host only its launch.
+// Every kernel's shared-memory limit is raised to the card's maximum
+// (one value for every shm, so no later call lowers it under an earlier
+// one's need).
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, size_t shm, long long* blocks) {
+  struct Entry {
+    int dev;
+    const void* kernel;
+    size_t shm;
+    long long blocks;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> known;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& k : known)
+    if (k.dev == dev && k.kernel == (const void*)kernel && k.shm == shm) {
+      *blocks = k.blocks;
+      return cudaSuccess;
+    }
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)kMaxSmem);
+  if (e != cudaSuccess) return e;
+  int sms = 0, per_sm = 0;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, radix::kThreads, shm)) != cudaSuccess)
+    return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = (long long)per_sm * sms;
+  known.push_back(Entry{dev, (const void*)kernel, shm, *blocks});
+  return cudaSuccess;
+}
+
+// One radix pass, set up once and launched per call: its group size
+// (rows or columns), buffers, kernel (by direction and by whether any
+// radix is over 8) and resident blocks.
+template <typename Kernel>
+struct Pass {
+  radix::Plan plan;
+  int group, buf, nbuf;
+  size_t shm;
+  Kernel kernel;
+  long long cap = 0;
+  cudaError_t err;
+
+  Pass(const radix::Plan& p, int group_, int buf_, Kernel k8, Kernel k17)
+      : plan(p), group(group_), buf(buf_),
+        nbuf(radix_smem(p.n, buf_, 3) <= kMaxSmem ? 3 : 2),
+        shm(radix_smem(p.n, buf_, nbuf)),
+        kernel(max_radix(p) <= 8 ? k8 : k17) {
+    err = resident_blocks(kernel, shm, &cap);
+  }
+};
+
+using RowsKernel = void (*)(const float2*, float2*, long long, radix::Plan,
+                            int, int, int, const float2*, float);
+using ColsKernel = void (*)(float2*, long long, int, radix::Plan, int, int,
+                            int, const float2*, float);
+
+// The rows pass over [batch, n].
+struct RowsPass : Pass<RowsKernel> {
+  RowsPass(const radix::Plan& p, bool fwd)
+      : Pass(p, rows_per_group(p), rows_per_group(p) * radix::padded_ld(p.n),
+             fwd ? radix::rows_kernel<true, 8> : radix::rows_kernel<false, 8>,
+             fwd ? radix::rows_kernel<true, 17>
+                 : radix::rows_kernel<false, 17>) {}
+  cudaError_t operator()(const float2* x, float2* y, long long batch,
+                         const float2* tw, float scale, cudaStream_t st) {
+    const long long blocks = std::min(cap, (batch + group - 1) / group);
+    if (blocks > 0)
+      kernel<<<(unsigned)blocks, radix::kThreads, shm, st>>>(
+          x, y, batch, plan, group, buf, nbuf, tw, scale);
+    return cudaGetLastError();
+  }
+};
+
+// The columns pass over [planes, n, nz], in place.
+struct ColsPass : Pass<ColsKernel> {
+  ColsPass(const radix::Plan& p, bool fwd)
+      : Pass(p, cols_per_group(p.n), p.n * cols_per_group(p.n),
+             fwd ? radix::cols_kernel<true, 8> : radix::cols_kernel<false, 8>,
+             fwd ? radix::cols_kernel<true, 17>
+                 : radix::cols_kernel<false, 17>) {}
+  cudaError_t operator()(float2* y, long long planes, int nz,
+                         const float2* tw, float scale, cudaStream_t st) {
+    const long long groups = planes * ((nz + group - 1) / group);
+    const long long blocks = std::min(cap, groups);
+    if (blocks > 0)
+      kernel<<<(unsigned)blocks, radix::kThreads, shm, st>>>(
+          y, planes, nz, plan, group, buf, nbuf, tw, scale);
+    return cudaGetLastError();
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
-// y[b, :] = DFT(x[b, :]) * scale for b < batch; n = n1*n2.
-int dfft_fft_rows(const void* x, void* y, void* scratch, long long batch,
-                  int n1, int n2, int seqs, const void* w1, const void* tw,
-                  const void* w2, float scale, void* stream) {
+// y[b, :] = DFT(x[b, :]) * scale for b < batch, the radix route: n has
+// the stage radices radices[0..stages-1] (host memory) and the stage
+// twiddles tw (device memory, n - 1 complex64).
+int dfft_fft_rows(const void* x, void* y, long long batch, int n,
+                  int stages, const int* radices, int forward,
+                  const void* tw, float scale, void* stream) {
+  if (stages < 2 || stages > radix::kMaxStages)
+    return (int)cudaErrorInvalidValue;
+  RowsPass rows(make_plan(n, stages, radices), forward != 0);
+  if (rows.err != cudaSuccess) return (int)rows.err;
+  return (int)rows((const float2*)x, (float2*)y, batch, (const float2*)tw,
+                   scale, (cudaStream_t)stream);
+}
+
+// The same by the direct route: n = n1*n2, LUTs w1, tw, w2, `seqs` rows
+// per block, scratch as in rows_kernel.
+int dfft_fft_rows_direct(const void* x, void* y, void* scratch,
+                         long long batch, int n1, int n2, int seqs,
+                         const void* w1, const void* tw, const void* w2,
+                         float scale, void* stream) {
   return (int)launch_rows(
       (const float2*)x, (float2*)y, (float2*)scratch, batch, n1, n2, seqs,
       (const float2*)w1, (const float2*)tw, (const float2*)w2, scale,
@@ -175,16 +364,45 @@ int dfft_fft_strided(const void* x, void* y, void* scratch, long long lead,
       (cudaStream_t)stream);
 }
 
-// 2D DFT over the last two axes of [batch, ny, nz]: rows over Z into y,
-// then the strided pass over Y on y in place, scaled by `scale`.
-// ny = y1*y2, nz = z1*z2; each pass has its own block size and scratch
-// (nullptr = shared memory).
-int dfft_fft_plane(const void* x, void* y, void* scratch, long long batch,
-                   int y1, int y2, int z1, int z2, int seqs_z, int seqs_y,
-                   int z_in_smem, int y_in_smem, const void* wy1,
-                   const void* ty, const void* wy2, const void* wz1,
-                   const void* tz, const void* wz2, float scale,
+// 2D DFT over the last two axes of [batch, ny, nz], the radix route, in
+// chunks of `chunk` planes: rows over Z into y, then columns over Y on y
+// in place, scaled by `scale`. Each axis has its stage radices (host
+// memory) and twiddles (device memory).
+int dfft_fft_plane(const void* x, void* y, long long batch, int ny,
+                   int y_stages, const int* y_radices, int nz, int z_stages,
+                   const int* z_radices, int forward, const void* twy,
+                   const void* twz, long long chunk, float scale,
                    void* stream) {
+  for (int st : {y_stages, z_stages})
+    if (st < 2 || st > radix::kMaxStages) return (int)cudaErrorInvalidValue;
+  if (chunk < 1) return (int)cudaErrorInvalidValue;
+  RowsPass rows(make_plan(nz, z_stages, z_radices), forward != 0);
+  if (rows.err != cudaSuccess) return (int)rows.err;
+  ColsPass cols(make_plan(ny, y_stages, y_radices), forward != 0);
+  if (cols.err != cudaSuccess) return (int)cols.err;
+  const long long plane = (long long)ny * nz;
+  const cudaStream_t st = (cudaStream_t)stream;
+  for (long long b0 = 0; b0 < batch; b0 += chunk) {
+    const long long cnt = std::min(chunk, batch - b0);
+    const float2* xs = (const float2*)x + b0 * plane;
+    float2* ys = (float2*)y + b0 * plane;
+    cudaError_t e = rows(xs, ys, cnt * ny, (const float2*)twz, 1.0f, st);
+    if (e != cudaSuccess) return (int)e;
+    e = cols(ys, cnt, nz, (const float2*)twy, scale, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
+}
+
+// The same by the direct route: rows over Z into y, then the strided pass
+// over Y on y in place. ny = y1*y2, nz = z1*z2; each pass has its own
+// block size and scratch (nullptr = shared memory).
+int dfft_fft_plane_direct(const void* x, void* y, void* scratch,
+                          long long batch, int y1, int y2, int z1, int z2,
+                          int seqs_z, int seqs_y, int z_in_smem,
+                          int y_in_smem, const void* wy1, const void* ty,
+                          const void* wy2, const void* wz1, const void* tz,
+                          const void* wz2, float scale, void* stream) {
   const long long ny = (long long)y1 * y2, nz = (long long)z1 * z2;
   float2* s = (float2*)scratch;
   cudaError_t e = launch_rows(

@@ -1,4 +1,5 @@
-"""Four-step FFT kernels for the H100 and their plain PyTorch versions.
+"""Row, strided and plane FFT kernels for the H100 and their plain
+PyTorch versions.
 
 The port of ``distributedfft_tpu/ops/pallas_fft.py``. Its three Pallas
 kernels become the CUDA launchers of ``csrc/four_step.cu``:
@@ -10,18 +11,27 @@ kernels become the CUDA launchers of ``csrc/four_step.cu``:
   package's ``vmap`` over middle axes;
 - :func:`fft_last` (``_make_kernel``): DFT over the rows of [batch, n].
 
-Each wrapper takes complex64, contiguous tensors. On a CPU tensor it runs
-its plain version (``*_plain``: the ``_four_step_ref`` math as
-``torch.einsum`` with the same LUTs); on a CUDA tensor it launches its
-kernel or raises. Each counts its launches in ``<wrapper>.launches``.
+Two routes (:func:`route`). ``fft_last`` and ``fft2_last`` take the
+radix route (``csrc/radix.cuh``, plan and twiddles from
+:mod:`.radix`) for every length n <= 8192 whose prime factors are all
+<= 17, the plane only when both its axes do; every other eligible
+length, and ``fft_axis0`` always, takes the direct route: the four-step
+sums, whose split n = n1*n2 (both factors <= 256) and float64-built LUTs
+are the JAX package's, bit for bit.
 
-The split n = n1*n2 (both factors <= 256) and the float64-built LUTs are
-the JAX package's, bit for bit. Forward transforms are unnormalized,
-inverse ones scaled by 1/n (numpy convention).
+Each wrapper takes complex64, contiguous tensors. On a CPU tensor it runs
+the plain version of the route the card would take (``*_plain``: the
+radix stages of :func:`.radix.radix_plain`, or the ``_four_step_ref``
+math as ``torch.einsum`` with the same LUTs); on a CUDA tensor it
+launches its kernel or raises. Each counts its launches in
+``<wrapper>.launches``, and by route in :data:`ROUTES`. Forward
+transforms are unnormalized, inverse ones scaled by 1/n (numpy
+convention).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from collections import Counter
@@ -30,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import native
+from . import radix
 from ._build import check, library
 
 # Largest per-stage factor: one kernel covers n <= 65536.
@@ -48,7 +59,11 @@ _SMEM_BUDGET = 96 * 1024
 #: and ``length`` count transforms the ``cuda`` executor refuses.
 FALLBACKS: Counter = Counter()
 
+#: Kernel launches by (wrapper, route), route ``radix`` or ``direct``.
+ROUTES: Counter = Counter()
 
+
+@functools.lru_cache(maxsize=None)
 def split_for(n: int) -> tuple[int, int] | None:
     """(n1, n2) factor pair the kernels run, or None."""
     return native.balanced_split(n, MAX_FACTOR)
@@ -62,6 +77,18 @@ def eligible(n: int) -> bool:
 def eligible2d(ny: int, nz: int) -> bool:
     """Planes the 2D route takes: both axes eligible and ny*nz bounded."""
     return eligible(ny) and eligible(nz) and ny * nz <= _MAX_PLANE_ELEMS
+
+
+@functools.lru_cache(maxsize=None)
+def route(n: int) -> str:
+    """The route of a length-n row transform: ``radix`` for an eligible
+    n that :func:`.radix.radix_plan` takes, else ``direct``."""
+    return "radix" if eligible(n) and radix.radix_plan(n) else "direct"
+
+
+def route2d(ny: int, nz: int) -> str:
+    """The plane's route: ``radix`` when both axes take it."""
+    return "radix" if route(ny) == route(nz) == "radix" else "direct"
 
 
 def record_fallback(axis: int, reason: str) -> None:
@@ -133,9 +160,16 @@ def four_step_plain(x2: torch.Tensor, n: int, forward: bool) -> torch.Tensor:
     return z.transpose(1, 2).reshape(x2.shape)
 
 
+def _rows_plain(x2: torch.Tensor, n: int, forward: bool,
+                how: str) -> torch.Tensor:
+    if how == "radix":
+        return radix.radix_plain(x2, forward)
+    return four_step_plain(x2, n, forward)
+
+
 def fft_last_plain(x: torch.Tensor, forward: bool = True) -> torch.Tensor:
     n = x.shape[-1]
-    y = four_step_plain(x, n, forward)
+    y = _rows_plain(x, n, forward, route(n))
     return y if forward else y * (1.0 / n)
 
 
@@ -148,8 +182,9 @@ def fft_axis0_plain(x: torch.Tensor, forward: bool = True) -> torch.Tensor:
 
 def fft2_last_plain(x: torch.Tensor, forward: bool = True) -> torch.Tensor:
     b, ny, nz = x.shape
-    y = four_step_plain(x.reshape(-1, nz), nz, forward).reshape(b, ny, nz)
-    y = four_step_plain(y.transpose(1, 2).reshape(-1, ny), ny, forward)
+    how = route2d(ny, nz)
+    y = _rows_plain(x.reshape(-1, nz), nz, forward, how).reshape(b, ny, nz)
+    y = _rows_plain(y.transpose(1, 2).reshape(-1, ny), ny, forward, how)
     y = y.reshape(b, nz, ny).transpose(1, 2).contiguous()
     return y * (1.0 / (ny * nz)) if not forward else y
 
@@ -191,13 +226,22 @@ def _ptr(t: torch.Tensor | None):
 def _launch(name: str, x: torch.Tensor, *args) -> None:
     """Call launcher ``name`` of the kernel library on ``x``'s device and
     its current stream; raise on the CUDA error it returns."""
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        check(getattr(library(), name)(*args, stream), name)
+    if x.device.index != torch.cuda.current_device():
+        with torch.cuda.device(x.device):
+            return _launch(name, x, *args)
+    stream = torch.cuda.current_stream().cuda_stream
+    check(getattr(library(), name)(*args, stream), name)
 
 
 def _luts(n: int, forward: bool, device) -> list:
     return [t.data_ptr() for t in device_tables(n, forward, device)]
+
+
+@functools.lru_cache(maxsize=None)
+def _radices(n: int):
+    """(stages, radices) of ``radix_plan(n)`` as the launchers take them."""
+    plan = radix.radix_plan(n)
+    return len(plan), (ctypes.c_int * len(plan))(*plan)
 
 
 def fft_last(x: torch.Tensor, forward: bool = True) -> torch.Tensor:
@@ -206,14 +250,22 @@ def fft_last(x: torch.Tensor, forward: bool = True) -> torch.Tensor:
     if x.device.type == "cpu":
         return fft_last_plain(x, forward)
     batch, n = x.shape
-    n1, n2 = split_for(n)
-    seqs, smem = _block_seqs(n, 16, 1)
     y = torch.empty_like(x)
-    scratch = None if smem else torch.empty_like(x)
     scale = 1.0 if forward else 1.0 / n
-    _launch("dfft_fft_rows", x, x.data_ptr(), y.data_ptr(), _ptr(scratch),
-            batch, n1, n2, seqs, *_luts(n, forward, x.device), scale)
+    how = route(n)
+    if how == "radix":
+        tw = radix.device_twiddles(n, forward, x.device)
+        _launch("dfft_fft_rows", x, x.data_ptr(), y.data_ptr(), batch, n,
+                *_radices(n), int(forward), tw.data_ptr(), scale)
+    else:
+        n1, n2 = split_for(n)
+        seqs, smem = _block_seqs(n, 16, 1)
+        scratch = None if smem else torch.empty_like(x)
+        _launch("dfft_fft_rows_direct", x, x.data_ptr(), y.data_ptr(),
+                _ptr(scratch), batch, n1, n2, seqs,
+                *_luts(n, forward, x.device), scale)
     fft_last.launches += 1
+    ROUTES[("fft_last", how)] += 1
     return y
 
 
@@ -234,6 +286,7 @@ def fft_axis0(x: torch.Tensor, forward: bool = True) -> torch.Tensor:
             _ptr(scratch), lead, cols, n1, n2, seqs,
             *_luts(n, forward, x.device), scale)
     fft_axis0.launches += 1
+    ROUTES[("fft_axis0", "direct")] += 1
     return y
 
 
@@ -243,18 +296,37 @@ def fft2_last(x: torch.Tensor, forward: bool = True) -> torch.Tensor:
     _check(x, 3, "fft2_last", x.shape[1], x.shape[2])
     if x.device.type == "cpu":
         return fft2_last_plain(x, forward)
+    return plane_launch(x, forward, x.shape[0])
+
+
+def plane_launch(x: torch.Tensor, forward: bool, chunk: int) -> torch.Tensor:
+    """:func:`fft2_last` on a CUDA tensor, the radix route walking the
+    batch ``chunk`` planes at a time. :func:`fft2_last` passes the whole
+    batch: chunks sized to the L2 (:func:`.radix.plane_chunk`) measured
+    slower on the H100 (``chip_smoke.py`` times both)."""
+    if chunk < 1:
+        raise ValueError(f"plane_launch: chunk must be >= 1, got {chunk}")
     batch, ny, nz = x.shape
-    (y1, y2), (z1, z2) = split_for(ny), split_for(nz)
-    seqs_z, z_smem = _block_seqs(nz, 16, 1)
-    seqs_y, y_smem = _block_seqs(ny, 16, 32)
     y = torch.empty_like(x)
-    scratch = None if z_smem and y_smem else torch.empty_like(x)
     scale = 1.0 / (ny * nz) if not forward else 1.0
-    _launch("dfft_fft_plane", x, x.data_ptr(), y.data_ptr(), _ptr(scratch),
-            batch, y1, y2, z1, z2, seqs_z, seqs_y, int(z_smem), int(y_smem),
-            *_luts(ny, forward, x.device), *_luts(nz, forward, x.device),
-            scale)
+    how = route2d(ny, nz)
+    if how == "radix":
+        twy = radix.device_twiddles(ny, forward, x.device)
+        twz = radix.device_twiddles(nz, forward, x.device)
+        _launch("dfft_fft_plane", x, x.data_ptr(), y.data_ptr(), batch, ny,
+                *_radices(ny), nz, *_radices(nz), int(forward),
+                twy.data_ptr(), twz.data_ptr(), min(chunk, batch), scale)
+    else:
+        (y1, y2), (z1, z2) = split_for(ny), split_for(nz)
+        seqs_z, z_smem = _block_seqs(nz, 16, 1)
+        seqs_y, y_smem = _block_seqs(ny, 16, 32)
+        scratch = None if z_smem and y_smem else torch.empty_like(x)
+        _launch("dfft_fft_plane_direct", x, x.data_ptr(), y.data_ptr(),
+                _ptr(scratch), batch, y1, y2, z1, z2, seqs_z, seqs_y,
+                int(z_smem), int(y_smem), *_luts(ny, forward, x.device),
+                *_luts(nz, forward, x.device), scale)
     fft2_last.launches += 1
+    ROUTES[("fft2_last", how)] += 1
     return y
 
 
@@ -268,8 +340,10 @@ KERNELS = {"fft2_last": fft2_last, "fft_axis0": fft_axis0,
 
 
 def reset_launches() -> None:
+    """Zero every launch count, :data:`ROUTES` included."""
     for fn in KERNELS.values():
         fn.launches = 0
+    ROUTES.clear()
 
 
 def launches() -> dict[str, int]:

@@ -10,6 +10,10 @@ It holds each kernel against its plain PyTorch version on ragged
 batches and column counts (a block's tail), on odd lengths, and on
 lengths whose sequences do not fit a block's shared memory (the
 device-scratch route), plus the plans against the same plans on the CPU.
+The row and plane kernels are held on both their routes (radix: 256,
+510, 512, ...; direct: 76 = 4*19), with the route counted, on a plane
+batch the launcher's L2 chunks do not divide, and by the inverse's
+scale (a round trip).
 The fused stage+codec kernels are held the same way for each codec, both
 directions, and a transform along axis 0, a middle axis and the last
 axis; the fused real plans against the unfused ones.
@@ -50,13 +54,17 @@ def _err(got, want):
 
 @pytest.mark.parametrize("forward", [True, False])
 @pytest.mark.parametrize("batch,n", [(7, 64), (13, 66), (5, 510), (3, 4096),
-                                     (3, 8192), (2, 65536)])
+                                     (3, 8192), (2, 65536), (9, 256),
+                                     (33, 512), (5, 76), (4, 75)])
 def test_fft_last_kernel_matches_plain(card, batch, n, forward):
     x = _c64(n, (batch, n), card)
     before = cuda_fft.fft_last.launches
+    how = cuda_fft.route(n)
+    routed = cuda_fft.ROUTES[("fft_last", how)]
     got = cuda_fft.fft_last(x, forward)
     torch.cuda.synchronize()
     assert cuda_fft.fft_last.launches == before + 1
+    assert cuda_fft.ROUTES[("fft_last", how)] == routed + 1
     assert _err(got, cuda_fft.fft_last_plain(x, forward)) < C64
 
 
@@ -75,14 +83,38 @@ def test_fft_axis0_kernel_matches_plain(card, lead, n, cols, forward):
 
 @pytest.mark.parametrize("forward", [True, False])
 @pytest.mark.parametrize("batch,ny,nz", [(3, 64, 72), (2, 510, 512),
-                                         (1, 64, 8192), (1, 8192, 64)])
+                                         (1, 64, 8192), (1, 8192, 64),
+                                         (3, 256, 256), (13, 512, 512),
+                                         (2, 76, 64), (3, 66, 70)])
 def test_fft2_last_kernel_matches_plain(card, batch, ny, nz, forward):
     x = _c64(ny + nz, (batch, ny, nz), card)
     before = cuda_fft.fft2_last.launches
+    how = cuda_fft.route2d(ny, nz)
+    routed = cuda_fft.ROUTES[("fft2_last", how)]
     got = cuda_fft.fft2_last(x, forward)
     torch.cuda.synchronize()
     assert cuda_fft.fft2_last.launches == before + 1
+    assert cuda_fft.ROUTES[("fft2_last", how)] == routed + 1
     assert _err(got, cuda_fft.fft2_last_plain(x, forward)) < C64
+
+
+@pytest.mark.parametrize("n,how", [(256, "radix"), (510, "radix"),
+                                   (512, "radix"), (76, "direct")])
+def test_routes_and_inverse_scale(card, n, how):
+    """Each route as :func:`route` names it; the inverse carries 1/n (a
+    row round trip) and 1/(ny*nz) (a plane round trip, chunked and in one
+    go), and agrees with torch.fft."""
+    assert cuda_fft.route(n) == how
+    x = _c64(n + 1, (6, n), card)
+    y = cuda_fft.fft_last(x, True)
+    assert _err(y, torch.fft.fft(x)) < C64
+    assert _err(cuda_fft.fft_last(y, False), x) < C64
+    p = _c64(n + 2, (5, n, 64), card)
+    q = cuda_fft.fft2_last(p, True)
+    assert _err(q, torch.fft.fft2(p)) < C64
+    for chunk in (2, 5):
+        back = cuda_fft.plane_launch(q, False, chunk)
+        assert _err(back, p) < C64
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):

@@ -1,10 +1,15 @@
-"""The port's four-step kernels against the JAX package's Pallas kernels.
+"""The port's row, strided and plane kernels against the JAX package's
+Pallas kernels.
 
 Each kernel of ``distributedfft_tpu_torch/ops/cuda_fft.py`` runs here,
 on CPU tensors, as its plain PyTorch version; the JAX side runs the
 Pallas kernel bodies of ``distributedfft_tpu/ops/pallas_fft.py`` in
 interpret mode, outside ``shard_map``, as ``tests/test_pallas.py`` does.
-Both compute the same four-step sums with the same float64-built LUTs,
+The strided kernel's plain version computes the Pallas kernel's
+four-step sums with the same float64-built LUTs; the row and plane
+kernels' plain versions run the radix route's stages
+(``tests/test_torch_radix.py``) at every length here, in float64 from
+complex64 tables. Either way both sides carry only fp32-level rounding,
 so they agree to 1e-5 relative; against numpy they hold the complex64
 tier, 5e-4.
 """
@@ -23,7 +28,7 @@ from distributedfft_tpu_torch import native, testing
 from distributedfft_tpu_torch.ops import cuda_fft
 from distributedfft_tpu_torch.ops.executors import get_executor
 
-SAME_MATH = 1e-5                      # identical four-step sums, both sides
+SAME_MATH = 1e-5                      # fp32-level rounding on both sides
 C64 = testing.tolerance(np.complex64)  # 5e-4, the complex64 tier
 
 
