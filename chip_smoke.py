@@ -19,22 +19,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    their plain versions at every shape and codec the compressed path
    gives them: sidecars bit-identical, mantissas at most one level apart,
    decoded outputs within 5e-4 (max-norm and L2) of the plain decode,
-   and the codec's own bound against the exact transform;
+   and the codec's own bound against the exact transform; the decode
+   also against the strided kernel on the decoded wire (relative L2 <=
+   1e-6), timed beside a device copy and the unfused decode + torch.fft;
 4. checks the port on a small uneven input against numpy's float64 fftn
    (single device and the 4-rank slab; the repo's seeded world data);
 5. drives the C2C main path: the single-device plan at 512^3 forward and
    backward, then the slab chain on a loopback world of 4 ranks at 512^3
    and at (510, 510, 512), each checked against torch.fft.fftn and by a
    round trip; every row, strided and plane kernel must have been
-   launched in that run, the row and plane kernels by the radix route
-   only;
+   launched in that run, by the radix route only;
 6. drives the compressed and real path at 512^3 on a loopback world of
    4: the C2C plans with the split codec fused, the R2C/C2R plans exact
    and with each codec fused and unfused, and the single-device R2C/C2R;
    checked against torch.fft.fftn/rfftn/irfftn, the port's exact plan and
    round trips; the fused sites must take the routes of the JAX package,
-   both fused kernels must have been launched in that run, and the row
-   and plane kernels by the radix route only;
+   both fused kernels must have been launched in that run, and the row,
+   strided, plane and decode kernels by the radix route only;
 7. times the plans and their t0..t3 stages, prints one JSON line of the
    five kernels and, last, the device line.
 
@@ -69,6 +70,9 @@ CODECS = ("bf16", "int8", "split")
 # decoded wire block against the exact transform, over its max |.|.
 ENC_BOUNDS = {"bf16": 8e-3, "int8": 2e-2, "split": 2e-4}
 PAIR_BYTES = {"bf16": 4, "int8": 2, "split": 4}   # wire bytes per c64
+# The decode kernel against fft_axis0 of the decoded wire (relative L2):
+# both run the same radix stages on the same exactly decoded values.
+FUSED_VS_UNFUSED = 1e-6
 
 
 def fail(msg: str) -> None:
@@ -199,8 +203,8 @@ def check_kernels(torch, cf, radix, timing, rates):
         else:
             n = shape[1] if name == "fft_axis0" else shape[-1]
             lengths = ((n, numel // n),)
-        how = cf.route(n) if name == "fft_last" else (
-            cf.route2d(*shape[1:]) if name == "fft2_last" else "direct")
+        how = (cf.route2d(*shape[1:]) if name == "fft2_last"
+               else cf.route(n))
         # the route's own arithmetic: radix stages, or 8 n (n1 + n2) per
         # row of the direct four-step sums
         kernel_flops = sum(
@@ -233,7 +237,7 @@ def check_kernels(torch, cf, radix, timing, rates):
               f"kernel_gflops_rate={kernel_flops / ms / 1e6:.1f}", flush=True)
         rec = records.setdefault(name, dict(
             name=name, route="cuda",
-            source=SOURCE if name == "fft_axis0" else RADIX_SOURCE,
+            source=RADIX_SOURCE if how == "radix" else SOURCE,
             replaces=REPLACES[name],
             launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
@@ -243,16 +247,21 @@ def check_kernels(torch, cf, radix, timing, rates):
     return records
 
 
+# The wrappers with a radix route; every length of both paths (512, 510,
+# 256) is a radix length, so none of them may take the direct route.
+RADIX_WRAPPERS = ("fft_last", "fft2_last", "fft_axis0", "decode_fft")
+
+
 def check_routes(cf, path, first, total):
     """Print the launches of each wrapper by route (``first``: the counts
-    of the path's first part, the single device) and fail if a row or
-    plane kernel took the direct route."""
+    of the path's first part, the single device) and fail if a row,
+    strided, plane or decode kernel took the direct route."""
     rest = {k: v - first.get(k, 0) for k, v in total.items()}
     print(f"routes on {path} (wrapper, route): "
           + (f"single {first}; rest {rest}; " if first else "")
           + f"all {total}", flush=True)
     for (wrapper, how), v in total.items():
-        if wrapper in ("fft_last", "fft2_last") and how != "radix" and v:
+        if wrapper in RADIX_WRAPPERS and how != "radix" and v:
             fail(f"{wrapper} took the {how} route {v} times on {path}")
 
 
@@ -354,10 +363,11 @@ def exact_dft(torch, x, axis, fwd):
     return (torch.fft.fft if fwd else torch.fft.ifft)(x, dim=axis)
 
 
-def check_fused_kernels(torch, cfu, wire_codec, timing, rates):
+def check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates):
     """Phase 3: the fused stage+codec kernels against their plain
-    versions at every (shape, codec) the compressed path gives them.
-    Returns one record per kernel."""
+    versions at every (shape, codec) the compressed path gives them, the
+    decode also against the strided kernel on the decoded wire. Returns
+    one record per kernel."""
     hbm, fp32, _ = rates
     dev = torch.device("cuda", torch.cuda.current_device())
     records = {}
@@ -413,7 +423,26 @@ def check_fused_kernels(torch, cfu, wire_codec, timing, rates):
             if not max(err, l2) <= TOL:
                 fail(f"{name} {label}: vs plain max {err:.3e} l2 {l2:.3e} "
                      f"> {TOL}")
-            detail = "vs plain"
+            # the unfused receiver on the card: the strided kernel on the
+            # decoded wire, whose stages the decode kernel shares
+            unfused_y = cf.fft_along_axis(dec(parts), axis, fwd)
+            _, fu_l2, fu_abs = rel_err(torch, got_y, unfused_y)
+            del unfused_y
+            if not fu_l2 <= FUSED_VS_UNFUSED:
+                fail(f"{name} {label}: vs fft_axis0(decode) l2 {fu_l2:.3e} "
+                     f"> {FUSED_VS_UNFUSED}")
+            # unfused_ms: the codec's decode, then torch.fft (two calls:
+            # a reference, not a library_ms)
+            lib = lambda: exact_dft(torch, dec(parts), axis, fwd)
+            out = torch.empty_like(got_y)
+            detail = (f"route={cf.route(shape[axis])}; vs "
+                      f"fft_axis0(decode) max_abs_diff={fu_abs:.3e} "
+                      f"l2_rel={fu_l2:.3e}; steady_ms="
+                      f"{steady_ms(torch, kernel):.4f} copy_ms="
+                      f"{steady_ms(torch, lambda: out.copy_(got_y)):.4f} "
+                      f"unfused_ms={timing.cuda_time_ms(lib, iters=10):.4f}"
+                      f"; vs plain")
+            del out
             wire_rw = PAIR_BYTES[codec] + 8
         codec_err = float((got_y - exact).abs().max() / exact.abs().max())
         if not codec_err <= ENC_BOUNDS[codec]:
@@ -615,7 +644,8 @@ def main() -> None:
           f")", flush=True)
 
     records = check_kernels(torch, cf, radix, timing, rates)
-    records.update(check_fused_kernels(torch, cfu, wire_codec, timing, rates))
+    records.update(check_fused_kernels(torch, cf, cfu, wire_codec, timing,
+                                       rates))
     check_small(torch, dfft)
 
     # ---- the main path: counts from 0, single then slab, each once ----

@@ -6,12 +6,13 @@
 //   pallas_fft.py:_make_kernel_strided  (leading axis)  -> dfft_fft_strided
 //   pallas_fft.py:_make_kernel2d        (fused plane)   -> dfft_fft_plane
 //
-// Two routes. The radix route (dfft_fft_rows, dfft_fft_plane; device
-// code in radix.cuh) takes every length n <= 8192 whose prime factors
-// are all <= 17, with the stage plan and twiddles the host gives it
-// (ops/radix.py). Every other kernel-eligible length takes the direct
-// route (dfft_fft_rows_direct, dfft_fft_plane_direct), and the strided
-// kernel always does: the four-step sums below.
+// Two routes. The radix route (dfft_fft_rows, dfft_fft_strided,
+// dfft_fft_plane; device code and pass set-up in radix.cuh) takes every
+// length n <= 8192 whose prime factors are all <= 17, with the stage
+// plan and twiddles the host gives it (ops/radix.py). Every other
+// kernel-eligible length takes the direct route (dfft_fft_rows_direct,
+// dfft_fft_strided_direct, dfft_fft_plane_direct): the four-step sums
+// below.
 //
 // What bounds the radix route on an H100: bytes, 16 per element per pass
 // (one complex64 read, one written; 3.35 TB/s). A mixed-radix Stockham
@@ -28,8 +29,10 @@
 // 1/n applied there. The twiddles are read from shared memory, copied
 // once per block.
 //
-// The plane is two passes of that routine: rows over Z (x -> y), then
-// columns over Y in place on y. A 512 x 512 plane (2 MiB) does not fit
+// The strided kernel is the column pass of that routine over [lead, n,
+// cols] (x -> y): each group is 16 neighbouring columns of one lead
+// block, fewer only where cols is narrower. The plane is two passes of
+// it: rows over Z (x -> y), then columns over Y in place on y. A 512 x 512 plane (2 MiB) does not fit
 // one block's 227 KB, where the TPU kernel kept it whole in VMEM, so the
 // intermediate makes a round trip. The launcher can walk the batch in
 // chunks of planes so that the round trip stays in the 50 MB L2
@@ -63,10 +66,6 @@
 // writes, so every launcher may also run in place (y == x).
 //
 // Every launcher returns cudaGetLastError() of its own launches.
-
-#include <algorithm>
-#include <mutex>
-#include <vector>
 
 #include "four_step.cuh"
 #include "radix.cuh"
@@ -171,158 +170,6 @@ cudaError_t launch_strided(const float2* x, float2* y, float2* scratch,
   return cudaGetLastError();
 }
 
-// ------------------------------------------------------------ radix route
-
-// Shared memory a radix block may take: two row blocks of 512 threads,
-// or one column block of 16 columns of 512 points, fit one SM. A
-// sequence longer than that allows runs one per block (up to the 227 KB
-// maximum, n = 8192), with two buffers instead of three when three do not
-// fit (no prefetch).
-constexpr size_t kRadixSmem = 200 * 1024;
-constexpr size_t kMaxSmem = 227 * 1024;
-
-radix::Plan make_plan(int n, int stages, const int* radices) {
-  radix::Plan p{};
-  p.n = n;
-  p.stages = stages;
-  for (int k = 0; k < stages && k < radix::kMaxStages; ++k)
-    p.radix[k] = radices[k];
-  return p;
-}
-
-int max_radix(const radix::Plan& p) {
-  int r = 2;
-  for (int k = 0; k < p.stages; ++k) r = std::max(r, p.radix[k]);
-  return r;
-}
-
-// `nbuf` buffers of `buf` complex64 and the n - 1 twiddles.
-size_t radix_smem(int n, int buf, int nbuf) {
-  return ((size_t)nbuf * buf + (n - 1)) * sizeof(float2);
-}
-
-// Rows per group: enough that the widest stage gives every thread a
-// butterfly, as far as kRadixSmem allows with three buffers.
-int rows_per_group(const radix::Plan& p) {
-  int seqs = 1;
-  while ((long long)seqs * p.n < (long long)radix::kThreads * max_radix(p))
-    seqs *= 2;
-  while (seqs > 1 &&
-         radix_smem(p.n, seqs * radix::padded_ld(p.n), 3) > kRadixSmem)
-    seqs /= 2;
-  return seqs;
-}
-
-// Columns per group: 16 (128-byte row segments) down to 1, the most that
-// fit kRadixSmem with three buffers.
-int cols_per_group(int n) {
-  int cols = 16;
-  while (cols > 1 && radix_smem(n, n * cols, 3) > kRadixSmem) cols /= 2;
-  return cols;
-}
-
-// Resident blocks of a persistent launch with `shm` bytes of shared
-// memory: as many as fit the card at once. Found once per (device,
-// kernel, shm) and kept, so that a call costs the host only its launch.
-// Every kernel's shared-memory limit is raised to the card's maximum
-// (one value for every shm, so no later call lowers it under an earlier
-// one's need).
-template <typename Kernel>
-cudaError_t resident_blocks(Kernel kernel, size_t shm, long long* blocks) {
-  struct Entry {
-    int dev;
-    const void* kernel;
-    size_t shm;
-    long long blocks;
-  };
-  static std::mutex mu;
-  static std::vector<Entry> known;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  std::lock_guard<std::mutex> lock(mu);
-  for (const Entry& k : known)
-    if (k.dev == dev && k.kernel == (const void*)kernel && k.shm == shm) {
-      *blocks = k.blocks;
-      return cudaSuccess;
-    }
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)kMaxSmem);
-  if (e != cudaSuccess) return e;
-  int sms = 0, per_sm = 0;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess)
-    return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, radix::kThreads, shm)) != cudaSuccess)
-    return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *blocks = (long long)per_sm * sms;
-  known.push_back(Entry{dev, (const void*)kernel, shm, *blocks});
-  return cudaSuccess;
-}
-
-// One radix pass, set up once and launched per call: its group size
-// (rows or columns), buffers, kernel (by direction and by whether any
-// radix is over 8) and resident blocks.
-template <typename Kernel>
-struct Pass {
-  radix::Plan plan;
-  int group, buf, nbuf;
-  size_t shm;
-  Kernel kernel;
-  long long cap = 0;
-  cudaError_t err;
-
-  Pass(const radix::Plan& p, int group_, int buf_, Kernel k8, Kernel k17)
-      : plan(p), group(group_), buf(buf_),
-        nbuf(radix_smem(p.n, buf_, 3) <= kMaxSmem ? 3 : 2),
-        shm(radix_smem(p.n, buf_, nbuf)),
-        kernel(max_radix(p) <= 8 ? k8 : k17) {
-    err = resident_blocks(kernel, shm, &cap);
-  }
-};
-
-using RowsKernel = void (*)(const float2*, float2*, long long, radix::Plan,
-                            int, int, int, const float2*, float);
-using ColsKernel = void (*)(float2*, long long, int, radix::Plan, int, int,
-                            int, const float2*, float);
-
-// The rows pass over [batch, n].
-struct RowsPass : Pass<RowsKernel> {
-  RowsPass(const radix::Plan& p, bool fwd)
-      : Pass(p, rows_per_group(p), rows_per_group(p) * radix::padded_ld(p.n),
-             fwd ? radix::rows_kernel<true, 8> : radix::rows_kernel<false, 8>,
-             fwd ? radix::rows_kernel<true, 17>
-                 : radix::rows_kernel<false, 17>) {}
-  cudaError_t operator()(const float2* x, float2* y, long long batch,
-                         const float2* tw, float scale, cudaStream_t st) {
-    const long long blocks = std::min(cap, (batch + group - 1) / group);
-    if (blocks > 0)
-      kernel<<<(unsigned)blocks, radix::kThreads, shm, st>>>(
-          x, y, batch, plan, group, buf, nbuf, tw, scale);
-    return cudaGetLastError();
-  }
-};
-
-// The columns pass over [planes, n, nz], in place.
-struct ColsPass : Pass<ColsKernel> {
-  ColsPass(const radix::Plan& p, bool fwd)
-      : Pass(p, cols_per_group(p.n), p.n * cols_per_group(p.n),
-             fwd ? radix::cols_kernel<true, 8> : radix::cols_kernel<false, 8>,
-             fwd ? radix::cols_kernel<true, 17>
-                 : radix::cols_kernel<false, 17>) {}
-  cudaError_t operator()(float2* y, long long planes, int nz,
-                         const float2* tw, float scale, cudaStream_t st) {
-    const long long groups = planes * ((nz + group - 1) / group);
-    const long long blocks = std::min(cap, groups);
-    if (blocks > 0)
-      kernel<<<(unsigned)blocks, radix::kThreads, shm, st>>>(
-          y, planes, nz, plan, group, buf, nbuf, tw, scale);
-    return cudaGetLastError();
-  }
-};
-
 }  // namespace
 
 extern "C" {
@@ -333,9 +180,8 @@ extern "C" {
 int dfft_fft_rows(const void* x, void* y, long long batch, int n,
                   int stages, const int* radices, int forward,
                   const void* tw, float scale, void* stream) {
-  if (stages < 2 || stages > radix::kMaxStages)
-    return (int)cudaErrorInvalidValue;
-  RowsPass rows(make_plan(n, stages, radices), forward != 0);
+  if (!radix::valid_stages(stages)) return (int)cudaErrorInvalidValue;
+  radix::RowsPass rows(radix::make_plan(n, stages, radices), forward != 0);
   if (rows.err != cudaSuccess) return (int)rows.err;
   return (int)rows((const float2*)x, (float2*)y, batch, (const float2*)tw,
                    scale, (cudaStream_t)stream);
@@ -353,11 +199,26 @@ int dfft_fft_rows_direct(const void* x, void* y, void* scratch,
       (cudaStream_t)stream);
 }
 
-// y[l, :, c] = DFT(x[l, :, c]) * scale over [lead, n, cols]; n = n1*n2.
-int dfft_fft_strided(const void* x, void* y, void* scratch, long long lead,
-                     long long cols, int n1, int n2, int seqs, const void* w1,
-                     const void* tw, const void* w2, float scale,
-                     void* stream) {
+// y[l, :, c] = DFT(x[l, :, c]) * scale over [lead, n, cols], the radix
+// route (radix.cuh's column routine; plan and twiddles as dfft_fft_rows
+// takes them). y may be x.
+int dfft_fft_strided(const void* x, void* y, long long lead, long long cols,
+                     int n, int stages, const int* radices, int forward,
+                     const void* tw, float scale, void* stream) {
+  if (!radix::valid_stages(stages)) return (int)cudaErrorInvalidValue;
+  radix::ColsPass pass(radix::make_plan(n, stages, radices), forward != 0,
+                       cols);
+  if (pass.err != cudaSuccess) return (int)pass.err;
+  return (int)pass((const float2*)x, (float2*)y, lead, cols,
+                   (const float2*)tw, scale, (cudaStream_t)stream);
+}
+
+// The same by the direct route: n = n1*n2, LUTs w1, tw, w2, `seqs`
+// columns per block, scratch as in rows_kernel.
+int dfft_fft_strided_direct(const void* x, void* y, void* scratch,
+                            long long lead, long long cols, int n1, int n2,
+                            int seqs, const void* w1, const void* tw,
+                            const void* w2, float scale, void* stream) {
   return (int)launch_strided(
       (const float2*)x, (float2*)y, (float2*)scratch, lead, cols, n1, n2,
       seqs, (const float2*)w1, (const float2*)tw, (const float2*)w2, scale,
@@ -373,12 +234,14 @@ int dfft_fft_plane(const void* x, void* y, long long batch, int ny,
                    const int* z_radices, int forward, const void* twy,
                    const void* twz, long long chunk, float scale,
                    void* stream) {
-  for (int st : {y_stages, z_stages})
-    if (st < 2 || st > radix::kMaxStages) return (int)cudaErrorInvalidValue;
+  if (!radix::valid_stages(y_stages) || !radix::valid_stages(z_stages))
+    return (int)cudaErrorInvalidValue;
   if (chunk < 1) return (int)cudaErrorInvalidValue;
-  RowsPass rows(make_plan(nz, z_stages, z_radices), forward != 0);
+  radix::RowsPass rows(radix::make_plan(nz, z_stages, z_radices),
+                       forward != 0);
   if (rows.err != cudaSuccess) return (int)rows.err;
-  ColsPass cols(make_plan(ny, y_stages, y_radices), forward != 0);
+  radix::ColsPass cols(radix::make_plan(ny, y_stages, y_radices),
+                       forward != 0, nz);
   if (cols.err != cudaSuccess) return (int)cols.err;
   const long long plane = (long long)ny * nz;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -388,7 +251,7 @@ int dfft_fft_plane(const void* x, void* y, long long batch, int ny,
     float2* ys = (float2*)y + b0 * plane;
     cudaError_t e = rows(xs, ys, cnt * ny, (const float2*)twz, 1.0f, st);
     if (e != cudaSuccess) return (int)e;
-    e = cols(ys, cnt, nz, (const float2*)twy, scale, st);
+    e = cols(ys, ys, cnt, nz, (const float2*)twy, scale, st);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaSuccess;

@@ -6,16 +6,16 @@
 //   pallas_fuse.py:_make_decode_kernel (_decode_tiles)  -> dfft_decode_fft
 //
 // Both work on the strided layout [lead, n, cols] with the DFT over the
-// middle axis (the four-step routine of four_step.cuh, each block owning
-// `seqs` neighbouring columns), so an axis-0, middle-axis or last-axis
-// (cols = 1) transform needs no transposing copy. The wire payload keeps
-// that layout with a trailing (re, im) pair: [lead, n, cols, 2]. Tiles
-// cut the DFT axis into `tiles` segments of seg = n / tiles: the tile of
-// an element is its OUTPUT index k for encode and its INPUT index j for
-// decode (pallas_fuse.py:158-172, :207-210). The sidecar is [tiles, 2]
-// f32: one power-of-two step per (tile, plane).
+// middle axis, so an axis-0, middle-axis or last-axis (cols = 1)
+// transform needs no transposing copy. The wire payload keeps that layout
+// with a trailing (re, im) pair: [lead, n, cols, 2]. Tiles cut the DFT
+// axis into `tiles` segments of seg = n / tiles: the tile of an element
+// is its OUTPUT index k for encode and its INPUT index j for decode
+// (pallas_fuse.py:158-172, :207-210). The sidecar is [tiles, 2] f32: one
+// power-of-two step per (tile, plane).
 //
-// fft_encode:
+// fft_encode (the four-step routine of four_step.cuh, each block owning
+// `seqs` neighbouring columns):
 //   bf16        one launch: the transform, then an epilogue that rounds
 //               each component to nearest even into the bf16 pair.
 //   int8/split  three launches. The TPU kernel held the whole block in
@@ -29,20 +29,32 @@
 //               the order of the blocks). Launch B turns the 2*tiles amax
 //               slots into the sidecar's steps; launch C quantizes element
 //               by element: rintf (half to even), clamp to +-levels.
-// decode_fft: one launch. Each block unpacks its columns' wire values into
-//   shared memory exactly (bf16 -> f32, or mantissa * pow2 step), runs
-//   the four-step routine with the inverse 1/n applied in it, and writes
-//   c64.
+// decode_fft: one launch, two routes, as the strided kernel has them
+//   (four_step.cu). The radix route (dfft_decode_fft; lengths n <= 8192
+//   whose prime factors are all <= 17) is radix.cuh's column pass, the
+//   strided kernel's own, with another landing step: a group's raw wire
+//   tile (2 bytes a value for int8, 4 for bf16 and split) lands in shared
+//   memory by cp.async while the block works on the group before, and the
+//   first stage unpacks each value as it reads it (bf16 -> f32, or
+//   mantissa * the pow2 step of its input tile: exact, the plain decode's
+//   value). The stages after it are the strided kernel's, with the same
+//   plan, twiddles and instantiation, and the inverse's 1/n is applied in
+//   the last stage's store, so fused_decode_fft(parts) and
+//   fft_axis0(decode(parts)) agree to the bit. The direct route
+//   (dfft_decode_fft_direct, every other eligible length) unpacks into
+//   shared memory and runs the four-step routine.
 //
-// What bounds them on an H100: the same direct sums as four_step.cu
-// (8*(n1+n2) flops per complex element, limited by shared-memory and L1
-// traffic, ~8x the device-memory bound at n = 512). The design keeps the
-// c64 intermediate out of device memory on bf16 encode and on every
-// decode; the quantized encode pays one extra c64 write and read of the
-// block (launch A -> C), which a single-pass design (amax from a cheap
-// pre-pass, or a cluster-wide reduction) would remove. Sequences longer
-// than fit a block's shared memory run on device scratch, as in
-// four_step.cu.
+// What bounds them on an H100: the decode's radix route is bound by
+// bytes (the wire tile read once, c64 written once) as the strided
+// kernel is. The encode and the decode's direct route run the direct
+// sums of four_step.cu (8*(n1+n2) flops per complex element, limited by
+// shared-memory and L1 traffic, ~8x the device-memory bound at n = 512).
+// The design keeps the c64 intermediate out of device memory on bf16
+// encode and on every decode; the quantized encode pays one extra c64
+// write and read of the block (launch A -> C), which a single-pass design
+// (amax from a cheap pre-pass, or a cluster-wide reduction) would remove.
+// Sequences longer than fit a block's shared memory run the four-step
+// routine on device scratch, as in four_step.cu.
 //
 // Every launcher returns cudaGetLastError() of its own launches.
 
@@ -50,6 +62,7 @@
 #include <stdint.h>
 
 #include "four_step.cuh"
+#include "radix.cuh"
 
 namespace {
 
@@ -191,24 +204,31 @@ quantize_kernel(const float2* y, Q* q, const float* side, long long total,
   q[2 * i + 1] = (Q)fminf(fmaxf(rintf(v.y / si), -levels), levels);
 }
 
-// One wire element e (its input index in tile t) as c64: exact.
-template <int CODEC>
-__device__ __forceinline__ float2 unpack(const void* q, const float* side,
-                                         long long e, int t) {
-  if (CODEC == 0)
-    return __bfloat1622float2(static_cast<const __nv_bfloat162*>(q)[e]);
-  const float sr = side[2 * t], si = side[2 * t + 1];
-  if (CODEC == 1) {
-    const int8_t* p = static_cast<const int8_t*>(q) + 2 * e;
-    return make_float2((float)p[0] * sr, (float)p[1] * si);
-  }
-  const int16_t* p = static_cast<const int16_t*>(q) + 2 * e;
-  return make_float2((float)p[0] * sr, (float)p[1] * si);
+// Wire bytes per complex value of a codec.
+__host__ __device__ constexpr int pair_bytes(int codec) {
+  return codec == 1 ? 2 : 4;
 }
 
-// decode_fft: CODEC 0 bf16, 1 int8, 2 int16 (split). The unpacked block
-// goes into shared memory, or into y itself when the sequences do not fit
-// (the routine then runs in place on y with `scratch` for stage 1).
+// The wire value whose (re, im) pair sits at e (device or shared memory)
+// as c64, t its input tile, `side` the [tiles, 2] steps: exact.
+template <int CODEC>
+__device__ __forceinline__ float2 unpack(const char* e, const float* side,
+                                         int t) {
+  if (CODEC == 0)
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(e));
+  const float sr = side[2 * t], si = side[2 * t + 1];
+  if (CODEC == 1) {
+    const char2 p = *reinterpret_cast<const char2*>(e);
+    return make_float2((float)p.x * sr, (float)p.y * si);
+  }
+  const short2 p = *reinterpret_cast<const short2*>(e);
+  return make_float2((float)p.x * sr, (float)p.y * si);
+}
+
+// decode_fft by the direct route: CODEC 0 bf16, 1 int8, 2 int16 (split).
+// The unpacked block goes into shared memory, or into y itself when the
+// sequences do not fit (the routine then runs in place on y with
+// `scratch` for stage 1).
 template <int CODEC>
 __global__ void __launch_bounds__(kThreads)
 decode_fft_kernel(const void* q, const float* side, float2* y,
@@ -220,11 +240,12 @@ decode_fft_kernel(const void* q, const float* side, float2* y,
   const int seg = n / tiles;
   const Cols blk = block_cols(cols, n, seqs);
   const int cnt = blk.cnt;
+  const char* qb = static_cast<const char*>(q);
   if (scratch != nullptr) {
     for (int i = threadIdx.x; i < cnt * n; i += blockDim.x) {
       const int s = i % cnt, j = i / cnt;
       const long long e = blk.base + (long long)j * cols + s;
-      y[e] = unpack<CODEC>(q, side, e, j / seg);
+      y[e] = unpack<CODEC>(qb + e * pair_bytes(CODEC), side, j / seg);
     }
     __syncthreads();
     four_step<true>(y + blk.base, scratch + blk.base, y + blk.base, 1, cols,
@@ -236,7 +257,8 @@ decode_fft_kernel(const void* q, const float* side, float2* y,
   for (int i = threadIdx.x; i < cnt * n; i += blockDim.x) {
     const int s = i % cnt, j = i / cnt;
     a[s + j * seqs] = unpack<CODEC>(
-        q, side, blk.base + (long long)j * cols + s, j / seg);
+        qb + (blk.base + (long long)j * cols + s) * pair_bytes(CODEC), side,
+        j / seg);
   }
   __syncthreads();
   four_step<true>(a, b, a, 1, seqs, cnt, n1, n2, w1, tw, w2, scale);
@@ -246,6 +268,124 @@ decode_fft_kernel(const void* q, const float* side, float2* y,
     y[blk.base + (long long)j * cols + s] = a[s + j * seqs];
   }
 }
+
+// decode_fft by the radix route over [lead, n, nz] (CODEC as above),
+// `cols` neighbouring columns per group: radix.cuh's column pass with
+// another landing step. The group's raw wire tile lands in shared memory
+// (load_wire_tile: 16-byte copies of whole aligned row segments, else
+// 4-byte copies of each segment's covering span, which an odd nz gives
+// int8); the first stage reads each value through unpack, at the
+// segment's offset in its landed row; the steps sit in shared memory
+// after the twiddles.
+template <int CODEC, bool FWD, int MAXR>
+__global__ void __launch_bounds__(radix::kThreads)
+decode_cols_kernel(const void* q, const float* side, float2* y,
+                   long long lead, long long nz, radix::Plan plan, int cols,
+                   radix::Smem sm, int tiles, const float2* twg, float scale) {
+  extern __shared__ float4 radix_smem[];
+  float2* smem = reinterpret_cast<float2*>(radix_smem);
+  const int n = plan.n;
+  float2* tw = smem + sm.twiddles();
+  float* steps = reinterpret_cast<float*>(tw + (n - 1));
+  radix::load_twiddles(tw, twg, n);
+  if (CODEC != 0)
+    for (int i = threadIdx.x; i < 2 * tiles; i += blockDim.x)
+      steps[i] = side[i];
+  constexpr int pb = pair_bytes(CODEC);
+  const int seg = n / tiles, bytes = cols * pb;
+  const long long ld = nz * pb;
+  const char* qb = static_cast<const char*>(q);
+  const radix::Lane ln = radix::lane<true>(cols);
+  const long long per = (nz + cols - 1) / cols;
+  const long long groups = lead * per;
+  // element offset of the group's first value; cnt: its columns
+  auto where = [&](long long g, int* cnt) {
+    const long long l = g / per, c0 = (g - l * per) * cols;
+    *cnt = (int)(nz - c0 < cols ? nz - c0 : cols);
+    return l * n * nz + c0;
+  };
+  auto fast = [&](const char* src, int cnt) {
+    return cnt == cols && (bytes & 15) == 0 && (ld & 15) == 0 &&
+           (reinterpret_cast<size_t>(src) & 15) == 0;
+  };
+  radix::group_loop(
+      smem, sm, groups,
+      [&](long long g, float2* dst) {
+        int cnt;
+        const char* src = qb + where(g, &cnt) * pb;
+        radix::load_wire_tile(reinterpret_cast<char*>(dst), src, n, cnt * pb,
+                              bytes, ld, fast(src, cnt));
+      },
+      [&](long long g, float2* p, float2* a, float2* b, auto after) {
+        int cnt;
+        const long long e0 = where(g, &cnt);
+        const char* src = qb + e0 * pb;
+        const bool f = fast(src, cnt);
+        const int w = radix::wire_ld(bytes, f);
+        // row i's segment starts at (src + i*ld) & 3 in its landed row
+        const int o0 = f ? 0 : (int)(reinterpret_cast<size_t>(src) & 3);
+        const int od = f ? 0 : (int)(ld & 3);
+        const char* in = reinterpret_cast<const char*>(p) + ln.s * pb;
+        radix::run_stages<FWD, true, MAXR>(
+            [=](int i) {
+              return unpack<CODEC>(in + i * w + ((o0 + i * od) & 3), steps,
+                                   i / seg);
+            },
+            y + e0 + ln.s, nz, ln.s < cnt, ln, cols, plan, a, b, tw, scale,
+            after);
+      });
+}
+
+using DecodeKernel = void (*)(const void*, const float*, float2*, long long,
+                              long long, radix::Plan, int, radix::Smem, int,
+                              const float2*, float);
+
+DecodeKernel decode_kernel(int codec, bool fwd, bool wide) {
+#define DFFT_DECODE(C)                                                   \
+  (fwd ? (wide ? decode_cols_kernel<C, true, 17>                        \
+               : decode_cols_kernel<C, true, 8>)                        \
+       : (wide ? decode_cols_kernel<C, false, 17>                       \
+               : decode_cols_kernel<C, false, 8>))
+  return codec == 0 ? DFFT_DECODE(0) : codec == 1 ? DFFT_DECODE(1)
+                                                  : DFFT_DECODE(2);
+#undef DFFT_DECODE
+}
+
+// The complex64 a landed wire tile of c columns takes, even so that the
+// exchange buffers after it stay 16-byte aligned; never more than a c64
+// tile (n*c), so that without prefetch the exchange buffer b can be it.
+int wire_land(int n, int c, int pb) {
+  const long long bytes = (long long)n * radix::wire_ld(c * pb, false);
+  return (int)((bytes + 15) / 16 * 2);
+}
+
+int wire_cols(int n, long long nz, int pb) {
+  return radix::cols_per_group(
+      n, nz, [=](int c) { return wire_land(n, c, pb); });
+}
+
+// The decode pass over [lead, n, nz] of one codec and direction.
+struct DecodePass : radix::Pass<DecodeKernel> {
+  int tiles;
+  DecodePass(const radix::Plan& p, bool fwd, int codec, long long nz,
+             int tiles_)
+      : Pass(p, wire_cols(p.n, nz, pair_bytes(codec)),
+             p.n * wire_cols(p.n, nz, pair_bytes(codec)),
+             wire_land(p.n, wire_cols(p.n, nz, pair_bytes(codec)),
+                       pair_bytes(codec)),
+             2 * (size_t)tiles_ * sizeof(float),
+             decode_kernel(codec, fwd, false), decode_kernel(codec, fwd, true)),
+        tiles(tiles_) {}
+  cudaError_t operator()(const void* q, const float* side, float2* y,
+                         long long lead, long long nz, const float2* tw,
+                         float scale, cudaStream_t st) {
+    const long long b = blocks(lead * ((nz + group - 1) / group));
+    if (b > 0)
+      kernel<<<(unsigned)b, radix::kThreads, shm, st>>>(
+          q, side, y, lead, nz, plan, group, sm, tiles, tw, scale);
+    return cudaGetLastError();
+  }
+};
 
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t shm) {
@@ -315,12 +455,31 @@ int dfft_fft_encode(const void* x, void* y, void* scratch, void* q,
 
 // Decode q [lead, n, cols, 2] (codec 0 bf16, 1 int8, 2 int16; `side` the
 // [tiles, 2] f32 steps, unused for bf16) and DFT the middle axis into y
-// [lead, n, cols] c64, scaled by `scale`. scratch == nullptr: sequences
-// in shared memory; otherwise a c64 scratch of y's size.
-int dfft_decode_fft(const void* q, const void* side, void* y, void* scratch,
-                    long long lead, long long cols, int n1, int n2, int seqs,
-                    int tiles, int codec, const void* w1, const void* tw,
-                    const void* w2, float scale, void* stream) {
+// [lead, n, cols] c64, scaled by `scale`: the radix route, n with the
+// stage radices radices[0..stages-1] (host memory) and the stage twiddles
+// tw (device memory), as dfft_fft_strided takes them.
+int dfft_decode_fft(const void* q, const void* side, void* y, long long lead,
+                    long long cols, int n, int stages, const int* radices,
+                    int tiles, int codec, int forward, const void* tw,
+                    float scale, void* stream) {
+  if (!radix::valid_stages(stages) || codec < 0 || codec > 2 || tiles < 1 ||
+      n % tiles != 0)
+    return (int)cudaErrorInvalidValue;
+  DecodePass pass(radix::make_plan(n, stages, radices), forward != 0, codec,
+                  cols, tiles);
+  if (pass.err != cudaSuccess) return (int)pass.err;
+  return (int)pass(q, (const float*)side, (float2*)y, lead, cols,
+                   (const float2*)tw, scale, (cudaStream_t)stream);
+}
+
+// The same by the direct route: n = n1*n2, LUTs w1, tw, w2, `seqs`
+// columns per block. scratch == nullptr: sequences in shared memory;
+// otherwise a c64 scratch of y's size.
+int dfft_decode_fft_direct(const void* q, const void* side, void* y,
+                           void* scratch, long long lead, long long cols,
+                           int n1, int n2, int seqs, int tiles, int codec,
+                           const void* w1, const void* tw, const void* w2,
+                           float scale, void* stream) {
   const int n = n1 * n2;
   const long long blocks = lead * ((cols + seqs - 1) / seqs);
   const cudaStream_t st = (cudaStream_t)stream;

@@ -1,6 +1,8 @@
-// Radix-FFT device code of the row and plane kernels (four_step.cu:
-// dfft_fft_rows, dfft_fft_plane): mixed-radix Stockham stages on whole
-// sequences held in shared memory, butterflies in registers.
+// Radix-FFT device code of the row, strided and plane kernels
+// (four_step.cu: dfft_fft_rows, dfft_fft_strided, dfft_fft_plane) and of
+// the fused decode kernel (fuse.cu: dfft_decode_fft): mixed-radix
+// Stockham stages on whole sequences held in shared memory, butterflies
+// in registers; and the host-side set-up of such a pass.
 //
 // The plan comes from the host (ops/radix.py): the stage radices, each a
 // factor of n in {2, 3, 4, 5, 7, 8, 11, 13, 16, 17}, and the stage
@@ -18,7 +20,9 @@
 // columns). A group's input lands in shared memory by 16-byte cp.async
 // copies (rows: one contiguous range; columns: 64-128-byte row segments)
 // while the block still runs the later stages of the group before. The
-// first stage reads the landed copy; the stages exchange through two
+// first stage reads the landed copy through the kernel's reader (the
+// decode kernel lands raw wire bytes and unpacks each value there); the
+// stages exchange through two
 // ping-pong buffers, rows padded by one element in 16 (s*ld + i + i/16)
 // to spread the strided writes of the early stages over the banks,
 // columns at i*C + s, conflict-free as they are; the last stage writes
@@ -29,6 +33,10 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <mutex>
+#include <vector>
 
 namespace radix {
 
@@ -262,40 +270,48 @@ __host__ __device__ __forceinline__ int padded_ld(int n) {
   return ld + (ld & 1);
 }
 
-// Where element i of a sequence lives, from the sequence's base: G (the
-// landed copy, or device memory) rows at i, columns at i*gstride; the
-// exchange buffers rows at i + i/16 (padded), columns at i*sstride.
-template <bool G, bool COL>
-__device__ __forceinline__ int at(int i, int gstride, int sstride) {
-  if (COL) return i * (G ? gstride : sstride);
-  return G ? i : i + (i >> 4);
+// Where element i of a sequence sits in the exchange buffers, from the
+// sequence's base: rows at i + i/16 (padded), columns at i*sstride.
+template <bool COL>
+__device__ __forceinline__ int sat(int i, int sstride) {
+  return COL ? i * sstride : i + (i >> 4);
 }
 
-// One Stockham stage of radix R on one sequence: in -> out (its bases).
-// IN_G: the first stage, reading the landed copy of its input (rows at
-// i, columns at i*istride; ns = 1, no twiddles); OUT_G: the last,
-// writing device memory (rows at i, columns at i*ostride) times `scale`.
-template <int R, bool FWD, bool IN_G, bool OUT_G, bool COL>
-__device__ void stage(const float2* __restrict__ in, float2* __restrict__ out,
-                      int istride, int ostride, int sstride, int n, int ns,
-                      int t, int step, const float2* tw, float scale) {
+// One Stockham stage of radix R on one sequence. FIRST: the first stage
+// (ns = 1, no twiddles), reading element i as src(i) from the group's
+// landed copy; otherwise src is the exchange buffer at the sequence's
+// base. LAST: the last stage, writing device memory at out (rows at i,
+// columns at i*ostride) times `scale`; otherwise out is the exchange
+// buffer.
+template <int R, bool FWD, bool FIRST, bool LAST, bool COL, typename Src>
+__device__ void stage(Src src, float2* __restrict__ out, long long ostride,
+                      int sstride, int n, int ns, int t, int step,
+                      const float2* tw, float scale) {
   const int q = n / R;
   for (int j = t; j < q; j += step) {
-    const int p = IN_G ? 0 : j % ns;
+    const int p = FIRST ? 0 : j % ns;
     float2 v[R];
 #pragma unroll
-    for (int m = 0; m < R; ++m)
-      v[m] = in[at<IN_G, COL>(j + m * q, istride, sstride)];
-    if constexpr (!IN_G) {
+    for (int m = 0; m < R; ++m) {
+      if constexpr (FIRST)
+        v[m] = src(j + m * q);
+      else
+        v[m] = src[sat<COL>(j + m * q, sstride)];
+    }
+    if constexpr (!FIRST) {
 #pragma unroll
       for (int m = 1; m < R; ++m) v[m] = cmul(v[m], tw[(m - 1) * ns + p]);
     }
     butterfly<R, FWD>(v);
     const int base = (j - p) * R + p;
 #pragma unroll
-    for (int k = 0; k < R; ++k)
-      out[at<OUT_G, COL>(base + k * ns, ostride, sstride)] =
-          OUT_G ? scl(v[k], scale) : v[k];
+    for (int k = 0; k < R; ++k) {
+      const int i = base + k * ns;
+      if constexpr (LAST)
+        out[COL ? i * ostride : i] = scl(v[k], scale);
+      else
+        out[sat<COL>(i, sstride)] = v[k];
+    }
   }
 }
 
@@ -314,13 +330,13 @@ __device__ __forceinline__ Lane lane(int seqs) {
 
 // The stage of radix r. Radices above MAXR are not compiled in (MAXR = 8
 // keeps the registers of plans of small radices few).
-template <bool FWD, bool IN_G, bool OUT_G, bool COL, int MAXR>
-__device__ __forceinline__ void stage_r(int r, const float2* in, float2* out,
-                                        int istride, int ostride, int sstride,
-                                        int n, int ns, Lane ln,
-                                        const float2* tw, float scale) {
-#define DFFT_STAGE(R)                                                      \
-  stage<R, FWD, IN_G, OUT_G, COL>(in, out, istride, ostride, sstride, n, ns, \
+template <bool FWD, bool FIRST, bool LAST, bool COL, int MAXR, typename Src>
+__device__ __forceinline__ void stage_r(int r, Src src, float2* out,
+                                        long long ostride, int sstride, int n,
+                                        int ns, Lane ln, const float2* tw,
+                                        float scale) {
+#define DFFT_STAGE(R)                                                 \
+  stage<R, FWD, FIRST, LAST, COL>(src, out, ostride, sstride, n, ns, \
                                   ln.t, ln.step, tw, scale)
   switch (r) {
     case 2: DFFT_STAGE(2); break;
@@ -344,30 +360,30 @@ __device__ __forceinline__ void stage_r(int r, const float2* in, float2* out,
 #undef DFFT_STAGE
 }
 
-// Every stage of the plan on the group whose copy sits in p: the first
-// stage reads p, the last writes the thread's sequence at dst in device
-// memory (columns at i*ostride; times `scale`), the stages between
-// exchange through a and b. `after_first` runs once p is free again.
-// Must be called by every thread of the block; ends with __syncthreads.
-template <bool FWD, bool COL, int MAXR, typename After>
-__device__ void run_stages(const float2* p, float2* dst, int ostride, bool on,
-                           Lane ln, int seqs, const Plan& plan, float2* a,
-                           float2* b, const float2* tw, float scale,
+// Every stage of the plan on the thread's sequence of the group: the
+// first stage reads element i as first(i) (from the landed copy), the
+// last writes the sequence at dst in device memory (columns at
+// i*ostride; times `scale`), the stages between exchange through a and
+// b. `after_first` runs once the landed copy is free again. Must be
+// called by every thread of the block; ends with __syncthreads.
+template <bool FWD, bool COL, int MAXR, typename First, typename After>
+__device__ void run_stages(First first, float2* dst, long long ostride,
+                           bool on, Lane ln, int seqs, const Plan& plan,
+                           float2* a, float2* b, const float2* tw, float scale,
                            After after_first) {
   const int n = plan.n, last = plan.stages - 1;
   const int off = COL ? ln.s : ln.s * padded_ld(n);
-  const int pin = COL ? ln.s : ln.s * n;
   if (on)
-    stage_r<FWD, true, false, COL, MAXR>(plan.radix[0], p + pin, a + off,
-                                         seqs, 0, seqs, n, 1, ln, tw, 1.0f);
+    stage_r<FWD, true, false, COL, MAXR>(plan.radix[0], first, a + off, 0,
+                                         seqs, n, 1, ln, tw, 1.0f);
   __syncthreads();
   after_first();
   int ns = plan.radix[0];
   for (int k = 1; k < last; ++k) {
     if (on)
-      stage_r<FWD, false, false, COL, MAXR>(plan.radix[k], a + off, b + off,
-                                            0, 0, seqs, n, ns, ln,
-                                            tw + (ns - 1), 1.0f);
+      stage_r<FWD, false, false, COL, MAXR>(
+          plan.radix[k], static_cast<const float2*>(a + off), b + off, 0, seqs,
+          n, ns, ln, tw + (ns - 1), 1.0f);
     __syncthreads();
     float2* swap = a;
     a = b;
@@ -375,9 +391,9 @@ __device__ void run_stages(const float2* p, float2* dst, int ostride, bool on,
     ns *= plan.radix[k];
   }
   if (on)
-    stage_r<FWD, false, true, COL, MAXR>(plan.radix[last], a + off, dst, 0,
-                                         ostride, seqs, n, ns, ln,
-                                         tw + (ns - 1), scale);
+    stage_r<FWD, false, true, COL, MAXR>(
+        plan.radix[last], static_cast<const float2*>(a + off), dst, ostride,
+        seqs, n, ns, ln, tw + (ns - 1), scale);
   __syncthreads();
 }
 
@@ -386,7 +402,7 @@ __device__ void run_stages(const float2* p, float2* dst, int ostride, bool on,
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
-// 16 and 8 bytes from device to shared memory without registers
+// 16, 8 and 4 bytes from device to shared memory without registers
 // (cp.async, sm_80+); they land after cp_async_wait.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
@@ -395,6 +411,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 }
 __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src));
 }
@@ -430,43 +451,85 @@ __device__ __forceinline__ void load_tile(float2* dst, const float2* src,
     const int pairs = cols / 2;
     for (int it = threadIdx.x; it < rows * pairs; it += blockDim.x) {
       const int i = it / pairs, h = it - i * pairs;
-      cp_async16(dst + i * cols + 2 * h, src + i * ld + 2 * h);
+      cp_async16(dst + i * cols + 2 * h, src + (long long)i * ld + 2 * h);
     }
   } else {
     for (int it = threadIdx.x; it < rows * cnt; it += blockDim.x) {
       const int i = it / cnt, s = it - i * cnt;
-      cp_async8(dst + i * cols + s, src + i * ld + s);
+      cp_async8(dst + i * cols + s, src + (long long)i * ld + s);
     }
   }
 }
 
+// Shared-memory bytes per landed row of a wire tile whose full row
+// segment is `bytes` long: the segment itself when it lands by 16-byte
+// copies (`fast`), else the 4-byte-aligned span that covers it wherever
+// it starts (a 2-byte int8 pair may start at 2 mod 4).
+__host__ __device__ __forceinline__ int wire_ld(int bytes, bool fast) {
+  return fast ? bytes : ((bytes + 3) & ~3) + 4;
+}
+
+// Start copying a wire tile, `rows` row segments of `cnt` bytes (a full
+// one is `bytes` long) `ld` bytes apart in device memory, into shared
+// memory at i*wire_ld(bytes, fast). fast: 16-byte copies of whole, 16-byte
+// aligned segments. Otherwise 4-byte copies of each segment's covering
+// span, the segment then starting at (src + i*ld) & 3 within its row:
+// cp.async copies 4, 8 or 16 bytes, never the 2 of an int8 pair, and
+// every word it reads holds a byte of the tile.
+__device__ __forceinline__ void load_wire_tile(char* dst, const char* src,
+                                               int rows, int cnt, int bytes,
+                                               long long ld, bool fast) {
+  if (fast) {
+    const int chunks = bytes / 16;
+    for (int it = threadIdx.x; it < rows * chunks; it += blockDim.x) {
+      const int i = it / chunks, h = it - i * chunks;
+      cp_async16(dst + i * bytes + 16 * h, src + i * ld + 16 * h);
+    }
+    return;
+  }
+  const int w = wire_ld(bytes, false), words = (cnt + 6) / 4;
+  for (int it = threadIdx.x; it < rows * words; it += blockDim.x) {
+    const int i = it / words, k = it - i * words;
+    const char* row = src + i * ld;
+    const int o = (int)(reinterpret_cast<size_t>(row) & 3);
+    if (4 * k < o + cnt) cp_async4(dst + i * w + 4 * k, row - o + 4 * k);
+  }
+}
+
 // ----------------------------------------------------------------- kernels
-// Shared memory: the landing buffer p, the exchange buffers a and b
-// (`buf` complex64 each; with nbuf = 2, b is p and nothing is
-// prefetched), then the n - 1 twiddles, copied once per block. Blocks
-// walk groups blockIdx.x, + gridDim.x, ...; with three buffers the copy
-// of a block's next group lands in p while it runs the later stages of
-// the current one.
+// Shared memory, in complex64: the landing buffer p (`pbuf`), the
+// exchange buffers a and b (`buf` each), then the n - 1 twiddles, copied
+// once per block, then whatever else a kernel keeps (the decode's steps).
+// With prefetch the copy of a block's next group lands in p while it runs
+// the later stages of the current one; without (when three buffers do
+// not fit), b is p and pbuf == buf. Blocks walk groups blockIdx.x, +
+// gridDim.x, ...
+
+struct Smem {
+  int pbuf, buf, prefetch;
+  __host__ __device__ int twiddles() const {
+    return pbuf + (prefetch ? 2 : 1) * buf;
+  }
+};
 
 __device__ __forceinline__ void load_twiddles(float2* dst, const float2* src,
                                               int n) {
   for (int i = threadIdx.x; i < n - 1; i += blockDim.x) dst[i] = src[i];
 }
 
-// The group loop of both kernels: load(g, p) starts the copy of group g
-// into p, run(g, p, a, b, after_first) transforms and stores it.
+// The group loop of every radix kernel: load(g, p) starts the copy of
+// group g into p, run(g, p, a, b, after_first) transforms and stores it.
 template <typename Load, typename Run>
-__device__ __forceinline__ void group_loop(float2* smem, int buf, int nbuf,
+__device__ __forceinline__ void group_loop(float2* smem, Smem sm,
                                            long long groups, Load load,
                                            Run run) {
   float2* p = smem;
-  float2* a = smem + buf;
-  float2* b = nbuf == 3 ? a + buf : p;
-  const bool prefetch = nbuf == 3;
+  float2* a = smem + sm.pbuf;
+  float2* b = sm.prefetch ? a + sm.buf : p;
   long long g = blockIdx.x;
-  if (prefetch && g < groups) load(g, p);
+  if (sm.prefetch && g < groups) load(g, p);
   for (; g < groups; g += gridDim.x) {
-    if (!prefetch) {
+    if (!sm.prefetch) {
       __syncthreads();
       load(g, p);
     }
@@ -474,7 +537,7 @@ __device__ __forceinline__ void group_loop(float2* smem, int buf, int nbuf,
     __syncthreads();
     const long long next = g + gridDim.x;
     run(g, p, a, b, [&] {
-      if (prefetch && next < groups) load(next, p);
+      if (sm.prefetch && next < groups) load(next, p);
     });
   }
 }
@@ -483,10 +546,10 @@ __device__ __forceinline__ void group_loop(float2* smem, int buf, int nbuf,
 template <bool FWD, int MAXR>
 __global__ void __launch_bounds__(kThreads)
 rows_kernel(const float2* x, float2* y, long long batch, Plan plan, int seqs,
-            int buf, int nbuf, const float2* twg, float scale) {
+            Smem sm, const float2* twg, float scale) {
   extern __shared__ float4 radix_smem[];
   float2* smem = reinterpret_cast<float2*>(radix_smem);
-  float2* tw = smem + nbuf * buf;
+  float2* tw = smem + sm.twiddles();
   const int n = plan.n;
   load_twiddles(tw, twg, n);
   const Lane ln = lane<false>(seqs);
@@ -495,51 +558,234 @@ rows_kernel(const float2* x, float2* y, long long batch, Plan plan, int seqs,
     return (int)(batch - g * seqs < seqs ? batch - g * seqs : seqs);
   };
   group_loop(
-      smem, buf, nbuf, groups,
+      smem, sm, groups,
       [&](long long g, float2* dst) {
         load_range(dst, x + g * seqs * n, count(g) * n);
       },
       [&](long long g, float2* p, float2* a, float2* b, auto after) {
         const long long row = g * seqs + ln.s;
-        run_stages<FWD, false, MAXR>(p, y + row * n, 1, row < batch, ln, seqs,
+        const float2* in = p + ln.s * n;
+        run_stages<FWD, false, MAXR>([=](int i) { return in[i]; },
+                                     y + row * n, 1, row < batch, ln, seqs,
                                      plan, a, b, tw, scale, after);
       });
 }
 
-// y[b, :, c] = DFT(y[b, :, c]) * scale in place over [planes, n, nz]:
-// the transform over the middle axis, `cols` neighbouring columns per
-// group.
+// y[l, :, c] = DFT(x[l, :, c]) * scale over [lead, n, nz]: the transform
+// over the middle axis, `cols` neighbouring columns per group. y may be
+// x (each group reads and writes only its own tile).
 template <bool FWD, int MAXR>
 __global__ void __launch_bounds__(kThreads)
-cols_kernel(float2* y, long long planes, int nz, Plan plan, int cols,
-            int buf, int nbuf, const float2* twg, float scale) {
+cols_kernel(const float2* x, float2* y, long long lead, long long nz,
+            Plan plan, int cols, Smem sm, const float2* twg, float scale) {
   extern __shared__ float4 radix_smem[];
   float2* smem = reinterpret_cast<float2*>(radix_smem);
-  float2* tw = smem + nbuf * buf;
+  float2* tw = smem + sm.twiddles();
   const int n = plan.n;
   load_twiddles(tw, twg, n);
   const Lane ln = lane<true>(cols);
-  const int tiles = (nz + cols - 1) / cols;
-  const long long groups = planes * tiles;
+  const long long tiles = (nz + cols - 1) / cols;
+  const long long groups = lead * tiles;
+  // offset of the group's first element; cnt: its columns
   auto where = [&](long long g, int* cnt) {
-    const long long pl = g / tiles;
-    const int c0 = (int)(g - pl * tiles) * cols;
-    *cnt = nz - c0 < cols ? nz - c0 : cols;
-    return y + pl * n * nz + c0;
+    const long long l = g / tiles, c0 = (g - l * tiles) * cols;
+    *cnt = (int)(nz - c0 < cols ? nz - c0 : cols);
+    return l * n * nz + c0;
   };
   group_loop(
-      smem, buf, nbuf, groups,
+      smem, sm, groups,
       [&](long long g, float2* dst) {
         int cnt;
-        const float2* src = where(g, &cnt);
-        load_tile(dst, src, n, cnt, cols, nz);
+        const long long e0 = where(g, &cnt);
+        load_tile(dst, x + e0, n, cnt, cols, nz);
       },
       [&](long long g, float2* p, float2* a, float2* b, auto after) {
         int cnt;
-        float2* base = where(g, &cnt);
-        run_stages<FWD, true, MAXR>(p, base + ln.s, nz, ln.s < cnt, ln, cols,
+        const long long e0 = where(g, &cnt);
+        const float2* in = p + ln.s;
+        run_stages<FWD, true, MAXR>([=](int i) { return in[i * cols]; },
+                                    y + e0 + ln.s, nz, ln.s < cnt, ln, cols,
                                     plan, a, b, tw, scale, after);
       });
 }
+
+// ------------------------------------------------------------- host side
+// The set-up of a radix pass, shared by the launchers of four_step.cu and
+// fuse.cu.
+
+// Shared memory a radix block may take: two row blocks of 512 threads,
+// or one column block of 16 columns of 512 points, fit one SM. A
+// sequence longer than that allows runs one per block (up to the 227 KB
+// maximum, n = 8192), without prefetch when three buffers do not fit.
+constexpr size_t kRadixSmem = 200 * 1024;
+constexpr size_t kMaxSmem = 227 * 1024;
+
+inline Plan make_plan(int n, int stages, const int* radices) {
+  Plan p{};
+  p.n = n;
+  p.stages = stages;
+  for (int k = 0; k < stages && k < kMaxStages; ++k) p.radix[k] = radices[k];
+  return p;
+}
+
+inline bool valid_stages(int stages) {
+  return stages >= 2 && stages <= kMaxStages;
+}
+
+inline int max_radix(const Plan& p) {
+  int r = 2;
+  for (int k = 0; k < p.stages; ++k) r = std::max(r, p.radix[k]);
+  return r;
+}
+
+// Bytes of the layout sm for length n: buffers, twiddles and `extra`.
+inline size_t smem_bytes(int n, const Smem& sm, size_t extra) {
+  return ((size_t)sm.twiddles() + (n - 1)) * sizeof(float2) + extra;
+}
+
+// The layout with a landing buffer of `land` complex64 and prefetch, or,
+// when that does not fit the card, without prefetch.
+inline Smem layout(int n, int buf, int land, size_t extra) {
+  const Smem pre{land, buf, 1};
+  if (smem_bytes(n, pre, extra) <= kMaxSmem) return pre;
+  return Smem{buf, buf, 0};
+}
+
+// Rows per group: enough that the widest stage gives every thread a
+// butterfly, as far as kRadixSmem allows with prefetch.
+inline int rows_per_group(const Plan& p) {
+  int seqs = 1;
+  while ((long long)seqs * p.n < (long long)kThreads * max_radix(p)) seqs *= 2;
+  while (seqs > 1) {
+    const int buf = seqs * padded_ld(p.n);
+    if (smem_bytes(p.n, Smem{buf, buf, 1}, 0) <= kRadixSmem) break;
+    seqs /= 2;
+  }
+  return seqs;
+}
+
+// Columns per group: 16 (128-byte row segments of complex64) down to 1,
+// no more than the next power of two of `nz` (a narrow array leaves no
+// lane idle), and the most that fit kRadixSmem with prefetch. land(c):
+// the complex64 the landing copy of c columns takes.
+template <typename Land>
+int cols_per_group(int n, long long nz, Land land) {
+  int c = 16;
+  while (c > 1 && c / 2 >= nz) c /= 2;
+  while (c > 1 && smem_bytes(n, Smem{land(c), n * c, 1}, 0) > kRadixSmem)
+    c /= 2;
+  return c;
+}
+
+// Resident blocks of a persistent launch with `shm` bytes of shared
+// memory: as many as fit the card at once. Found once per (device,
+// kernel, shm) and kept, so that a call costs the host only its launch.
+// Every kernel's shared-memory limit is raised to the card's maximum
+// (one value for every shm, so no later call lowers it under an earlier
+// one's need).
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, size_t shm, long long* blocks) {
+  struct Entry {
+    int dev;
+    const void* kernel;
+    size_t shm;
+    long long blocks;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> known;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& k : known)
+    if (k.dev == dev && k.kernel == (const void*)kernel && k.shm == shm) {
+      *blocks = k.blocks;
+      return cudaSuccess;
+    }
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)kMaxSmem);
+  if (e != cudaSuccess) return e;
+  int sms = 0, per_sm = 0;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreads, shm)) != cudaSuccess)
+    return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = (long long)per_sm * sms;
+  known.push_back(Entry{dev, (const void*)kernel, shm, *blocks});
+  return cudaSuccess;
+}
+
+// One radix pass, set up once and launched per call: its group size
+// (rows or columns), shared-memory layout, kernel (by whether any radix
+// is over 8) and resident blocks. buf: complex64 of each exchange buffer;
+// land: of the landing buffer with prefetch; extra: bytes after the
+// twiddles.
+template <typename Kernel>
+struct Pass {
+  Plan plan;
+  int group;
+  Smem sm;
+  size_t shm;
+  Kernel kernel;
+  long long cap = 0;
+  cudaError_t err;
+
+  Pass(const Plan& p, int group_, int buf, int land, size_t extra, Kernel k8,
+       Kernel k17)
+      : plan(p), group(group_), sm(layout(p.n, buf, land, extra)),
+        shm(smem_bytes(p.n, sm, extra)),
+        kernel(max_radix(p) <= 8 ? k8 : k17) {
+    err = resident_blocks(kernel, shm, &cap);
+  }
+
+  long long blocks(long long groups) const { return std::min(cap, groups); }
+};
+
+using RowsKernel = void (*)(const float2*, float2*, long long, Plan, int,
+                            Smem, const float2*, float);
+using ColsKernel = void (*)(const float2*, float2*, long long, long long,
+                            Plan, int, Smem, const float2*, float);
+
+// The rows pass over [batch, n].
+struct RowsPass : Pass<RowsKernel> {
+  RowsPass(const Plan& p, bool fwd)
+      : Pass(p, rows_per_group(p), rows_per_group(p) * padded_ld(p.n),
+             rows_per_group(p) * padded_ld(p.n), 0,
+             fwd ? rows_kernel<true, 8> : rows_kernel<false, 8>,
+             fwd ? rows_kernel<true, 17> : rows_kernel<false, 17>) {}
+  cudaError_t operator()(const float2* x, float2* y, long long batch,
+                         const float2* tw, float scale, cudaStream_t st) {
+    const long long b = blocks((batch + group - 1) / group);
+    if (b > 0)
+      kernel<<<(unsigned)b, kThreads, shm, st>>>(x, y, batch, plan, group, sm,
+                                                 tw, scale);
+    return cudaGetLastError();
+  }
+};
+
+inline int c64_cols(int n, long long nz) {
+  return cols_per_group(n, nz, [n](int c) { return n * c; });
+}
+
+// The columns pass over [lead, n, nz], x -> y (y may be x).
+struct ColsPass : Pass<ColsKernel> {
+  ColsPass(const Plan& p, bool fwd, long long nz)
+      : Pass(p, c64_cols(p.n, nz), p.n * c64_cols(p.n, nz),
+             p.n * c64_cols(p.n, nz), 0,
+             fwd ? cols_kernel<true, 8> : cols_kernel<false, 8>,
+             fwd ? cols_kernel<true, 17> : cols_kernel<false, 17>) {}
+  cudaError_t operator()(const float2* x, float2* y, long long lead,
+                         long long nz, const float2* tw, float scale,
+                         cudaStream_t st) {
+    const long long b = blocks(lead * ((nz + group - 1) / group));
+    if (b > 0)
+      kernel<<<(unsigned)b, kThreads, shm, st>>>(x, y, lead, nz, plan, group,
+                                                 sm, tw, scale);
+    return cudaGetLastError();
+  }
+};
 
 }  // namespace radix

@@ -95,19 +95,24 @@ def _declare(lib: ctypes.CDLL) -> None:
     ip = ctypes.POINTER(ctypes.c_int)
     lib.dfft_fft_rows.argtypes = [p, p, ll, i, i, ip, i, p, f, p]
     lib.dfft_fft_rows_direct.argtypes = [p, p, p, ll, i, i, i, p, p, p, f, p]
-    lib.dfft_fft_strided.argtypes = [p, p, p, ll, ll, i, i, i, p, p, p, f, p]
+    lib.dfft_fft_strided.argtypes = [p, p, ll, ll, i, i, ip, i, p, f, p]
+    lib.dfft_fft_strided_direct.argtypes = [p, p, p, ll, ll, i, i, i, p, p,
+                                            p, f, p]
     lib.dfft_fft_plane.argtypes = [p, p, ll, i, i, ip, i, i, ip, i, p, p, ll,
                                    f, p]
     lib.dfft_fft_plane_direct.argtypes = ([p, p, p, ll] + [i] * 8 + [p] * 6
                                           + [f, p])
     lib.dfft_fft_encode.argtypes = ([p] * 6 + [ll, ll] + [i] * 5
                                     + [f, p, p, p, f, p])
-    lib.dfft_decode_fft.argtypes = ([p] * 4 + [ll, ll] + [i] * 5
-                                    + [p, p, p, f, p])
+    lib.dfft_decode_fft.argtypes = [p, p, p, ll, ll, i, i, ip, i, i, i, p,
+                                    f, p]
+    lib.dfft_decode_fft_direct.argtypes = ([p] * 4 + [ll, ll] + [i] * 5
+                                           + [p, p, p, f, p])
     for fn in (lib.dfft_fft_rows, lib.dfft_fft_rows_direct,
-               lib.dfft_fft_strided, lib.dfft_fft_plane,
-               lib.dfft_fft_plane_direct, lib.dfft_fft_encode,
-               lib.dfft_decode_fft):
+               lib.dfft_fft_strided, lib.dfft_fft_strided_direct,
+               lib.dfft_fft_plane, lib.dfft_fft_plane_direct,
+               lib.dfft_fft_encode, lib.dfft_decode_fft,
+               lib.dfft_decode_fft_direct):
         fn.restype = ctypes.c_int
 
 

@@ -11,13 +11,13 @@ kernels become the CUDA launchers of ``csrc/four_step.cu``:
   package's ``vmap`` over middle axes;
 - :func:`fft_last` (``_make_kernel``): DFT over the rows of [batch, n].
 
-Two routes (:func:`route`). ``fft_last`` and ``fft2_last`` take the
-radix route (``csrc/radix.cuh``, plan and twiddles from
+Two routes (:func:`route`), chosen by the length alone. Every kernel
+takes the radix route (``csrc/radix.cuh``, plan and twiddles from
 :mod:`.radix`) for every length n <= 8192 whose prime factors are all
 <= 17, the plane only when both its axes do; every other eligible
-length, and ``fft_axis0`` always, takes the direct route: the four-step
-sums, whose split n = n1*n2 (both factors <= 256) and float64-built LUTs
-are the JAX package's, bit for bit.
+length takes the direct route: the four-step sums, whose split n =
+n1*n2 (both factors <= 256) and float64-built LUTs are the JAX
+package's, bit for bit.
 
 Each wrapper takes complex64, contiguous tensors. On a CPU tensor it runs
 the plain version of the route the card would take (``*_plain``: the
@@ -175,7 +175,7 @@ def fft_last_plain(x: torch.Tensor, forward: bool = True) -> torch.Tensor:
 
 def fft_axis0_plain(x: torch.Tensor, forward: bool = True) -> torch.Tensor:
     lead, n, cols = x.shape
-    y = four_step_plain(x.transpose(1, 2).reshape(-1, n), n, forward)
+    y = _rows_plain(x.transpose(1, 2).reshape(-1, n), n, forward, route(n))
     y = y.reshape(lead, cols, n).transpose(1, 2).contiguous()
     return y if forward else y * (1.0 / n)
 
@@ -277,16 +277,22 @@ def fft_axis0(x: torch.Tensor, forward: bool = True) -> torch.Tensor:
     if x.device.type == "cpu":
         return fft_axis0_plain(x, forward)
     lead, n, cols = x.shape
-    n1, n2 = split_for(n)
-    seqs, smem = _block_seqs(n, 16, 32)
     y = torch.empty_like(x)
-    scratch = None if smem else torch.empty_like(x)
     scale = 1.0 if forward else 1.0 / n
-    _launch("dfft_fft_strided", x, x.data_ptr(), y.data_ptr(),
-            _ptr(scratch), lead, cols, n1, n2, seqs,
-            *_luts(n, forward, x.device), scale)
+    how = route(n)
+    if how == "radix":
+        tw = radix.device_twiddles(n, forward, x.device)
+        _launch("dfft_fft_strided", x, x.data_ptr(), y.data_ptr(), lead,
+                cols, n, *_radices(n), int(forward), tw.data_ptr(), scale)
+    else:
+        n1, n2 = split_for(n)
+        seqs, smem = _block_seqs(n, 16, 32)
+        scratch = None if smem else torch.empty_like(x)
+        _launch("dfft_fft_strided_direct", x, x.data_ptr(), y.data_ptr(),
+                _ptr(scratch), lead, cols, n1, n2, seqs,
+                *_luts(n, forward, x.device), scale)
     fft_axis0.launches += 1
-    ROUTES[("fft_axis0", "direct")] += 1
+    ROUTES[("fft_axis0", how)] += 1
     return y
 
 

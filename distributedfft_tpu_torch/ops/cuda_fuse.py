@@ -7,7 +7,10 @@ mega-kernels become the CUDA launchers of ``csrc/fuse.cu``:
   axis, then the wire encode of the result (bf16 cast, or per-(tile,
   plane) pow2 quantization into int8/int16 with an f32 sidecar);
 - :func:`fused_decode_fft` (``_make_decode_kernel``): the exact wire
-  decode, then the DFT along one axis (inverse scaled 1/n).
+  decode, then the DFT along one axis (inverse scaled 1/n). It takes the
+  route :func:`.cuda_fft.fft_axis0` takes for the same length (radix or
+  direct, counted in :data:`.cuda_fft.ROUTES` under ``decode_fft``), so
+  on the card it equals ``fft_axis0`` of the decoded wire.
 
 Both return what the JAX functions return: the encode gives the tuple
 of wire parts, payload first, exactly shaped as
@@ -15,9 +18,10 @@ of wire parts, payload first, exactly shaped as
 array. A site the kernels do not take (:func:`kernel_ineligible`) runs
 the unfused executor and codec, as the JAX package's mirror does, and is
 counted in :data:`FUSION_FALLBACKS` by (site, reason). Otherwise a CPU
-tensor runs the plain version (``*_plain``: the plain four-step DFT
-followed by the plain codec) and a CUDA tensor launches the kernel or
-raises. Each function counts its launches in ``<function>.launches``.
+tensor runs the plain version (``*_plain``: the codec and
+:func:`.cuda_fft.fft_axis0_plain`, which follows the length's route) and
+a CUDA tensor launches the kernel or raises. Each function counts its
+launches in ``<function>.launches``.
 
 One gate of the JAX package is not carried over: ``vmem``. The TPU
 kernel holds the whole block in VMEM for one grid step, since the
@@ -36,8 +40,9 @@ from collections import Counter
 import torch
 
 from ..parallel.exchange import wire_codec
-from . import cuda_fft
-from .cuda_fft import _block_seqs, _launch, _luts, _ptr, eligible, split_for
+from . import cuda_fft, radix
+from .cuda_fft import (_block_seqs, _launch, _luts, _ptr, _radices, eligible,
+                       split_for)
 
 #: Quantized codecs the kernels pack: name -> (signed levels, mantissa
 #: dtype, codec id of the C interface). ``bf16`` is the cast-only codec.
@@ -99,7 +104,8 @@ def _sidecar_shape(ndim: int, axis: int, tiles: int) -> list[int]:
 def fused_fft_encode_plain(x: torch.Tensor, *, fft_axis: int, forward: bool,
                            tile_axis: int, tiles: int,
                            wire_dtype: str) -> tuple:
-    """The plain four-step DFT along ``fft_axis``, then the plain codec."""
+    """The plain DFT along ``fft_axis`` (``fft_axis0_plain``), then the
+    plain codec."""
     lead, n, cols = _strided(x.shape, fft_axis)
     y = cuda_fft.fft_axis0_plain(x.reshape(lead, n, cols).contiguous(),
                                  forward).reshape(x.shape)
@@ -109,7 +115,7 @@ def fused_fft_encode_plain(x: torch.Tensor, *, fft_axis: int, forward: bool,
 def fused_decode_fft_plain(parts: tuple, dtype, *, fft_axis: int,
                            forward: bool, tile_axis: int, tiles: int,
                            wire_dtype: str) -> torch.Tensor:
-    """The plain codec decode, then the plain four-step DFT."""
+    """The plain codec decode, then the plain DFT (``fft_axis0_plain``)."""
     y = wire_codec(wire_dtype).decode(parts, dtype, tile_axis=tile_axis,
                                       tiles=tiles)
     lead, n, cols = _strided(y.shape, fft_axis)
@@ -201,15 +207,23 @@ def fused_decode_fft(parts: tuple, dtype, *, fft_axis: int, forward: bool,
             f"{payload.dtype}")
     lead, n, cols = _strided(shape, fft_axis)
     q = payload.contiguous()
-    n1, n2 = split_for(n)
-    seqs, smem = _block_seqs(n, 16, 32)
     y = torch.empty(shape, dtype=torch.complex64, device=payload.device)
-    scratch = None if smem else torch.empty_like(y)
     scale = 1.0 if forward else 1.0 / n
-    _launch("dfft_decode_fft", payload, q.data_ptr(), _ptr(side),
-            y.data_ptr(), _ptr(scratch), lead, cols, n1, n2, seqs, tiles,
-            code, *_luts(n, forward, payload.device), scale)
+    how = cuda_fft.route(n)
+    if how == "radix":
+        tw = radix.device_twiddles(n, forward, payload.device)
+        _launch("dfft_decode_fft", payload, q.data_ptr(), _ptr(side),
+                y.data_ptr(), lead, cols, n, *_radices(n), tiles, code,
+                int(forward), tw.data_ptr(), scale)
+    else:
+        n1, n2 = split_for(n)
+        seqs, smem = _block_seqs(n, 16, 32)
+        scratch = None if smem else torch.empty_like(y)
+        _launch("dfft_decode_fft_direct", payload, q.data_ptr(), _ptr(side),
+                y.data_ptr(), _ptr(scratch), lead, cols, n1, n2, seqs, tiles,
+                code, *_luts(n, forward, payload.device), scale)
     fused_decode_fft.launches += 1
+    cuda_fft.ROUTES[("decode_fft", how)] += 1
     return y
 
 

@@ -1,5 +1,5 @@
-"""The radix route of the row and plane kernels: host plan, twiddle
-tables, and the plain PyTorch version of the route.
+"""The radix route of the row, strided, plane and fused decode kernels:
+host plan, twiddle tables, and the plain PyTorch version of the route.
 
 A length n whose prime factors are all <= 17 (and n <= 8192, so that a
 whole sequence and its tables fit one block's shared memory) is taken

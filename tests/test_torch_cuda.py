@@ -10,13 +10,14 @@ It holds each kernel against its plain PyTorch version on ragged
 batches and column counts (a block's tail), on odd lengths, and on
 lengths whose sequences do not fit a block's shared memory (the
 device-scratch route), plus the plans against the same plans on the CPU.
-The row and plane kernels are held on both their routes (radix: 256,
-510, 512, ...; direct: 76 = 4*19), with the route counted, on a plane
-batch the launcher's L2 chunks do not divide, and by the inverse's
-scale (a round trip).
+The row, strided and plane kernels are held on both their routes
+(radix: 256, 510, 512, ...; direct: 76 = 4*19, 1216 = 19*64, 16384),
+with the route counted, on a plane batch the launcher's L2 chunks do not
+divide, and by the inverse's scale (a round trip).
 The fused stage+codec kernels are held the same way for each codec, both
 directions, and a transform along axis 0, a middle axis and the last
-axis; the fused real plans against the unfused ones.
+axis (the decode on both routes, and against the strided kernel on the
+decoded wire); the fused real plans against the unfused ones.
 """
 
 import numpy as np
@@ -71,14 +72,34 @@ def test_fft_last_kernel_matches_plain(card, batch, n, forward):
 @pytest.mark.parametrize("forward", [True, False])
 @pytest.mark.parametrize("lead,n,cols", [(1, 64, 1), (3, 66, 37),
                                          (2, 510, 130), (1, 4096, 9),
-                                         (2, 8192, 33), (1, 65536, 3)])
+                                         (2, 8192, 33), (1, 65536, 3),
+                                         (3, 512, 257), (1, 512, 16),
+                                         (3, 1024, 7), (2, 1216, 9),
+                                         (1, 16384, 5)])
 def test_fft_axis0_kernel_matches_plain(card, lead, n, cols, forward):
+    """Both routes (radix: 64 ... 8192; direct: 1216 = 19*64, 16384,
+    65536), ragged column tiles and columns narrower than a group."""
     x = _c64(n + cols, (lead, n, cols), card)
     before = cuda_fft.fft_axis0.launches
+    how = cuda_fft.route(n)
+    routed = cuda_fft.ROUTES[("fft_axis0", how)]
     got = cuda_fft.fft_axis0(x, forward)
     torch.cuda.synchronize()
     assert cuda_fft.fft_axis0.launches == before + 1
+    assert cuda_fft.ROUTES[("fft_axis0", how)] == routed + 1
     assert _err(got, cuda_fft.fft_axis0_plain(x, forward)) < C64
+    ref = (torch.fft.fft if forward else torch.fft.ifft)(x, dim=1)
+    assert _err(got, ref) < C64
+
+
+def test_fft_axis0_runs_in_place_on_the_plane(card):
+    """The plane's Y pass is the strided kernel's column pass run in
+    place (x == y); its result is the out-of-place one's."""
+    x = _c64(5, (3, 510, 512), card)
+    want = cuda_fft.fft_axis0(cuda_fft.fft_last(x.reshape(-1, 512))
+                              .reshape(x.shape))
+    assert cuda_fft.route2d(510, 512) == "radix"
+    assert _rel_l2(cuda_fft.fft2_last(x), want) < 1e-6
 
 
 @pytest.mark.parametrize("forward", [True, False])
@@ -150,10 +171,10 @@ def test_plans_on_the_card_match_the_cpu(card, shape, p):
 # ------------------------------------------------ fused stage+codec kernels
 
 # (shape, axis, tiles): axis 0 (lead 1), a middle axis with ragged
-# columns, the last axis (cols 1), and sequences too long for a block's
-# shared memory (the device-scratch route).
+# columns, the last axis (cols 1), a long radix length (8192) and a
+# direct-route one (1216 = 19*64).
 FUSED_SITES = [((64, 37, 3), 0, 4), ((3, 66, 37), 1, 2), ((5, 7, 128), 2, 4),
-               ((2, 8192, 3), 1, 4)]
+               ((2, 8192, 3), 1, 4), ((2, 1216, 3), 1, 4)]
 LEVELS = {"bf16": None, "int8": 127, "split": 32767}
 
 
@@ -209,7 +230,7 @@ def test_fft_encode_kernel_matches_plain(card, codec, forward, shape, axis,
 def test_decode_fft_kernel_matches_plain(card, codec, forward, shape, axis,
                                          tiles):
     """The unpack is exact, so the kernel and the plain version agree to
-    fp32 rounding of the same four-step sums."""
+    fp32 rounding of the same transform, on the route of the length."""
     from distributedfft_tpu_torch.ops import cuda_fuse
     from distributedfft_tpu_torch.parallel.exchange import wire_codec
 
@@ -218,11 +239,40 @@ def test_decode_fft_kernel_matches_plain(card, codec, forward, shape, axis,
     kw = dict(fft_axis=axis, forward=forward, tile_axis=axis, tiles=tiles,
               wire_dtype=codec)
     before = cuda_fuse.fused_decode_fft.launches
+    how = cuda_fft.route(shape[axis])
+    routed = cuda_fft.ROUTES[("decode_fft", how)]
     got = cuda_fuse.fused_decode_fft(parts, torch.complex64, **kw)
     torch.cuda.synchronize()
     assert cuda_fuse.fused_decode_fft.launches == before + 1
+    assert cuda_fft.ROUTES[("decode_fft", how)] == routed + 1
     want = cuda_fuse.fused_decode_fft_plain(parts, torch.complex64, **kw)
     assert _err(got, want) < C64 and _rel_l2(got, want) < C64
+
+
+@pytest.mark.parametrize("codec", ["bf16", "int8", "split"])
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("lead,n,cols", [(2, 512, 16), (2, 512, 257),
+                                         (1, 510, 257), (3, 64, 7)])
+def test_fused_decode_equals_fft_axis0_of_the_decode(card, codec, forward,
+                                                      lead, n, cols):
+    """The radix decode kernel runs the strided kernel's stages on the
+    exactly unpacked wire, so it equals fft_axis0(decode(parts)) (within
+    1e-6 L2; the shared stage code makes them equal to the bit). 257
+    columns put every other int8 row segment at 2 mod 4 bytes."""
+    from distributedfft_tpu_torch.ops import cuda_fuse
+    from distributedfft_tpu_torch.parallel.exchange import wire_codec
+
+    shape = (lead, n, cols)
+    y = _c64(n + cols + lead, shape, card)
+    codec_ = wire_codec(codec)
+    parts = codec_.encode(y, tile_axis=1, tiles=2)
+    kw = dict(fft_axis=1, forward=forward, tile_axis=1, tiles=2,
+              wire_dtype=codec)
+    assert cuda_fft.route(n) == "radix"
+    got = cuda_fuse.fused_decode_fft(parts, torch.complex64, **kw)
+    want = cuda_fft.fft_axis0(
+        codec_.decode(parts, torch.complex64, tile_axis=1, tiles=2), forward)
+    assert _rel_l2(got, want) <= 1e-6
 
 
 @pytest.mark.parametrize("codec", ["bf16", "int8", "split"])
