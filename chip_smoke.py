@@ -22,6 +22,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and the codec's own bound against the exact transform; the decode
    also against the strided kernel on the decoded wire (relative L2 <=
    1e-6), timed beside a device copy and the unfused decode + torch.fft;
+   the encode also against the codec's encode of the strided kernel's
+   output (payload and sidecar bit for bit), timed beside a device copy
+   and that unfused sender;
 4. checks the port on a small uneven input against numpy's float64 fftn
    (single device and the 4-rank slab; the repo's seeded world data);
 5. drives the C2C main path: the single-device plan at 512^3 forward and
@@ -30,12 +33,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    round trip; every row, strided and plane kernel must have been
    launched in that run, by the radix route only;
 6. drives the compressed and real path at 512^3 on a loopback world of
-   4: the C2C plans with the split codec fused, the R2C/C2R plans exact
-   and with each codec fused and unfused, and the single-device R2C/C2R;
-   checked against torch.fft.fftn/rfftn/irfftn, the port's exact plan and
-   round trips; the fused sites must take the routes of the JAX package,
-   both fused kernels must have been launched in that run, and the row,
-   strided, plane and decode kernels by the radix route only;
+   4: the C2C plans with the split codec fused (and their unfused twins,
+   compared bit for bit and printed), the R2C/C2R plans exact and with
+   each codec fused and unfused, and the single-device R2C/C2R; checked
+   against torch.fft.fftn/rfftn/irfftn, the port's exact plan and round
+   trips; each codec's fused R2C/C2R outputs must equal the unfused
+   ones bit for bit, the fused sites must take the routes of the JAX
+   package, both fused kernels must have been launched in that run, and
+   the row, strided, plane, decode and encode kernels by the radix route
+   only;
 7. times the plans and their t0..t3 stages, prints one JSON line of the
    five kernels and, last, the device line.
 
@@ -153,6 +159,35 @@ def steady_ms(torch, fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def device_breakdown(torch, fn, reps=10) -> str:
+    """Device time per call of each kernel ``fn`` launches (torch.profiler
+    over ``reps`` calls), longest first; "not measured" when the trace
+    holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0)
+        name = ev.key.replace("(anonymous namespace)::", "").split("(")[0]
+        name = name.removeprefix("void ").strip()
+        if us and ev.count >= reps and not name.startswith(("aten::",
+                                                             "cuda")):
+            rows.append((us / reps, name[:60]))
+    if not rows:
+        return "not measured"
+    return "; ".join(f"{n} {us:.1f} us" for us, n in sorted(rows,
+                                                            reverse=True))
+
+
 def library_call(torch, name, fwd):
     """The torch.fft call that computes what kernel ``name`` does."""
     if name == "fft2_last":
@@ -249,13 +284,14 @@ def check_kernels(torch, cf, radix, timing, rates):
 
 # The wrappers with a radix route; every length of both paths (512, 510,
 # 256) is a radix length, so none of them may take the direct route.
-RADIX_WRAPPERS = ("fft_last", "fft2_last", "fft_axis0", "decode_fft")
+RADIX_WRAPPERS = ("fft_last", "fft2_last", "fft_axis0", "decode_fft",
+                  "fft_encode")
 
 
 def check_routes(cf, path, first, total):
     """Print the launches of each wrapper by route (``first``: the counts
     of the path's first part, the single device) and fail if a row,
-    strided, plane or decode kernel took the direct route."""
+    strided, plane, decode or encode kernel took the direct route."""
     rest = {k: v - first.get(k, 0) for k, v in total.items()}
     print(f"routes on {path} (wrapper, route): "
           + (f"single {first}; rest {rest}; " if first else "")
@@ -384,11 +420,24 @@ def check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates):
         if name == "fft_encode":
             kernel = lambda: cfu.fused_fft_encode(x, **kw)
             plain = lambda: cfu.fused_fft_encode_plain(x, **kw)
-            got, want = kernel(), plain()
+            # the unfused sender on the card: the strided kernel, then the
+            # codec; the radix encode runs the same column pass and packs
+            # or quantizes what it produces, so the two agree to the bit
+            unfused = lambda: cw.encode(cf.fft_along_axis(x, axis, fwd),
+                                        tile_axis=axis, tiles=FUSED_TILES)
+            got, want, twin = kernel(), plain(), unfused()
             torch.cuda.synchronize()
             if [(g.shape, g.dtype) for g in got] != [
-                    (w.shape, w.dtype) for w in want]:
+                    (w.shape, w.dtype) for w in want] or [
+                    (g.shape, g.dtype) for g in got] != [
+                    (t.shape, t.dtype) for t in twin]:
                 fail(f"{name} {label}: wire parts differ in shape or dtype")
+            apart_twin = [int((g != t).sum()) for g, t in zip(got, twin)]
+            if any(apart_twin):
+                fail(f"{name} {label}: differs from the codec's encode of "
+                     f"fft_axis0(x) in {apart_twin} values (payload, "
+                     f"sidecar)")
+            del twin
             if codec == "bf16":
                 # One level of bf16 at each value, plus the fp32 difference
                 # of the two transforms before the cast (~2e-7 of the
@@ -408,8 +457,18 @@ def check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates):
                 fail(f"{name} {label}: mantissas more than one level apart")
             got_y, want_y = dec(got), dec(want)
             err, l2, abs_err = rel_err(torch, got_y, want_y)
-            detail = (f"{side}; {off} of {got[0].numel()} mantissas one "
-                      f"level apart; decoded vs plain decoded")
+            out = torch.empty_like(x)
+            detail = (f"route={cf.route(shape[axis])}; vs codec(fft_axis0(x))"
+                      f": payload and sidecar bit-identical; steady_ms="
+                      f"{steady_ms(torch, kernel):.4f} copy_ms="
+                      f"{steady_ms(torch, lambda: out.copy_(x)):.4f} "
+                      f"unfused_ms="
+                      f"{timing.cuda_time_ms(unfused, iters=10):.4f}; device "
+                      f"time per call by kernel: "
+                      f"{device_breakdown(torch, kernel)}; vs "
+                      f"plain: {side}, {off} of {got[0].numel()} mantissas "
+                      f"one level apart; decoded vs plain decoded")
+            del out
             wire_rw = 8 + PAIR_BYTES[codec]
         else:
             parts = cw.encode(x, tile_axis=axis, tiles=FUSED_TILES)
@@ -499,6 +558,17 @@ def check_sites(plan, key, label):
         fail(f"{label}: fused sites {routes}, expected {[SITE_ROUTES[key]]}")
 
 
+def twin_report(torch, got, want) -> str:
+    """``bit-identical`` when every tensor of ``got`` equals its twin in
+    ``want``, else how many values of each differ and by how much."""
+    if all(torch.equal(g, w) for g, w in zip(got, want)):
+        return "bit-identical"
+    return "; ".join(
+        f"#{i}: {int((g != w).sum())} of {g.numel()} values differ, max abs "
+        f"diff {float((g - w).abs().max()):.3e}"
+        for i, (g, w) in enumerate(zip(got, want)))
+
+
 def check_fused_plans(torch, dfft, world, n=512):
     """Phase 6: the compressed and real plans at n^3. Returns the plans
     the timing phase times."""
@@ -512,9 +582,9 @@ def check_fused_plans(torch, dfft, world, n=512):
     bwd = dfft.plan_dft_c2c_3d(shape, world, wire_dtype="split", fuse=True,
                                direction=dfft.BACKWARD)
     y = fwd(x)
+    back = bwd(y)
     errs = rel_err(torch, y, torch.fft.fftn(x))[:2]
-    errs += rel_err(torch, bwd(y), x)[:2]
-    del y
+    errs += rel_err(torch, back, x)[:2]
     print(f"c2c split fused {n}^3 P={SLAB_RANKS}: forward vs torch.fft.fftn "
           f"max rel err={errs[0]:.3e} l2 rel err={errs[1]:.3e}; roundtrip "
           f"max rel err={errs[2]:.3e} l2 rel err={errs[3]:.3e}", flush=True)
@@ -523,7 +593,17 @@ def check_fused_plans(torch, dfft, world, n=512):
     check_sites(fwd, "c2c fwd", "c2c split fused fwd")
     check_sites(bwd, "c2c bwd", "c2c split fused bwd")
     plans["c2c split fused"] = (fwd, bwd, "c2c")
-    del x
+    # its unfused twin on the same inputs: the receivers are the fused
+    # decode, equal to fft_axis0 of the decoded wire, and the senders are
+    # unfused in both (multi_axis), so the outputs should be equal
+    twin_f = dfft.plan_dft_c2c_3d(shape, world, wire_dtype="split")
+    twin_b = dfft.plan_dft_c2c_3d(shape, world, wire_dtype="split",
+                                  direction=dfft.BACKWARD)
+    print(f"c2c split {n}^3 P={SLAB_RANKS}: fused vs unfused twin "
+          f"(forward, backward of the fused forward's output): "
+          f"{twin_report(torch, (y, back), (twin_f(x), twin_b(y)))}",
+          flush=True)
+    del x, y, back
     torch.cuda.empty_cache()
 
     # R2C / C2R: exact, then each codec unfused and fused.
@@ -552,7 +632,6 @@ def check_fused_plans(torch, dfft, world, n=512):
                     + rel_err(torch, rt, xr)[:2])
             vs_exact = (rel_err(torch, y, y_exact)[0],
                         rel_err(torch, r, r_exact)[0])
-            del y, r, rt
             label = (f"r2c/c2r {codec or 'exact'}"
                      f"{' fused' if fuse else ''} {n}^3 P={SLAB_RANKS}")
             print(f"{label}: r2c vs torch.fft.rfftn max rel err={errs[0]:.3e}"
@@ -561,6 +640,19 @@ def check_fused_plans(torch, dfft, world, n=512):
                   f"roundtrip max rel err={errs[4]:.3e} l2 rel err="
                   f"{errs[5]:.3e}; vs the exact port plan max rel err "
                   f"r2c={vs_exact[0]:.3e} c2r={vs_exact[1]:.3e}", flush=True)
+            if codec is not None and not fuse:
+                twin = (y, r, rt)
+            elif codec is not None:
+                # every fused site (the C2R sender: kernel 4; each
+                # receiver: kernel 5) equals its unfused form to the bit
+                report = twin_report(torch, (y, r, rt), twin)
+                print(f"{label}: vs the unfused plan (r2c, c2r, roundtrip): "
+                      f"{report}", flush=True)
+                if report != "bit-identical":
+                    fail(f"{label}: outputs differ from the unfused plan's: "
+                         f"{report}")
+                del twin
+            del y, r, rt
             results[(codec, fuse)] = errs
             if fuse:
                 check_sites(f, "r2c fwd", f"{label} fwd")

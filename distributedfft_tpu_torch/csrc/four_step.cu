@@ -206,10 +206,10 @@ int dfft_fft_strided(const void* x, void* y, long long lead, long long cols,
                      int n, int stages, const int* radices, int forward,
                      const void* tw, float scale, void* stream) {
   if (!radix::valid_stages(stages)) return (int)cudaErrorInvalidValue;
-  radix::ColsPass pass(radix::make_plan(n, stages, radices), forward != 0,
-                       cols);
+  radix::ColsPass<> pass(radix::make_plan(n, stages, radices), forward != 0,
+                         cols);
   if (pass.err != cudaSuccess) return (int)pass.err;
-  return (int)pass((const float2*)x, (float2*)y, lead, cols,
+  return (int)pass((const float2*)x, radix::C64Out{(float2*)y}, lead, cols,
                    (const float2*)tw, scale, (cudaStream_t)stream);
 }
 
@@ -240,8 +240,8 @@ int dfft_fft_plane(const void* x, void* y, long long batch, int ny,
   radix::RowsPass rows(radix::make_plan(nz, z_stages, z_radices),
                        forward != 0);
   if (rows.err != cudaSuccess) return (int)rows.err;
-  radix::ColsPass cols(radix::make_plan(ny, y_stages, y_radices),
-                       forward != 0, nz);
+  radix::ColsPass<> cols(radix::make_plan(ny, y_stages, y_radices),
+                         forward != 0, nz);
   if (cols.err != cudaSuccess) return (int)cols.err;
   const long long plane = (long long)ny * nz;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -251,7 +251,7 @@ int dfft_fft_plane(const void* x, void* y, long long batch, int ny,
     float2* ys = (float2*)y + b0 * plane;
     cudaError_t e = rows(xs, ys, cnt * ny, (const float2*)twz, 1.0f, st);
     if (e != cudaSuccess) return (int)e;
-    e = cols(ys, ys, cnt, nz, (const float2*)twy, scale, st);
+    e = cols(ys, radix::C64Out{ys}, cnt, nz, (const float2*)twy, scale, st);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaSuccess;

@@ -14,47 +14,58 @@
 // (pallas_fuse.py:158-172, :207-210). The sidecar is [tiles, 2] f32: one
 // power-of-two step per (tile, plane).
 //
-// fft_encode (the four-step routine of four_step.cuh, each block owning
-// `seqs` neighbouring columns):
-//   bf16        one launch: the transform, then an epilogue that rounds
-//               each component to nearest even into the bf16 pair.
+// Both kernels have two routes, as the strided kernel has them
+// (four_step.cu), chosen by the length alone. The radix route
+// (dfft_fft_encode, dfft_decode_fft; lengths n <= 8192 whose prime
+// factors are all <= 17) is radix.cuh's column pass, the strided
+// kernel's own, with the same plan, twiddles, instantiation and scale;
+// only where a value comes from or goes to differs. The direct route
+// (dfft_fft_encode_direct, dfft_decode_fft_direct, every other eligible
+// length) runs the four-step routine of four_step.cuh.
+//
+// fft_encode, radix route: the column pass (cols_kernel) with another
+//   output in place of its complex64 store (the last stage's sink), so
+//   each value is the one fft_axis0 would store, to the bit, and the
+//   payload is the plain codec's on fft_axis0(x):
+//   bf16        one launch: each (re, im) pair rounded to nearest even as
+//               the last stage produces it.
 //   int8/split  three launches. The TPU kernel held the whole block in
 //               VMEM for one grid step because the per-(tile, plane) amax
-//               is a reduction over the block. Here launch A transforms
-//               (inverse scale 1/n applied in the routine, before any
-//               quantizing), writes the c64 result to device scratch `y`,
-//               and takes each block's amax per (tile, plane) in shared
-//               memory, then one atomicMax per slot on the uint32 bits
-//               (valid because amax >= 0; the result does not depend on
-//               the order of the blocks). Launch B turns the 2*tiles amax
-//               slots into the sidecar's steps; launch C quantizes element
-//               by element: rintf (half to even), clamp to +-levels.
-// decode_fft: one launch, two routes, as the strided kernel has them
-//   (four_step.cu). The radix route (dfft_decode_fft; lengths n <= 8192
-//   whose prime factors are all <= 17) is radix.cuh's column pass, the
-//   strided kernel's own, with another landing step: a group's raw wire
-//   tile (2 bytes a value for int8, 4 for bf16 and split) lands in shared
-//   memory by cp.async while the block works on the group before, and the
-//   first stage unpacks each value as it reads it (bf16 -> f32, or
-//   mantissa * the pow2 step of its input tile: exact, the plain decode's
-//   value). The stages after it are the strided kernel's, with the same
-//   plan, twiddles and instantiation, and the inverse's 1/n is applied in
-//   the last stage's store, so fused_decode_fft(parts) and
-//   fft_axis0(decode(parts)) agree to the bit. The direct route
-//   (dfft_decode_fft_direct, every other eligible length) unpacks into
-//   shared memory and runs the four-step routine.
+//               is a reduction over the block. Here launch A is the
+//               column pass storing the c64 transform to device scratch
+//               `y` (fft_axis0(x) itself) while each thread keeps running
+//               maxima per tile in registers; each block merges them by
+//               one atomicMax per slot on the uint32 bits (valid because
+//               amax >= 0; the result does not depend on the order of the
+//               blocks). Launch B turns the 2*tiles amax slots into the
+//               sidecar's steps; launch C quantizes y row by row: rintf
+//               (half to even) of v / step, clamped to +-levels.
+// fft_encode, direct route: the four-step routine, then the bf16 cast in
+//   the same launch; or, quantized, launch A writes the c64 transform to
+//   `y` and takes the amax, B and C as above.
+// decode_fft, radix route: the column pass with another landing step: a
+//   group's raw wire tile (2 bytes a value for int8, 4 for bf16 and
+//   split) lands in shared memory by cp.async while the block works on
+//   the group before, and the first stage unpacks each value as it reads
+//   it (bf16 -> f32, or mantissa * the pow2 step of its input tile:
+//   exact, the plain decode's value), so fused_decode_fft(parts) and
+//   fft_axis0(decode(parts)) agree to the bit. Direct route: unpack into
+//   shared memory, then the four-step routine.
 //
-// What bounds them on an H100: the decode's radix route is bound by
-// bytes (the wire tile read once, c64 written once) as the strided
-// kernel is. The encode and the decode's direct route run the direct
-// sums of four_step.cu (8*(n1+n2) flops per complex element, limited by
-// shared-memory and L1 traffic, ~8x the device-memory bound at n = 512).
-// The design keeps the c64 intermediate out of device memory on bf16
-// encode and on every decode; the quantized encode pays one extra c64
-// write and read of the block (launch A -> C), which a single-pass design
-// (amax from a cheap pre-pass, or a cluster-wide reduction) would remove.
-// Sequences longer than fit a block's shared memory run the four-step
-// routine on device scratch, as in four_step.cu.
+// What bounds them on an H100: the decode's and the bf16 encode's radix
+// routes do one column pass, which reads c64 or the wire once and writes
+// the other once, as the strided kernel does, at ~80% of the copy rate
+// (PERF.md). The quantized encode moves 8 + 8 + 8 + 2 or 4 bytes a value
+// (x read, y written, y read, the wire written), twice the bound of one
+// read and one write. Running the column pass a second time with the
+// quantizer in its last stage, instead of storing y, moves fewer bytes
+// (8 + 8 + 2 or 4) but measured slower on the H100: the column pass
+// takes about a device copy's time even when it stores nothing, while
+// launch C runs at the copy rate (PERF.md). The direct routes run
+// the direct sums of four_step.cu (8*(n1+n2) flops per complex element,
+// limited by shared-memory and L1 traffic, ~8x the device-memory bound
+// at n = 512). Sequences longer than fit a block's shared memory run the
+// four-step routine on device scratch, as in four_step.cu.
 //
 // Every launcher returns cudaGetLastError() of its own launches.
 
@@ -84,6 +95,25 @@ __device__ __forceinline__ float pow2_step(float amax, float levels) {
   return __int_as_float(((int)k + 127) << 23);
 }
 
+// rint(v / step) clamped to +-levels: the plain codec's
+// clamp(round(planes / step)), exact IEEE division (no fast math) by a
+// power of two, rounding half to even.
+__device__ __forceinline__ float quantize(float v, float step, float levels) {
+  return fminf(fmaxf(rintf(v / step), -levels), levels);
+}
+
+// The int8 or int16 pair of a quantized value.
+template <typename Q2>
+__device__ __forceinline__ Q2 mantissas(float re, float im);
+template <>
+__device__ __forceinline__ char2 mantissas<char2>(float re, float im) {
+  return make_char2((signed char)re, (signed char)im);
+}
+template <>
+__device__ __forceinline__ short2 mantissas<short2>(float re, float im) {
+  return make_short2((short)re, (short)im);
+}
+
 // Block geometry of the strided layout: block -> (lead index, first
 // column, columns held).
 struct Cols {
@@ -101,9 +131,10 @@ __device__ __forceinline__ Cols block_cols(long long cols, int n, int seqs) {
   return c;
 }
 
-// Launch A of fft_encode. MODE 0 (bf16): the transform, then the bf16
-// pair of each element into q. MODE 1 (int8/split): the transform into
-// y, and the per-(tile, plane) amax into `amax` (uint32 bits of |v|).
+// Launch A of fft_encode's direct route. MODE 0 (bf16): the transform,
+// then the bf16 pair of each element into q. MODE 1 (int8/split): the
+// transform into y, and the per-(tile, plane) amax into `amax` (uint32
+// bits of |v|).
 // scratch == nullptr: sequences in shared memory; otherwise the routine
 // runs on device memory (scratch for its stage-1 result, y for output).
 template <int MODE>
@@ -181,27 +212,54 @@ encode_fft_kernel(const float2* x, float2* y, float2* scratch,
     if (bmax[i] != 0u) atomicMax(&amax[i], bmax[i]);
 }
 
-// Launch B of fft_encode: the [tiles, 2] sidecar of pow2 steps from the
-// amax slots, one thread per slot.
+// Launch B of fft_encode (both routes): the [tiles, 2] sidecar of pow2
+// steps from the amax slots, one thread per slot.
 __global__ void __launch_bounds__(kThreads)
 steps_kernel(const unsigned* amax, float* side, int slots, float levels) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < slots) side[i] = pow2_step(__uint_as_float(amax[i]), levels);
 }
 
-// Launch C of fft_encode: quantize y [lead, n, cols] into q
-// [lead, n, cols, 2] with the step of each element's (tile, plane).
-template <typename Q>
+// Launch C of fft_encode (both routes): quantize y [lead, n, cols] into
+// q [lead, n, cols, 2] (Q2: char2 for int8, short2 for int16) with the
+// steps of each row's (tile, plane): one row of `cols` values per
+// blockIdx.x (the row's tile found once), blockIdx.y and the threads
+// striding over its columns. An elementwise pass at the copy rate.
+template <typename Q2>
 __global__ void __launch_bounds__(kThreads)
-quantize_kernel(const float2* y, Q* q, const float* side, long long total,
-                long long cols, int n, int seg, float levels) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int t = (int)((i / cols) % n) / seg;
+quantize_rows(const float2* y, Q2* q, const float* side, long long cols,
+              int n, int seg, float levels) {
+  const long long row = blockIdx.x;
+  const int t = (int)(row % n) / seg;
   const float sr = __ldg(&side[2 * t]), si = __ldg(&side[2 * t + 1]);
-  const float2 v = y[i];
-  q[2 * i] = (Q)fminf(fmaxf(rintf(v.x / sr), -levels), levels);
-  q[2 * i + 1] = (Q)fminf(fmaxf(rintf(v.y / si), -levels), levels);
+  const float2* yr = y + row * cols;
+  Q2* qr = q + row * cols;
+  for (long long c = (long long)blockIdx.y * blockDim.x + threadIdx.x;
+       c < cols; c += (long long)gridDim.y * blockDim.x) {
+    const float2 v = yr[c];
+    qr[c] = mantissas<Q2>(quantize(v.x, sr, levels),
+                          quantize(v.y, si, levels));
+  }
+}
+
+cudaError_t launch_quantize(const float2* y, void* q, const float* side,
+                            long long lead, int n, long long cols, int tiles,
+                            int codec, float levels, cudaStream_t st) {
+  const long long rows = lead * n;
+  if (rows == 0 || cols == 0) return cudaSuccess;
+  const int threads =
+      cols >= kThreads ? kThreads : (int)((cols + 31) / 32 * 32);
+  const dim3 grid((unsigned)rows,
+                  (unsigned)std::min<long long>(
+                      (cols + 4LL * threads - 1) / (4LL * threads), 65535));
+  const int seg = n / tiles;
+  if (codec == 1)
+    quantize_rows<char2><<<grid, threads, 0, st>>>(y, (char2*)q, side, cols,
+                                                   n, seg, levels);
+  else
+    quantize_rows<short2><<<grid, threads, 0, st>>>(y, (short2*)q, side, cols,
+                                                    n, seg, levels);
+  return cudaGetLastError();
 }
 
 // Wire bytes per complex value of a codec.
@@ -331,8 +389,8 @@ decode_cols_kernel(const void* q, const float* side, float2* y,
               return unpack<CODEC>(in + i * w + ((o0 + i * od) & 3), steps,
                                    i / seg);
             },
-            y + e0 + ln.s, nz, ln.s < cnt, ln, cols, plan, a, b, tw, scale,
-            after);
+            radix::store_c64(y + e0 + ln.s, nz), ln.s < cnt, ln, cols, plan,
+            a, b, tw, scale, after);
       });
 }
 
@@ -387,6 +445,95 @@ struct DecodePass : radix::Pass<DecodeKernel> {
   }
 };
 
+// fft_encode by the radix route: radix.cuh's column pass (cols_kernel,
+// the strided kernel's template) with one of these outputs. Each takes
+// output i of a column as the strided kernel would store it, to the
+// bit: same plan, twiddles, instantiation and scale before the sink.
+
+// bf16: each (re, im) pair rounded to nearest even.
+struct Bf16Out {
+  __nv_bfloat162* q;
+  __device__ void begin(void*) {}
+  __device__ auto column(long long e, long long stride) {
+    __nv_bfloat162* d = q + e;
+    return [=](int i, float2 v) {
+      d[i * stride] = __floats2bfloat162_rn(v.x, v.y);
+    };
+  }
+  __device__ void end() {}
+};
+
+// Tiles whose amax a thread keeps in registers.
+constexpr int kRegTiles = 4;
+
+// The tile of output index i: i / seg, as (i + 1/2) * (1/seg) in fp32.
+// Exact for n = tiles*seg < 2^22: the product is within tiles * 2^-23 of
+// (i + 1/2) / seg, which lies at least 1/(2 seg) from an integer.
+__device__ __forceinline__ int tile_of(int i, float inv_seg) {
+  return (int)(((float)i + 0.5f) * inv_seg);
+}
+
+// Pass A of the quantized encode: stores each value as the strided
+// kernel does (y is then fft_axis0(x), bit for bit) and takes the amax
+// of |re| and |im| of each tile of the output index into amax[2t] and
+// amax[2t + 1], as the uint32 bits of the non-negative floats (they
+// order as the floats do, so atomicMax is exact and the result does not
+// depend on the order of the blocks). A thread keeps running maxima of
+// up to kRegTiles tiles in registers over every group its block walks;
+// at the block's end each warp reduces them (one shared atomicMax per
+// warp and slot) and the block merges its 2*tiles shared slots into
+// amax (one global atomicMax per slot). More tiles than kRegTiles go
+// straight to the shared slots, value by value.
+struct C64AmaxOut {
+  float2* y;
+  unsigned* amax;
+  int tiles, seg;
+  float inv_seg;
+  unsigned* slots;
+  float m[2 * kRegTiles];
+  __device__ void begin(void* extra) {
+    slots = static_cast<unsigned*>(extra);
+    inv_seg = 1.0f / seg;
+    for (int i = threadIdx.x; i < 2 * tiles; i += blockDim.x) slots[i] = 0u;
+#pragma unroll
+    for (int k = 0; k < 2 * kRegTiles; ++k) m[k] = 0.f;
+  }
+  __device__ auto column(long long e, long long stride) {
+    float2* d = y + e;
+    return [this, d, stride](int i, float2 v) {
+      d[i * stride] = v;
+      const int t = tile_of(i, inv_seg);
+      const float re = fabsf(v.x), im = fabsf(v.y);
+      if (tiles <= kRegTiles) {
+#pragma unroll
+        for (int k = 0; k < kRegTiles; ++k)
+          if (k == t) {
+            m[2 * k] = fmaxf(m[2 * k], re);
+            m[2 * k + 1] = fmaxf(m[2 * k + 1], im);
+          }
+      } else {
+        atomicMax(&slots[2 * t], __float_as_uint(re));
+        atomicMax(&slots[2 * t + 1], __float_as_uint(im));
+      }
+    };
+  }
+  __device__ void end() {
+    __syncthreads();
+    if (tiles <= kRegTiles) {
+#pragma unroll
+      for (int k = 0; k < 2 * kRegTiles; ++k) {
+        if (k >= 2 * tiles) break;
+        const unsigned w =
+            __reduce_max_sync(0xffffffffu, __float_as_uint(m[k]));
+        if ((threadIdx.x & 31) == 0 && w != 0u) atomicMax(&slots[k], w);
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < 2 * tiles; i += blockDim.x)
+      if (slots[i] != 0u) atomicMax(&amax[i], slots[i]);
+  }
+};
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t shm) {
   if (shm == 0) return cudaSuccess;
@@ -398,17 +545,60 @@ cudaError_t allow_smem(K kernel, size_t shm) {
 
 extern "C" {
 
-// Wire-encode the DFT over the middle axis of x [lead, n, cols] (n =
-// n1*n2, scaled by `scale`) into q [lead, n, cols, 2]: codec 0 bf16, 1
-// int8, 2 int16 (split), `levels` signed levels. For codecs 1-2, `y` is a
-// c64 scratch of x's size, `amax` 2*tiles zeroed uint32 and `side` the
-// [tiles, 2] f32 sidecar out. scratch == nullptr: sequences in shared
-// memory (then `y` may be nullptr for bf16).
-int dfft_fft_encode(const void* x, void* y, void* scratch, void* q,
-                    void* amax, void* side, long long lead, long long cols,
-                    int n1, int n2, int seqs, int tiles, int codec,
-                    float levels, const void* w1, const void* tw,
-                    const void* w2, float scale, void* stream) {
+// Wire-encode the DFT over the middle axis of x [lead, n, cols] (scaled
+// by `scale`) into q [lead, n, cols, 2]: codec 0 bf16, 1 int8, 2 int16
+// (split), `levels` signed levels. The radix route: n with the stage
+// radices radices[0..stages-1] (host memory) and the stage twiddles tw
+// (device memory), as dfft_fft_strided takes them. bf16: one launch.
+// Codecs 1-2: `y` is a c64 scratch of x's size, `amax` a scratch of
+// 2*tiles uint32 (zeroed here) and `side` the [tiles, 2] f32 sidecar
+// out; three launches (transform into y with the amax, steps, quantize).
+int dfft_fft_encode(const void* x, void* y, void* q, void* amax, void* side,
+                    long long lead, long long cols, int n, int stages,
+                    const int* radices, int tiles, int codec, float levels,
+                    int forward, const void* tw, float scale, void* stream) {
+  if (!radix::valid_stages(stages) || codec < 0 || codec > 2 || tiles < 1 ||
+      n % tiles != 0)
+    return (int)cudaErrorInvalidValue;
+  const radix::Plan plan = radix::make_plan(n, stages, radices);
+  const bool fwd = forward != 0;
+  const float2* fx = (const float2*)x;
+  const float2* ftw = (const float2*)tw;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (codec == 0) {
+    radix::ColsPass<Bf16Out> pass(plan, fwd, cols);
+    if (pass.err != cudaSuccess) return (int)pass.err;
+    return (int)pass(fx, Bf16Out{(__nv_bfloat162*)q}, lead, cols, ftw, scale,
+                     st);
+  }
+  const int slots = 2 * tiles;
+  radix::ColsPass<C64AmaxOut> pass(plan, fwd, cols,
+                                   slots * sizeof(unsigned));
+  if (pass.err != cudaSuccess) return (int)pass.err;
+  cudaError_t e = cudaMemsetAsync(amax, 0, slots * sizeof(unsigned), st);
+  if (e != cudaSuccess) return (int)e;
+  e = pass(
+      fx, C64AmaxOut{(float2*)y, (unsigned*)amax, tiles, n / tiles}, lead,
+      cols, ftw, scale, st);
+  if (e != cudaSuccess) return (int)e;
+  steps_kernel<<<(slots + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      (const unsigned*)amax, (float*)side, slots, levels);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_quantize((const float2*)y, q, (const float*)side, lead,
+                              n, cols, tiles, codec, levels, st);
+}
+
+// The same by the direct route (the four-step routine): n = n1*n2, LUTs
+// w1, tw, w2, `seqs` columns per block. For codecs 1-2, `y` is a c64
+// scratch of x's size and `amax` as above. scratch == nullptr: sequences
+// in shared memory (then `y` may be nullptr for bf16).
+int dfft_fft_encode_direct(const void* x, void* y, void* scratch, void* q,
+                           void* amax, void* side, long long lead,
+                           long long cols, int n1, int n2, int seqs,
+                           int tiles, int codec, float levels, const void* w1,
+                           const void* tw, const void* w2, float scale,
+                           void* stream) {
   const int n = n1 * n2;
   const long long blocks = lead * ((cols + seqs - 1) / seqs);
   const cudaStream_t st = (cudaStream_t)stream;
@@ -427,8 +617,11 @@ int dfft_fft_encode(const void* x, void* y, void* scratch, void* q,
           fw1, ftw, fw2, scale);
     return (int)cudaGetLastError();
   }
-  const size_t shm = seq_shm + 2ull * tiles * sizeof(unsigned);
+  const int slots = 2 * tiles;
+  const size_t shm = seq_shm + slots * sizeof(unsigned);
   e = allow_smem(encode_fft_kernel<1>, shm);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaMemsetAsync(amax, 0, slots * sizeof(unsigned), st);
   if (e != cudaSuccess) return (int)e;
   if (blocks > 0)
     encode_fft_kernel<1><<<(unsigned)blocks, kThreads, shm, st>>>(
@@ -436,21 +629,12 @@ int dfft_fft_encode(const void* x, void* y, void* scratch, void* q,
         ftw, fw2, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int slots = 2 * tiles;
   steps_kernel<<<(slots + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       (const unsigned*)amax, (float*)side, slots, levels);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const long long total = lead * n * cols;
-  const unsigned grid = (unsigned)((total + kThreads - 1) / kThreads);
-  const int seg = n / tiles;
-  if (codec == 1)
-    quantize_kernel<int8_t><<<grid, kThreads, 0, st>>>(
-        fy, (int8_t*)q, (const float*)side, total, cols, n, seg, levels);
-  else
-    quantize_kernel<int16_t><<<grid, kThreads, 0, st>>>(
-        fy, (int16_t*)q, (const float*)side, total, cols, n, seg, levels);
-  return (int)cudaGetLastError();
+  return (int)launch_quantize(fy, q, (const float*)side, lead, n, cols, tiles,
+                              codec, levels, st);
 }
 
 // Decode q [lead, n, cols, 2] (codec 0 bf16, 1 int8, 2 int16; `side` the

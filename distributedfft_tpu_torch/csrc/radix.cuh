@@ -1,8 +1,9 @@
 // Radix-FFT device code of the row, strided and plane kernels
 // (four_step.cu: dfft_fft_rows, dfft_fft_strided, dfft_fft_plane) and of
-// the fused decode kernel (fuse.cu: dfft_decode_fft): mixed-radix
-// Stockham stages on whole sequences held in shared memory, butterflies
-// in registers; and the host-side set-up of such a pass.
+// the fused encode and decode kernels (fuse.cu: dfft_fft_encode,
+// dfft_decode_fft): mixed-radix Stockham stages on whole sequences held
+// in shared memory, butterflies in registers; and the host-side set-up
+// of such a pass.
 //
 // The plan comes from the host (ops/radix.py): the stage radices, each a
 // factor of n in {2, 3, 4, 5, 7, 8, 11, 13, 16, 17}, and the stage
@@ -25,10 +26,12 @@
 // stages exchange through two
 // ping-pong buffers, rows padded by one element in 16 (s*ld + i + i/16)
 // to spread the strided writes of the early stages over the banks,
-// columns at i*C + s, conflict-free as they are; the last stage writes
-// device memory straight from registers, times the inverse's scale: a
-// warp stores 256 contiguous bytes (rows) or whole row segments
-// (columns). Plans have at least two stages (n >= 64 > 17).
+// columns at i*C + s, conflict-free as they are; the last stage hands
+// each output, times the inverse's scale, straight from registers to
+// the kernel's sink: a complex64 store to device memory (a warp stores
+// 256 contiguous bytes for rows, whole row segments for columns), the
+// same store while taking the encode's amax, or the encode's bf16 pack.
+// Plans have at least two stages (n >= 64 > 17).
 
 #pragma once
 
@@ -280,11 +283,11 @@ __device__ __forceinline__ int sat(int i, int sstride) {
 // One Stockham stage of radix R on one sequence. FIRST: the first stage
 // (ns = 1, no twiddles), reading element i as src(i) from the group's
 // landed copy; otherwise src is the exchange buffer at the sequence's
-// base. LAST: the last stage, writing device memory at out (rows at i,
-// columns at i*ostride) times `scale`; otherwise out is the exchange
-// buffer.
-template <int R, bool FWD, bool FIRST, bool LAST, bool COL, typename Src>
-__device__ void stage(Src src, float2* __restrict__ out, long long ostride,
+// base. LAST: the last stage, handing output i, times `scale`, to
+// sink(i, v); otherwise out is the exchange buffer (and sink unused).
+template <int R, bool FWD, bool FIRST, bool LAST, bool COL, typename Src,
+          typename Sink>
+__device__ void stage(Src src, float2* __restrict__ out, Sink sink,
                       int sstride, int n, int ns, int t, int step,
                       const float2* tw, float scale) {
   const int q = n / R;
@@ -308,7 +311,7 @@ __device__ void stage(Src src, float2* __restrict__ out, long long ostride,
     for (int k = 0; k < R; ++k) {
       const int i = base + k * ns;
       if constexpr (LAST)
-        out[COL ? i * ostride : i] = scl(v[k], scale);
+        sink(i, scl(v[k], scale));
       else
         out[sat<COL>(i, sstride)] = v[k];
     }
@@ -330,14 +333,15 @@ __device__ __forceinline__ Lane lane(int seqs) {
 
 // The stage of radix r. Radices above MAXR are not compiled in (MAXR = 8
 // keeps the registers of plans of small radices few).
-template <bool FWD, bool FIRST, bool LAST, bool COL, int MAXR, typename Src>
+template <bool FWD, bool FIRST, bool LAST, bool COL, int MAXR, typename Src,
+          typename Sink>
 __device__ __forceinline__ void stage_r(int r, Src src, float2* out,
-                                        long long ostride, int sstride, int n,
-                                        int ns, Lane ln, const float2* tw,
+                                        Sink sink, int sstride, int n, int ns,
+                                        Lane ln, const float2* tw,
                                         float scale) {
-#define DFFT_STAGE(R)                                                 \
-  stage<R, FWD, FIRST, LAST, COL>(src, out, ostride, sstride, n, ns, \
-                                  ln.t, ln.step, tw, scale)
+#define DFFT_STAGE(R)                                                   \
+  stage<R, FWD, FIRST, LAST, COL>(src, out, sink, sstride, n, ns, ln.t, \
+                                  ln.step, tw, scale)
   switch (r) {
     case 2: DFFT_STAGE(2); break;
     case 3: DFFT_STAGE(3); break;
@@ -360,30 +364,36 @@ __device__ __forceinline__ void stage_r(int r, Src src, float2* out,
 #undef DFFT_STAGE
 }
 
+// The sink of the stages before the last, which store to the exchange
+// buffers.
+struct NoSink {
+  __device__ void operator()(int, float2) const {}
+};
+
 // Every stage of the plan on the thread's sequence of the group: the
 // first stage reads element i as first(i) (from the landed copy), the
-// last writes the sequence at dst in device memory (columns at
-// i*ostride; times `scale`), the stages between exchange through a and
-// b. `after_first` runs once the landed copy is free again. Must be
-// called by every thread of the block; ends with __syncthreads.
-template <bool FWD, bool COL, int MAXR, typename First, typename After>
-__device__ void run_stages(First first, float2* dst, long long ostride,
-                           bool on, Lane ln, int seqs, const Plan& plan,
-                           float2* a, float2* b, const float2* tw, float scale,
-                           After after_first) {
+// last hands output i, times `scale`, to sink(i, v), the stages between
+// exchange through a and b. `after_first` runs once the landed copy is
+// free again. Must be called by every thread of the block; ends with
+// __syncthreads.
+template <bool FWD, bool COL, int MAXR, typename First, typename Sink,
+          typename After>
+__device__ void run_stages(First first, Sink sink, bool on, Lane ln, int seqs,
+                           const Plan& plan, float2* a, float2* b,
+                           const float2* tw, float scale, After after_first) {
   const int n = plan.n, last = plan.stages - 1;
   const int off = COL ? ln.s : ln.s * padded_ld(n);
   if (on)
-    stage_r<FWD, true, false, COL, MAXR>(plan.radix[0], first, a + off, 0,
-                                         seqs, n, 1, ln, tw, 1.0f);
+    stage_r<FWD, true, false, COL, MAXR>(plan.radix[0], first, a + off,
+                                         NoSink{}, seqs, n, 1, ln, tw, 1.0f);
   __syncthreads();
   after_first();
   int ns = plan.radix[0];
   for (int k = 1; k < last; ++k) {
     if (on)
       stage_r<FWD, false, false, COL, MAXR>(
-          plan.radix[k], static_cast<const float2*>(a + off), b + off, 0, seqs,
-          n, ns, ln, tw + (ns - 1), 1.0f);
+          plan.radix[k], static_cast<const float2*>(a + off), b + off,
+          NoSink{}, seqs, n, ns, ln, tw + (ns - 1), 1.0f);
     __syncthreads();
     float2* swap = a;
     a = b;
@@ -392,9 +402,15 @@ __device__ void run_stages(First first, float2* dst, long long ostride,
   }
   if (on)
     stage_r<FWD, false, true, COL, MAXR>(
-        plan.radix[last], static_cast<const float2*>(a + off), dst, ostride,
+        plan.radix[last], static_cast<const float2*>(a + off), nullptr, sink,
         seqs, n, ns, ln, tw + (ns - 1), scale);
   __syncthreads();
+}
+
+// The sink of a pass that stores complex64: output i of the sequence
+// whose first element is at dst goes to dst[i * stride].
+__device__ __forceinline__ auto store_c64(float2* dst, long long stride) {
+  return [=](int i, float2 v) { dst[i * stride] = v; };
 }
 
 // ------------------------------------------------- device-memory traffic
@@ -566,23 +582,40 @@ rows_kernel(const float2* x, float2* y, long long batch, Plan plan, int seqs,
         const long long row = g * seqs + ln.s;
         const float2* in = p + ln.s * n;
         run_stages<FWD, false, MAXR>([=](int i) { return in[i]; },
-                                     y + row * n, 1, row < batch, ln, seqs,
-                                     plan, a, b, tw, scale, after);
+                                     store_c64(y + row * n, 1), row < batch,
+                                     ln, seqs, plan, a, b, tw, scale, after);
       });
 }
 
-// y[l, :, c] = DFT(x[l, :, c]) * scale over [lead, n, nz]: the transform
-// over the middle axis, `cols` neighbouring columns per group. y may be
-// x (each group reads and writes only its own tile).
-template <bool FWD, int MAXR>
+// The output of a column pass: what its last stage does with each value.
+// begin(extra) sets up the block (extra: the shared memory after the
+// twiddles, as many bytes as the pass was given); column(e, stride) is
+// the sink of the column whose element 0 is at offset e, element i at
+// e + i*stride; end() runs once the block has walked all its groups.
+// Each is called by every thread of the block.
+struct C64Out {  // y[e + i*stride] = v
+  float2* y;
+  __device__ void begin(void*) {}
+  __device__ auto column(long long e, long long stride) {
+    return store_c64(y + e, stride);
+  }
+  __device__ void end() {}
+};
+
+// DFT(x[l, :, c]) * scale over [lead, n, nz], the transform over the
+// middle axis, `cols` neighbouring columns per group, each output going
+// to `out`. With C64Out{y}, y may be x (each group reads and writes only
+// its own tile).
+template <bool FWD, int MAXR, typename Out>
 __global__ void __launch_bounds__(kThreads)
-cols_kernel(const float2* x, float2* y, long long lead, long long nz,
+cols_kernel(const float2* x, Out out, long long lead, long long nz,
             Plan plan, int cols, Smem sm, const float2* twg, float scale) {
   extern __shared__ float4 radix_smem[];
   float2* smem = reinterpret_cast<float2*>(radix_smem);
   float2* tw = smem + sm.twiddles();
   const int n = plan.n;
   load_twiddles(tw, twg, n);
+  out.begin(tw + (n - 1));
   const Lane ln = lane<true>(cols);
   const long long tiles = (nz + cols - 1) / cols;
   const long long groups = lead * tiles;
@@ -604,9 +637,10 @@ cols_kernel(const float2* x, float2* y, long long lead, long long nz,
         const long long e0 = where(g, &cnt);
         const float2* in = p + ln.s;
         run_stages<FWD, true, MAXR>([=](int i) { return in[i * cols]; },
-                                    y + e0 + ln.s, nz, ln.s < cnt, ln, cols,
-                                    plan, a, b, tw, scale, after);
+                                    out.column(e0 + ln.s, nz), ln.s < cnt,
+                                    ln, cols, plan, a, b, tw, scale, after);
       });
+  out.end();
 }
 
 // ------------------------------------------------------------- host side
@@ -746,8 +780,9 @@ struct Pass {
 
 using RowsKernel = void (*)(const float2*, float2*, long long, Plan, int,
                             Smem, const float2*, float);
-using ColsKernel = void (*)(const float2*, float2*, long long, long long,
-                            Plan, int, Smem, const float2*, float);
+template <typename Out>
+using ColsKernel = void (*)(const float2*, Out, long long, long long, Plan,
+                            int, Smem, const float2*, float);
 
 // The rows pass over [batch, n].
 struct RowsPass : Pass<RowsKernel> {
@@ -770,20 +805,25 @@ inline int c64_cols(int n, long long nz) {
   return cols_per_group(n, nz, [n](int c) { return n * c; });
 }
 
-// The columns pass over [lead, n, nz], x -> y (y may be x).
-struct ColsPass : Pass<ColsKernel> {
-  ColsPass(const Plan& p, bool fwd, long long nz)
-      : Pass(p, c64_cols(p.n, nz), p.n * c64_cols(p.n, nz),
-             p.n * c64_cols(p.n, nz), 0,
-             fwd ? cols_kernel<true, 8> : cols_kernel<false, 8>,
-             fwd ? cols_kernel<true, 17> : cols_kernel<false, 17>) {}
-  cudaError_t operator()(const float2* x, float2* y, long long lead,
+// The columns pass over [lead, n, nz] from x into `out` (C64Out: x -> y,
+// y may be x); `extra`: the bytes of shared memory Out::begin takes.
+template <typename Out = C64Out>
+struct ColsPass : Pass<ColsKernel<Out>> {
+  ColsPass(const Plan& p, bool fwd, long long nz, size_t extra = 0)
+      : Pass<ColsKernel<Out>>(
+            p, c64_cols(p.n, nz), p.n * c64_cols(p.n, nz),
+            p.n * c64_cols(p.n, nz), extra,
+            fwd ? cols_kernel<true, 8, Out> : cols_kernel<false, 8, Out>,
+            fwd ? cols_kernel<true, 17, Out> : cols_kernel<false, 17, Out>) {}
+  cudaError_t operator()(const float2* x, Out out, long long lead,
                          long long nz, const float2* tw, float scale,
                          cudaStream_t st) {
-    const long long b = blocks(lead * ((nz + group - 1) / group));
+    const int group = this->group;
+    const long long b = this->blocks(lead * ((nz + group - 1) / group));
+    const ColsKernel<Out> kernel = this->kernel;
     if (b > 0)
-      kernel<<<(unsigned)b, kThreads, shm, st>>>(x, y, lead, nz, plan, group,
-                                                 sm, tw, scale);
+      kernel<<<(unsigned)b, kThreads, this->shm, st>>>(
+          x, out, lead, nz, this->plan, group, this->sm, tw, scale);
     return cudaGetLastError();
   }
 };

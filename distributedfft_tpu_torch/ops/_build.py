@@ -102,8 +102,10 @@ def _declare(lib: ctypes.CDLL) -> None:
                                    f, p]
     lib.dfft_fft_plane_direct.argtypes = ([p, p, p, ll] + [i] * 8 + [p] * 6
                                           + [f, p])
-    lib.dfft_fft_encode.argtypes = ([p] * 6 + [ll, ll] + [i] * 5
-                                    + [f, p, p, p, f, p])
+    lib.dfft_fft_encode.argtypes = [p, p, p, p, p, ll, ll, i, i, ip, i, i,
+                                    f, i, p, f, p]
+    lib.dfft_fft_encode_direct.argtypes = ([p] * 6 + [ll, ll] + [i] * 5
+                                           + [f, p, p, p, f, p])
     lib.dfft_decode_fft.argtypes = [p, p, p, ll, ll, i, i, ip, i, i, i, p,
                                     f, p]
     lib.dfft_decode_fft_direct.argtypes = ([p] * 4 + [ll, ll] + [i] * 5
@@ -111,7 +113,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     for fn in (lib.dfft_fft_rows, lib.dfft_fft_rows_direct,
                lib.dfft_fft_strided, lib.dfft_fft_strided_direct,
                lib.dfft_fft_plane, lib.dfft_fft_plane_direct,
-               lib.dfft_fft_encode, lib.dfft_decode_fft,
+               lib.dfft_fft_encode, lib.dfft_fft_encode_direct,
+               lib.dfft_decode_fft,
                lib.dfft_decode_fft_direct):
         fn.restype = ctypes.c_int
 

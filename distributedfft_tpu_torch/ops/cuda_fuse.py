@@ -7,10 +7,14 @@ mega-kernels become the CUDA launchers of ``csrc/fuse.cu``:
   axis, then the wire encode of the result (bf16 cast, or per-(tile,
   plane) pow2 quantization into int8/int16 with an f32 sidecar);
 - :func:`fused_decode_fft` (``_make_decode_kernel``): the exact wire
-  decode, then the DFT along one axis (inverse scaled 1/n). It takes the
-  route :func:`.cuda_fft.fft_axis0` takes for the same length (radix or
-  direct, counted in :data:`.cuda_fft.ROUTES` under ``decode_fft``), so
-  on the card it equals ``fft_axis0`` of the decoded wire.
+  decode, then the DFT along one axis (inverse scaled 1/n).
+
+Both take the route :func:`.cuda_fft.fft_axis0` takes for the same
+length (radix or direct, counted in :data:`.cuda_fft.ROUTES` under
+``fft_encode`` and ``decode_fft``). On the radix route each runs the
+strided kernel's column pass with its own first or last step, so on the
+card the encode equals the codec's encode of ``fft_axis0(x)`` and the
+decode equals ``fft_axis0`` of the decoded wire, bit for bit.
 
 Both return what the JAX functions return: the encode gives the tuple
 of wire parts, payload first, exactly shaped as
@@ -150,26 +154,34 @@ def fused_fft_encode(x: torch.Tensor, *, fft_axis: int, forward: bool,
         return fused_fft_encode_plain(x, **kw)
     lead, n, cols = _strided(x.shape, fft_axis)
     x3 = x.reshape(lead, n, cols).contiguous()
-    n1, n2 = split_for(n)
-    seqs, smem = _block_seqs(n, 16, 32)
-    scratch = None if smem else torch.empty_like(x3)
     scale = 1.0 if forward else 1.0 / n
-    luts = _luts(n, forward, x.device)
     if wire_dtype == "bf16":
         levels, qdt, code = 0.0, torch.bfloat16, 0
     else:
         levels, qdt, code = _Q_CODECS[wire_dtype]
     q = torch.empty(tuple(x.shape) + (2,), dtype=qdt, device=x.device)
-    y = amax = side = None
-    if code or not smem:
-        y = torch.empty_like(x3)
+    amax = side = None
     if code:
-        amax = torch.zeros(2 * tiles, dtype=torch.int32, device=x.device)
+        amax = torch.empty(2 * tiles, dtype=torch.int32, device=x.device)
         side = torch.empty((tiles, 2), dtype=torch.float32, device=x.device)
-    _launch("dfft_fft_encode", x, x3.data_ptr(), _ptr(y), _ptr(scratch),
-            q.data_ptr(), _ptr(amax), _ptr(side), lead, cols, n1, n2, seqs,
-            tiles, code, levels, *luts, scale)
+    how = cuda_fft.route(n)
+    if how == "radix":
+        y = torch.empty_like(x3) if code else None
+        tw = radix.device_twiddles(n, forward, x.device)
+        _launch("dfft_fft_encode", x, x3.data_ptr(), _ptr(y), q.data_ptr(),
+                _ptr(amax), _ptr(side), lead, cols, n, *_radices(n), tiles,
+                code, levels, int(forward), tw.data_ptr(), scale)
+    else:
+        n1, n2 = split_for(n)
+        seqs, smem = _block_seqs(n, 16, 32)
+        scratch = None if smem else torch.empty_like(x3)
+        y = torch.empty_like(x3) if code or not smem else None
+        _launch("dfft_fft_encode_direct", x, x3.data_ptr(), _ptr(y),
+                _ptr(scratch), q.data_ptr(), _ptr(amax), _ptr(side), lead,
+                cols, n1, n2, seqs, tiles, code, levels,
+                *_luts(n, forward, x.device), scale)
     fused_fft_encode.launches += 1
+    cuda_fft.ROUTES[("fft_encode", how)] += 1
     if not code:
         return (q,)
     return (q, side.reshape(_sidecar_shape(x.dim(), fft_axis, tiles)))

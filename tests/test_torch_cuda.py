@@ -16,8 +16,10 @@ with the route counted, on a plane batch the launcher's L2 chunks do not
 divide, and by the inverse's scale (a round trip).
 The fused stage+codec kernels are held the same way for each codec, both
 directions, and a transform along axis 0, a middle axis and the last
-axis (the decode on both routes, and against the strided kernel on the
-decoded wire); the fused real plans against the unfused ones.
+axis, on both routes; on the radix route the decode against the strided
+kernel on the decoded wire and the encode against the codec's encode of
+the strided kernel's output (bit for bit); the fused real plans against
+the unfused ones.
 """
 
 import numpy as np
@@ -198,9 +200,12 @@ def test_fft_encode_kernel_matches_plain(card, codec, forward, shape, axis,
     kw = dict(fft_axis=axis, forward=forward, tile_axis=axis, tiles=tiles,
               wire_dtype=codec)
     before = cuda_fuse.fused_fft_encode.launches
+    how = cuda_fft.route(shape[axis])
+    routed = cuda_fft.ROUTES[("fft_encode", how)]
     got = cuda_fuse.fused_fft_encode(x, **kw)
     torch.cuda.synchronize()
     assert cuda_fuse.fused_fft_encode.launches == before + 1
+    assert cuda_fft.ROUTES[("fft_encode", how)] == routed + 1
     want = cuda_fuse.fused_fft_encode_plain(x, **kw)
     assert [(g.shape, g.dtype) for g in got] == [(w.shape, w.dtype)
                                                  for w in want]
@@ -273,6 +278,48 @@ def test_fused_decode_equals_fft_axis0_of_the_decode(card, codec, forward,
     want = cuda_fft.fft_axis0(
         codec_.decode(parts, torch.complex64, tile_axis=1, tiles=2), forward)
     assert _rel_l2(got, want) <= 1e-6
+
+
+# (lead, n, cols, tiles) of the encode against its unfused form: every
+# tile count of 1..4 that divides n; 257 columns (odd rows of int8
+# pairs), 510 = 2.3.5.17 (tile edges inside the last stage's stride of
+# 30), 96 = 8.4.3 and 8192 (one column per group, no prefetch); and 8
+# and 6 tiles, more than a thread keeps in registers (the amax goes
+# through shared memory).
+ENCODE_TWINS = [(lead, n, cols, t)
+                for lead, n, cols in [(2, 512, 16), (2, 512, 257),
+                                      (1, 510, 257), (3, 64, 7), (2, 96, 5)]
+                for t in (1, 2, 3, 4) if n % t == 0] + [
+    (1, 8192, 3, 4), (2, 512, 16, 8), (2, 96, 5, 6)]
+
+
+@pytest.mark.parametrize("codec", ["bf16", "int8", "split"])
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("lead,n,cols,tiles", ENCODE_TWINS)
+def test_fused_encode_equals_codec_of_fft_axis0(card, codec, forward, lead,
+                                                n, cols, tiles):
+    """The radix encode runs the strided kernel's column pass and packs
+    (bf16) or stores and quantizes (int8, split) what it produces, so its
+    wire parts are the codec's encode of fft_axis0(x) on the same card,
+    payload and sidecar bit for bit."""
+    from distributedfft_tpu_torch.ops import cuda_fuse
+    from distributedfft_tpu_torch.parallel.exchange import wire_codec
+
+    shape = (lead, n, cols)
+    x = _c64(n + cols + lead + tiles, shape, card)
+    assert cuda_fft.route(n) == "radix"
+    routed = cuda_fft.ROUTES[("fft_encode", "radix")]
+    got = cuda_fuse.fused_fft_encode(x, fft_axis=1, forward=forward,
+                                     tile_axis=1, tiles=tiles,
+                                     wire_dtype=codec)
+    torch.cuda.synchronize()
+    assert cuda_fft.ROUTES[("fft_encode", "radix")] == routed + 1
+    want = wire_codec(codec).encode(cuda_fft.fft_axis0(x, forward),
+                                    tile_axis=1, tiles=tiles)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("codec", ["bf16", "int8", "split"])

@@ -24,7 +24,7 @@ from distributedfft_tpu.ops import executors as jex
 from distributedfft_tpu.ops import pallas_fft, pallas_fuse
 from distributedfft_tpu.parallel.exchange import wire_codec as jwire
 from distributedfft_tpu_torch import testing
-from distributedfft_tpu_torch.ops import cuda_fuse, executors as tex
+from distributedfft_tpu_torch.ops import cuda_fft, cuda_fuse, executors as tex
 from distributedfft_tpu_torch.parallel.exchange import wire_codec as twire
 from distributedfft_tpu_torch.stagegraph import (StageGraph, local_node,
                                                  plan_fusion)
@@ -88,7 +88,12 @@ def test_kernel_gate_drops_vmem():
 
 # ------------------------------------- plain versions vs Pallas bodies
 
-SITES = [((8, 64), 1, 4), ((64, 6, 5), 0, 4), ((3, 64, 5), 1, 2)]
+# (shape, axis, tiles): the last axis, axis 0, a middle axis; 36 columns
+# at axis 0 (odd columns); and 96 = 8.4.3, a length of the radix route
+# that is no power of two, in 3 tiles: each butterfly of the last stage
+# (stride 32) writes one output into each tile.
+SITES = [((8, 64), 1, 4), ((64, 6, 5), 0, 4), ((3, 64, 5), 1, 2),
+         ((64, 4, 9), 0, 4), ((2, 96, 5), 1, 3)]
 
 
 @pytest.mark.parametrize("codec", CODECS)
@@ -126,6 +131,30 @@ def test_fused_encode_matches_pallas_body(codec, forward, shape, axis, tiles):
     want = np.asarray(jwire(codec).decode(ref, jnp.complex64, tile_axis=axis,
                                           tiles=tiles))
     assert np.max(np.abs(got - want)) / np.max(np.abs(fft)) <= ENC_BOUNDS[codec]
+
+
+@pytest.mark.parametrize("codec", CODECS)
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("shape,axis,tiles", SITES)
+def test_fused_encode_plain_is_the_codec_on_fft_axis0_plain(codec, forward,
+                                                            shape, axis,
+                                                            tiles):
+    """The invariant the card's bit-equality rests on: the encode's plain
+    version is the codec's encode of ``fft_axis0_plain`` on the strided
+    view [lead, n, cols], payload and sidecar bit for bit (the card's
+    kernel runs ``fft_axis0``'s column pass and encodes what it
+    produces)."""
+    x = torch.from_numpy(_c64(len(shape) * 10 + tiles + 2, shape))
+    lead, n = int(np.prod(shape[:axis])), shape[axis]
+    y = cuda_fft.fft_axis0_plain(x.reshape(lead, n, -1).contiguous(),
+                                 forward).reshape(shape)
+    want = twire(codec).encode(y, tile_axis=axis, tiles=tiles)
+    got = cuda_fuse.fused_fft_encode_plain(
+        x, fft_axis=axis, forward=forward, tile_axis=axis, tiles=tiles,
+        wire_dtype=codec)
+    assert len(got) == len(want)
+    assert all(g.dtype == w.dtype and torch.equal(g, w)
+               for g, w in zip(got, want))
 
 
 @pytest.mark.parametrize("codec", CODECS)

@@ -168,10 +168,10 @@ def test_fused_decode_plain_is_the_strided_plain_on_the_decode(codec, shape,
 @pytest.mark.parametrize("shape,axis,tiles", RADIX_SITES)
 def test_fused_encode_plain_on_the_radix_route_matches_pallas_body(
         codec, shape, axis, tiles):
-    """Kernel 4 keeps the four-step sums on the card, but its plain
-    version follows ``fft_axis0_plain`` onto the radix route: against the
-    Pallas encode body, sidecars bit-identical and mantissas at most one
-    level apart (fp32 rounding before the quantizer)."""
+    """Kernel 4 takes the radix route on the card, and its plain version
+    follows ``fft_axis0_plain`` onto it: against the Pallas encode body
+    (the four-step sums), sidecars bit-identical and mantissas at most
+    one level apart (fp32 rounding before the quantizer)."""
     x = _c64(sum(shape) * 5 + tiles, shape)
     kw = dict(fft_axis=axis, forward=False, tile_axis=axis, tiles=tiles,
               wire_dtype=codec)
