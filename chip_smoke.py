@@ -42,8 +42,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    package, both fused kernels must have been launched in that run, and
    the row, strided, plane, decode and encode kernels by the radix route
    only;
-7. times the plans and their t0..t3 stages, prints one JSON line of the
-   five kernels and, last, the device line.
+7. times the plans and their t0..t3 stages;
+8. drives the pencil path at 512^3 on a 2x2 loopback world: the C2C plan
+   forward and backward against torch.fft.fftn and by round trip, the
+   C2C plans with the split codec fused and their unfused twins (bit
+   for bit both ways, the fused sites on the JAX package's routes), the
+   R2C/C2R plans against torch.fft.rfftn/irfftn; every row, strided,
+   encode and decode kernel must have been launched in that run, by the
+   radix route only, and no complex64 phase at 512 may have taken a
+   fallback; times each plan and its t0/t2a/t1/t2b/t3 stages (median of
+   10);
+9. runs complex128 through the cuda executor's dft_matmul route and
+   through the torch executor (a 4-rank slab at 256^3 against
+   torch.fft.fftn, 1e-11), and the matmul executor's three precision
+   tiers on a [4096, 512] row batch against torch.fft.fft (each tier's
+   error within its band, the three strictly ordered); prints one JSON
+   line of the five kernels and, last, the device line.
+
+Each counted path (5, 6, 8) also records the case of every kernel call
+and fails on one that phases 2 and 3 did not hold against its plain
+version.
 
 Any failed check exits nonzero before the last line. Without a CUDA
 device, or without the package beside it, it exits nonzero at once.
@@ -51,6 +69,7 @@ device, or without the package beside it, it exits nonzero at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -59,8 +78,10 @@ import sys
 import time
 
 TOL = 5e-4          # complex64 tier of distributedfft_tpu/testing.py
+TOL128 = 1e-11      # complex128 tier
 SEED = 4242
 SLAB_RANKS = 4
+PENCIL_GRID = (2, 2)
 SOURCE = "distributedfft_tpu_torch/csrc/four_step.cu"
 RADIX_SOURCE = "distributedfft_tpu_torch/csrc/radix.cuh"
 FUSE_SOURCE = "distributedfft_tpu_torch/csrc/fuse.cu"
@@ -113,19 +134,22 @@ def seeded(torch, shape, device, seed=SEED):
                        dtype=torch.complex64)
 
 
-# Every (kernel, direction, shape) the main paths launch, and where:
+# Every (kernel, direction, shape) the counted paths launch, and where:
 # the slab chain at 512^3 and (510, 510, 512) on 4 ranks, the single
-# device at 512^3, and the half-length rows of the R2C/C2R plans. The
-# first case of each kernel is its record's shape. Three more (marked
-# "also") are the other direction at a slab shape.
+# device at 512^3, the pencil chain at 512^3 on 2x2, and the R2C/C2R
+# plans (half-length rows, the 257-wide half spectrum and, on the
+# pencil, its 129-wide column split). The first case of each kernel is
+# its record's shape. Three more (marked "also") are the other direction
+# at a slab shape. check_covered fails a path that launches a case not
+# listed here.
 KERNEL_CASES = [
     ("fft2_last", True, (128, 512, 512), "slab fwd t0"),
     ("fft2_last", False, (128, 512, 512), "also"),
     ("fft2_last", True, (128, 510, 512), "uneven slab fwd t0"),
     ("fft2_last", True, (512, 512, 512), "single fwd"),
     ("fft2_last", False, (512, 512, 512), "single bwd"),
-    ("fft_axis0", True, (1, 512, 65536), "slab fwd t3"),
-    ("fft_axis0", False, (1, 512, 65536), "slab bwd t0"),
+    ("fft_axis0", True, (1, 512, 65536), "slab and pencil fwd t3"),
+    ("fft_axis0", False, (1, 512, 65536), "slab and pencil bwd t0"),
     ("fft_axis0", True, (128, 512, 512), "also"),
     ("fft_axis0", False, (128, 512, 512), "slab bwd t3"),
     ("fft_axis0", True, (1, 510, 65536), "uneven slab fwd t3"),
@@ -133,8 +157,22 @@ KERNEL_CASES = [
     ("fft_axis0", False, (128, 510, 512), "uneven slab bwd t3"),
     ("fft_axis0", True, (1, 512, 262144), "single fwd"),
     ("fft_axis0", False, (1, 512, 262144), "single bwd"),
-    ("fft_last", False, (65536, 512), "slab bwd t0"),
-    ("fft_last", True, (65536, 512), "also"),
+    ("fft_axis0", True, (256, 512, 256), "pencil fwd t1"),
+    ("fft_axis0", False, (256, 512, 256), "pencil bwd t1"),
+    ("fft_axis0", True, (128, 512, 257), "slab r2c t0 y"),
+    ("fft_axis0", False, (128, 512, 257), "slab c2r t0 y"),
+    ("fft_axis0", True, (1, 512, 32896), "slab r2c t3"),
+    ("fft_axis0", False, (1, 512, 32896), "slab c2r t3"),
+    ("fft_axis0", True, (512, 512, 257), "single r2c y"),
+    ("fft_axis0", False, (512, 512, 257), "single c2r y"),
+    ("fft_axis0", True, (1, 512, 131584), "single r2c x"),
+    ("fft_axis0", False, (1, 512, 131584), "single c2r x"),
+    ("fft_axis0", True, (256, 512, 129), "pencil r2c t1"),
+    ("fft_axis0", False, (256, 512, 129), "pencil c2r t1"),
+    ("fft_axis0", True, (1, 512, 33024), "pencil r2c t3"),
+    ("fft_axis0", False, (1, 512, 33024), "pencil c2r t3"),
+    ("fft_last", False, (65536, 512), "slab bwd t0, pencil bwd t3"),
+    ("fft_last", True, (65536, 512), "pencil fwd t0"),
     ("fft_last", False, (65280, 512), "uneven slab bwd t0"),
     ("fft_last", True, (65536, 256), "slab r2c t0"),
     ("fft_last", False, (65536, 256), "slab c2r t0"),
@@ -288,6 +326,55 @@ RADIX_WRAPPERS = ("fft_last", "fft2_last", "fft_axis0", "decode_fft",
                   "fft_encode")
 
 
+@contextlib.contextmanager
+def recording_cases(cf, cfu):
+    """Yield a set that gathers the case key of every call of the five
+    kernel wrappers inside the block: (kernel, forward, shape) as in
+    KERNEL_CASES, and for the fused kernels (kernel, codec, forward,
+    shape, axis, tiles) as in FUSED_CASES. The calls are seen by
+    ``sys.setprofile``, so the wrappers and their counts stay as they
+    are."""
+    names = {cf.fft_last.__code__: "fft_last",
+             cf.fft_axis0.__code__: "fft_axis0",
+             cf.fft2_last.__code__: "fft2_last",
+             cfu.fused_fft_encode.__code__: "fft_encode",
+             cfu.fused_decode_fft.__code__: "decode_fft"}
+    seen = set()
+
+    def on_call(frame, event, _arg):
+        name = names.get(frame.f_code) if event == "call" else None
+        if name is None:
+            return
+        a = frame.f_locals
+        if name in ("fft_encode", "decode_fft"):
+            shape = (a["x"].shape if name == "fft_encode"
+                     else a["parts"][0].shape[:-1])
+            seen.add((name, a["wire_dtype"], a["forward"], tuple(shape),
+                      a["fft_axis"], a["tiles"]))
+        else:
+            seen.add((name, a["forward"], tuple(a["x"].shape)))
+
+    sys.setprofile(on_call)
+    try:
+        yield seen
+    finally:
+        sys.setprofile(None)
+
+
+def check_covered(seen, path):
+    """Fail unless every kernel call of ``path`` (keys of
+    :func:`recording_cases`) is a case the kernel phases held against its
+    plain version."""
+    held = ({c[:3] for c in KERNEL_CASES}
+            | {c[:6] for c in FUSED_CASES})
+    missing = sorted(seen - held, key=str)
+    if missing:
+        fail(f"{path} launches kernels at cases no kernel phase checked: "
+             f"{missing}")
+    print(f"kernel calls on {path}: {len(seen)} (kernel, shape) cases, "
+          f"each held against its plain version", flush=True)
+
+
 def check_routes(cf, path, first, total):
     """Print the launches of each wrapper by route (``first``: the counts
     of the path's first part, the single device) and fail if a row,
@@ -379,19 +466,34 @@ def stage_split(torch, timing, fwd, bwd, x, label, x_bwd=None):
             f"{k}={v * 1e3:.3f}" for k, v in times.items()), flush=True)
 
 
-# Every (kernel, codec, forward, shape, axis, where) the compressed path
-# launches at 512^3 on 4 ranks (tiles = 4, the tile axis is the FFT
-# axis). The first case of each kernel is its record's shape.
+# Every (kernel, codec, forward, shape, axis, tiles, where) the
+# compressed paths launch at 512^3: the slab on 4 ranks (tiles = 4) and
+# the pencil on 2x2 (tiles = 2); the tile axis is the FFT axis. The
+# first case of each kernel is its record's shape. On the last axis
+# (axis 2) the strided layout has one column (cols = 1).
 FUSED_CASES = (
-    [("decode_fft", "split", True, (512, 128, 512), 0, "C2C fwd t3_fft_x"),
-     ("decode_fft", "split", False, (128, 512, 512), 1, "C2C bwd t3_fft_y")]
-    + [("decode_fft", c, True, (512, 128, 257), 0, "R2C fwd t3_fft_x")
+    [("decode_fft", "split", True, (512, 128, 512), 0, 4,
+      "C2C fwd t3_fft_x"),
+     ("decode_fft", "split", False, (128, 512, 512), 1, 4,
+      "C2C bwd t3_fft_y")]
+    + [("decode_fft", c, True, (512, 128, 257), 0, 4, "R2C fwd t3_fft_x")
        for c in CODECS]
-    + [("decode_fft", c, False, (128, 512, 257), 1, "C2R bwd t0_ifft_y")
+    + [("decode_fft", c, False, (128, 512, 257), 1, 4, "C2R bwd t0_ifft_y")
        for c in CODECS]
-    + [("fft_encode", c, False, (512, 128, 257), 0, "C2R bwd t3_ifft_x")
-       for c in ("split", "bf16", "int8")])
-FUSED_TILES = 4
+    + [("fft_encode", c, False, (512, 128, 257), 0, 4, "C2R bwd t3_ifft_x")
+       for c in ("split", "bf16", "int8")]
+    + [("fft_encode", c, True, (256, 256, 512), 2, 2,
+        "pencil fwd t0_fft_z, cols=1") for c in ("split", "bf16", "int8")]
+    + [("decode_fft", c, False, (256, 256, 512), 2, 2,
+        "pencil bwd t3_fft_z, cols=1") for c in ("split", "bf16", "int8")]
+    + [("decode_fft", "split", True, (256, 512, 256), 1, 2,
+        "pencil fwd t1_fft_y"),
+       ("decode_fft", "split", True, (512, 256, 256), 0, 2,
+        "pencil fwd t3_fft_x"),
+       ("fft_encode", "split", False, (512, 256, 256), 0, 2,
+        "pencil bwd t0_fft_x"),
+       ("decode_fft", "split", False, (256, 512, 256), 1, 2,
+        "pencil bwd t1_fft_y")])
 
 
 def exact_dft(torch, x, axis, fwd):
@@ -407,12 +509,13 @@ def check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates):
     hbm, fp32, _ = rates
     dev = torch.device("cuda", torch.cuda.current_device())
     records = {}
-    for i, (name, codec, fwd, shape, axis, where) in enumerate(FUSED_CASES):
+    for i, (name, codec, fwd, shape, axis, tiles, where) in enumerate(
+            FUSED_CASES):
         kw = dict(fft_axis=axis, forward=fwd, tile_axis=axis,
-                  tiles=FUSED_TILES, wire_dtype=codec)
+                  tiles=tiles, wire_dtype=codec)
         cw = wire_codec(codec)
         dec = lambda parts: cw.decode(parts, torch.complex64, tile_axis=axis,
-                                      tiles=FUSED_TILES)
+                                      tiles=tiles)
         label = (f"{codec:5s} {'fwd' if fwd else 'inv'} axis {axis} "
                  f"[{','.join(map(str, shape))}] ({where})")
         x = seeded(torch, shape, dev, SEED + 100 + i)
@@ -424,7 +527,7 @@ def check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates):
             # codec; the radix encode runs the same column pass and packs
             # or quantizes what it produces, so the two agree to the bit
             unfused = lambda: cw.encode(cf.fft_along_axis(x, axis, fwd),
-                                        tile_axis=axis, tiles=FUSED_TILES)
+                                        tile_axis=axis, tiles=tiles)
             got, want, twin = kernel(), plain(), unfused()
             torch.cuda.synchronize()
             if [(g.shape, g.dtype) for g in got] != [
@@ -458,8 +561,9 @@ def check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates):
             got_y, want_y = dec(got), dec(want)
             err, l2, abs_err = rel_err(torch, got_y, want_y)
             out = torch.empty_like(x)
-            detail = (f"route={cf.route(shape[axis])}; vs codec(fft_axis0(x))"
-                      f": payload and sidecar bit-identical; steady_ms="
+            detail = (f"route={cf.route(shape[axis])}; vs codec("
+                      f"fft_along_axis(x)): payload and sidecar "
+                      f"bit-identical; steady_ms="
                       f"{steady_ms(torch, kernel):.4f} copy_ms="
                       f"{steady_ms(torch, lambda: out.copy_(x)):.4f} "
                       f"unfused_ms="
@@ -471,7 +575,7 @@ def check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates):
             del out
             wire_rw = 8 + PAIR_BYTES[codec]
         else:
-            parts = cw.encode(x, tile_axis=axis, tiles=FUSED_TILES)
+            parts = cw.encode(x, tile_axis=axis, tiles=tiles)
             kernel = lambda: cfu.fused_decode_fft(parts, torch.complex64,
                                                   **kw)
             plain = lambda: cfu.fused_decode_fft_plain(parts,
@@ -482,31 +586,53 @@ def check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates):
             if not max(err, l2) <= TOL:
                 fail(f"{name} {label}: vs plain max {err:.3e} l2 {l2:.3e} "
                      f"> {TOL}")
-            # the unfused receiver on the card: the strided kernel on the
-            # decoded wire, whose stages the decode kernel shares
+            # the unfused receiver on the card: the strided kernel (the
+            # row kernel on the last axis) on the decoded wire; the
+            # decode kernel runs the same radix stages on the same
+            # exactly decoded values, so the two agree to the bit
             unfused_y = cf.fft_along_axis(dec(parts), axis, fwd)
-            _, fu_l2, fu_abs = rel_err(torch, got_y, unfused_y)
+            _, fu_l2, _ = rel_err(torch, got_y, unfused_y)
+            twin = twin_report(torch, (got_y,), (unfused_y,))
             del unfused_y
-            if not fu_l2 <= FUSED_VS_UNFUSED:
-                fail(f"{name} {label}: vs fft_axis0(decode) l2 {fu_l2:.3e} "
-                     f"> {FUSED_VS_UNFUSED}")
+            if not fu_l2 <= FUSED_VS_UNFUSED or twin != "bit-identical":
+                fail(f"{name} {label}: vs fft_along_axis(decode): {twin}, "
+                     f"l2 {fu_l2:.3e}")
             # unfused_ms: the codec's decode, then torch.fft (two calls:
-            # a reference, not a library_ms)
+            # a reference, not a library_ms); twin_ms: the unfused twin,
+            # the codec's decode, then the strided or row kernel
             lib = lambda: exact_dft(torch, dec(parts), axis, fwd)
+            unfused = lambda: cf.fft_along_axis(dec(parts), axis, fwd)
             out = torch.empty_like(got_y)
             detail = (f"route={cf.route(shape[axis])}; vs "
-                      f"fft_axis0(decode) max_abs_diff={fu_abs:.3e} "
-                      f"l2_rel={fu_l2:.3e}; steady_ms="
+                      f"fft_along_axis(decode): {twin}; steady_ms="
                       f"{steady_ms(torch, kernel):.4f} copy_ms="
                       f"{steady_ms(torch, lambda: out.copy_(got_y)):.4f} "
                       f"unfused_ms={timing.cuda_time_ms(lib, iters=10):.4f}"
+                      f" twin_ms={timing.cuda_time_ms(unfused, iters=10):.4f}"
                       f"; vs plain")
             del out
             wire_rw = PAIR_BYTES[codec] + 8
         codec_err = float((got_y - exact).abs().max() / exact.abs().max())
-        if not codec_err <= ENC_BOUNDS[codec]:
-            fail(f"{name} {label}: decoded vs torch.fft {codec_err:.3e} > "
-                 f"codec bound {ENC_BOUNDS[codec]}")
+        # the codec's own error on the same data: its round trip of the
+        # exact transform (encode), or torch.fft of the decoded wire
+        if name == "fft_encode":
+            ref_y = cw.decode(cw.encode(exact, tile_axis=axis, tiles=tiles),
+                              torch.complex64, tile_axis=axis, tiles=tiles)
+        else:
+            ref_y = exact_dft(torch, dec(parts), axis, fwd)
+        codec_ref = float((ref_y - exact).abs().max() / exact.abs().max())
+        del ref_y
+        # The JAX package's bounds were measured at four tiles (its slab
+        # cases). At the pencil's two tiles each step covers twice the
+        # values, and the int8 codec alone exceeds its bound there (2.04e-2
+        # on an H100 at the [256,256,512] inverse), so every case holds
+        # the kernel to the codec's own error, the four-tile cases also
+        # to the bound.
+        if not codec_err <= codec_ref + 1e-6 or (
+                tiles == SLAB_RANKS and not codec_err <= ENC_BOUNDS[codec]):
+            fail(f"{name} {label}: decoded vs torch.fft {codec_err:.3e}, "
+                 f"the codec's own {codec_ref:.3e}, bound "
+                 f"{ENC_BOUNDS[codec]}")
         del got_y, want_y, exact
         ms = timing.cuda_time_ms(kernel, iters=10)
         plain_ms = timing.cuda_time_ms(plain, iters=10)
@@ -517,8 +643,9 @@ def check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates):
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         print(f"kernel {name:10s} {label:54s} {detail} max_rel_err={err:.3e} "
               f"l2_rel_err={l2:.3e} max_abs_err={abs_err:.3e} "
-              f"vs_torch_fft_max_rel={codec_err:.3e} (codec bound "
-              f"{ENC_BOUNDS[codec]}) kernel_ms={ms:.4f} "
+              f"vs_torch_fft_max_rel={codec_err:.3e} (the codec's own "
+              f"{codec_ref:.3e}, bound {ENC_BOUNDS[codec]}) "
+              f"kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
               f"({bound_by})", flush=True)
         rec = records.setdefault(name, dict(
@@ -704,6 +831,191 @@ def time_real(torch, timing, fwd, bwd, x, label):
     print(f"{label}: r2c_ms={t_f:.3f} c2r_ms={t_b:.3f}", flush=True)
 
 
+#: The fused sites' (sender, receiver) routes the JAX package takes on a
+#: pencil C2C plan (a 2x2 CPU mesh at 64^3 with pallas, split, fuse),
+#: forward and backward: the first sender on the encode kernel, the
+#: second encoding only, both receivers on the decode kernel.
+PENCIL_SITE_ROUTES = [("kernel", "kernel"), ("encode_only", "kernel")]
+
+
+def check_pencil(torch, dfft, dev, n=512):
+    """Phase 8: the pencil plans at n^3 on a 2x2 loopback world. Returns
+    the plans the timing phase times."""
+    shape = (n, n, n)
+    grid = PENCIL_GRID
+    kw = dict(device=dev)
+    plans = {}
+    x = seeded(torch, shape, dev)
+    fwd = dfft.plan_dft_c2c_3d(shape, grid, **kw)
+    bwd = dfft.plan_dft_c2c_3d(shape, grid, direction=dfft.BACKWARD, **kw)
+    if (fwd.decomposition, fwd.world.grid) != ("pencil", grid):
+        fail(f"pencil plan is {fwd.decomposition} on {fwd.world.grid}")
+    y = fwd(x)
+    if tuple(y.shape) != shape or not bool(torch.isfinite(
+            torch.view_as_real(y)).all()):
+        fail(f"pencil forward output not finite or of shape {tuple(y.shape)}")
+    errs = rel_err(torch, y, torch.fft.fftn(x))[:2]
+    back = bwd(y)
+    errs += rel_err(torch, back, x)[:2]
+    label = f"pencil c2c {n}^3 {grid[0]}x{grid[1]}"
+    print(f"{label}: forward vs torch.fft.fftn max rel err={errs[0]:.3e} "
+          f"l2 rel err={errs[1]:.3e}; roundtrip max rel err={errs[2]:.3e} "
+          f"l2 rel err={errs[3]:.3e}", flush=True)
+    if not max(errs) <= TOL:
+        fail(f"{label}: error over {TOL}")
+    plans["pencil c2c exact"] = (fwd, bwd, "c2c")
+    del y, back
+
+    # the split codec fused against its unfused twin, both directions
+    ff = dfft.plan_dft_c2c_3d(shape, grid, wire_dtype="split", fuse=True,
+                              **kw)
+    fb = dfft.plan_dft_c2c_3d(shape, grid, wire_dtype="split", fuse=True,
+                              direction=dfft.BACKWARD, **kw)
+    uf = dfft.plan_dft_c2c_3d(shape, grid, wire_dtype="split", **kw)
+    ub = dfft.plan_dft_c2c_3d(shape, grid, wire_dtype="split",
+                              direction=dfft.BACKWARD, **kw)
+    y = ff(x)
+    report = twin_report(torch, (y,), (uf(x),))
+    back = fb(y)
+    report_b = twin_report(torch, (back,), (ub(y),))
+    errs = rel_err(torch, y, torch.fft.fftn(x))[:2] + rel_err(
+        torch, back, x)[:2]
+    label = f"pencil c2c split fused {n}^3 {grid[0]}x{grid[1]}"
+    print(f"{label}: forward vs torch.fft.fftn max rel err={errs[0]:.3e} l2 "
+          f"rel err={errs[1]:.3e}; roundtrip max rel err={errs[2]:.3e} l2 "
+          f"rel err={errs[3]:.3e}; vs the unfused twin: forward {report}, "
+          f"backward {report_b}", flush=True)
+    if not max(errs) <= TOL:
+        fail(f"{label}: error over {TOL}")
+    if (report, report_b) != ("bit-identical", "bit-identical"):
+        fail(f"{label}: outputs differ from the unfused twin's")
+    for plan, what in ((ff, "fwd"), (fb, "bwd")):
+        sites = list(plan.graph.meta["fusion"]["sites"].values())
+        routes = [(st["sender"], st["receiver"]) for st in sites]
+        print(f"{label} {what}: fusion sites {sites}", flush=True)
+        if routes != PENCIL_SITE_ROUTES:
+            fail(f"{label} {what}: fused sites {routes}, expected "
+                 f"{PENCIL_SITE_ROUTES}")
+    plans["pencil c2c split fused"] = (ff, fb, "c2c")
+    plans["pencil c2c split unfused"] = (uf, ub, "c2c")
+    del x, y, back
+
+    # R2C / C2R exact
+    xr = seeded_real(torch, shape, dev)
+    spec = torch.fft.rfftn(xr)
+    rf = dfft.plan_dft_r2c_3d(shape, grid, **kw)
+    rb = dfft.plan_dft_c2r_3d(shape, grid, **kw)
+    y = rf(xr)
+    if tuple(y.shape) != (n, n, n // 2 + 1):
+        fail(f"pencil r2c output of shape {tuple(y.shape)}")
+    errs = (rel_err(torch, y, spec)[:2]
+            + rel_err(torch, rb(spec), torch.fft.irfftn(spec, s=shape))[:2]
+            + rel_err(torch, rb(y), xr)[:2])
+    label = f"pencil r2c/c2r exact {n}^3 {grid[0]}x{grid[1]}"
+    print(f"{label}: r2c vs torch.fft.rfftn max rel err={errs[0]:.3e} l2 rel "
+          f"err={errs[1]:.3e}; c2r vs torch.fft.irfftn max rel err="
+          f"{errs[2]:.3e} l2 rel err={errs[3]:.3e}; roundtrip max rel err="
+          f"{errs[4]:.3e} l2 rel err={errs[5]:.3e}", flush=True)
+    if not max(errs) <= TOL:
+        fail(f"{label}: error over {TOL}")
+    plans["pencil r2c/c2r exact"] = (rf, rb, "r2c")
+    del xr, spec, y
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return plans
+
+
+def stage_medians(torch, timing, plan, x, label, reps=10):
+    """Median over ``reps`` runs of each stage's CUDA-event time."""
+    import statistics
+
+    plan(x)  # warm
+    runs = []
+    for _ in range(reps):
+        timer = timing.StageTimer(x.device)
+        y = plan(x, timer=timer)
+        runs.append(timer.times())
+        del y
+    med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    print(f"{label} stages (CUDA events, median of {reps}, ms): " + " ".join(
+        f"{k}={v * 1e3:.3f}" for k, v in med.items()), flush=True)
+
+
+def check_complex128(torch, dfft, dev, n=256, ranks=SLAB_RANKS):
+    """Phase 9a: complex128 through the cuda executor (its dft_matmul
+    route) and the torch executor, a slab at n^3 on ``ranks`` loopback
+    ranks, against torch.fft.fftn at the complex128 tier. Returns the
+    plans the timing phase times."""
+    shape = (n, n, n)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    x = torch.randn(shape, generator=g, device=dev, dtype=torch.complex128)
+    ref = torch.fft.fftn(x)
+    plans = {}
+    for ex in ("cuda", "torch"):
+        kw = dict(executor=ex, dtype=torch.complex128, device=dev)
+        f = dfft.plan_dft_c2c_3d(shape, ranks, **kw)
+        b = dfft.plan_dft_c2c_3d(shape, ranks, direction=dfft.BACKWARD, **kw)
+        y = f(x)
+        errs = rel_err(torch, y, ref)[:2] + rel_err(torch, b(y), x)[:2]
+        label = f"c128 slab {n}^3 P={ranks} executor={ex}"
+        print(f"{label}: forward vs torch.fft.fftn max rel err={errs[0]:.3e}"
+              f" l2 rel err={errs[1]:.3e}; roundtrip max rel err="
+              f"{errs[2]:.3e} l2 rel err={errs[3]:.3e}", flush=True)
+        if not max(errs) <= TOL128:
+            fail(f"{label}: error over {TOL128}")
+        plans[label] = (f, b, x)
+        del y
+    return plans
+
+
+# Each tier's band on the card (relative error against torch.fft.fft,
+# max-norm and L2): its operands' unit roundoff sets the scale, fp32
+# 2^-24 ~ 6e-8, TF32 2^-11 ~ 5e-4, bf16 2^-8 ~ 4e-3. The lower ends fail
+# a tier whose products silently run at a finer precision (TF32 not
+# taken, or the bf16 rounding lost), the upper ends one that runs
+# coarser.
+TIER_BANDS = {"highest": (0.0, TOL), "f32": (1e-5, 2e-3),
+              "bf16": (1e-3, 1e-2)}
+
+
+def check_matmul_tiers(torch, timing, dev, rows=4096, n=512):
+    """Phase 9b: the matmul executor's three tiers on a [rows, n]
+    complex64 batch against torch.fft.fft. On the card each tier's
+    errors must fall in its band of TIER_BANDS and grow strictly from
+    ``highest`` to ``f32`` to ``bf16``, so that each tier is seen to
+    govern its products; on the CPU every tier is full fp32 and only
+    ``highest``'s bound is held. Times each when ``timing`` is given."""
+    from distributedfft_tpu_torch.ops.executors import MM_TIERS, get_executor
+
+    x = seeded(torch, (rows, n), dev)
+    ref = torch.fft.fft(x, dim=1)
+    errs = {}
+    for tier in MM_TIERS:
+        ex = get_executor(f"matmul:{tier}")
+        e = errs[tier] = rel_err(torch, ex(x, (1,), True), ref)[:2]
+        ms = (f"{timing.cuda_time_ms(lambda: ex(x, (1,), True)):.4f}"
+              if timing else "not measured")
+        lo, hi = TIER_BANDS[tier] if dev.type == "cuda" else (0.0, TOL)
+        print(f"matmul:{tier} [{rows},{n}] c64: vs torch.fft.fft max rel "
+              f"err={e[0]:.3e} l2 rel err={e[1]:.3e} ms={ms} (band "
+              f"{lo:g}..{hi:g})", flush=True)
+        if tier == "highest" or dev.type == "cuda":
+            if not (lo <= min(e) and max(e) <= hi):
+                fail(f"matmul:{tier}: errors {e[0]:.3e}/{e[1]:.3e} outside "
+                     f"its band {lo:g}..{hi:g}")
+    if dev.type == "cuda":
+        order = [errs[t] for t in ("highest", "f32", "bf16")]
+        if not all(a[i] < b[i] for a, b in zip(order, order[1:])
+                   for i in range(2)):
+            fail(f"matmul tiers' errors are not strictly ordered highest < "
+                 f"f32 < bf16: {order}")
+    if timing:
+        print(f"torch.fft.fft [{rows},{n}] c64 ms="
+              f"{timing.cuda_time_ms(lambda: torch.fft.fft(x, dim=1)):.4f}",
+              flush=True)
+
+
 def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "distributedfft_tpu_torch")):
@@ -742,31 +1054,34 @@ def main() -> None:
 
     # ---- the main path: counts from 0, single then slab, each once ----
     dev = torch.device("cuda", torch.cuda.current_device())
-    cf.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    n = 512
-    x = seeded(torch, (n, n, n), dev)
-    single = run_plan_pair(torch, dfft, (n, n, n), None, x,
-                           "single 512^3")
-    after_single = cf.launches()
-    routes_single = dict(cf.ROUTES)
-    world = dfft.make_world(SLAB_RANKS)
-    slab = run_plan_pair(torch, dfft, (n, n, n), world, x,
-                         f"slab 512^3 loopback P={SLAB_RANKS}")
-    after_slab = cf.launches()
-    del x
-    torch.cuda.empty_cache()
-    uneven = (510, 510, 512)
-    xu = seeded(torch, uneven, dev)
-    run_plan_pair(torch, dfft, uneven, world, xu,
-                  f"slab {uneven} loopback P={SLAB_RANKS}")
-    del xu
+    fallbacks = dict(cf.FALLBACKS)   # no complex64 phase at 512 may add one
+    with recording_cases(cf, cfu) as seen:
+        cf.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        n = 512
+        x = seeded(torch, (n, n, n), dev)
+        single = run_plan_pair(torch, dfft, (n, n, n), None, x,
+                               "single 512^3")
+        after_single = cf.launches()
+        routes_single = dict(cf.ROUTES)
+        world = dfft.make_world(SLAB_RANKS)
+        slab = run_plan_pair(torch, dfft, (n, n, n), world, x,
+                             f"slab 512^3 loopback P={SLAB_RANKS}")
+        after_slab = cf.launches()
+        del x
+        torch.cuda.empty_cache()
+        uneven = (510, 510, 512)
+        xu = seeded(torch, uneven, dev)
+        run_plan_pair(torch, dfft, uneven, world, xu,
+                      f"slab {uneven} loopback P={SLAB_RANKS}")
+        del xu
     counts = cf.launches()
     print("launches on the main path (fwd+bwd each): single 512^3 "
           f"{after_single}; slab 512^3 "
           f"{ {k: after_slab[k] - after_single[k] for k in counts} }; "
           f"all {counts}", flush=True)
     check_routes(cf, "the main path", routes_single, dict(cf.ROUTES))
+    check_covered(seen, "the main path")
     for k, v in counts.items():
         if v <= 0:
             fail(f"kernel {k} was not launched on the main path")
@@ -791,10 +1106,12 @@ def main() -> None:
     cf.reset_launches()
     cfu.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    plans = check_fused_plans(torch, dfft, world)
+    with recording_cases(cf, cfu) as seen:
+        plans = check_fused_plans(torch, dfft, world)
     path = {**cf.launches(), **cfu.launches()}
     print(f"launches on the compressed and real path: {path}", flush=True)
     check_routes(cf, "the compressed and real path", {}, dict(cf.ROUTES))
+    check_covered(seen, "the compressed and real path")
     print(f"peak device memory of the compressed and real path: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     for k in cfu.KERNELS:
@@ -823,6 +1140,64 @@ def main() -> None:
                     f"{label} 512^3 loopback P={SLAB_RANKS}", x_bwd=spec)
     del xr, spec
     torch.cuda.empty_cache()
+
+    # ---- the pencil path: counts from 0, each plan once ----
+    cf.reset_launches()
+    cfu.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with recording_cases(cf, cfu) as seen:
+        pencil = check_pencil(torch, dfft, dev)
+    path = {**cf.launches(), **cfu.launches()}
+    print(f"launches on the pencil path: {path}", flush=True)
+    check_routes(cf, "the pencil path", {}, dict(cf.ROUTES))
+    check_covered(seen, "the pencil path")
+    print(f"peak device memory of the pencil path: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for k in ("fft_last", "fft_axis0", "fft_encode", "decode_fft"):
+        if path[k] <= 0:
+            fail(f"kernel {k} was not launched on the pencil path")
+    for k, v in path.items():
+        records[k]["launches"] += v
+    if dict(cf.FALLBACKS) != fallbacks:
+        fail(f"a complex64 phase at 512 took a fallback: "
+             f"{dict(cf.FALLBACKS)} (before: {fallbacks})")
+    print(f"fallbacks on the complex64 paths at 512: none "
+          f"({dict(cf.FALLBACKS)} before and after)", flush=True)
+
+    # ---- times of the pencil plans ----
+    x = seeded(torch, (n, n, n), dev)
+    xr = seeded_real(torch, (n, n, n), dev)
+    grid = f"{PENCIL_GRID[0]}x{PENCIL_GRID[1]}"
+    for label, (f, b, kind) in pencil.items():
+        inp = x if kind == "c2c" else xr
+        y = f(inp)
+        t_f = timing.cuda_time_ms(lambda: f(inp), iters=10)
+        t_b = timing.cuda_time_ms(lambda: b(y), iters=10)
+        print(f"{label} 512^3 {grid}: forward_ms={t_f:.3f} "
+              f"({timing.gflops((n, n, n), t_f / 1e3):.1f} GFlop/s) "
+              f"backward_ms={t_b:.3f}", flush=True)
+        stage_medians(torch, timing, f, inp, f"{label} 512^3 {grid} forward")
+        stage_medians(torch, timing, b, y, f"{label} 512^3 {grid} backward")
+        del y
+        torch.cuda.empty_cache()
+    del x, xr, pencil
+    torch.cuda.empty_cache()
+
+    # ---- complex128 and the matmul tiers ----
+    before = dict(cf.FALLBACKS)
+    for label, (f, b, x) in check_complex128(torch, dfft, dev).items():
+        y = f(x)
+        print(f"{label}: forward_ms="
+              f"{timing.cuda_time_ms(lambda: f(x), iters=5):.3f} "
+              f"backward_ms={timing.cuda_time_ms(lambda: b(y), iters=5):.3f}",
+              flush=True)
+        del y
+    routed = {k: v - before.get(k, 0) for k, v in cf.FALLBACKS.items()
+              if v != before.get(k, 0)}
+    print(f"c128 fallbacks to dft_matmul, (axis, reason): {routed}",
+          flush=True)
+    torch.cuda.empty_cache()
+    check_matmul_tiers(torch, timing, dev)
 
     print(json.dumps({"kernels": [
         {k: rec[k] for k in ("name", "route", "source", "replaces",

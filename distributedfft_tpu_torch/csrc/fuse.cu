@@ -38,8 +38,9 @@
 //               one atomicMax per slot on the uint32 bits (valid because
 //               amax >= 0; the result does not depend on the order of the
 //               blocks). Launch B turns the 2*tiles amax slots into the
-//               sidecar's steps; launch C quantizes y row by row: rintf
-//               (half to even) of v / step, clamped to +-levels.
+//               sidecar's steps; launch C quantizes y one tile's run
+//               of rows at a time: rintf (half to even) of v / step,
+//               clamped to +-levels.
 // fft_encode, direct route: the four-step routine, then the bf16 cast in
 //   the same launch; or, quantized, launch A writes the c64 transform to
 //   `y` and takes the amax, B and C as above.
@@ -222,20 +223,22 @@ steps_kernel(const unsigned* amax, float* side, int slots, float levels) {
 
 // Launch C of fft_encode (both routes): quantize y [lead, n, cols] into
 // q [lead, n, cols, 2] (Q2: char2 for int8, short2 for int16) with the
-// steps of each row's (tile, plane): one row of `cols` values per
-// blockIdx.x (the row's tile found once), blockIdx.y and the threads
-// striding over its columns. An elementwise pass at the copy rate.
+// steps of each value's (tile, plane). The values of one (lead index,
+// tile) are one contiguous run of `run` = (n / tiles) * cols values
+// sharing one pair of steps: blockIdx.x picks the run (its tile found
+// once), blockIdx.y and the threads stride over it. No value needs index
+// arithmetic of its own, and a narrow array (the last axis, cols = 1)
+// still fills its blocks. An elementwise pass at the copy rate.
 template <typename Q2>
 __global__ void __launch_bounds__(kThreads)
-quantize_rows(const float2* y, Q2* q, const float* side, long long cols,
-              int n, int seg, float levels) {
-  const long long row = blockIdx.x;
-  const int t = (int)(row % n) / seg;
+quantize_tiles(const float2* y, Q2* q, const float* side, long long run,
+               int tiles, float levels) {
+  const int t = (int)(blockIdx.x % tiles);
   const float sr = __ldg(&side[2 * t]), si = __ldg(&side[2 * t + 1]);
-  const float2* yr = y + row * cols;
-  Q2* qr = q + row * cols;
+  const float2* yr = y + (long long)blockIdx.x * run;
+  Q2* qr = q + (long long)blockIdx.x * run;
   for (long long c = (long long)blockIdx.y * blockDim.x + threadIdx.x;
-       c < cols; c += (long long)gridDim.y * blockDim.x) {
+       c < run; c += (long long)gridDim.y * blockDim.x) {
     const float2 v = yr[c];
     qr[c] = mantissas<Q2>(quantize(v.x, sr, levels),
                           quantize(v.y, si, levels));
@@ -245,20 +248,19 @@ quantize_rows(const float2* y, Q2* q, const float* side, long long cols,
 cudaError_t launch_quantize(const float2* y, void* q, const float* side,
                             long long lead, int n, long long cols, int tiles,
                             int codec, float levels, cudaStream_t st) {
-  const long long rows = lead * n;
-  if (rows == 0 || cols == 0) return cudaSuccess;
+  const long long runs = lead * tiles, run = (long long)(n / tiles) * cols;
+  if (runs == 0 || run == 0) return cudaSuccess;
   const int threads =
-      cols >= kThreads ? kThreads : (int)((cols + 31) / 32 * 32);
-  const dim3 grid((unsigned)rows,
+      run >= kThreads ? kThreads : (int)((run + 31) / 32 * 32);
+  const dim3 grid((unsigned)runs,
                   (unsigned)std::min<long long>(
-                      (cols + 4LL * threads - 1) / (4LL * threads), 65535));
-  const int seg = n / tiles;
+                      (run + 4LL * threads - 1) / (4LL * threads), 65535));
   if (codec == 1)
-    quantize_rows<char2><<<grid, threads, 0, st>>>(y, (char2*)q, side, cols,
-                                                   n, seg, levels);
+    quantize_tiles<char2><<<grid, threads, 0, st>>>(y, (char2*)q, side, run,
+                                                    tiles, levels);
   else
-    quantize_rows<short2><<<grid, threads, 0, st>>>(y, (short2*)q, side, cols,
-                                                    n, seg, levels);
+    quantize_tiles<short2><<<grid, threads, 0, st>>>(y, (short2*)q, side,
+                                                     run, tiles, levels);
   return cudaGetLastError();
 }
 

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from .. import native
-from . import radix
+from . import dft_matmul, radix
 from ._build import check, library
 
 # Largest per-stage factor: one kernel covers n <= 65536.
@@ -56,7 +56,8 @@ _SMEM_BUDGET = 96 * 1024
 
 #: Routes away from a kernel, by (axis, reason): ``plane2d`` counts planes
 #: the 2D kernel does not take (they run per axis); ``dtype``, ``empty``
-#: and ``length`` count transforms the ``cuda`` executor refuses.
+#: and ``length`` count transforms :func:`fft_along_axis` sends to
+#: :mod:`.dft_matmul` (or, for ``length``, refuses).
 FALLBACKS: Counter = Counter()
 
 #: Kernel launches by (wrapper, route), route ``radix`` or ``direct``.
@@ -93,18 +94,6 @@ def route2d(ny: int, nz: int) -> str:
 
 def record_fallback(axis: int, reason: str) -> None:
     FALLBACKS[(int(axis), reason)] += 1
-
-
-def ineligible_reason(x: torch.Tensor, n: int) -> str | None:
-    """Why the kernels cannot transform a length-``n`` axis of ``x``
-    (the JAX package's fallback reasons), or None."""
-    if x.dtype != torch.complex64:
-        return "dtype"
-    if x.numel() == 0:
-        return "empty"
-    if not eligible(n):
-        return "length"
-    return None
 
 
 # ------------------------------------------------------------------ LUTs
@@ -358,21 +347,43 @@ def launches() -> dict[str, int]:
 
 # ------------------------------------------------------------- routing
 
+@functools.lru_cache(maxsize=None)
+def outer_split(n: int) -> tuple[int, int] | None:
+    """Balanced divisor pair with both factors kernel-eligible, n < 2^31:
+    the two-level plan of the JAX package's ``_fft_last_big``
+    (``pallas_fft.outer_split``), or None."""
+    if n >= 1 << 31:
+        return None
+    for d in range(math.isqrt(n), 63, -1):
+        if n % d == 0 and eligible(d) and eligible(n // d):
+            return d, n // d
+    return None
+
+
 def fft_along_axis(x: torch.Tensor, axis: int,
                    forward: bool = True) -> torch.Tensor:
     """C2C DFT along one axis through the kernels: the last axis by the
     1D kernel, any other by the strided one with the axes before it as
-    ``lead``. Lengths, dtypes and sizes the kernels do not take raise
-    ``ValueError`` naming the reason (counted in :data:`FALLBACKS`)."""
+    ``lead``. Routed as ``pallas_fft.fft_along_axis`` routes: a dtype
+    other than complex64, an empty tensor, or a length with neither a
+    kernel split nor a two-level one (:func:`outer_split`) runs
+    :func:`.dft_matmul.fft_along_axis`, the reason counted in
+    :data:`FALLBACKS`. A length the JAX package runs as two kernel
+    passes (``_fft_last_big``, not ported) raises ``ValueError`` with
+    reason ``length``."""
     ax = axis % x.ndim
     n = x.shape[ax]
-    reason = ineligible_reason(x, n)
-    if reason is not None:
-        record_fallback(ax, reason)
+    if x.dtype != torch.complex64 or x.numel() == 0:
+        record_fallback(ax, "empty" if x.numel() == 0 else "dtype")
+        return dft_matmul.fft_along_axis(x, ax, forward)
+    if not eligible(n):
+        record_fallback(ax, "length")
+        if outer_split(n) is None:
+            return dft_matmul.fft_along_axis(x, ax, forward)
         raise ValueError(
-            f"cuda executor: axis {ax} of {tuple(x.shape)} {x.dtype} is not "
-            f"kernel-eligible (reason: {reason}); the dft_matmul route is "
-            f"not ported yet")
+            f"cuda executor: axis {ax} of {tuple(x.shape)} has length {n}, "
+            f"which the JAX package runs as two kernel passes "
+            f"(_fft_last_big, not ported; reason: length)")
     shape = x.shape
     if ax < x.ndim - 1:
         lead = math.prod(shape[:ax])

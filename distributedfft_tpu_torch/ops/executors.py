@@ -2,22 +2,33 @@
 forward unnormalized and inverse scaled 1/N (numpy convention), and the
 real pair ``r2c(x, axis)`` / ``c2r(y, n, axis)``.
 
-The port of the registry and scaling of ``distributedfft_tpu/ops/
-executors.py`` and of its ``pallas`` executor, registered here as
-``"cuda"``: a trailing 2D plane goes to the plane kernel, every other axis
-to :func:`.cuda_fft.fft_along_axis`. It is the port's default and, in
-this slice, its only executor. ``cuda:fuse`` names the same executor with
-the stage-fusion flag, which the stage graph's fusion pass reads.
+The port of the registry, label algebra and scaling of
+``distributedfft_tpu/ops/executors.py``. Executors:
+
+- ``"cuda"`` (the JAX package's ``pallas``, the port's default): a
+  trailing 2D plane goes to the plane kernel, every other axis to
+  :func:`.cuda_fft.fft_along_axis`, which falls back to
+  :mod:`.dft_matmul` by the JAX package's routing rules;
+- ``"matmul"``: the DFT by matmuls of :mod:`.dft_matmul`;
+- ``"torch"`` (the JAX package's ``xla``): ``torch.fft``.
+
+Labels compose: ``matmul:bf16`` / ``:f32`` / ``:highest`` scope the
+matmul products' precision tier over the call, ``:gauss`` the
+three-product complex mode, ``cuda:fuse`` asks the stage graph's fusion
+pass to fuse the wire codec into the stages beside each exchange (it
+never changes the local executor).
 """
 
 from __future__ import annotations
 
 import enum
+import functools
+import math
 from typing import Callable, Sequence
 
 import torch
 
-from . import cuda_fft
+from . import cuda_fft, dft_matmul
 from .realfft import (c2r_via_half_complex, mirror_half_spectrum,
                       r2c_via_half_complex)
 
@@ -27,16 +38,38 @@ _REGISTRY: dict[str, ExecutorFn] = {}
 _R2C_REGISTRY: dict[str, Callable] = {}
 _C2R_REGISTRY: dict[str, Callable] = {}
 
+#: Accuracy tiers of the matmul-family executors, in descending-error
+#: order (:mod:`.dft_matmul` says what each is on the card).
+MM_TIERS = ("bf16", "f32", "highest")
+
+#: Tier label -> the :func:`.dft_matmul.mm_precision` name the scope pins.
+TIER_PRECISION = {"bf16": "default", "f32": "high", "highest": "highest"}
+
+#: The JAX lax spellings of the tiers (``matmul:high`` == ``matmul:f32``).
+TIER_ALIASES = {"default": "bf16", "high": "f32"}
+
+#: Bases whose products read the tier (``cuda`` through its matmul
+#: fallback).
+MM_EXECUTOR_BASES = ("matmul", "cuda")
+
+#: Complex-product modes accepted as a suffix (``native`` is the default).
+MM_COMPLEX_MODES = ("native", "gauss")
+
 
 class Scale(enum.Enum):
-    """Result scaling (heFFTe's none/full; symmetric is not ported)."""
+    """Result scaling: heFFTe's none / full (1/N) / symmetric (1/sqrt N)."""
 
     NONE = "none"
     FULL = "full"
+    SYMMETRIC = "symmetric"
 
 
 def scale_factor(scale: Scale, world_size: int) -> float:
-    return 1.0 / world_size if scale == Scale.FULL else 1.0
+    if scale == Scale.NONE:
+        return 1.0
+    if scale == Scale.FULL:
+        return 1.0 / world_size
+    return 1.0 / math.sqrt(world_size)
 
 
 def apply_scale(x: torch.Tensor, scale: Scale, world_size: int) -> torch.Tensor:
@@ -93,6 +126,90 @@ def fused_name(name: str, fuse: bool | None = None) -> str:
     return bare + f":{FUSE_SUFFIX}"
 
 
+def split_executor(name: str) -> tuple[str, str | None, str | None]:
+    """Parse a (possibly tiered) label into ``(base, tier,
+    complex_mode)``: ``"matmul:bf16:gauss" -> ("matmul", "bf16",
+    "gauss")``; bare names give ``(name, None, None)``. Lax spellings
+    normalise (``matmul:high -> ("matmul", "f32", None)``). Validates the
+    suffixes and that the base reads the tier; the base need not be
+    registered."""
+    name, _ = split_fuse(name)
+    if ":" not in name:
+        return name, None, None
+    base, *mods = name.split(":")
+    tier: str | None = None
+    cmode: str | None = None
+    for m in mods:
+        if m in MM_TIERS or m in TIER_ALIASES:
+            if tier is not None:
+                raise ValueError(
+                    f"executor {name!r} names two precision tiers")
+            tier = TIER_ALIASES.get(m, m)
+        elif m in MM_COMPLEX_MODES:
+            if cmode is not None:
+                raise ValueError(
+                    f"executor {name!r} repeats the complex mode")
+            cmode = m
+        else:
+            raise ValueError(
+                f"unknown executor suffix {m!r} in {name!r}; tiers: "
+                f"{MM_TIERS} (or lax spellings {sorted(TIER_ALIASES)}), "
+                f"complex modes: {MM_COMPLEX_MODES}")
+    if not base.startswith(MM_EXECUTOR_BASES):
+        raise ValueError(
+            f"executor {base!r} does not consult the matmul precision "
+            f"knobs; tier suffixes apply to {MM_EXECUTOR_BASES}")
+    return base, tier, cmode
+
+
+def tiered_name(base: str, precision: str | None = None,
+                complex_mode: str | None = None) -> str:
+    """Compose the canonical tiered label from a base and tier choices.
+    Idempotent; a tier or mode that conflicts with the base's own
+    raises. ``None`` leaves the label bare."""
+    base, have_fuse = split_fuse(base)
+    b, have_tier, have_cmode = (split_executor(base) if ":" in base
+                                else (base, None, None))
+    if precision is not None:
+        precision = TIER_ALIASES.get(precision, precision)
+    for what, have, want in (("precision tier", have_tier, precision),
+                             ("complex mode", have_cmode, complex_mode)):
+        if have is not None and want is not None and have != want:
+            raise ValueError(
+                f"executor {base!r} already pins {what} {have!r}; "
+                f"conflicting request {want!r}")
+    tier = precision if precision is not None else have_tier
+    cmode = complex_mode if complex_mode is not None else have_cmode
+    if tier is not None and tier not in MM_TIERS:
+        raise ValueError(
+            f"mm_precision must be one of {MM_TIERS} or None, got {tier!r}")
+    if cmode is not None and cmode not in MM_COMPLEX_MODES:
+        raise ValueError(
+            f"mm_complex must be one of {MM_COMPLEX_MODES} or None, "
+            f"got {cmode!r}")
+    if cmode == "native":
+        cmode = None
+    if tier is None and cmode is None:
+        return fused_name(b, have_fuse) if have_fuse else b
+    name = b + (f":{tier}" if tier else "") + (f":{cmode}" if cmode else "")
+    split_executor(name)
+    return fused_name(name, have_fuse) if have_fuse else name
+
+
+def _scoped(fn: Callable, tier: str | None, cmode: str | None) -> Callable:
+    """``fn`` with its calls inside the tier's :func:`.dft_matmul.mm_scope`."""
+    if tier is None and cmode is None:
+        return fn
+    prec = TIER_PRECISION[tier] if tier is not None else None
+
+    @functools.wraps(fn)
+    def scoped(*args, **kw):
+        with dft_matmul.mm_scope(precision=prec, complex_mode=cmode):
+            return fn(*args, **kw)
+
+    return scoped
+
+
 def register_executor(name: str, fn: ExecutorFn) -> None:
     _REGISTRY[name] = fn
 
@@ -102,26 +219,105 @@ def register_real_executor(name: str, r2c: Callable, c2r: Callable) -> None:
     _C2R_REGISTRY[name] = c2r
 
 
-def _lookup(table: dict, name: str):
+def get_executor(name: str) -> ExecutorFn:
+    if ":" in name:
+        base, tier, cmode = split_executor(name)
+        return _scoped(get_executor(base), tier, cmode)
     try:
-        return table[split_fuse(name)[0]]
+        return _REGISTRY[name]
     except KeyError:
         raise ValueError(
-            f"unknown executor {name!r}; available: {sorted(table)}"
+            f"unknown executor {name!r}; available: {sorted(_REGISTRY)}"
         ) from None
 
 
-def get_executor(name: str) -> ExecutorFn:
-    return _lookup(_REGISTRY, name)
+def available_executors() -> list[str]:
+    return sorted(_REGISTRY)
 
 
 def get_r2c(name: str) -> Callable:
-    return _lookup(_R2C_REGISTRY, name)
+    """The real-to-complex transform of executor ``name``; an
+    unregistered name takes the ``torch`` pair, as the JAX package falls
+    back to its ``xla`` pair."""
+    if ":" in name:
+        base, tier, cmode = split_executor(name)
+        return _scoped(get_r2c(base), tier, cmode)
+    return _R2C_REGISTRY.get(name, _torch_r2c)
 
 
 def get_c2r(name: str) -> Callable:
-    return _lookup(_C2R_REGISTRY, name)
+    """The complex-to-real transform of executor ``name`` (see
+    :func:`get_r2c`)."""
+    if ":" in name:
+        base, tier, cmode = split_executor(name)
+        return _scoped(get_c2r(base), tier, cmode)
+    return _C2R_REGISTRY.get(name, _torch_c2r)
 
+
+# ------------------------------------------------------------- torch
+
+def _torch_executor(x: torch.Tensor, axes: Sequence[int],
+                    forward: bool = True) -> torch.Tensor:
+    """``torch.fft.fftn`` / ``ifftn`` over ``axes``."""
+    fn = torch.fft.fftn if forward else torch.fft.ifftn
+    return fn(x, dim=tuple(axes))
+
+
+def _torch_r2c(x: torch.Tensor, axis: int) -> torch.Tensor:
+    return torch.fft.rfft(x, dim=axis)
+
+
+def _torch_c2r(y: torch.Tensor, n: int, axis: int) -> torch.Tensor:
+    return torch.fft.irfft(y, n=n, dim=axis)
+
+
+register_executor("torch", _torch_executor)
+register_real_executor("torch", _torch_r2c, _torch_c2r)
+
+
+# ------------------------------------------------------------ matmul
+
+def _matmul_executor(x: torch.Tensor, axes: Sequence[int],
+                     forward: bool = True) -> torch.Tensor:
+    for ax in tuple(axes):
+        x = dft_matmul.fft_along_axis(x, ax, forward)
+    return x
+
+
+def _half_or_promote_r2c(x: torch.Tensor, axis: int, c2c) -> torch.Tensor:
+    """Real-to-complex along ``axis`` through the C2C ``c2c``: the
+    half-length packed transform for even n > 2, else promote (to
+    complex128 from 8-byte reals), transform, slice."""
+    n = x.shape[axis]
+    if n % 2 == 0 and n > 2 and not x.is_complex():
+        return r2c_via_half_complex(x, axis, c2c)
+    if not x.is_complex():
+        x = x.to(torch.complex128 if x.element_size() >= 8
+                 else torch.complex64)
+    y = c2c(x.contiguous(), axis, True)
+    return y.narrow(axis % y.ndim, 0, n // 2 + 1)
+
+
+def _half_or_mirror_c2r(y: torch.Tensor, n: int, axis: int,
+                        c2c) -> torch.Tensor:
+    """Complex-to-real back to extent ``n`` along ``axis``, scaled 1/n:
+    the half-length packed inverse for even n > 2, else the mirrored
+    full spectrum through the inverse C2C."""
+    if n % 2 == 0 and n > 2:
+        return c2r_via_half_complex(y, n, axis, c2c)
+    full = mirror_half_spectrum(y, n, axis=axis)
+    return c2c(full.contiguous(), axis, False).real
+
+
+register_executor("matmul", _matmul_executor)
+register_real_executor(
+    "matmul",
+    lambda x, axis: _half_or_promote_r2c(x, axis, dft_matmul.fft_along_axis),
+    lambda y, n, axis: _half_or_mirror_c2r(y, n, axis,
+                                           dft_matmul.fft_along_axis))
+
+
+# -------------------------------------------------------------- cuda
 
 def _cuda_executor(x: torch.Tensor, axes: Sequence[int],
                    forward: bool = True) -> torch.Tensor:
@@ -141,26 +337,9 @@ def _cuda_executor(x: torch.Tensor, axes: Sequence[int],
     return x
 
 
-def _cuda_r2c(x: torch.Tensor, axis: int) -> torch.Tensor:
-    """Real-to-complex along ``axis``: the half-length packed transform
-    for even n > 2, else promote to complex64, transform, slice."""
-    n = x.shape[axis]
-    if n % 2 == 0 and n > 2 and not x.is_complex():
-        return r2c_via_half_complex(x, axis, cuda_fft.fft_along_axis)
-    if not x.is_complex():
-        x = x.to(torch.complex128 if x.element_size() >= 8
-                 else torch.complex64)
-    y = cuda_fft.fft_along_axis(x.contiguous(), axis, True)
-    return y.narrow(axis % y.ndim, 0, n // 2 + 1)
-
-
-def _cuda_c2r(y: torch.Tensor, n: int, axis: int) -> torch.Tensor:
-    """Complex-to-real back to extent ``n`` along ``axis``, scaled 1/n."""
-    if n % 2 == 0 and n > 2:
-        return c2r_via_half_complex(y, n, axis, cuda_fft.fft_along_axis)
-    full = mirror_half_spectrum(y, n, axis=axis)
-    return cuda_fft.fft_along_axis(full.contiguous(), axis, False).real
-
-
 register_executor("cuda", _cuda_executor)
-register_real_executor("cuda", _cuda_r2c, _cuda_c2r)
+register_real_executor(
+    "cuda",
+    lambda x, axis: _half_or_promote_r2c(x, axis, cuda_fft.fft_along_axis),
+    lambda y, n, axis: _half_or_mirror_c2r(y, n, axis,
+                                           cuda_fft.fft_along_axis))

@@ -8,10 +8,13 @@ equal chunks along ``split_axis``, sends chunk d to rank d, and
 concatenates what it receives, in sender order, along ``concat_axis`` --
 the semantics of ``lax.all_to_all(tiled=True)``.
 
-Blocks travel as a list: one per rank this process holds (all P on a
-loopback world, its own on a process group). A process group ships every
-tensor as a ``uint8`` view of its trailing axis, so the wire parts
-(bf16, int8, int16, f32) need no dtype support from gloo or NCCL.
+Blocks travel as a list: one per rank this process holds (all on a
+loopback world, its own on a process group). On a 2D world an exchange
+names its mesh axis and runs within each group of that axis (the
+world's rows or columns); on a 1D world the group is the whole world.
+A process group ships every tensor as a ``uint8`` view of its trailing
+axis, so the wire parts (bf16, int8, int16, f32) need no dtype support
+from gloo or NCCL.
 
 Wire codecs (``wire_dtype``): ``bf16`` casts the (real, imag) planes to
 bfloat16; ``int8`` and ``split`` quantize them with one power-of-two step
@@ -31,7 +34,7 @@ import torch
 import torch.distributed as dist
 
 from ..geometry import pad_to
-from .mesh import World
+from .mesh import SLAB_AXIS, World
 
 
 def _pad_axis(x: torch.Tensor, axis: int, to: int) -> torch.Tensor:
@@ -281,28 +284,36 @@ def _from_bytes(b: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def _all_to_all(blocks: list[torch.Tensor], world: World, split_axis: int,
-                concat_axis: int) -> list[torch.Tensor]:
-    p = world.size
+                concat_axis: int, mesh_axis: str) -> list[torch.Tensor]:
+    p = world.axis_size(mesh_axis)
+    if p == 1:
+        return list(blocks)
     if world.loopback:
-        chunks = [b.chunk(p, dim=split_axis) for b in blocks]
-        return [torch.cat([chunks[src][dst] for src in range(p)],
-                          dim=concat_axis) for dst in range(p)]
+        out: list = [None] * len(blocks)
+        for members in world.axis_members(mesh_axis):
+            chunks = [blocks[m].tensor_split(p, dim=split_axis)
+                      for m in members]
+            for d, dst in enumerate(members):
+                out[dst] = torch.cat([chunks[s][d] for s in range(p)],
+                                     dim=concat_axis)
+        return out
     (x,) = blocks
-    send = torch.stack(x.chunk(p, dim=split_axis))
+    send = torch.stack(x.tensor_split(p, dim=split_axis))
     raw = _as_bytes(send)
     recv = torch.empty_like(raw)
-    dist.all_to_all_single(recv, raw, group=world.group)
+    dist.all_to_all_single(recv, raw, group=world.axis_group(mesh_axis))
     return [torch.cat(_from_bytes(recv, send).unbind(0), dim=concat_axis)]
 
 
 def exchange(blocks: list[torch.Tensor], world: World, *, split_axis: int,
-             concat_axis: int, wire_dtype: str | None = None
-             ) -> list[torch.Tensor]:
-    """Tiled all-to-all of every held block; ``split_axis`` must divide
-    by the world size. ``wire_dtype`` encodes each block on the split axis
-    (one tile per peer), ships every wire part, and decodes on the concat
-    axis."""
-    p = world.size
+             concat_axis: int, wire_dtype: str | None = None,
+             mesh_axis: str = SLAB_AXIS) -> list[torch.Tensor]:
+    """Tiled all-to-all of every held block within each group of
+    ``mesh_axis`` (the whole world on a 1D world); ``split_axis`` must
+    divide by the group size. ``wire_dtype`` encodes each block on the
+    split axis (one tile per peer), ships every wire part, and decodes on
+    the concat axis."""
+    p = world.axis_size(mesh_axis)
     if len(blocks) != len(world.ranks):
         raise ValueError(
             f"{len(blocks)} blocks for the {len(world.ranks)} ranks held")
@@ -311,31 +322,38 @@ def exchange(blocks: list[torch.Tensor], world: World, *, split_axis: int,
             f"split axis extent {blocks[0].shape[split_axis]} does not "
             f"divide by {p} ranks")
     if wire_dtype is None:
-        return _all_to_all(blocks, world, split_axis, concat_axis)
+        return _all_to_all(blocks, world, split_axis, concat_axis, mesh_axis)
     codec = wire_codec(wire_dtype)
     parts = [codec.encode(b, tile_axis=split_axis, tiles=p) for b in blocks]
     shipped = ship_parts(parts, world, split_axis=split_axis,
-                         concat_axis=concat_axis)
+                         concat_axis=concat_axis, mesh_axis=mesh_axis)
     return [codec.decode(w, b.dtype, tile_axis=concat_axis, tiles=p)
             for w, b in zip(shipped, blocks)]
 
 
 def ship_parts(parts: list[tuple], world: World, *, split_axis: int,
-               concat_axis: int) -> list[tuple]:
+               concat_axis: int, mesh_axis: str = SLAB_AXIS) -> list[tuple]:
     """Exchange already-encoded wire parts: ``parts[b]`` is held block
-    b's tuple; part i of every block travels in one all-to-all."""
-    moved = [_all_to_all([ps[i] for ps in parts], world, split_axis,
-                         concat_axis) for i in range(len(parts[0]))]
+    b's tuple; part i of every block travels in one all-to-all, its split
+    axis ceil-padded to a multiple of the group size first (the bytes
+    the unfused exchange of the padded block would ship)."""
+    p = world.axis_size(mesh_axis)
+    padded = [[_pad_axis(w, split_axis, pad_to(w.shape[split_axis], p))
+               for w in ps] for ps in parts]
+    moved = [_all_to_all([ps[i] for ps in padded], world, split_axis,
+                         concat_axis, mesh_axis)
+             for i in range(len(parts[0]))]
     return [tuple(m[b] for m in moved) for b in range(len(parts))]
 
 
 def exchange_uneven(blocks: list[torch.Tensor], world: World, *,
                     split_axis: int, concat_axis: int,
-                    wire_dtype: str | None = None) -> list[torch.Tensor]:
+                    wire_dtype: str | None = None,
+                    mesh_axis: str = SLAB_AXIS) -> list[torch.Tensor]:
     """:func:`exchange` after ceil-padding the split axis to a multiple of
-    the world size. The result's concat axis holds P ceil-chunks; the
-    caller crops it to its true extent."""
-    to = pad_to(blocks[0].shape[split_axis], world.size)
+    the group size. The result's concat axis holds one ceil-chunk per
+    sender; the caller crops it to its true extent."""
+    to = pad_to(blocks[0].shape[split_axis], world.axis_size(mesh_axis))
     return exchange([_pad_axis(b, split_axis, to) for b in blocks], world,
                     split_axis=split_axis, concat_axis=concat_axis,
-                    wire_dtype=wire_dtype)
+                    wire_dtype=wire_dtype, mesh_axis=mesh_axis)

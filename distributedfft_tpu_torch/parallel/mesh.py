@@ -1,36 +1,56 @@
-"""1D worlds of ranks -- the port of ``distributedfft_tpu/parallel/mesh.py``.
+"""Worlds of ranks -- the port of ``distributedfft_tpu/parallel/mesh.py``.
 
-A slab chain runs over a :class:`World` of P ranks, with one of two
-backends:
+A chain runs over a :class:`World`: 1D (P ranks, mesh axis ``"slab"``)
+for the slab chain, or 2D (rows x cols ranks, mesh axes ``"row"`` and
+``"col"``, rank ``r * cols + c`` at row r and column c) for the pencil
+chain. An exchange over ``"col"`` runs within each row of the grid (the
+ranks that differ only in their column), one over ``"row"`` within each
+column. Two backends:
 
-- **loopback**: one process holds all P ranks' shards as a list on one
-  device, and the all-to-all is a split and a concatenation. It runs the
-  distributed chain on one card (or on the CPU in the tests).
+- **loopback**: one process holds every rank's shard as a list on one
+  device, and the all-to-all is a split and a concatenation within each
+  group. It runs the distributed chain on one card (or on the CPU in the
+  tests).
 - **process group**: one rank per process, over a ``torch.distributed``
   process group (NCCL on the card, gloo on the CPU). The caller starts the
-  group; nothing here reads a cluster's environment.
+  group; nothing here reads a cluster's environment. A 2D world makes
+  one sub-group per row and per column; every rank makes all of them, in
+  the same order, as ``torch.distributed.new_group`` requires.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any
+import math
+from dataclasses import dataclass, field
+from typing import Any, Sequence
 
 import torch.distributed as dist
+
+SLAB_AXIS = "slab"
+PENCIL_AXES = ("row", "col")
 
 
 @dataclass(frozen=True)
 class World:
-    """P ranks. ``rank`` is None for a loopback world (this process holds
-    every rank), else this process's rank in ``group``."""
+    """``size`` ranks, on a ``grid`` of (rows, cols) when 2D. ``rank`` is
+    None for a loopback world (this process holds every rank), else this
+    process's rank in ``group``; ``sub_groups`` maps each mesh axis of a
+    2D process-group world to the sub-group this rank exchanges in."""
 
     size: int
     rank: int | None = None
     group: Any = None
+    grid: tuple[int, int] | None = None
+    sub_groups: dict = field(default_factory=dict, compare=False)
 
     def __post_init__(self) -> None:
         if self.size < 1:
             raise ValueError(f"a world needs >= 1 rank, got {self.size}")
+        if self.grid is not None and (
+                len(self.grid) != 2 or min(self.grid) < 1
+                or math.prod(self.grid) != self.size):
+            raise ValueError(
+                f"grid {self.grid} does not hold {self.size} ranks")
 
     @property
     def loopback(self) -> bool:
@@ -45,17 +65,91 @@ class World:
     def backend(self) -> str:
         return "loopback" if self.loopback else dist.get_backend(self.group)
 
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return (SLAB_AXIS,) if self.grid is None else PENCIL_AXES
 
-def make_world(size: int) -> World:
-    """A loopback world of ``size`` ranks in this process."""
-    return World(int(size))
+    def axis_size(self, mesh_axis: str) -> int:
+        """The ranks in each group of ``mesh_axis``."""
+        self._check_axis(mesh_axis)
+        if self.grid is None:
+            return self.size
+        return self.grid[PENCIL_AXES.index(mesh_axis)]
+
+    def axis_members(self, mesh_axis: str) -> list[list[int]]:
+        """The groups of ranks that exchange together over ``mesh_axis``,
+        each in the order of its index along that axis."""
+        self._check_axis(mesh_axis)
+        if self.grid is None:
+            return [list(range(self.size))]
+        rows, cols = self.grid
+        if mesh_axis == "col":
+            return [[r * cols + c for c in range(cols)] for r in range(rows)]
+        return [[r * cols + c for r in range(rows)] for c in range(cols)]
+
+    def axis_group(self, mesh_axis: str):
+        """This rank's process group for an exchange over ``mesh_axis``."""
+        self._check_axis(mesh_axis)
+        return self.group if self.grid is None else self.sub_groups[mesh_axis]
+
+    def _check_axis(self, mesh_axis: str) -> None:
+        if mesh_axis not in self.axis_names:
+            raise ValueError(
+                f"mesh axis {mesh_axis!r} is not one of this world's "
+                f"{self.axis_names}")
 
 
-def process_group_world(group=None) -> World:
+def _grid(shape) -> tuple[int, int] | None:
+    if isinstance(shape, int):
+        return None
+    shape = tuple(int(s) for s in shape)
+    if len(shape) == 1:
+        return None
+    if len(shape) != 2:
+        raise ValueError(f"a world is 1D or 2D, got shape {shape}")
+    return shape
+
+
+def make_world(shape: int | Sequence[int]) -> World:
+    """A loopback world in this process: ``make_world(4)`` is 1D (the
+    slab chain), ``make_world((2, 2))`` 2D (the pencil chain)."""
+    grid = _grid(shape)
+    if grid is None:
+        return World(int(shape if isinstance(shape, int) else shape[0]))
+    return World(math.prod(grid), grid=grid)
+
+
+def process_group_world(group=None, *, grid: Sequence[int] | None = None
+                        ) -> World:
     """This process's rank of an initialized ``torch.distributed`` group
-    (the default group when ``group`` is None)."""
+    (the default group when ``group`` is None); with ``grid=(rows,
+    cols)`` a 2D world over it, its row and column sub-groups made
+    here. Every rank of ``group`` must call it with the same grid.
+
+    A 2D world needs a group that holds every process of the default
+    group: ``dist.new_group`` must be entered by all of those processes,
+    members or not, so a sub-group's grid would hang the processes
+    outside it. Such a grid raises ``ValueError``."""
     if not dist.is_initialized():
         raise RuntimeError(
             "process_group_world needs torch.distributed.init_process_group "
             "first")
-    return World(dist.get_world_size(group), dist.get_rank(group), group)
+    size, rank = dist.get_world_size(group), dist.get_rank(group)
+    if grid is None:
+        return World(size, rank, group)
+    grid = _grid(grid)
+    if size != dist.get_world_size():
+        raise ValueError(
+            f"a 2D world needs every process of the default group; this "
+            f"group holds {size} of {dist.get_world_size()}")
+    if grid is None or math.prod(grid) != size:
+        raise ValueError(f"grid {grid} does not hold the group's {size} ranks")
+    world = World(size, rank, group, grid)
+    members = dist.get_process_group_ranks(
+        group if group is not None else dist.group.WORLD)
+    for axis in PENCIL_AXES:
+        for ranks in world.axis_members(axis):
+            sub = dist.new_group([members[r] for r in ranks])
+            if rank in ranks:
+                world.sub_groups[axis] = sub
+    return world

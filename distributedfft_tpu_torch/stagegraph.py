@@ -7,8 +7,10 @@ The port of the node vocabulary of ``distributedfft_tpu/stagegraph.py``
 interpreter. Builders emit a graph; :func:`run_graph` executes it stage
 by stage on the blocks one process holds. Local ops are ``("fft", axes,
 forward)``, ``("r2c", axis)``, ``("c2r", n, axis)``, ``("pack", axis,
-to)``, ``("pad", axis, to)`` and ``("crop", axis, to)``. Overlap-K
-chunking is not in this port yet.
+to)``, ``("pad", axis, to)`` and ``("crop", axis, to)``. An exchange
+node names its mesh axis (``"slab"``, or a pencil chain's ``"row"`` and
+``"col"``) and ceil-pads its split axis to a multiple of that axis's
+group. Overlap-K chunking is not in this port yet.
 
 A graph with a wire codec and the ``:fuse`` executor flag runs each
 exchange as a fused site: the stage before it and the encode as one
@@ -29,12 +31,14 @@ import torch
 
 from .ops import cuda_fuse
 from .ops.executors import get_c2r, get_executor, get_r2c, split_fuse
-from .parallel.exchange import (_crop_axis, _pad_axis, exchange, ship_parts,
-                                wire_codec)
-from .parallel.mesh import World
+from .parallel.exchange import (_crop_axis, _pad_axis, exchange_uneven,
+                                ship_parts, wire_codec)
+from .parallel.mesh import SLAB_AXIS, World
 
-#: The stage kinds a chain graph may carry.
+#: The stage kinds a chain graph may carry, and those of its exchanges
+#: (a pencil chain's two are t2a and t2b).
 STAGE_KINDS = ("t0", "t1", "t2", "t3")
+EXCHANGE_KINDS = ("t2", "t2a", "t2b")
 
 
 @dataclass(frozen=True)
@@ -55,19 +59,22 @@ class LocalNode:
 
 @dataclass(frozen=True)
 class ExchangeNode:
-    """One global transpose: a tiled all-to-all splitting ``split`` and
-    concatenating ``concat`` over ``parts`` ranks."""
+    """One global transpose: a tiled all-to-all over the ``parts`` ranks
+    of each group of ``mesh_axis``, splitting ``split`` (ceil-padded to a
+    multiple of ``parts`` first) and concatenating ``concat``."""
 
     kind: str
     name: str
+    mesh_axis: str
     parts: int
     split: int
     concat: int
 
     def __post_init__(self):
-        if self.kind != "t2":
+        if self.kind not in EXCHANGE_KINDS:
             raise ValueError(
-                f"exchange node kind must be 't2', got {self.kind!r}")
+                f"exchange node kind must be one of {EXCHANGE_KINDS}, "
+                f"got {self.kind!r}")
 
 
 def local_node(kind: str, name: str, *ops, fuse: bool = False) -> LocalNode:
@@ -75,23 +82,27 @@ def local_node(kind: str, name: str, *ops, fuse: bool = False) -> LocalNode:
 
 
 def exchange_node(kind: str, name: str, *, parts: int, split: int,
-                  concat: int) -> ExchangeNode:
-    return ExchangeNode(kind=kind, name=name, parts=int(parts), split=split,
-                        concat=concat)
+                  concat: int, mesh_axis: str = SLAB_AXIS) -> ExchangeNode:
+    return ExchangeNode(kind=kind, name=name, mesh_axis=mesh_axis,
+                        parts=int(parts), split=split, concat=concat)
 
 
 @dataclass(frozen=True)
 class StageGraph:
     """One chain as a linear list of nodes over ``world``. The plan
-    pads the input axis and cuts the input into shards before the first
-    node, and joins and crops the output after the last. ``wire_dtype``
-    compresses every exchange; ``meta`` holds planner records (the
-    fusion pass's under ``"fusion"``)."""
+    pads the input (``pre``: ``("pad", axis, to)`` of the global array;
+    the slab plan reads its spec instead) and cuts it into shards before
+    the first node, and joins and crops the output (``post``: ``("crop",
+    axis, to)``) after the last. ``wire_dtype`` compresses every
+    exchange; ``meta`` holds planner records (the fusion pass's under
+    ``"fusion"``)."""
 
     world: World
     nodes: tuple
     executor: str = "cuda"
     wire_dtype: str | None = None
+    pre: tuple = ()
+    post: tuple = ()
     meta: dict = field(default_factory=dict, compare=False)
 
     def validate(self) -> "StageGraph":
@@ -245,7 +256,7 @@ def _run_fused_site(blocks: list, graph: StageGraph, interp: _Interp,
 
     with stage(n.kind):
         shipped = ship_parts(parts, graph.world, split_axis=n.split,
-                             concat_axis=n.concat)
+                             concat_axis=n.concat, mesh_axis=n.mesh_axis)
 
     rshape = shipped[0][0].shape[:-1]
     rops = nxt.ops
@@ -301,10 +312,10 @@ def run_graph(graph: StageGraph, blocks: list[torch.Tensor],
         else:
             with stage(node.kind):
                 if isinstance(node, ExchangeNode):
-                    blocks = exchange(blocks, graph.world,
-                                      split_axis=node.split,
-                                      concat_axis=node.concat,
-                                      wire_dtype=graph.wire_dtype)
+                    blocks = exchange_uneven(
+                        blocks, graph.world, split_axis=node.split,
+                        concat_axis=node.concat, wire_dtype=graph.wire_dtype,
+                        mesh_axis=node.mesh_axis)
                 else:
                     blocks = [interp.run(node.ops, b) for b in blocks]
             i += 1

@@ -355,10 +355,28 @@ def test_real_single_device_matches_reference():
 
 
 def test_half_length_the_kernels_do_not_take_raises():
-    """n2 = 72 packs into a half-length 36-point transform, below the
-    kernels' 64-point minimum: planning raises with reason ``length``."""
-    with pytest.raises(ValueError, match=r"length 36 .*\(reason: length\)"):
-        tdfft.plan_dft_r2c_3d((64, 64, 72), 2, device="cpu")
+    """Named for what it checked before the dft_matmul route was ported
+    (planning raised): n2 = 72 packs into a half-length 36-point
+    transform, below the kernels' 64-point minimum. It now runs
+    dft_matmul, counted with reason ``length``, and the plans match
+    JAX's pallas R2C/C2R plans, which route it the same way."""
+    shape = (64, 64, 72)
+    x = testing.make_world_data(shape, np.float32, seed=4)
+    mesh = jdfft.make_mesh(2)
+    jf = jdfft.plan_dft_r2c_3d(shape, mesh, executor="pallas",
+                               dtype=jnp.complex64)
+    jb = jdfft.plan_dft_c2r_3d(shape, mesh, executor="pallas",
+                               dtype=jnp.complex64)
+    tf = tdfft.plan_dft_r2c_3d(shape, 2, device="cpu")
+    tb = tdfft.plan_dft_c2r_3d(shape, 2, device="cpu")
+    before = cuda_fft.FALLBACKS[(2, "length")]
+    got = tf(torch.from_numpy(x))
+    assert cuda_fft.FALLBACKS[(2, "length")] == before + 2   # one per rank
+    want = np.asarray(jf(x))
+    assert testing.rel_error(got.numpy(), want) <= SAME_MATH
+    back = tb(got).numpy()
+    assert testing.rel_error(back, np.asarray(jb(want))) <= SAME_MATH
+    assert testing.rel_error(back, x) <= C64
 
 
 def test_odd_real_axis_promotes_and_mirrors():
@@ -417,5 +435,10 @@ def test_plan_from_reference_kind_wire_fusion(kind, codec, fuse):
                                  active=not desc["fusion"]["active"]))
     with pytest.raises(ValueError, match="fusion differs"):
         tdfft.plan_from_reference(bad, device="cpu")
+    # JAX's xla executor is the port's torch one; xla_minor has no port
+    bare = {k: v for k, v in desc.items() if k != "fusion"}
+    assert tdfft.plan_from_reference(
+        dict(bare, executor="xla"), device="cpu").executor == "torch"
     with pytest.raises(ValueError, match="no port counterpart"):
-        tdfft.plan_from_reference(dict(desc, executor="xla"), device="cpu")
+        tdfft.plan_from_reference(dict(bare, executor="xla_minor"),
+                                  device="cpu")

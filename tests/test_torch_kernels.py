@@ -177,17 +177,43 @@ def test_plane_too_large_runs_per_axis_and_is_counted():
     (64, torch.complex128, "dtype"),
 ])
 def test_executor_raises_with_reason(n, dtype, reason):
-    x = torch.zeros((4, n), dtype=dtype)
+    """Named for what it checked before the dft_matmul route was ported
+    (the executor raised here): a length or dtype the kernels do not take
+    now runs dft_matmul, its reason counted, and matches the JAX
+    ``pallas`` executor, which routes it the same way."""
+    npdt = np.complex64 if dtype == torch.complex64 else np.complex128
+    x = _c64(n, (4, n)).astype(npdt)
     before = cuda_fft.FALLBACKS[(1, reason)]
-    with pytest.raises(ValueError, match=f"reason: {reason}"):
-        get_executor("cuda")(x, (1,), True)
+    got = get_executor("cuda")(torch.from_numpy(x), (1,), True)
     assert cuda_fft.FALLBACKS[(1, reason)] == before + 1
+    assert got.dtype == dtype
+    want = jex.get_executor("pallas")(jnp.asarray(x), (1,), True)
+    assert _err(got.numpy(), want) < (SAME_MATH if npdt == np.complex64
+                                      else 1e-12)
+    assert _err(got.numpy(), np.fft.fft(x.astype(np.complex128), axis=1)) \
+        < testing.tolerance(npdt)
 
 
 def test_executor_raises_on_empty():
-    with pytest.raises(ValueError, match="reason: empty"):
-        get_executor("cuda")(torch.zeros((0, 64), dtype=torch.complex64),
-                             (1,), True)
+    """Named as above: an empty tensor now runs dft_matmul, counted with
+    reason ``empty`` (the JAX package's), and comes back empty."""
+    before = cuda_fft.FALLBACKS[(1, "empty")]
+    got = get_executor("cuda")(torch.zeros((0, 64), dtype=torch.complex64),
+                               (1,), True)
+    assert cuda_fft.FALLBACKS[(1, "empty")] == before + 1
+    assert tuple(got.shape) == (0, 64) and got.dtype == torch.complex64
+    want = jex.get_executor("pallas")(jnp.zeros((0, 64), jnp.complex64),
+                                      (1,), True)
+    assert tuple(want.shape) == (0, 64)
+
+
+def test_executor_raises_for_two_kernel_lengths():
+    """A length the JAX package runs as two kernel passes
+    (``_fft_last_big``, not ported) still raises, reason ``length``."""
+    assert cuda_fft.outer_split(131072) == pallas_fft.outer_split(131072)
+    x = torch.zeros((1, 131072), dtype=torch.complex64)
+    with pytest.raises(ValueError, match="reason: length"):
+        get_executor("cuda")(x, (1,), True)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "ndim", "contiguous", "length"])
