@@ -52,15 +52,32 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    radix route only, and no complex64 phase at 512 may have taken a
    fallback; times each plan and its t0/t2a/t1/t2b/t3 stages (median of
    10);
-9. runs complex128 through the cuda executor's dft_matmul route and
+9. drives the exchange transports at 512^3: the slab C2C plan on a
+   4-rank loopback world under ``alltoall``, ``alltoallv`` and
+   ``ppermute`` and on a 2x2 hybrid world under ``hierarchical``, each
+   at overlap K = 1, 2 and "auto" (8 here), forward and backward, each
+   equal bit for bit to the alltoall, K = 1 plan and within the tier of
+   torch.fft.fftn; ``alltoallv`` at (510, 510, 512) against the dense
+   plan; the 2x2 pencil under each flat transport at K = 2 and "auto"
+   against its K = 1 plan; one split-wire fused plan per transport at K
+   = 1 against its unfused twin (bit for bit; the C2R one, whose sender
+   is the fused encode, over each flat transport too), the fusion pass
+   recording ``overlap_k`` at K > 1; the staged pipelines (slab,
+   hierarchical per leg, pencil, R2C, single) against their plans, with
+   each stage's CUDA-event time; one traced run of the slab plan under
+   torch.profiler with the trace spans on, printing the device time
+   under each t0..t3 span and the device's idle share over the traced
+   window; then the transport, K, forward and backward times and the
+   per-stage times of each plan;
+10. runs complex128 through the cuda executor's dft_matmul route and
    through the torch executor (a 4-rank slab at 256^3 against
    torch.fft.fftn, 1e-11), and the matmul executor's three precision
    tiers on a [4096, 512] row batch against torch.fft.fft (each tier's
    error within its band, the three strictly ordered); prints one JSON
    line of the five kernels and, last, the device line.
 
-Each counted path (5, 6, 8) also records the case of every kernel call
-and fails on one that phases 2 and 3 did not hold against its plain
+Each counted path (5, 6, 8, 9) also records the case of every kernel
+call and fails on one that phases 2 and 3 did not hold against its plain
 version.
 
 Any failed check exits nonzero before the last line. Without a CUDA
@@ -1016,6 +1033,332 @@ def check_matmul_tiers(torch, timing, dev, rows=4096, n=512):
               flush=True)
 
 
+# ------------------------------------------------------------- transports
+
+def overlap_cases(n, ks, ranks=SLAB_RANKS):
+    """The kernel cases the overlap chunks add at n^3 for each K > 1: the
+    slab on ``ranks`` ranks and the 2x2 pencil, each exchange's compute
+    run on K chunks of its bystander axis."""
+    out = []
+    for k in sorted(k for k in set(ks) if k > 1):
+        out += [("fft_axis0", True, (1, n, n * n // (ranks * k)),
+                 f"K={k} slab and pencil fwd t3 chunk"),
+                ("fft_axis0", False, (n // ranks, n, n // k),
+                 f"K={k} slab bwd t3 chunk"),
+                ("fft_axis0", True, (n // (2 * k), n, n // 2),
+                 f"K={k} pencil fwd t1 chunk"),
+                ("fft_axis0", False, (n // 2, n, n // (2 * k)),
+                 f"K={k} pencil bwd t1 chunk"),
+                ("fft_last", False, (n * n // (4 * k), n),
+                 f"K={k} pencil bwd t3 chunk")]
+    return out
+
+
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def transport_plans(dfft, shape, world, algorithm, k, **kw):
+    f = dfft.plan_dft_c2c_3d(shape, world, algorithm=algorithm,
+                             overlap_chunks=k, **kw)
+    b = dfft.plan_dft_c2c_3d(shape, world, algorithm=algorithm,
+                             overlap_chunks=k, direction=dfft.BACKWARD, **kw)
+    return f, b
+
+
+def check_transports(torch, dfft, dev, n=512, ks=(2, "auto")):
+    """Phase 9a: every transport and K on the slab (and the flat ones on
+    the pencil) against the alltoall, K = 1 plan, bit for bit. Returns
+    the plans the timing phase times, by label."""
+    from distributedfft_tpu_torch.parallel.exchange import (ALGORITHMS,
+                                                            FLAT_ALGORITHMS)
+
+    shape = (n, n, n)
+    flat = dfft.make_world(SLAB_RANKS)
+    hybrid = dfft.make_world(PENCIL_GRID, dfft.HYBRID_AXES)
+    plans = {}
+    x = seeded(torch, shape, dev)
+    ref = torch.fft.fftn(x)
+    base = transport_plans(dfft, shape, flat, "alltoall", 1, device=dev)
+    y0 = base[0](x)
+    r0 = base[1](y0)
+    errs = rel_err(torch, y0, ref)[:2] + rel_err(torch, r0, x)[:2]
+    del ref
+    for alg in ALGORITHMS:
+        world = hybrid if alg == "hierarchical" else flat
+        for k in (1,) + tuple(ks):
+            f, b = transport_plans(dfft, shape, world, alg, k, device=dev)
+            if (alg, f.overlap_chunks) in plans:
+                continue
+            y = f(x)
+            r = b(y0)
+            sync(torch, dev)
+            report = twin_report(torch, (y, r), (y0, r0))
+            label = (f"slab c2c {n}^3 {alg} K={f.overlap_chunks} "
+                     f"({'2x2 hybrid' if world.grid else 'P=4'} loopback)")
+            print(f"{label}: vs the alltoall K=1 plan (forward, backward): "
+                  f"{report}; forward vs torch.fft.fftn max rel err="
+                  f"{errs[0]:.3e} l2 rel err={errs[1]:.3e}; roundtrip max "
+                  f"rel err={errs[2]:.3e} l2 rel err={errs[3]:.3e}",
+                  flush=True)
+            if report != "bit-identical" or not max(errs) <= TOL:
+                fail(f"{label}: {report}; errors {errs}")
+            plans[(alg, f.overlap_chunks)] = (f, b, "slab")
+            del y, r
+    del r0
+
+    # alltoallv on an uneven world against the dense plan
+    uneven = (n - 2, n - 2, n)
+    xu = seeded(torch, uneven, dev)
+    dense = transport_plans(dfft, uneven, flat, "alltoall", 1,
+                            device=dev)
+    ragged = transport_plans(dfft, uneven, flat, "alltoallv", 1,
+                             device=dev)
+    yd = dense[0](xu)
+    yr = ragged[0](xu)
+    report = twin_report(torch, (yr, ragged[1](yd)), (yd, dense[1](yd)))
+    err = rel_err(torch, yr, torch.fft.fftn(xu))[:2]
+    print(f"slab c2c {uneven} alltoallv K=1 P=4: vs the dense plan "
+          f"(forward, backward): {report}; forward vs torch.fft.fftn max "
+          f"rel err={err[0]:.3e} l2 rel err={err[1]:.3e}", flush=True)
+    if report != "bit-identical" or not max(err) <= TOL:
+        fail(f"alltoallv {uneven}: {report}; errors {err}")
+    del xu, yd, yr
+
+    # the pencil under each flat transport and K
+    pbase = transport_plans(dfft, shape, PENCIL_GRID, "alltoall", 1,
+                            device=dev)
+    py0 = pbase[0](x)
+    pr0 = pbase[1](py0)
+    for alg in FLAT_ALGORITHMS:
+        for k in (1,) + tuple(ks):
+            f, b = transport_plans(dfft, shape, PENCIL_GRID, alg, k,
+                                   device=dev)
+            if alg == "alltoall" and f.overlap_chunks == 1:
+                plans[("pencil", alg, 1)] = (f, b, "pencil")
+                continue
+            report = twin_report(torch, (f(x), b(py0)), (py0, pr0))
+            label = f"pencil c2c {n}^3 2x2 {alg} K={f.overlap_chunks}"
+            print(f"{label}: vs the alltoall K=1 plan (forward, backward): "
+                  f"{report}", flush=True)
+            if report != "bit-identical":
+                fail(f"{label}: {report}")
+            plans[("pencil", alg, f.overlap_chunks)] = (f, b, "pencil")
+    del py0, pr0
+
+    # one split-wire fused plan per transport at K = 1, and the gate at K > 1
+    for alg in ALGORITHMS:
+        world = hybrid if alg == "hierarchical" else flat
+        fused = transport_plans(dfft, shape, world, alg, 1,
+                                wire_dtype="split", fuse=True, device=dev)
+        twin = transport_plans(dfft, shape, world, alg, 1,
+                               wire_dtype="split", device=dev)
+        yf = fused[0](x)
+        report = twin_report(torch, (yf, fused[1](yf)),
+                             (twin[0](x), twin[1](yf)))
+        sites = [(st["sender"], st["receiver"]) for st in
+                 fused[0].graph.meta["fusion"]["sites"].values()]
+        label = f"slab c2c {n}^3 {alg} split fused K=1"
+        print(f"{label}: vs the unfused twin (forward, backward): {report};"
+              f" fusion sites {sites}", flush=True)
+        if report != "bit-identical" or sites != [SITE_ROUTES["c2c fwd"]]:
+            fail(f"{label}: {report}, sites {sites}")
+        k_plan = dfft.plan_dft_c2c_3d(shape, world, algorithm=alg,
+                                      overlap_chunks=2, wire_dtype="split",
+                                      fuse=True, device=dev)
+        fusion = k_plan.graph.meta["fusion"]
+        if fusion["active"] or fusion["reasons"] != ("overlap_k",):
+            fail(f"{alg} split fused K={k_plan.overlap_chunks}: fusion "
+                 f"{fusion}")
+        plans[(alg, "split fused", 1)] = (*fused, "slab")
+        del yf
+    print(f"fused split plans at K>1: the fusion pass records overlap_k on "
+          f"every transport", flush=True)
+    del x, y0
+    # the C2R split fused sender (kernel 4) over each flat transport
+    spec = torch.fft.rfftn(seeded_real(torch, shape, dev))
+    for alg in FLAT_ALGORITHMS:
+        kw = dict(algorithm=alg, wire_dtype="split", device=dev)
+        fused = dfft.plan_dft_c2r_3d(shape, flat, fuse=True, **kw)
+        report = twin_report(torch, (fused(spec),),
+                             (dfft.plan_dft_c2r_3d(shape, flat, **kw)(spec),))
+        sites = [(st["sender"], st["receiver"]) for st in
+                 fused.graph.meta["fusion"]["sites"].values()]
+        label = f"c2r {n}^3 {alg} split fused K=1"
+        print(f"{label}: vs the unfused twin: {report}; fusion sites "
+              f"{sites}", flush=True)
+        if report != "bit-identical" or sites != [SITE_ROUTES["c2r bwd"]]:
+            fail(f"{label}: {report}, sites {sites}")
+    del spec
+    return plans
+
+
+def check_staged(torch, dfft, timing, dev, n=512):
+    """Phase 9b: the staged pipelines at n^3 against their plans (bit for
+    bit; the slab C2C backward within the tier, its stages transforming X
+    first as the JAX package's do) and each stage's CUDA-event time."""
+    from distributedfft_tpu_torch.parallel import staged
+    from distributedfft_tpu_torch.parallel.slab import build_slab_stages
+
+    shape = (n, n, n)
+    flat = dfft.make_world(SLAB_RANKS)
+    hybrid = dfft.make_world(PENCIL_GRID, dfft.HYBRID_AXES)
+    x = seeded(torch, shape, dev)
+    xr = seeded_real(torch, shape, dev)
+    cases = []
+    for fwd in (True, False):
+        d = dfft.FORWARD if fwd else dfft.BACKWARD
+        tag = "fwd" if fwd else "bwd"
+        cases += [
+            (f"slab {tag}", build_slab_stages(flat, shape, forward=fwd)[0],
+             dfft.plan_dft_c2c_3d(shape, flat, direction=d, device=dev), x,
+             fwd),
+            (f"pencil 2x2 {tag}", staged.build_pencil_stages(
+                dfft.make_world(PENCIL_GRID), shape, forward=fwd)[0],
+             dfft.plan_dft_c2c_3d(shape, PENCIL_GRID, direction=d,
+                                  device=dev), x, True),
+            (f"single {tag}", staged.build_single_stages(shape, forward=fwd),
+             dfft.plan_dft_c2c_3d(shape, None, direction=d, device=dev), x,
+             True)]
+    for k in (1, 2):
+        cases.append((f"hierarchical 2x2 K={k} fwd", build_slab_stages(
+            hybrid, shape, algorithm="hierarchical", overlap_chunks=k)[0],
+            dfft.plan_dft_c2c_3d(shape, hybrid, algorithm="hierarchical",
+                                 overlap_chunks=k, device=dev), x, True))
+    r2c = dfft.plan_dft_r2c_3d(shape, flat, device=dev)
+    spec = r2c(xr)
+    cases += [("slab r2c", staged.build_slab_rfft_stages(flat, shape)[0],
+               r2c, xr, True),
+              ("slab c2r", staged.build_slab_rfft_stages(
+                  flat, shape, forward=False)[0],
+               dfft.plan_dft_c2r_3d(shape, flat, device=dev), spec, True)]
+    for label, stages, plan, inp, exact in cases:
+        times, out = timing.time_staged(stages, inp, iters=5)
+        want = plan(inp)
+        sync(torch, dev)
+        report = twin_report(torch, (out,), (want,))
+        err = rel_err(torch, out, want)[0]
+        print(f"staged {label} {n}^3: stages (CUDA events, best of 5, ms) "
+              + " ".join(f"{k}={v * 1e3:.3f}" for k, v in times.times.items())
+              + f" total={times.total * 1e3:.3f}; composed vs the plan: "
+              f"{report}", flush=True)
+        if (exact and report != "bit-identical") or not err <= TOL:
+            fail(f"staged {label}: {report}, max rel err {err:.3e}")
+        del out, want
+    del x, xr, spec
+
+
+def trace_breakdown(path):
+    """Device time under each span of a torch.profiler chrome trace: each
+    kernel, copy or fill is charged to the innermost ``t0..t3`` span (by
+    :func:`stage_key`) whose host range holds its launch, found by the
+    launch's correlation id; and the device's idle share over the window
+    from the start of the ``execute_*`` span to the end of the last
+    device activity it launched. Returns (per span, per key, idle share,
+    window us, busy us, device ops)."""
+    from distributedfft_tpu_torch.utils.trace import stage_key
+
+    events = json.load(open(path))["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"]
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    ops = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    execute = [e for e in spans if e["name"].startswith("execute_")]
+    if not execute or not ops:
+        fail(f"traced run: {len(execute)} execute spans, {len(ops)} device "
+             f"operations in the trace")
+    lo = execute[0]["ts"]
+    hi_host = lo + execute[0]["dur"]
+    per_span, per_key, busy_iv = {}, {}, []
+    for op in ops:
+        t = launch.get(op.get("args", {}).get("correlation"))
+        if t is None or not lo <= t <= hi_host:
+            continue
+        inner = [s for s in spans if stage_key(s["name"])
+                 and s["ts"] <= t <= s["ts"] + s["dur"]]
+        if inner:
+            name = min(inner, key=lambda s: s["dur"])["name"]
+            per_span[name] = per_span.get(name, 0.0) + op["dur"]
+            key = stage_key(name)
+            per_key[key] = per_key.get(key, 0.0) + op["dur"]
+        busy_iv.append((op["ts"], op["ts"] + op["dur"]))
+    if not busy_iv:
+        fail("traced run: no device operation launched inside the plan")
+    start = min(lo, min(a for a, _ in busy_iv))
+    end = max(b for _, b in busy_iv)
+    busy, cur = 0.0, None
+    for a, b in sorted(busy_iv):
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    busy += cur[1] - cur[0]
+    window = end - start
+    return per_span, per_key, 1.0 - busy / window, window, busy, len(busy_iv)
+
+
+def traced_run(torch, dfft, dev, here, n=512):
+    """Phase 9c: one slab C2C exact forward under torch.profiler with the
+    trace spans on (a host-side log too); the device time under each
+    span and the device's idle share over the traced window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributedfft_tpu_torch.utils import trace
+
+    out_dir = os.path.join(here, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    shape = (n, n, n)
+    x = seeded(torch, shape, dev)
+    plan = dfft.plan_dft_c2c_3d(shape, dfft.make_world(SLAB_RANKS))
+    plan(x)                                   # warm
+    torch.cuda.synchronize()
+    trace.init_tracing(os.path.join(out_dir, "chip_smoke_trace"))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        plan(x)
+        torch.cuda.synchronize()
+    log = trace.finalize_tracing()
+    path = os.path.join(out_dir, "chip_smoke_slab_trace.json")
+    prof.export_chrome_trace(path)
+    per_span, per_key, idle, window, busy, nops = trace_breakdown(path)
+    print(f"traced slab c2c {n}^3 P={SLAB_RANKS} forward (torch.profiler, "
+          f"{nops} device operations; host spans in "
+          f"{os.path.relpath(log, here)}): device time per stage (ms) "
+          + " ".join(f"{k}={v / 1e3:.3f}" for k, v in sorted(per_key.items()))
+          + "; per span (ms) "
+          + " ".join(f"{k}={v / 1e3:.3f}" for k, v in per_span.items())
+          + f"; traced window {window / 1e3:.3f} ms, device busy "
+          f"{busy / 1e3:.3f} ms, idle share {idle:.4f}", flush=True)
+    if not {"t0", "t2", "t3"} <= set(per_key):
+        fail(f"traced run: device time under {sorted(per_key)} only")
+    del x
+
+
+def time_transport_plans(torch, timing, dev, plans, n=512):
+    """The transport, K, forward and backward ms (median of 10) and the
+    stage medians of each transport plan."""
+    x = seeded(torch, (n, n, n), dev)
+    for key, (f, b, kind) in plans.items():
+        y = f(x)
+        t_f = timing.cuda_time_ms(lambda: f(x), iters=10)
+        t_b = timing.cuda_time_ms(lambda: b(y), iters=10)
+        grid = ("2x2" if f.world.grid else f"P={f.world.size}")
+        label = (f"{kind} c2c {n}^3 {grid} {f.algorithm} K={f.overlap_chunks}"
+                 f"{' split fused' if f.wire_dtype else ''}")
+        print(f"{label}: transport={f.algorithm} K={f.overlap_chunks} "
+              f"forward_ms={t_f:.3f} backward_ms={t_b:.3f}", flush=True)
+        stage_medians(torch, timing, f, x, f"{label} forward", reps=5)
+        stage_medians(torch, timing, b, y, f"{label} backward", reps=5)
+        del y
+    del x
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "distributedfft_tpu_torch")):
@@ -1047,6 +1390,10 @@ def main() -> None:
           f"({', '.join(os.path.relpath(p, here) for p in _build.sources())}"
           f")", flush=True)
 
+    from distributedfft_tpu_torch.plan_logic import resolve_overlap_chunks
+
+    auto_k = resolve_overlap_chunks("auto", (512,) * 3, SLAB_RANKS)
+    KERNEL_CASES.extend(overlap_cases(512, (2, auto_k)))
     records = check_kernels(torch, cf, radix, timing, rates)
     records.update(check_fused_kernels(torch, cf, cfu, wire_codec, timing,
                                        rates))
@@ -1086,11 +1433,13 @@ def main() -> None:
         if v <= 0:
             fail(f"kernel {k} was not launched on the main path")
         records[k]["launches"] = v
-    print("exchange: loopback all-to-all (split/cat on one card); NCCL "
-          "all_to_all_single needs >= 2 cards and is not run here (the "
-          "gloo process group is covered by the CPU tests, NCCL by the "
-          "cuda-marked tests/test_torch_world.py on a multi-card host)",
-          flush=True)
+    print("exchange: loopback transports on one card (alltoall split/cat, "
+          "alltoallv true slices, ppermute ring shifts, hierarchical legs: "
+          "device copies on one stream, so no overlap to see); the NCCL "
+          "process groups need >= 2 cards and are not run here (gloo is "
+          "covered by the CPU tests, NCCL by the cuda-marked "
+          "tests/test_torch_world.py and tests/test_torch_transports.py on "
+          "a multi-card host)", flush=True)
     print(f"peak device memory of the main path: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
@@ -1181,6 +1530,34 @@ def main() -> None:
         del y
         torch.cuda.empty_cache()
     del x, xr, pencil
+    torch.cuda.empty_cache()
+
+    # ---- the transports, overlap and staged path: counts from 0 ----
+    cf.reset_launches()
+    cfu.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with recording_cases(cf, cfu) as seen:
+        transport = check_transports(torch, dfft, dev)
+    path = {**cf.launches(), **cfu.launches()}
+    print(f"launches on the transport path: {path}", flush=True)
+    check_routes(cf, "the transport path", {}, dict(cf.ROUTES))
+    check_covered(seen, "the transport path")
+    print(f"peak device memory of the transport path: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for k in ("fft2_last", "fft_axis0", "fft_last", "fft_encode",
+              "decode_fft"):
+        if path[k] <= 0:
+            fail(f"kernel {k} was not launched on the transport path")
+    for k, v in path.items():
+        records[k]["launches"] += v
+    if dict(cf.FALLBACKS) != fallbacks:
+        fail(f"the transport path took a fallback: {dict(cf.FALLBACKS)}")
+    with recording_cases(cf, cfu) as seen:
+        check_staged(torch, dfft, timing, dev)
+        traced_run(torch, dfft, dev, here)
+    check_covered(seen, "the staged and traced runs")
+    time_transport_plans(torch, timing, dev, transport)
+    del transport
     torch.cuda.empty_cache()
 
     # ---- complex128 and the matmul tiers ----

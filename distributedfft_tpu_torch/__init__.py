@@ -12,6 +12,13 @@ the kernels do not take (complex128, short or prime lengths) runs the
 DFT by matmuls of :mod:`.ops.dft_matmul`, as in the JAX package. The
 ``matmul`` and ``torch`` (``torch.fft``) executors run beside it.
 
+The exchange has four transports (``algorithm``: ``alltoall``,
+``alltoallv``, ``ppermute``, and ``hierarchical`` over a hybrid (nodes x
+cards) world, :mod:`.parallel.multihost`), an overlap-K pipeline of t2
+under t3 (``overlap_chunks``), staged pipelines for per-stage times
+(:mod:`.parallel.staged`, :func:`.utils.timing.time_staged`) and trace
+spans around every stage (:mod:`.utils.trace`).
+
 Quick start::
 
     import torch
@@ -21,6 +28,11 @@ Quick start::
     x = torch.randn(512, 512, 512, dtype=torch.complex64, device="cuda")
     y = plan(x)                                    # X-slabs in, Y-slabs out
     pencil = dfft.plan_dft_c2c_3d((512, 512, 512), (2, 2))  # 2x2 world
+    ring = dfft.plan_dft_c2c_3d((512, 512, 512), 4, algorithm="ppermute",
+                                overlap_chunks="auto")
+    hier = dfft.plan_dft_c2c_3d((512, 512, 512),
+                                dfft.make_world((2, 2), dfft.HYBRID_AXES),
+                                algorithm="hierarchical")
     real = dfft.plan_dft_r2c_3d((512, 512, 512), 4, wire_dtype="split",
                                 fuse=True)
     h = real(torch.randn(512, 512, 512, device="cuda"))   # [512, 512, 257]
@@ -43,5 +55,9 @@ from .api import (  # noqa: F401
 from .local import (LocalPlan, plan_dft_c2c, plan_dft_c2c_1d,  # noqa: F401
                     plan_dft_c2c_2d)
 from .ops.executors import Scale  # noqa: F401
-from .parallel.mesh import World, make_world, process_group_world  # noqa: F401
-from .plan_logic import choose_decomposition  # noqa: F401
+from .parallel.exchange import ALGORITHMS  # noqa: F401
+from .parallel.mesh import (HYBRID_AXES, World, make_world,  # noqa: F401
+                            process_group_world)
+from .plan_logic import (PlanOptions, choose_decomposition,  # noqa: F401
+                         default_options)
+from .utils.trace import plan_info  # noqa: F401

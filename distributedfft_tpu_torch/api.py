@@ -13,12 +13,18 @@ by :func:`.plan_logic.choose_decomposition`, and ``decomposition=``
 overrides. ``dtype`` is complex64 (the default: the card's working type)
 or complex128, whose real side is float64.
 
+``algorithm`` picks the exchange transport (``alltoall``, ``alltoallv``,
+``ppermute``, or on a 2D hybrid world ``hierarchical``, which runs the
+slab C2C chain over its combined axis; pencil and real plans take the
+flat three), ``overlap_chunks`` the K of the pipelined t2/t3 overlap (an
+int, ``"auto"``, or None for ``DFFT_OVERLAP``, else 1).
 ``wire_dtype`` (``"bf16"``, ``"int8"``, ``"split"``) compresses the
 chain's exchanges; ``fuse=True`` (the ``cuda:fuse`` executor label) asks
-the stage graph to fuse the codec into the stages beside each exchange.
-A single-device plan has no exchange and drops the codec. The JAX
-package's ``DFFT_FUSE`` / ``DFFT_WIRE_DTYPE`` environment defaults are
-not read.
+the stage graph to fuse the codec into the stages beside each exchange
+(at K = 1). Every knob can come as one :class:`~.plan_logic.PlanOptions`
+(``options=``) instead. A single-device plan has no exchange and drops
+the codec, the transport's choice and K. The JAX package's
+``DFFT_FUSE`` / ``DFFT_WIRE_DTYPE`` environment defaults are not read.
 
 I/O of a distributed plan: on a loopback world ``execute`` takes and
 returns the global array (forward: X-slabs in and Y-slabs out, or
@@ -29,21 +35,23 @@ rank's input box and returns its output box.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Sequence
 
 import torch
 
 from . import geometry as geo
-from .ops.executors import (Scale, apply_scale, fused_name, get_executor,
-                            get_c2r, get_r2c, split_fuse)
-from .parallel.exchange import _crop_axis, _pad_axis, wire_codec
+from .ops.executors import (MM_EXECUTOR_BASES, Scale, apply_scale,
+                            fused_name, get_c2r, get_executor, get_r2c,
+                            split_fuse, tiered_name)
+from .parallel.exchange import wire_codec
 from .parallel.mesh import World
 from .parallel.pencil import (PencilSpec, build_pencil_fft3d,
                               build_pencil_rfft3d)
 from .parallel.slab import SlabSpec, build_slab_fft3d, build_slab_rfft3d
-from .plan_logic import io_boxes, logic_plan3d
-from .stagegraph import StageGraph, plan_fusion, run_graph
+from .plan_logic import PlanOptions, io_boxes, logic_plan3d
+from .stagegraph import StageGraph, gather, plan_fusion, run_graph, scatter
+from .utils.trace import add_trace
 
 # FFTW sign convention.
 FORWARD = -1
@@ -83,6 +91,9 @@ class Plan3D:
     device: torch.device
     kind: str = "c2c"
     wire_dtype: str | None = None
+    algorithm: str = "alltoall"
+    overlap_chunks: int = 1
+    options: PlanOptions | None = None
     graph: StageGraph | None = None
     spec: SlabSpec | PencilSpec | None = None
     in_boxes: list[geo.Box3] = field(default_factory=list)
@@ -123,7 +134,8 @@ class Plan3D:
     def describe(self) -> dict[str, Any]:
         """The plan's geometry and routing as plain values (see
         :func:`plan_from_reference`); ``grid`` is the (rows, cols) of a
-        pencil plan's world, else None."""
+        2D world, else None; ``algorithm`` and ``overlap_chunks`` the
+        exchange's transport and resolved K."""
         box = lambda b: (tuple(b.low), tuple(b.high))
         fusion = self.graph.meta["fusion"] if self.graph is not None else {
             "requested": split_fuse(self.executor)[1], "active": False,
@@ -138,6 +150,8 @@ class Plan3D:
             decomposition=self.decomposition,
             executor=self.executor,
             wire_dtype=self.wire_dtype,
+            algorithm=self.algorithm,
+            overlap_chunks=self.overlap_chunks,
             fusion={k: fusion[k] for k in ("requested", "active", "reasons")},
             in_boxes=[box(b) for b in self.in_boxes],
             out_boxes=[box(b) for b in self.out_boxes],
@@ -148,20 +162,44 @@ class Plan3D:
         return execute(self, x, scale=scale, timer=timer)
 
 
-def _executor_label(executor: str, fuse: bool | None) -> str:
-    """The executor label with the fuse flag normalised in (the port of
-    ``_apply_fuse``, without its ``DFFT_FUSE`` default): ``fuse=True``
-    adds ``:fuse`` to a fusable base and raises on any other;
-    ``fuse=False`` beside a label that pins ``:fuse`` raises; ``None``
-    keeps the label's own flag."""
-    executor = fused_name(executor, fuse)
-    get_executor(executor)
-    return executor
+def _resolve_options(options: PlanOptions | None, executor: str,
+                     wire_dtype: str | None, fuse: bool | None,
+                     decomposition: str | None, algorithm: str,
+                     overlap_chunks) -> PlanOptions:
+    """One :class:`PlanOptions` from ``options=`` or the keywords (not
+    both), its executor label canonical: the matmul tiers and the fuse
+    flag composed in (the port of ``_apply_mm_tiers`` / ``_apply_fuse``,
+    without the environment defaults)."""
+    if options is not None:
+        if (executor != "cuda" or wire_dtype is not None or fuse is not None
+                or decomposition is not None or algorithm != "alltoall"
+                or overlap_chunks is not None):
+            raise ValueError(
+                "pass either options= or individual plan keywords, not both")
+        opts = options
+    else:
+        if wire_dtype not in (None, "none"):
+            wire_codec(wire_dtype)     # the codec registry's own error
+        opts = PlanOptions(decomposition=decomposition or "auto",
+                           algorithm=algorithm, executor=executor,
+                           overlap_chunks=overlap_chunks,
+                           wire_dtype=wire_dtype, fuse=fuse)
+    ex = opts.executor
+    if opts.mm_precision is not None or opts.mm_complex is not None:
+        if not ex.split(":", 1)[0].startswith(MM_EXECUTOR_BASES):
+            raise ValueError(
+                f"mm_precision/mm_complex scope the matmul-family "
+                f"executors {MM_EXECUTOR_BASES}; executor={ex!r} never "
+                f"consults them")
+        ex = tiered_name(ex, opts.mm_precision, opts.mm_complex)
+    ex = fused_name(ex, opts.fuse)
+    get_executor(ex)
+    wd = None if opts.wire_dtype == "none" else opts.wire_dtype
+    return replace(opts, executor=ex, wire_dtype=wd)
 
 
-def _plan(shape, world, *, kind: str, direction: int, executor: str,
-          dtype: torch.dtype, device, wire_dtype: str | None,
-          fuse: bool | None, decomposition: str | None) -> Plan3D:
+def _plan(shape, world, *, kind: str, direction: int, dtype: torch.dtype,
+          device, opts: PlanOptions) -> Plan3D:
     shape = tuple(int(s) for s in shape)
     if len(shape) != 3:
         raise ValueError("3D plans require a 3D shape")
@@ -170,28 +208,27 @@ def _plan(shape, world, *, kind: str, direction: int, executor: str,
     if dtype not in REAL_DTYPE:
         raise ValueError(
             f"dtype must be torch.complex64 or torch.complex128, got {dtype}")
-    executor = _executor_label(executor, fuse)
-    if wire_dtype is not None:
-        wire_codec(wire_dtype)
+    if kind == "r2c" and opts.algorithm == "hierarchical":
+        raise ValueError(
+            "hierarchical transport supports the c2c chains; r2c/c2r "
+            "plans run the flat transports")
     device = resolve_device(device)
     forward = direction == FORWARD
-    lp = logic_plan3d(shape, world, forward=forward,
-                      decomposition=decomposition)
+    executor, wire_dtype = opts.executor, opts.wire_dtype
+    lp = logic_plan3d(shape, world, opts, forward=forward)
     graph = spec = None
+    kw = dict(executor=executor, forward=forward, wire_dtype=wire_dtype,
+              algorithm=lp.algorithm, overlap_chunks=lp.overlap_chunks)
     if lp.decomposition == "slab":
         build = build_slab_fft3d if kind == "c2c" else build_slab_rfft3d
-        graph, spec = build(lp.world, shape, executor=executor,
-                            forward=forward, wire_dtype=wire_dtype)
+        graph, spec = build(lp.world, shape, **kw)
     elif lp.decomposition == "pencil":
         if kind == "c2c":
             graph, spec = build_pencil_fft3d(
-                lp.world, shape, executor=executor, forward=forward,
-                perm=lp.pencil_perm, order=lp.pencil_order,
-                wire_dtype=wire_dtype)
+                lp.world, shape, perm=lp.pencil_perm, order=lp.pencil_order,
+                **kw)
         else:
-            graph, spec = build_pencil_rfft3d(
-                lp.world, shape, executor=executor, forward=forward,
-                wire_dtype=wire_dtype)
+            graph, spec = build_pencil_rfft3d(lp.world, shape, **kw)
     else:
         wire_dtype = None          # no exchange, nothing to compress
     if graph is not None:
@@ -200,8 +237,13 @@ def _plan(shape, world, *, kind: str, direction: int, executor: str,
     return Plan3D(shape=shape, direction=direction, dtype=dtype,
                   decomposition=lp.decomposition, executor=executor,
                   world=lp.world, device=device, kind=kind,
-                  wire_dtype=wire_dtype, graph=graph, spec=spec,
-                  in_boxes=in_boxes, out_boxes=out_boxes)
+                  wire_dtype=wire_dtype, algorithm=lp.algorithm,
+                  overlap_chunks=lp.overlap_chunks,
+                  options=replace(opts, decomposition=lp.decomposition,
+                                  overlap_chunks=lp.overlap_chunks,
+                                  wire_dtype=wire_dtype),
+                  graph=graph, spec=spec, in_boxes=in_boxes,
+                  out_boxes=out_boxes)
 
 
 def plan_dft_c2c_3d(
@@ -215,19 +257,24 @@ def plan_dft_c2c_3d(
     wire_dtype: str | None = None,
     fuse: bool | None = None,
     decomposition: str | None = None,
+    algorithm: str = "alltoall",
+    overlap_chunks: int | str | None = None,
+    options: PlanOptions | None = None,
 ) -> Plan3D:
     """Create a 3D complex-to-complex FFT plan over ``world`` (a
     :class:`~.parallel.mesh.World`, an int for a loopback world of that
-    many ranks, a ``(rows, cols)`` tuple for a loopback 2D world, or None
-    for one device). ``direction`` uses the FFTW sign convention (-1
-    forward). Forward is unnormalized and backward scaled 1/N (numpy
-    convention), as the JAX package's executors are; ``execute``'s
-    ``scale`` multiplies on top of that. ``wire_dtype``, ``fuse`` and
-    ``decomposition`` as in the module docstring."""
-    return _plan(shape, world, kind="c2c", direction=direction,
-                 executor=executor, dtype=dtype, device=device,
-                 wire_dtype=wire_dtype, fuse=fuse,
-                 decomposition=decomposition)
+    many ranks, a ``(rows, cols)`` tuple for a loopback 2D world -- a
+    hybrid one under ``algorithm="hierarchical"`` -- or None for one
+    device). ``direction`` uses the FFTW sign convention (-1 forward).
+    Forward is unnormalized and backward scaled 1/N (numpy convention),
+    as the JAX package's executors are; ``execute``'s ``scale``
+    multiplies on top of that. ``wire_dtype``, ``fuse``,
+    ``decomposition``, ``algorithm``, ``overlap_chunks`` and
+    ``options`` as in the module docstring."""
+    opts = _resolve_options(options, executor, wire_dtype, fuse,
+                            decomposition, algorithm, overlap_chunks)
+    return _plan(shape, world, kind="c2c", direction=direction, dtype=dtype,
+                 device=device, opts=opts)
 
 
 def plan_dft_r2c_3d(
@@ -241,22 +288,26 @@ def plan_dft_r2c_3d(
     wire_dtype: str | None = None,
     fuse: bool | None = None,
     decomposition: str | None = None,
+    algorithm: str = "alltoall",
+    overlap_chunks: int | str | None = None,
+    options: PlanOptions | None = None,
     r2c_axis: int = 2,
 ) -> Plan3D:
     """Create a real-to-complex (forward) / complex-to-real (backward) 3D
     FFT plan. ``shape`` is the real-space world; the complex side is
     shrunk along axis 2 to n2//2+1. Forward takes the real dtype of
     ``dtype`` (float32 or float64) and returns ``dtype``; backward the
-    mirror, scaled 1/N. Only the canonical ``r2c_axis=2`` chain is
-    ported."""
+    mirror, scaled 1/N. The flat transports only: ``hierarchical``
+    raises, as in the JAX package. Only the canonical ``r2c_axis=2``
+    chain is ported."""
     if r2c_axis != 2:
         raise ValueError(
             f"r2c_axis={r2c_axis}: the port runs the canonical r2c_axis=2 "
             f"chain only")
-    return _plan(shape, world, kind="r2c", direction=direction,
-                 executor=executor, dtype=dtype, device=device,
-                 wire_dtype=wire_dtype, fuse=fuse,
-                 decomposition=decomposition)
+    opts = _resolve_options(options, executor, wire_dtype, fuse,
+                            decomposition, algorithm, overlap_chunks)
+    return _plan(shape, world, kind="r2c", direction=direction, dtype=dtype,
+                 device=device, opts=opts)
 
 
 def plan_dft_c2r_3d(shape, world=None, **kw) -> Plan3D:
@@ -292,11 +343,12 @@ def plan_from_reference(desc: dict, *, device=None) -> Plan3D:
     ``Plan3D``'s description in plain values: ``shape``, ``world_size``,
     ``direction``, ``dtype`` and the ``in_boxes`` / ``out_boxes`` as
     ((low), (high)) tuples; optionally ``grid`` (the (rows, cols) of a
-    pencil plan's mesh), ``kind`` (``"c2c"`` or ``"r2c"``),
-    ``wire_dtype``, the JAX ``executor`` label (``pallas`` when absent)
-    and the ``fusion`` decision (``requested``, ``active``,
-    ``reasons``). Raises when the port's
-    geometry or fusion decision differs from the description's."""
+    pencil plan's mesh, or of a hierarchical plan's hybrid mesh), ``kind``
+    (``"c2c"`` or ``"r2c"``), ``wire_dtype``, the JAX ``executor`` label
+    (``pallas`` when absent), ``algorithm``, ``overlap_chunks`` (the
+    resolved K) and the ``fusion`` decision (``requested``, ``active``,
+    ``reasons``). Raises when the port's geometry or fusion decision
+    differs from the description's."""
     dtype = _DTYPES.get(str(desc["dtype"]))
     if dtype is None:
         raise ValueError(f"the port runs complex64 and complex128, got "
@@ -310,7 +362,9 @@ def plan_from_reference(desc: dict, *, device=None) -> Plan3D:
     plan = planner(desc["shape"], world, direction=desc["direction"],
                    dtype=dtype, device=device,
                    executor=_port_executor(desc.get("executor", "pallas")),
-                   wire_dtype=desc.get("wire_dtype"))
+                   wire_dtype=desc.get("wire_dtype"),
+                   algorithm=desc.get("algorithm", "alltoall"),
+                   overlap_chunks=desc.get("overlap_chunks"))
     mine = plan.describe()
     for key in ("in_boxes", "out_boxes"):
         theirs = [(tuple(lo), tuple(hi)) for lo, hi in desc[key]]
@@ -336,18 +390,23 @@ def execute(plan: Plan3D, x: torch.Tensor, *, scale: Scale = Scale.NONE,
         raise ValueError(
             f"plan takes {plan.in_dtype} on {plan.device}, got {x.dtype} on "
             f"{x.device}")
-    if plan.decomposition == "single":
-        _check_shape(x, plan.in_shape, "plan input shape")
-        if timer is not None:
-            with timer.stage("t0"):
+    with add_trace(f"execute_{_kind_label(plan)}_{plan.decomposition}"):
+        if plan.decomposition == "single":
+            _check_shape(x, plan.in_shape, "plan input shape")
+            if timer is not None:
+                with timer.stage("t0"):
+                    y = _execute_single(plan, x.contiguous())
+            else:
                 y = _execute_single(plan, x.contiguous())
         else:
-            y = _execute_single(plan, x.contiguous())
-    elif plan.decomposition == "slab":
-        y = _execute_slab(plan, x, timer)
-    else:
-        y = _execute_pencil(plan, x, timer)
-    return apply_scale(y, scale, plan.world_size)
+            y = _execute_chain(plan, x, timer)
+        return apply_scale(y, scale, plan.world_size)
+
+
+def _kind_label(plan: Plan3D) -> str:
+    if plan.kind == "c2c":
+        return "c2c"
+    return "r2c" if plan.forward else "c2r"
 
 
 def _check_shape(x: torch.Tensor, want, what: str) -> None:
@@ -364,52 +423,16 @@ def _execute_single(plan: Plan3D, x: torch.Tensor) -> torch.Tensor:
     return get_c2r(plan.executor)(ex(x, (0, 1), False), plan.shape[2], 2)
 
 
-def _execute_slab(plan: Plan3D, x: torch.Tensor, timer) -> torch.Tensor:
-    graph, spec, world = plan.graph, plan.spec, plan.world
-    ax_in, ax_out = spec.in_axis, spec.out_axis
-    in_to = spec.in_padded_extent
+def _execute_chain(plan: Plan3D, x: torch.Tensor, timer) -> torch.Tensor:
+    """A slab or pencil chain: the input cut into the held blocks
+    (:func:`.stagegraph.scatter`: on a loopback world the global array,
+    on a process group this rank's box padded to its block), the graph
+    run, the output joined and cropped (:func:`.stagegraph.gather`)."""
+    world = plan.world
     if world.loopback:
         _check_shape(x, plan.in_shape, "plan input shape")
-        blocks = list(_pad_axis(x, ax_in, in_to).chunk(world.size, dim=ax_in))
-        out = run_graph(graph, blocks, timer)
-        return _crop_axis(torch.cat(out, dim=ax_out), ax_out,
-                          spec.shape[ax_out])
-    _check_shape(x, plan.in_boxes[world.rank].shape,
-                 f"rank {world.rank} input box")
-    block = _pad_axis(x, ax_in, in_to // world.size)
-    (out,) = run_graph(graph, [block], timer)
-    return _crop_axis(out, ax_out, plan.out_boxes[world.rank].shape[ax_out])
-
-
-def _execute_pencil(plan: Plan3D, x: torch.Tensor, timer) -> torch.Tensor:
-    """The pencil chain: ``graph.pre`` pads the global input, which is
-    cut into rows x cols blocks (rank r*cols + c holds chunk r of the
-    input's row axis and chunk c of its col axis); the output blocks are
-    joined the same way on the output axes and cropped by
-    ``graph.post``. A process-group rank pads its own box to its block
-    and crops its block to its output box."""
-    graph, spec, world = plan.graph, plan.spec, plan.world
-    rows, cols = world.grid
-    (ri, ci), (ro, co) = spec.in_placement, spec.out_placement
-    if world.loopback:
-        _check_shape(x, plan.in_shape, "plan input shape")
-        for _, axis, to in graph.pre:
-            x = _pad_axis(x, axis, to)
-        blocks = [b for strip in x.tensor_split(rows, dim=ri)
-                  for b in strip.tensor_split(cols, dim=ci)]
-        out = run_graph(graph, blocks, timer)
-        y = torch.cat([torch.cat(out[r * cols:(r + 1) * cols], dim=co)
-                       for r in range(rows)], dim=ro)
-        for _, axis, to in graph.post:
-            y = _crop_axis(y, axis, to)
-        return y
-    _check_shape(x, plan.in_boxes[world.rank].shape,
-                 f"rank {world.rank} input box")
-    parts = {ri: rows, ci: cols}
-    for _, axis, to in graph.pre:
-        x = _pad_axis(x, axis, to // parts[axis])
-    (out,) = run_graph(graph, [x.contiguous()], timer)
-    want = plan.out_boxes[world.rank].shape
-    for axis in (ro, co):
-        out = _crop_axis(out, axis, want[axis])
-    return out
+    else:
+        _check_shape(x, plan.in_boxes[world.rank].shape,
+                     f"rank {world.rank} input box")
+    return gather(plan.graph, run_graph(plan.graph, scatter(plan.graph, x),
+                                        timer))

@@ -2,10 +2,18 @@
 
 A chain runs over a :class:`World`: 1D (P ranks, mesh axis ``"slab"``)
 for the slab chain, or 2D (rows x cols ranks, mesh axes ``"row"`` and
-``"col"``, rank ``r * cols + c`` at row r and column c) for the pencil
-chain. An exchange over ``"col"`` runs within each row of the grid (the
-ranks that differ only in their column), one over ``"row"`` within each
-column. Two backends:
+``"col"`` unless named otherwise, rank ``r * cols + c`` at row r and
+column c) for the pencil chain. An exchange over the second axis
+(``"col"``) runs within each row of the grid (the ranks that differ only
+in their column), one over the first (``"row"``) within each column.
+
+A hybrid world is a 2D world whose axes are the two fabrics, named
+``("dcn", "ici")``: one row per node, one column per card of a node, so
+rank ``d * I + e`` is card e of node d. The slab chain runs over such a
+world's **combined** axis, the tuple of both names (all ranks, in rank
+order); the hierarchical transport splits that exchange into a leg
+within each node (``"ici"``) and a leg across nodes (``"dcn"``). Two
+backends:
 
 - **loopback**: one process holds every rank's shard as a list on one
   device, and the all-to-all is a split and a concatenation within each
@@ -28,6 +36,7 @@ import torch.distributed as dist
 
 SLAB_AXIS = "slab"
 PENCIL_AXES = ("row", "col")
+HYBRID_AXES = ("dcn", "ici")
 
 
 @dataclass(frozen=True)
@@ -35,13 +44,16 @@ class World:
     """``size`` ranks, on a ``grid`` of (rows, cols) when 2D. ``rank`` is
     None for a loopback world (this process holds every rank), else this
     process's rank in ``group``; ``sub_groups`` maps each mesh axis of a
-    2D process-group world to the sub-group this rank exchanges in."""
+    2D process-group world to the sub-group this rank exchanges in.
+    ``names`` are a 2D world's two axis names (``PENCIL_AXES`` when
+    None; ``HYBRID_AXES`` for a hybrid world)."""
 
     size: int
     rank: int | None = None
     group: Any = None
     grid: tuple[int, int] | None = None
     sub_groups: dict = field(default_factory=dict, compare=False)
+    names: tuple[str, str] | None = None
 
     def __post_init__(self) -> None:
         if self.size < 1:
@@ -51,6 +63,11 @@ class World:
                 or math.prod(self.grid) != self.size):
             raise ValueError(
                 f"grid {self.grid} does not hold {self.size} ranks")
+        if self.names is not None and (
+                self.grid is None or len(self.names) != 2
+                or self.names[0] == self.names[1]):
+            raise ValueError(
+                f"axis names {self.names} need a 2D world and two names")
 
     @property
     def loopback(self) -> bool:
@@ -67,36 +84,57 @@ class World:
 
     @property
     def axis_names(self) -> tuple[str, ...]:
-        return (SLAB_AXIS,) if self.grid is None else PENCIL_AXES
-
-    def axis_size(self, mesh_axis: str) -> int:
-        """The ranks in each group of ``mesh_axis``."""
-        self._check_axis(mesh_axis)
         if self.grid is None:
-            return self.size
-        return self.grid[PENCIL_AXES.index(mesh_axis)]
+            return (SLAB_AXIS,)
+        return self.names if self.names is not None else PENCIL_AXES
 
-    def axis_members(self, mesh_axis: str) -> list[list[int]]:
+    @property
+    def combined_axis(self):
+        """The mesh-axis spec of all ranks in rank order: the one axis of
+        a 1D world, the tuple of both names of a 2D one."""
+        return SLAB_AXIS if self.grid is None else self.axis_names
+
+    @property
+    def hybrid(self) -> bool:
+        """A 2D world whose first axis is ``"dcn"`` (nodes) and second
+        the cards of a node."""
+        return self.grid is not None and self.axis_names[0] == "dcn"
+
+    def axis_size(self, mesh_axis) -> int:
+        """The ranks in each group of ``mesh_axis``."""
+        if self._check_axis(mesh_axis) is None:
+            return self.size
+        return self.grid[self.axis_names.index(mesh_axis)]
+
+    def axis_members(self, mesh_axis) -> list[list[int]]:
         """The groups of ranks that exchange together over ``mesh_axis``,
         each in the order of its index along that axis."""
-        self._check_axis(mesh_axis)
-        if self.grid is None:
+        i = self._check_axis(mesh_axis)
+        if i is None:
             return [list(range(self.size))]
         rows, cols = self.grid
-        if mesh_axis == "col":
+        if i == 1:
             return [[r * cols + c for c in range(cols)] for r in range(rows)]
         return [[r * cols + c for r in range(rows)] for c in range(cols)]
 
-    def axis_group(self, mesh_axis: str):
+    def axis_group(self, mesh_axis):
         """This rank's process group for an exchange over ``mesh_axis``."""
-        self._check_axis(mesh_axis)
-        return self.group if self.grid is None else self.sub_groups[mesh_axis]
+        if self._check_axis(mesh_axis) is None:
+            return self.group
+        return self.sub_groups[mesh_axis]
 
-    def _check_axis(self, mesh_axis: str) -> None:
-        if mesh_axis not in self.axis_names:
-            raise ValueError(
-                f"mesh axis {mesh_axis!r} is not one of this world's "
-                f"{self.axis_names}")
+    def _check_axis(self, mesh_axis) -> int | None:
+        """The index of ``mesh_axis`` among a 2D world's two axes, or None
+        for the whole world (a 1D world's axis, or the combined axis)."""
+        if isinstance(mesh_axis, (tuple, list)):
+            if tuple(mesh_axis) == self.axis_names:
+                return None
+        elif mesh_axis in self.axis_names:
+            return None if self.grid is None else self.axis_names.index(
+                mesh_axis)
+        raise ValueError(
+            f"mesh axis {mesh_axis!r} is not one of this world's "
+            f"{self.axis_names}")
 
 
 def _grid(shape) -> tuple[int, int] | None:
@@ -110,21 +148,28 @@ def _grid(shape) -> tuple[int, int] | None:
     return shape
 
 
-def make_world(shape: int | Sequence[int]) -> World:
+def make_world(shape: int | Sequence[int],
+               axis_names: Sequence[str] | None = None) -> World:
     """A loopback world in this process: ``make_world(4)`` is 1D (the
-    slab chain), ``make_world((2, 2))`` 2D (the pencil chain)."""
+    slab chain), ``make_world((2, 2))`` 2D (the pencil chain), and
+    ``make_world((2, 2), HYBRID_AXES)`` a hybrid world of 2 nodes of 2
+    cards."""
     grid = _grid(shape)
     if grid is None:
+        if axis_names is not None:
+            raise ValueError("axis names name the axes of a 2D world")
         return World(int(shape if isinstance(shape, int) else shape[0]))
-    return World(math.prod(grid), grid=grid)
+    return World(math.prod(grid), grid=grid,
+                 names=None if axis_names is None else tuple(axis_names))
 
 
-def process_group_world(group=None, *, grid: Sequence[int] | None = None
-                        ) -> World:
+def process_group_world(group=None, *, grid: Sequence[int] | None = None,
+                        axis_names: Sequence[str] | None = None) -> World:
     """This process's rank of an initialized ``torch.distributed`` group
     (the default group when ``group`` is None); with ``grid=(rows,
-    cols)`` a 2D world over it, its row and column sub-groups made
-    here. Every rank of ``group`` must call it with the same grid.
+    cols)`` a 2D world over it (its axes named ``axis_names``), its row
+    and column sub-groups made here. Every rank of ``group`` must call it
+    with the same grid.
 
     A 2D world needs a group that holds every process of the default
     group: ``dist.new_group`` must be entered by all of those processes,
@@ -144,10 +189,11 @@ def process_group_world(group=None, *, grid: Sequence[int] | None = None
             f"group holds {size} of {dist.get_world_size()}")
     if grid is None or math.prod(grid) != size:
         raise ValueError(f"grid {grid} does not hold the group's {size} ranks")
-    world = World(size, rank, group, grid)
+    world = World(size, rank, group, grid,
+                  names=None if axis_names is None else tuple(axis_names))
     members = dist.get_process_group_ranks(
         group if group is not None else dist.group.WORLD)
-    for axis in PENCIL_AXES:
+    for axis in world.axis_names:
         for ranks in world.axis_members(axis):
             sub = dist.new_group([members[r] for r in ranks])
             if rank in ranks:

@@ -11,11 +11,14 @@ The canonical forward chain, on z-pencils in and x-pencils out:
     t3   crop, 1D FFT along X                    (t3_fft_x)
 
 emitted as a :class:`~..stagegraph.StageGraph` with the JAX package's node
-names, pads and crops. Each exchange ceil-pads its split axis to a
-multiple of its group, and each axis is cropped to its true extent
-before it is transformed, so the pads never touch a transform; the
-split axes keep their pads until the output is joined (``post``).
-Spectral operators (``midpoint``) and overlap-K chunking are not ported.
+names, pads and crops (the mesh axes named as the world names them).
+Each exchange ceil-pads its split axis to a multiple of its group, and
+each axis is cropped to its true extent before it is transformed, so the
+pads never touch a transform; the split axes keep their pads until the
+output is joined (``post``). Both exchanges take a flat transport
+(``algorithm``) and the overlap K (``overlap_chunks``, chunks of each
+exchange's bystander axis). Spectral operators (``midpoint``) are not
+ported.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from dataclasses import dataclass
 
 from ..geometry import pad_to
 from ..stagegraph import StageGraph, exchange_node, local_node
+from .exchange import FLAT_ALGORITHMS
 from .mesh import World
 from .slab import _L
 
@@ -103,14 +107,29 @@ def _grid(world: World) -> tuple[int, int]:
     return world.grid
 
 
+def _flat(algorithm: str) -> str:
+    if algorithm not in FLAT_ALGORITHMS:
+        raise ValueError(
+            f"the pencil chain takes the flat transports {FLAT_ALGORITHMS}, "
+            f"got {algorithm!r}")
+    return algorithm
+
+
 def build_pencil_general(world: World, shape: tuple[int, int, int], *,
                          perm: tuple[int, int, int], order: str,
-                         row_axis: str = "row", col_axis: str = "col",
+                         row_axis: str | None = None,
+                         col_axis: str | None = None,
                          executor: str = "cuda", forward: bool = True,
-                         wire_dtype: str | None = None
+                         wire_dtype: str | None = None,
+                         algorithm: str = "alltoall",
+                         overlap_chunks: int = 1
                          ) -> tuple[StageGraph, PencilSpec]:
     """The C2C pencil chain for any input permutation and exchange order
-    (see :class:`PencilSpec`)."""
+    (see :class:`PencilSpec`); the mesh axes default to the world's
+    names."""
+    _flat(algorithm)
+    row_axis = row_axis or world.axis_names[0]
+    col_axis = col_axis or world.axis_names[-1]
     if sorted(perm) != [0, 1, 2]:
         raise ValueError(
             f"perm must be a permutation of (0, 1, 2), got {perm}")
@@ -138,7 +157,9 @@ def build_pencil_general(world: World, shape: tuple[int, int, int], *,
         world=world, nodes=tuple(nodes), executor=executor,
         wire_dtype=wire_dtype,
         pre=tuple(("pad", ax, to) for ax, to in in_pads),
-        post=tuple(("crop", ax, to) for ax, to in out_crops))
+        post=tuple(("crop", ax, to) for ax, to in out_crops),
+        in_dims=spec.in_placement, out_dims=spec.out_placement,
+        algorithm=algorithm, overlap_chunks=overlap_chunks)
     return graph.validate(), spec
 
 
@@ -146,7 +167,8 @@ def build_pencil_fft3d(world: World, shape: tuple[int, int, int], *,
                        executor: str = "cuda", forward: bool = True,
                        perm: tuple[int, int, int] | None = None,
                        order: str | None = None,
-                       wire_dtype: str | None = None
+                       wire_dtype: str | None = None,
+                       algorithm: str = "alltoall", overlap_chunks: int = 1
                        ) -> tuple[StageGraph, PencilSpec]:
     """The canonical orientation over :func:`build_pencil_general`:
     forward z-pencils to x-pencils, backward the mirror, unless the
@@ -157,12 +179,14 @@ def build_pencil_fft3d(world: World, shape: tuple[int, int, int], *,
         order = "col_first" if forward else "row_first"
     return build_pencil_general(world, shape, perm=perm, order=order,
                                 executor=executor, forward=forward,
-                                wire_dtype=wire_dtype)
+                                wire_dtype=wire_dtype, algorithm=algorithm,
+                                overlap_chunks=overlap_chunks)
 
 
 def build_pencil_rfft3d(world: World, shape: tuple[int, int, int], *,
                         executor: str = "cuda", forward: bool = True,
-                        wire_dtype: str | None = None
+                        wire_dtype: str | None = None,
+                        algorithm: str = "alltoall", overlap_chunks: int = 1
                         ) -> tuple[StageGraph, PencilSpec]:
     """The pencil real-to-complex (forward) / complex-to-real (backward)
     chain: the real axis Z is whole in the z-pencils, so the r2c shrink
@@ -170,8 +194,10 @@ def build_pencil_rfft3d(world: World, shape: tuple[int, int, int], *,
     z-pencils [N0, N1, N2] to complex x-pencils [N0, N1, N2//2+1];
     backward is its inverse (the real Z transform after the last
     exchange, on the whole joined axis)."""
+    _flat(algorithm)
     rows, cols = _grid(world)
-    spec = PencilSpec(tuple(int(s) for s in shape), rows, cols,
+    row, col = world.axis_names
+    spec = PencilSpec(tuple(int(s) for s in shape), rows, cols, row, col,
                       perm=(0, 1, 2) if forward else (1, 2, 0),
                       order="col_first" if forward else "row_first")
     n0, n1, n2 = spec.shape
@@ -179,11 +205,11 @@ def build_pencil_rfft3d(world: World, shape: tuple[int, int, int], *,
     if forward:
         nodes = (
             local_node("t0", "t0_r2c_z", ("r2c", 2)),
-            exchange_node("t2a", "t2a_exchange_col", mesh_axis="col",
+            exchange_node("t2a", f"t2a_exchange_{col}", mesh_axis=col,
                           parts=cols, split=2, concat=1),
             local_node("t1", "t1_fft_y", ("crop", 1, n1),
                        ("fft", (1,), True), fuse=True),
-            exchange_node("t2b", "t2b_exchange_row", mesh_axis="row",
+            exchange_node("t2b", f"t2b_exchange_{row}", mesh_axis=row,
                           parts=rows, split=1, concat=0),
             local_node("t3", "t3_fft_x", ("crop", 0, n0),
                        ("fft", (0,), True), fuse=True),
@@ -193,11 +219,11 @@ def build_pencil_rfft3d(world: World, shape: tuple[int, int, int], *,
     else:
         nodes = (
             local_node("t3", "t3_ifft_x", ("fft", (0,), False)),
-            exchange_node("t2b", "t2b_exchange_row", mesh_axis="row",
+            exchange_node("t2b", f"t2b_exchange_{row}", mesh_axis=row,
                           parts=rows, split=0, concat=1),
             local_node("t1", "t1_ifft_y", ("crop", 1, n1),
                        ("fft", (1,), False), fuse=True),
-            exchange_node("t2a", "t2a_exchange_col", mesh_axis="col",
+            exchange_node("t2a", f"t2a_exchange_{col}", mesh_axis=col,
                           parts=cols, split=1, concat=2),
             local_node("t1", "t1_crop", ("crop", 2, n2h), fuse=True),
             local_node("t0", "t0_c2r_z", ("c2r", n2, 2)),
@@ -205,5 +231,8 @@ def build_pencil_rfft3d(world: World, shape: tuple[int, int, int], *,
         pre = (("pad", 1, spec.n1p_row), ("pad", 2, pad_to(n2h, cols)))
         post = (("crop", 0, n0), ("crop", 1, n1))
     graph = StageGraph(world=world, nodes=nodes, executor=executor,
-                       wire_dtype=wire_dtype, pre=pre, post=post)
+                       wire_dtype=wire_dtype, pre=pre, post=post,
+                       in_dims=spec.in_placement,
+                       out_dims=spec.out_placement, algorithm=algorithm,
+                       overlap_chunks=overlap_chunks)
     return graph.validate(), spec

@@ -1,4 +1,5 @@
-"""Slab-decomposed distributed 3D FFT over a 1D world.
+"""Slab-decomposed distributed 3D FFT over a 1D world (or the combined
+axis of a hybrid world).
 
 The port of ``build_slab_general`` / ``build_slab_fft3d`` of
 ``distributedfft_tpu/parallel/slab.py``: the reference engine's four
@@ -15,7 +16,13 @@ node names. Forward runs X-slabs -> Y-slabs, ``(in_axis, out_axis) =
 is split and cropped before it is transformed, so the pads never touch a
 transform. :func:`build_slab_rfft3d` is the real-to-complex chain
 (``t0_r2c_zy`` ... ``t3_fft_x`` forward, ``t3_ifft_x`` ... ``t0_c2r_z``
-backward). Every builder takes the exchange's ``wire_dtype``.
+backward). Every builder takes the exchange's ``algorithm``, its overlap
+K (``overlap_chunks``, chunks of the bystander axis) and its
+``wire_dtype``. On a 2D hybrid world the C2C chain runs over the
+combined axis (rank ``d*I + e`` holds slab ``d*I + e``), its exchange
+named ``t2_exchange_dcn+ici``; the hierarchical transport splits it into
+the legs ``t2a_exchange_ici`` and ``t2b_exchange_dcn``.
+:func:`build_slab_stages` is the staged pipeline of the C2C chain.
 """
 
 from __future__ import annotations
@@ -23,7 +30,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from ..geometry import pad_to
-from ..stagegraph import StageGraph, exchange_node, local_node
+from ..stagegraph import (StagedGraph, StagedStage, StageGraph,
+                          compile_staged, exchange_node, local_node)
+from .exchange import _axis_label
 from .mesh import World
 
 _L = "xyz"  # axis index -> stage-name letter
@@ -59,18 +68,26 @@ class SlabSpec:
         return tuple(s)
 
 
+def _slab_axis(world: World) -> tuple:
+    """(mesh-axis spec, parts, axis_sizes) of the slab chain's exchange:
+    a 1D world's axis, or a 2D world's combined axis with its grid."""
+    return world.combined_axis, world.size, world.grid
+
+
 def build_slab_general(world: World, shape: tuple[int, int, int], *,
                        in_axis: int, out_axis: int, executor="cuda",
-                       forward: bool = True, wire_dtype: str | None = None
+                       forward: bool = True, wire_dtype: str | None = None,
+                       algorithm: str = "alltoall", overlap_chunks: int = 1
                        ) -> tuple[StageGraph, SlabSpec]:
     """The slab chain for any ordered pair of distinct axes: the input is
     sharded along ``in_axis``, the other two axes are transformed
     locally, one exchange reshards ``in_axis`` <-> ``out_axis``, and
-    ``in_axis`` is transformed last. ``wire_dtype`` compresses the
-    exchange."""
+    ``in_axis`` is transformed last. ``algorithm`` and
+    ``overlap_chunks`` pick the exchange's transport and K,
+    ``wire_dtype`` compresses it."""
     if in_axis == out_axis or not (0 <= in_axis < 3 and 0 <= out_axis < 3):
         raise ValueError(f"need distinct 3D axes, got {in_axis}, {out_axis}")
-    p = world.size
+    mesh_axis, p, axis_sizes = _slab_axis(world)
     spec = SlabSpec(tuple(int(s) for s in shape), p, in_axis, out_axis)
     n_in = spec.shape[in_axis]
     local_axes = tuple(a for a in range(3) if a != in_axis)
@@ -78,14 +95,19 @@ def build_slab_general(world: World, shape: tuple[int, int, int], *,
         local_node("t0", f"t0_fft_{''.join(_L[a] for a in local_axes)}",
                    ("fft", local_axes, forward)),
         local_node("t1", "t1_pack", ("pack", out_axis, spec.out_padded_extent)),
-        exchange_node("t2", "t2_exchange_slab", parts=p,
-                      split=out_axis, concat=in_axis),
+        exchange_node("t2", f"t2_exchange_{_axis_label(mesh_axis)}",
+                      mesh_axis=mesh_axis, parts=p, split=out_axis,
+                      concat=in_axis, axis_sizes=axis_sizes),
         local_node("t3", f"t3_fft_{_L[in_axis]}",
                    ("crop", in_axis, n_in), ("fft", (in_axis,), forward),
                    fuse=True),
     )
-    graph = StageGraph(world=world, nodes=nodes, executor=executor,
-                       wire_dtype=wire_dtype)
+    graph = StageGraph(
+        world=world, nodes=nodes, executor=executor, wire_dtype=wire_dtype,
+        pre=(("pad", in_axis, spec.in_padded_extent),),
+        post=(("crop", out_axis, spec.shape[out_axis]),),
+        in_dims=(in_axis,), out_dims=(out_axis,), algorithm=algorithm,
+        overlap_chunks=overlap_chunks)
     return graph.validate(), spec
 
 
@@ -97,25 +119,34 @@ def slab_axes(forward: bool) -> tuple[int, int]:
 
 def build_slab_fft3d(world: World, shape: tuple[int, int, int], *,
                      executor="cuda", forward: bool = True,
-                     wire_dtype: str | None = None
+                     wire_dtype: str | None = None,
+                     algorithm: str = "alltoall", overlap_chunks: int = 1
                      ) -> tuple[StageGraph, SlabSpec]:
     """The slab chain in the canonical orientation (:func:`slab_axes`)."""
     in_axis, out_axis = slab_axes(forward)
     return build_slab_general(world, shape, in_axis=in_axis,
                               out_axis=out_axis, executor=executor,
-                              forward=forward, wire_dtype=wire_dtype)
+                              forward=forward, wire_dtype=wire_dtype,
+                              algorithm=algorithm,
+                              overlap_chunks=overlap_chunks)
 
 
 def build_slab_rfft3d(world: World, shape: tuple[int, int, int], *,
                       executor="cuda", forward: bool = True,
-                      wire_dtype: str | None = None
+                      wire_dtype: str | None = None,
+                      algorithm: str = "alltoall", overlap_chunks: int = 1
                       ) -> tuple[StageGraph, SlabSpec]:
     """The slab real-to-complex (forward) / complex-to-real (backward)
     chain, the port of ``build_slab_rfft3d``: the real axis is axis 2,
     device-local in both slab layouts, so the r2c shrink to n2//2+1
     happens before the exchange (forward) or after it (backward).
     Forward maps real X-slabs [N0, N1, N2] to complex Y-slabs
-    [N0, N1, N2//2+1]; backward is its inverse (real out, 1/N)."""
+    [N0, N1, N2//2+1]; backward is its inverse (real out, 1/N). The
+    overlap chunks cut axis 2, so the backward's c2r runs after them on
+    the joined block. 1D worlds only: the hierarchical transport runs
+    the C2C chains."""
+    if world.grid is not None:
+        raise ValueError("the slab R2C/C2R chain runs on a 1D world")
     in_axis, out_axis = slab_axes(forward)
     spec = SlabSpec(tuple(int(s) for s in shape), world.size, in_axis,
                     out_axis)
@@ -140,6 +171,65 @@ def build_slab_rfft3d(world: World, shape: tuple[int, int, int], *,
                        ("fft", (1,), False), fuse=True),
             local_node("t0", "t0_c2r_z", ("c2r", n2, 2)),
         )
-    graph = StageGraph(world=world, nodes=nodes, executor=executor,
-                       wire_dtype=wire_dtype)
+    graph = StageGraph(
+        world=world, nodes=nodes, executor=executor, wire_dtype=wire_dtype,
+        pre=(("pad", in_axis, spec.in_padded_extent),),
+        post=(("crop", out_axis, spec.shape[out_axis]),),
+        in_dims=(in_axis,), out_dims=(out_axis,), algorithm=algorithm,
+        overlap_chunks=overlap_chunks)
     return graph.validate(), spec
+
+
+def build_slab_stages(world: World, shape: tuple[int, int, int], *,
+                      executor="cuda", forward: bool = True,
+                      algorithm: str = "alltoall", overlap_chunks: int = 1,
+                      wire_dtype: str | None = None
+                      ) -> tuple[list, SlabSpec]:
+    """The slab C2C chain as separately timed stages (the reference's
+    per-execute t0..t3 breakdown): forward ``t0_fft_yz``,
+    ``t2_all_to_all``, ``t3_fft_x``; backward ``t3_ifft_x``,
+    ``t2_all_to_all``, ``t0_ifft_yz``. Under ``hierarchical`` at K = 1
+    the t2 stage is its two legs, ``t2a_exchange_<ici>`` and
+    ``t2b_exchange_<dcn>``, each a stage of its own (each with the
+    codec's encode/decode pair when ``wire_dtype`` is set); at K > 1 it
+    stays one stage whose chunks run the leg pipeline. The composition
+    of the stages is the plan's transform, bit for bit."""
+    mesh_axis, p, axis_sizes = _slab_axis(world)
+    in_axis, out_axis = slab_axes(forward)
+    spec = SlabSpec(tuple(int(s) for s in shape), p, in_axis, out_axis)
+    n0, n1, _ = spec.shape
+    n0p, n1p = pad_to(n0, p), pad_to(n1, p)
+    split, concat = out_axis, in_axis
+    if algorithm == "hierarchical" and overlap_chunks <= 1:
+        dcn, ici = mesh_axis
+        leg = dict(mesh_axis=mesh_axis, split=split, concat=concat,
+                   axis_sizes=axis_sizes, parts=p)
+        t2 = [StagedStage("t2a", f"t2a_exchange_{ici}",
+                          leg=dict(leg, which="ici", tile_axis_out=split)),
+              StagedStage("t2b", f"t2b_exchange_{dcn}",
+                          leg=dict(leg, which="dcn", tile_axis_out=concat))]
+    else:
+        t2 = [StagedStage("t2", "t2_all_to_all", exchange=dict(
+            mesh_axis=mesh_axis, parts=p, split=split, concat=concat,
+            chunk_axis=2, axis_sizes=axis_sizes))]
+    if forward:
+        stages = [StagedStage("t0", "t0_fft_yz",
+                              local=(("fft", (1, 2), True), ("pad", 1, n1p))),
+                  *t2,
+                  StagedStage("t3", "t3_fft_x",
+                              local=(("crop", 0, n0), ("fft", (0,), True)))]
+    else:
+        stages = [StagedStage("t3", "t3_ifft_x",
+                              local=(("fft", (0,), False), ("pad", 0, n0p))),
+                  *t2,
+                  StagedStage("t0", "t0_ifft_yz",
+                              local=(("crop", 1, n1),
+                                     ("fft", (1, 2), False)))]
+    graph = StagedGraph(
+        world=world, stages=tuple(stages), algorithm=algorithm,
+        wire_dtype=wire_dtype, overlap_chunks=overlap_chunks,
+        executor=executor,
+        pre=(("pad", in_axis, spec.in_padded_extent),),
+        post=(("crop", out_axis, spec.shape[out_axis]),),
+        in_dims=(in_axis,), out_dims=(out_axis,))
+    return compile_staged(graph), spec

@@ -2,14 +2,15 @@
 boxes.
 
 The port of the decomposition logic of ``distributedfft_tpu/
-plan_logic.py``: :func:`choose_decomposition`,
-:func:`eligible_decompositions`, :func:`negotiate_device_count` and a
-subset of :func:`logic_plan3d` (no layout absorption, no
-``PlanOptions``: the device-count renegotiation of an int world runs in
-the JAX package's default ``"auto"`` mode). A world of one rank (or none)
-is ``"single"``, a 1D world ``"slab"``, a 2D world ``"pencil"``; an int
-world picks by :func:`choose_decomposition`, a pencil grid by
-:func:`~.geometry.pencil_grid_min_surface`. Per-rank boxes follow the
+plan_logic.py``: :class:`PlanOptions` with its validation,
+:func:`choose_decomposition`, :func:`eligible_decompositions`,
+:func:`negotiate_device_count`, the overlap knob
+(:func:`auto_overlap_chunks`, :func:`resolve_overlap_chunks`) and
+:func:`logic_plan3d` without layout absorption. A world of one rank (or
+none) is ``"single"``, a 1D world ``"slab"``, a 2D world ``"pencil"``
+(or, under the hierarchical transport, the slab chain over its combined
+axis); an int world picks by :func:`choose_decomposition`, a pencil grid
+by :func:`~.geometry.pencil_grid_min_surface`. Per-rank boxes follow the
 ceil rule (``stage_layouts``); a real-to-complex plan's complex side is
 shrunk along axis 2 (``Box3.r2c``).
 """
@@ -17,14 +18,202 @@ shrunk along axis 2 (``Box3.r2c``).
 from __future__ import annotations
 
 import itertools
-from dataclasses import dataclass
+import math
+import os
+from dataclasses import dataclass, replace
 from typing import Sequence
 
 from . import geometry as geo
-from .parallel.mesh import World, make_world
+from .ops.executors import MM_COMPLEX_MODES, MM_TIERS, TIER_ALIASES
+from .parallel.exchange import ALGORITHMS, WIRE_DTYPES
+from .parallel.mesh import HYBRID_AXES, World, make_world
 from .parallel.slab import slab_axes
 
 DECOMPOSITIONS = ("single", "slab", "pencil")
+
+#: Valid ``PlanOptions.tune`` values (None: off).
+TUNE_MODES = (None, "off", "wisdom", "measure")
+
+
+def _unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
+
+
+@dataclass(frozen=True)
+class PlanOptions:
+    """The plan knobs of the JAX package's ``PlanOptions``, validated
+    with its error text.
+
+    ``decomposition``: auto | single | slab | pencil. ``algorithm``: the
+    exchange transport (:data:`~.parallel.exchange.ALGORITHMS`).
+    ``executor``: the local FFT executor label. ``renegotiate``: the
+    device-count rule of an int world (auto: shrink only at equal
+    per-rank compute; force: the largest evenly-dividing count; never).
+    ``overlap_chunks``: K of the pipelined t2/t3 overlap, an int >= 1,
+    ``"auto"`` (:func:`auto_overlap_chunks`), or None (the
+    ``DFFT_OVERLAP`` environment variable, else 1). ``wire_dtype``: the
+    exchange's wire codec (``"none"`` or None: exact). ``mm_precision``
+    / ``mm_complex``: the matmul-family tier and complex mode, composed
+    into the executor label. ``fuse``: the ``:fuse`` flag (None keeps the
+    label's own).
+
+    Differences from the JAX package: ``wire_dtype=None`` and
+    ``fuse=None`` read no environment default (``DFFT_WIRE_DTYPE``,
+    ``DFFT_FUSE``); ``donate=True``, ``tune`` other than off and a
+    ``max_roundtrip_err`` budget raise ``NotImplementedError``: their
+    machinery is not ported.
+    """
+
+    decomposition: str = "auto"
+    algorithm: str = "alltoall"
+    executor: str = "cuda"
+    donate: bool = False
+    renegotiate: str = "auto"
+    overlap_chunks: int | str | None = None
+    tune: str | None = None
+    wire_dtype: str | None = None
+    max_roundtrip_err: float | None = None
+    mm_precision: str | None = None
+    mm_complex: str | None = None
+    fuse: bool | None = None
+
+    def __post_init__(self) -> None:
+        if self.algorithm not in ALGORITHMS:
+            raise ValueError(
+                f"unknown algorithm {self.algorithm!r}; use one of "
+                f"{ALGORITHMS}")
+        wd = self.wire_dtype
+        if isinstance(wd, str):
+            wd = wd.strip().lower()
+            object.__setattr__(self, "wire_dtype", wd or None)
+            wd = self.wire_dtype
+        if wd not in WIRE_DTYPES and wd != "none":
+            raise ValueError(
+                f"wire_dtype must be one of {WIRE_DTYPES} or 'none', "
+                f"got {self.wire_dtype!r}")
+        mre = self.max_roundtrip_err
+        if mre is not None and (
+                not isinstance(mre, (int, float)) or isinstance(mre, bool)
+                or not mre > 0):
+            raise ValueError(
+                f"max_roundtrip_err must be a positive float or None, "
+                f"got {mre!r}")
+        if self.decomposition not in ("auto",) + DECOMPOSITIONS:
+            raise ValueError(f"unknown decomposition {self.decomposition!r}")
+        if self.renegotiate not in ("auto", "force", "never"):
+            raise ValueError(
+                f"renegotiate must be auto|force|never, got "
+                f"{self.renegotiate!r}")
+        oc = self.overlap_chunks
+        if isinstance(oc, str) and oc != "auto":
+            try:
+                oc = int(oc)
+            except ValueError:
+                raise ValueError(
+                    f"overlap_chunks must be an int >= 1, 'auto', or None, "
+                    f"got {self.overlap_chunks!r}") from None
+            object.__setattr__(self, "overlap_chunks", oc)
+        if oc is not None and oc != "auto" and (
+                not isinstance(oc, int) or isinstance(oc, bool) or oc < 1):
+            raise ValueError(
+                f"overlap_chunks must be an int >= 1, 'auto', or None, "
+                f"got {self.overlap_chunks!r}")
+        if self.tune not in TUNE_MODES:
+            raise ValueError(
+                f"tune must be one of {tuple(m for m in TUNE_MODES if m)} "
+                f"or None, got {self.tune!r}")
+        mp = self.mm_precision
+        if isinstance(mp, str):
+            mp = mp.strip().lower() or None
+            mp = TIER_ALIASES.get(mp, mp)
+            object.__setattr__(self, "mm_precision", mp)
+        if mp is not None and mp not in MM_TIERS:
+            raise ValueError(
+                f"mm_precision must be one of {MM_TIERS} or None, "
+                f"got {self.mm_precision!r}")
+        mc = self.mm_complex
+        if isinstance(mc, str):
+            mc = mc.strip().lower() or None
+            object.__setattr__(self, "mm_complex", mc)
+        if mc is not None and mc not in MM_COMPLEX_MODES:
+            raise ValueError(
+                f"mm_complex must be one of {MM_COMPLEX_MODES} or None, "
+                f"got {self.mm_complex!r}")
+        fu = self.fuse
+        if isinstance(fu, str):
+            fu = fu.strip().lower()
+            if fu in ("", "none"):
+                fu = None
+            elif fu in ("1", "true", "on", "fuse"):
+                fu = True
+            elif fu in ("0", "false", "off"):
+                fu = False
+            else:
+                raise ValueError(
+                    f"fuse must be a bool or None, got {self.fuse!r}")
+            object.__setattr__(self, "fuse", fu)
+        elif fu is not None and not isinstance(fu, bool):
+            raise ValueError(
+                f"fuse must be a bool or None, got {self.fuse!r}")
+        if self.donate:
+            raise _unported("donate=True (consuming the input buffer)", "2")
+        if self.tune not in (None, "off"):
+            raise _unported(f"tune={self.tune!r} (the tuner)", "9")
+        if mre is not None:
+            raise _unported("max_roundtrip_err (the tuner's error budget)",
+                            "9")
+
+
+DEFAULT_OPTIONS = PlanOptions()
+
+
+def default_options(decomposition: str = "auto", **kw) -> PlanOptions:
+    """cf. ``default_options<backend>()`` of the reference."""
+    return PlanOptions(decomposition=decomposition, **kw)
+
+
+# The overlap knob's constants are the JAX package's own defaults (a
+# per-rank chunk floor and a chunk cap chosen there for the TPU), kept so
+# that both packages resolve the same K; they were not measured on the
+# H100.
+OVERLAP_AUTO_MIN_CHUNK_BYTES = 4 << 20
+OVERLAP_AUTO_MAX_CHUNKS = 8
+
+
+def auto_overlap_chunks(shape: Sequence[int], ndev: int,
+                        itemsize: int = 8) -> int:
+    """K from the per-rank block bytes: clamp(block /
+    OVERLAP_AUTO_MIN_CHUNK_BYTES, 1, OVERLAP_AUTO_MAX_CHUNKS). The chunk
+    axis's extent clamps K again (``overlap_chunk_bounds``)."""
+    if ndev <= 1:
+        return 1
+    block = itemsize * math.prod(int(s) for s in shape) // ndev
+    return max(1, min(OVERLAP_AUTO_MAX_CHUNKS,
+                      block // OVERLAP_AUTO_MIN_CHUNK_BYTES))
+
+
+def resolve_overlap_chunks(value: int | str | None,
+                           shape: Sequence[int] | None = None,
+                           ndev: int = 1, itemsize: int = 8) -> int:
+    """A ``PlanOptions.overlap_chunks`` value as a concrete K: None reads
+    ``DFFT_OVERLAP`` (unset: 1), ``"auto"`` runs
+    :func:`auto_overlap_chunks`, ints pass validated."""
+    if value is None:
+        raw = os.environ.get("DFFT_OVERLAP", "").strip()
+        value = raw if raw else 1
+    if isinstance(value, str):
+        if value == "auto":
+            return auto_overlap_chunks(shape, ndev, itemsize) if shape else 1
+        try:
+            value = int(value)
+        except ValueError:
+            raise ValueError(
+                f"overlap_chunks must be an int >= 1 or 'auto', got "
+                f"{value!r} (check DFFT_OVERLAP)") from None
+    if value < 1:
+        raise ValueError(f"overlap_chunks must be >= 1, got {value}")
+    return int(value)
 
 
 @dataclass(frozen=True)
@@ -37,6 +226,8 @@ class LogicPlan:
     pencil_order: str | None = None
     # (requested, used, reason) when an int world's count was judged
     negotiated: tuple | None = None
+    algorithm: str = "alltoall"
+    overlap_chunks: int = 1
 
 
 def eligible_decompositions(shape: Sequence[int], ndev: int
@@ -105,13 +296,19 @@ def negotiate_device_count(shape: Sequence[int], ndev: int,
     return 1
 
 
-def _renegotiate(shape, ndev: int, decomp: str, **axes
+def _renegotiate(shape, ndev: int, decomp: str, mode: str = "auto", **axes
                  ) -> tuple[int, tuple | None]:
-    """The ``"auto"`` renegotiation: shrink to the evenly-dividing count
-    only when every chain axis keeps its per-device ceil extent."""
+    """Device-count renegotiation: ``"never"`` keeps the request,
+    ``"force"`` takes the largest evenly-dividing count, ``"auto"``
+    shrinks to it only when every chain axis keeps its per-device ceil
+    extent."""
+    if mode == "never":
+        return ndev, None
     neg = negotiate_device_count(shape, ndev, decomp, **axes)
     if neg == ndev:
         return ndev, None
+    if mode == "force":
+        return neg, (ndev, neg, "forced: largest evenly-dividing count")
     old = _chain_pad_axes(shape, decomp, ndev, **axes)
     new = _chain_pad_axes(shape, decomp, neg, **axes)
     if all(geo.ceil_shards(shape[a], p1) == geo.ceil_shards(shape[a], p0)
@@ -129,20 +326,37 @@ def _int_world(shape, decomp: str, ndev: int) -> World:
     return make_world(geo.pencil_grid_min_surface(shape, ndev))
 
 
-def logic_plan3d(shape, world: World | int | Sequence[int] | None, *,
-                 forward: bool = True, decomposition: str | None = None
-                 ) -> LogicPlan:
-    """Resolve (shape, world, decomposition) to a plan skeleton. ``world``
-    is None (one device), an int (a loopback world of that many ranks,
-    the decomposition chosen here and the count renegotiated), a
-    ``(rows, cols)`` tuple (a loopback 2D world) or a :class:`World`
-    (1D: slab, 2D: pencil). ``decomposition`` (``"auto"`` when None)
-    overrides the choice; a world that cannot run it raises."""
+def logic_plan3d(shape, world: World | int | Sequence[int] | None,
+                 options: PlanOptions = DEFAULT_OPTIONS, *,
+                 forward: bool = True) -> LogicPlan:
+    """Resolve (shape, world, options) to a plan skeleton. ``world`` is
+    None (one device), an int (a loopback world of that many ranks, the
+    decomposition chosen here and the count renegotiated by
+    ``options.renegotiate``), a ``(rows, cols)`` tuple (a loopback 2D
+    world) or a :class:`World` (1D: slab, 2D: pencil).
+    ``options.decomposition`` overrides the choice; a world that cannot
+    run it raises. ``algorithm="hierarchical"`` runs the slab chain over
+    a 2D world's combined axis (a tuple is a loopback hybrid world).
+    ``options.overlap_chunks`` is resolved to K on the final world."""
     shape = tuple(int(s) for s in shape)
-    decomp = decomposition or "auto"
-    if decomp not in ("auto",) + DECOMPOSITIONS:
-        raise ValueError(
-            f"decomposition must be auto|single|slab|pencil, got {decomp!r}")
+    decomp = options.decomposition
+    hier = options.algorithm == "hierarchical"
+    if hier:
+        # One logical exchange split into two legs over a hybrid world:
+        # a pencil chain's exchanges are within one axis already.
+        if isinstance(world, (tuple, list)) and len(world) == 2:
+            world = make_world(tuple(world), HYBRID_AXES)
+        if not isinstance(world, World) or world.grid is None:
+            raise ValueError(
+                "algorithm='hierarchical' requires an explicit 2D hybrid "
+                "(dcn x ici) world (e.g. multihost.make_hybrid_world()); "
+                f"got {world!r}")
+        if decomp not in ("auto", "slab"):
+            raise ValueError(
+                "hierarchical transport runs the slab chain over the "
+                f"combined hybrid axis; decomposition={decomp!r} is not "
+                "compatible")
+        decomp = "slab"
     requested = None
     if isinstance(world, int):
         requested = world
@@ -156,7 +370,7 @@ def logic_plan3d(shape, world: World | int | Sequence[int] | None, *,
         return LogicPlan(shape, "single", None)
     if decomp == "auto":
         decomp = "pencil" if world.grid is not None else "slab"
-    if decomp == "slab" and world.grid is not None:
+    if decomp == "slab" and world.grid is not None and not hier:
         raise ValueError("slab decomposition requires a 1D world")
     if decomp == "pencil" and world.grid is None:
         raise ValueError("pencil decomposition requires a 2D world")
@@ -168,13 +382,17 @@ def logic_plan3d(shape, world: World | int | Sequence[int] | None, *,
                     order="col_first" if forward else "row_first")
     negotiated = None
     if requested is not None:
-        used, negotiated = _renegotiate(shape, requested, decomp, **axes)
+        used, negotiated = _renegotiate(shape, requested, decomp,
+                                        options.renegotiate, **axes)
         if used == 1:
             return LogicPlan(shape, "single", None, negotiated=negotiated)
         if used != requested:
             world = _int_world(shape, decomp, used)
+    overlap = resolve_overlap_chunks(options.overlap_chunks, shape=shape,
+                                     ndev=world.size)
     return LogicPlan(shape, decomp, world, axes.get("slab_axes"),
-                     axes.get("perm"), axes.get("order"), negotiated)
+                     axes.get("perm"), axes.get("order"), negotiated,
+                     options.algorithm, overlap)
 
 
 def _grid_boxes(world: geo.Box3, placements: dict[int, int], *,

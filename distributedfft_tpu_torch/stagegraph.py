@@ -3,14 +3,19 @@ and the fusion pass.
 
 The port of the node vocabulary of ``distributedfft_tpu/stagegraph.py``
 (``LocalNode``, ``ExchangeNode``, ``StageGraph``), of its fusion pass
-(``plan_fusion``, ``_fused_senders``, ``_run_fused_site``) and of the op
-interpreter. Builders emit a graph; :func:`run_graph` executes it stage
-by stage on the blocks one process holds. Local ops are ``("fft", axes,
-forward)``, ``("r2c", axis)``, ``("c2r", n, axis)``, ``("pack", axis,
-to)``, ``("pad", axis, to)`` and ``("crop", axis, to)``. An exchange
-node names its mesh axis (``"slab"``, or a pencil chain's ``"row"`` and
-``"col"``) and ceil-pads its split axis to a multiple of that axis's
-group. Overlap-K chunking is not in this port yet.
+(``plan_fusion``, ``_fused_senders``, ``_run_fused_site``), of the op
+interpreter and of the staged compiler (``StagedStage``,
+``StagedGraph``, ``compile_staged``). Builders emit a graph;
+:func:`run_graph` executes it on the blocks one process holds. Local ops
+are ``("fft", axes, forward)``, ``("r2c", axis)``, ``("c2r", n, axis)``,
+``("pack", axis, to)`` (a pad that the ``alltoallv`` transport skips:
+it ships true slices), ``("pad", axis, to)`` and ``("crop", axis, to)``.
+An exchange node names its mesh axis (``"slab"``, a pencil chain's two
+axes, or a hybrid world's combined axis), and the graph names the
+transport (``algorithm``) and the overlap K: at K > 1 each exchange and
+the compute node after it run through
+:func:`.parallel.exchange.exchange_overlapped`. Every node runs under a
+trace span of its name (:func:`.utils.trace.add_trace`).
 
 A graph with a wire codec and the ``:fuse`` executor flag runs each
 exchange as a fused site: the stage before it and the encode as one
@@ -26,18 +31,24 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass, field
+from typing import Any
 
 import torch
 
 from .ops import cuda_fuse
 from .ops.executors import get_c2r, get_executor, get_r2c, split_fuse
-from .parallel.exchange import (_crop_axis, _pad_axis, exchange_uneven,
-                                ship_parts, wire_codec)
+from .parallel.exchange import (_crop_axis, _pad_axis, check_algorithm,
+                                exchange_chunked, exchange_overlapped,
+                                exchange_uneven, hierarchical_legs,
+                                overlap_chunk_bounds, ship_parts,
+                                wire_codec)
 from .parallel.mesh import SLAB_AXIS, World
+from .utils.trace import add_trace, trace_stages
 
-#: The stage kinds a chain graph may carry, and those of its exchanges
-#: (a pencil chain's two are t2a and t2b).
-STAGE_KINDS = ("t0", "t1", "t2", "t3")
+#: The stage kinds a chain may carry, and those of its exchanges (a
+#: pencil chain's two, and a hierarchical staged exchange's legs, are t2a
+#: and t2b).
+STAGE_KINDS = ("t0", "t1", "t2", "t2a", "t2b", "t_mid", "t3")
 EXCHANGE_KINDS = ("t2", "t2a", "t2b")
 
 
@@ -61,14 +72,19 @@ class LocalNode:
 class ExchangeNode:
     """One global transpose: a tiled all-to-all over the ``parts`` ranks
     of each group of ``mesh_axis``, splitting ``split`` (ceil-padded to a
-    multiple of ``parts`` first) and concatenating ``concat``."""
+    multiple of ``parts`` first, except under ``alltoallv``) and
+    concatenating ``concat``. ``chunk_axis`` is the bystander axis the
+    overlap chunks cut; ``axis_sizes`` the (dcn, ici) grid of a
+    hierarchical exchange over a combined axis."""
 
     kind: str
     name: str
-    mesh_axis: str
+    mesh_axis: Any
     parts: int
     split: int
     concat: int
+    chunk_axis: int | None = None
+    axis_sizes: tuple | None = None
 
     def __post_init__(self):
         if self.kind not in EXCHANGE_KINDS:
@@ -82,20 +98,27 @@ def local_node(kind: str, name: str, *ops, fuse: bool = False) -> LocalNode:
 
 
 def exchange_node(kind: str, name: str, *, parts: int, split: int,
-                  concat: int, mesh_axis: str = SLAB_AXIS) -> ExchangeNode:
+                  concat: int, mesh_axis=SLAB_AXIS,
+                  chunk_axis: int | None = None,
+                  axis_sizes: tuple | None = None) -> ExchangeNode:
+    if chunk_axis is None:
+        chunk_axis = 3 - split - concat
     return ExchangeNode(kind=kind, name=name, mesh_axis=mesh_axis,
-                        parts=int(parts), split=split, concat=concat)
+                        parts=int(parts), split=split, concat=concat,
+                        chunk_axis=chunk_axis, axis_sizes=axis_sizes)
 
 
 @dataclass(frozen=True)
 class StageGraph:
-    """One chain as a linear list of nodes over ``world``. The plan
-    pads the input (``pre``: ``("pad", axis, to)`` of the global array;
-    the slab plan reads its spec instead) and cuts it into shards before
-    the first node, and joins and crops the output (``post``: ``("crop",
-    axis, to)``) after the last. ``wire_dtype`` compresses every
-    exchange; ``meta`` holds planner records (the fusion pass's under
-    ``"fusion"``)."""
+    """One chain as a linear list of nodes over ``world``. The plan pads
+    the input (``pre``: ``("pad", axis, to)`` of the global array) and
+    cuts it into shards along ``in_dims`` (one dim over a 1D world or a
+    combined axis; the row and column dims over a 2D world) before the
+    first node, and joins the output along ``out_dims`` and crops it
+    (``post``: ``("crop", axis, to)``) after the last (:func:`scatter`,
+    :func:`gather`). ``algorithm`` is every exchange's transport,
+    ``overlap_chunks`` its K, ``wire_dtype`` its codec; ``meta`` holds
+    planner records (the fusion pass's under ``"fusion"``)."""
 
     world: World
     nodes: tuple
@@ -103,6 +126,10 @@ class StageGraph:
     wire_dtype: str | None = None
     pre: tuple = ()
     post: tuple = ()
+    in_dims: tuple = ()
+    out_dims: tuple = ()
+    algorithm: str = "alltoall"
+    overlap_chunks: int = 1
     meta: dict = field(default_factory=dict, compare=False)
 
     def validate(self) -> "StageGraph":
@@ -120,24 +147,94 @@ class StageGraph:
                     f"fused node {n.name!r} has no preceding exchange")
         if self.wire_dtype is not None:
             wire_codec(self.wire_dtype)
+        check_algorithm(self.algorithm)
         return self
+
+
+# ------------------------------------------------------------ layouts
+
+def _dim_parts(world: World, dims: tuple) -> dict:
+    """{dim: parts} of a layout sharding ``dims`` over ``world``."""
+    if len(dims) == 1:
+        return {dims[0]: world.size}
+    return dict(zip(dims, world.grid))
+
+
+def _dim_index(world: World, dims: tuple, rank: int) -> dict:
+    """{dim: this rank's chunk index} of the layout."""
+    if len(dims) == 1:
+        return {dims[0]: rank}
+    return {dims[0]: rank // world.grid[1], dims[1]: rank % world.grid[1]}
+
+
+def scatter(graph, x: torch.Tensor) -> list[torch.Tensor]:
+    """The plan input as the held blocks: on a loopback world the global
+    array padded by ``graph.pre`` and cut along ``graph.in_dims`` (rank
+    r*cols + c holding row chunk r and column chunk c); on a process
+    group this rank's box padded to its block."""
+    world = graph.world
+    parts = _dim_parts(world, graph.in_dims)
+    if world.loopback:
+        for _, axis, to in graph.pre:
+            x = _pad_axis(x, axis, to)
+        blocks = [x]
+        for d in graph.in_dims:
+            blocks = [b for blk in blocks
+                      for b in blk.tensor_split(parts[d], dim=d)]
+        return blocks
+    for _, axis, to in graph.pre:
+        x = _pad_axis(x, axis, to // parts.get(axis, 1))
+    return [x.contiguous()]
+
+
+def gather(graph, blocks: list[torch.Tensor]) -> torch.Tensor:
+    """The plan output from the held blocks: on a loopback world joined
+    along ``graph.out_dims`` and cropped by ``graph.post``; on a process
+    group this rank's block cropped to its box."""
+    world = graph.world
+    dims = graph.out_dims
+    if world.loopback:
+        step = len(blocks)
+        for d in dims:
+            n = _dim_parts(world, dims)[d]
+            step //= n
+            blocks = [torch.cat(blocks[i:i + n * step:step], dim=d)
+                      for i in range(step)]
+        (y,) = blocks
+        for _, axis, to in graph.post:
+            y = _crop_axis(y, axis, to)
+        return y
+    (y,) = blocks
+    parts = _dim_parts(world, dims)
+    index = _dim_index(world, dims, world.rank)
+    for _, axis, to in graph.post:
+        if axis in parts:
+            c = -(-to // parts[axis])
+            to = max(0, min(c, to - index[axis] * c))
+        y = _crop_axis(y, axis, to)
+    return y
 
 
 class _Interp:
     """The op interpreter: the graph's executor and real pair, resolved
-    once, applied to one block in declared order."""
+    once, applied to one block in declared order. ``pack`` pads except
+    under ``alltoallv``, which ships the true slices."""
 
-    def __init__(self, executor: str):
+    def __init__(self, executor: str, algorithm: str = "alltoall"):
         self.ex = get_executor(executor)
         self.r2c = get_r2c(executor)
         self.c2r = get_c2r(executor)
+        self.algorithm = algorithm
 
     def run(self, ops, y: torch.Tensor) -> torch.Tensor:
         for op in ops:
             tag = op[0]
             if tag == "fft":
                 y = self.ex(y, op[1], op[2])
-            elif tag in ("pack", "pad"):
+            elif tag == "pack":
+                if self.algorithm != "alltoallv":
+                    y = _pad_axis(y, op[1], op[2])
+            elif tag == "pad":
                 y = _pad_axis(y, op[1], op[2])
             elif tag == "crop":
                 y = _crop_axis(y, op[1], op[2])
@@ -155,8 +252,10 @@ class _Interp:
 def plan_fusion(graph: StageGraph) -> dict:
     """The fusion tier's graph-level gate. Fusion is asked for by the
     ``:fuse`` executor flag and is active only when the graph has a wire
-    codec (else ``no_wire_codec``) and an exchange (else
-    ``no_exchange``); each failed gate is counted with site ``graph``.
+    codec (else ``no_wire_codec``), runs its exchanges whole (else
+    ``overlap_k``: the chunked pipeline's per-chunk compute is not a
+    fused kernel's) and has an exchange (else ``no_exchange``); each
+    failed gate is counted with site ``graph``.
     Returns ``{"requested", "active", "reasons", "sites"}``; ``sites``
     fills in per exchange as the graph runs."""
     info: dict = {"requested": False, "active": False, "reasons": (),
@@ -171,6 +270,8 @@ def plan_fusion(graph: StageGraph) -> dict:
     reasons = []
     if graph.wire_dtype is None:
         reasons.append("no_wire_codec")
+    if graph.overlap_chunks != 1:
+        reasons.append("overlap_k")
     if not any(isinstance(n, ExchangeNode) for n in graph.nodes):
         reasons.append("no_exchange")
     info["reasons"] = tuple(reasons)
@@ -201,22 +302,31 @@ def _fused_senders(nodes: tuple) -> tuple[dict, set]:
     return sender_of, consumed
 
 
+@contextlib.contextmanager
+def _node_span(stage, node):
+    """The node's trace span and its stage kind's timer."""
+    with add_trace(node.name), stage(node.kind):
+        yield
+
+
 def _run_fused_site(blocks: list, graph: StageGraph, interp: _Interp,
                     n: ExchangeNode, nxt: LocalNode, senders: tuple,
                     site: dict, stage) -> list:
     """One fused exchange site over the held blocks: sender stage and
     encode (one kernel when the stage is a single FFT along the split
-    axis and its packs are no-ops), the wire parts through the
-    all-to-all, then decode and receiver stage (one kernel when the
-    receiver is an FFT along one axis, after at most a no-op crop). Each
-    route away from a kernel is counted by its reason, as in the JAX
-    package. The codec is timed under the stage it runs with."""
+    axis and its packs are no-ops or skipped), the wire parts through the
+    graph's transport, then decode and receiver stage (one kernel when
+    the receiver is an FFT along one axis, after at most a no-op crop).
+    Each route away from a kernel is counted by its reason, as in the
+    JAX package. The codec is timed under the stage it runs with."""
     codec = wire_codec(graph.wire_dtype)
     sender_ops = tuple(op for nd in senders for op in nd.ops)
     packs = [op for op in sender_ops if op[0] == "pack"]
     core = [op for op in sender_ops if op[0] != "pack"]
     y0 = blocks[0]
-    packs_noop = all(y0.shape[op[1]] == op[2] for op in packs)
+    run_pack = graph.algorithm != "alltoallv"
+    packs_noop = all((not run_pack) or y0.shape[op[1]] == op[2]
+                     for op in packs)
 
     kernel_reason = None
     if not senders:
@@ -236,7 +346,7 @@ def _run_fused_site(blocks: list, graph: StageGraph, interp: _Interp,
     if site["sender"] == "kernel":
         fft_node = next(nd for nd in senders
                         if any(op[0] == "fft" for op in nd.ops))
-        with stage(fft_node.kind):
+        with _node_span(stage, fft_node):
             parts = [cuda_fuse.fused_fft_encode(
                 y, fft_axis=core[0][1][0], forward=core[0][2],
                 tile_axis=n.split, tiles=n.parts,
@@ -247,16 +357,18 @@ def _run_fused_site(blocks: list, graph: StageGraph, interp: _Interp,
             cuda_fuse.record_fusion_fallback(f"{n.name}:sender",
                                              kernel_reason)
         for nd in senders:
-            with stage(nd.kind):
+            with _node_span(stage, nd):
                 blocks = [interp.run(nd.ops, y) for y in blocks]
         with stage(senders[-1].kind if senders else n.kind):
             parts = [codec.encode(y, tile_axis=n.split, tiles=n.parts)
                      for y in blocks]
     payload_dtype = blocks[0].dtype
 
-    with stage(n.kind):
+    with _node_span(stage, n):
         shipped = ship_parts(parts, graph.world, split_axis=n.split,
-                             concat_axis=n.concat, mesh_axis=n.mesh_axis)
+                             concat_axis=n.concat, mesh_axis=n.mesh_axis,
+                             algorithm=graph.algorithm,
+                             axis_sizes=n.axis_sizes)
 
     rshape = shipped[0][0].shape[:-1]
     rops = nxt.ops
@@ -265,7 +377,7 @@ def _run_fused_site(blocks: list, graph: StageGraph, interp: _Interp,
         and len(rops[-1][1]) == 1
         and (len(rops) == 1
              or (rops[0][0] == "crop" and rshape[rops[0][1]] == rops[0][2])))
-    with stage(nxt.kind):
+    with _node_span(stage, nxt):
         if recv_kernel:
             site["receiver"] = "kernel"
             return [cuda_fuse.fused_decode_fft(
@@ -282,6 +394,30 @@ def _run_fused_site(blocks: list, graph: StageGraph, interp: _Interp,
 
 # ------------------------------------------------------------ executor
 
+def _overlap_pair(blocks: list, graph: StageGraph, interp: _Interp,
+                  n: ExchangeNode, nxt: LocalNode, stage) -> list:
+    """An exchange and its fused compute node, through
+    :func:`.parallel.exchange.exchange_overlapped` at the graph's K. At
+    K = 1 (or a chunk axis of extent 1) each is timed under its own
+    stage kind; at K > 1 they interleave, and the pair is timed as one
+    span under ``"<kind>+<kind>"`` (``t2+t3``)."""
+    compute = lambda bs: [interp.run(nxt.ops, b) for b in bs]
+    kw = dict(split_axis=n.split, concat_axis=n.concat,
+              algorithm=graph.algorithm, mesh_axis=n.mesh_axis,
+              axis_sizes=n.axis_sizes, wire_dtype=graph.wire_dtype)
+    if len(overlap_chunk_bounds(blocks[0].shape[n.chunk_axis],
+                                graph.overlap_chunks)) <= 1:
+        with _node_span(stage, n):
+            blocks = exchange_uneven(blocks, graph.world, **kw)
+        with _node_span(stage, nxt):
+            return compute(blocks)
+    with stage(f"{n.kind}+{nxt.kind}"):
+        return exchange_overlapped(
+            blocks, graph.world, compute=compute,
+            overlap_chunks=graph.overlap_chunks, chunk_axis=n.chunk_axis,
+            exchange_name=n.name, compute_name=nxt.name, **kw)
+
+
 def run_graph(graph: StageGraph, blocks: list[torch.Tensor],
               timer=None) -> list[torch.Tensor]:
     """Run every node of ``graph`` on the held ``blocks`` (one per rank of
@@ -289,7 +425,7 @@ def run_graph(graph: StageGraph, blocks: list[torch.Tensor],
     times each node under its stage kind. The fusion pass runs once per
     graph, its record in ``graph.meta["fusion"]``."""
     graph.validate()
-    interp = _Interp(graph.executor)
+    interp = _Interp(graph.executor, graph.algorithm)
     stage = timer.stage if timer is not None else (
         lambda kind: contextlib.nullcontext())
     nodes = graph.nodes
@@ -303,20 +439,126 @@ def run_graph(graph: StageGraph, blocks: list[torch.Tensor],
         node = nodes[i]
         if i in consumed:          # sender nodes run inside their site
             i += 1
-        elif isinstance(node, ExchangeNode) and fusion["active"]:
-            site = fusion["sites"].setdefault(i, {"exchange": node.name})
-            blocks = _run_fused_site(
-                blocks, graph, interp, node, nodes[i + 1],
-                tuple(nodes[j] for j in sender_of[i]), site, stage)
+        elif isinstance(node, ExchangeNode):
+            if fusion["active"]:
+                site = fusion["sites"].setdefault(i, {"exchange": node.name})
+                blocks = _run_fused_site(
+                    blocks, graph, interp, node, nodes[i + 1],
+                    tuple(nodes[j] for j in sender_of[i]), site, stage)
+            else:
+                blocks = _overlap_pair(blocks, graph, interp, node,
+                                       nodes[i + 1], stage)
             i += 2
         else:
-            with stage(node.kind):
-                if isinstance(node, ExchangeNode):
-                    blocks = exchange_uneven(
-                        blocks, graph.world, split_axis=node.split,
-                        concat_axis=node.concat, wire_dtype=graph.wire_dtype,
-                        mesh_axis=node.mesh_axis)
-                else:
-                    blocks = [interp.run(node.ops, b) for b in blocks]
+            with _node_span(stage, node):
+                blocks = [interp.run(node.ops, b) for b in blocks]
             i += 1
     return blocks
+
+
+# ----------------------------------------------------- staged compiler
+
+@dataclass(frozen=True)
+class StagedStage:
+    """One stage of a staged pipeline: ``local`` ops on each held block,
+    an ``exchange`` (a dict of ``mesh_axis``, ``parts``, ``split``,
+    ``concat``, ``chunk_axis`` and optionally ``axis_sizes``), or one
+    hierarchical ``leg`` (``which``: ``"ici"`` or ``"dcn"``, with the
+    exchange's keys and ``tile_axis_out``)."""
+
+    kind: str
+    name: str
+    local: tuple | None = None
+    exchange: dict | None = None
+    leg: dict | None = None
+
+    def __post_init__(self):
+        if self.kind not in STAGE_KINDS:
+            raise ValueError(
+                f"unknown stage kind {self.kind!r}; use one of "
+                f"{STAGE_KINDS}")
+
+
+@dataclass(frozen=True)
+class StagedGraph:
+    """A staged pipeline over ``world``: the per-stage twin of
+    :class:`StageGraph`. Stages pass the held blocks between them; the
+    first takes the plan's input (:func:`scatter` by ``pre`` and
+    ``in_dims``) and the last returns its output (:func:`gather` by
+    ``out_dims`` and ``post``)."""
+
+    world: World
+    stages: tuple
+    algorithm: str = "alltoall"
+    wire_dtype: str | None = None
+    overlap_chunks: int = 1
+    executor: str = "cuda"
+    pre: tuple = ()
+    post: tuple = ()
+    in_dims: tuple = ()
+    out_dims: tuple = ()
+    meta: dict = field(default_factory=dict, compare=False)
+
+
+def _leg_body(stage: StagedStage, graph: StagedGraph):
+    """One leg of :func:`.parallel.exchange.hierarchical_legs` over the
+    held blocks, inside the wire codec's encode/decode pair when the
+    graph compresses: each codec round-trips exactly (bf16 by value,
+    int8/split by their pow2 steps), and the legs move peer tiles and
+    sidecar rows alike, so decoding on the axis the tiles sit on at the
+    leg's exit (``tile_axis_out``) and encoding again gives the bits of
+    one encode/decode pair around both legs."""
+    cfg = stage.leg
+    leg_ici, leg_dcn = hierarchical_legs(
+        graph.world, split_axis=cfg["split"], concat_axis=cfg["concat"],
+        mesh_axis=cfg["mesh_axis"], axis_sizes=cfg["axis_sizes"])
+    leg = leg_ici if cfg["which"] == "ici" else leg_dcn
+    if graph.wire_dtype is None:
+        return leg
+    codec = wire_codec(graph.wire_dtype)
+    p, split, out_ax = cfg["parts"], cfg["split"], cfg["tile_axis_out"]
+
+    def run(blocks):
+        parts = [codec.encode(u, tile_axis=split, tiles=p) for u in blocks]
+        done = [leg([ps[j] for ps in parts]) for j in range(len(parts[0]))]
+        return [codec.decode(tuple(m[b] for m in done), u.dtype,
+                             tile_axis=out_ax, tiles=p)
+                for b, u in enumerate(blocks)]
+
+    return run
+
+
+def compile_staged(graph: StagedGraph) -> list:
+    """The staged pipeline as a ``[(name, fn), ...]`` list, each stage
+    under its trace span (:func:`.utils.trace.trace_stages`). Exchanges
+    run :func:`.parallel.exchange.exchange_chunked` (K chunks in one
+    stage, the hierarchical leg pipeline at K > 1)."""
+    interp = _Interp(graph.executor, graph.algorithm)
+    world = graph.world
+
+    def build_stage(stage: StagedStage):
+        if stage.exchange is not None:
+            cfg = stage.exchange
+            return lambda blocks: exchange_chunked(
+                blocks, world, split_axis=cfg["split"],
+                concat_axis=cfg["concat"], mesh_axis=cfg["mesh_axis"],
+                algorithm=graph.algorithm,
+                overlap_chunks=graph.overlap_chunks,
+                chunk_axis=cfg["chunk_axis"], exchange_name=stage.name,
+                axis_sizes=cfg.get("axis_sizes"),
+                wire_dtype=graph.wire_dtype)
+        if stage.leg is not None:
+            return _leg_body(stage, graph)
+        return lambda blocks: [interp.run(stage.local, b) for b in blocks]
+
+    bodies = [build_stage(s) for s in graph.stages]
+    last = len(bodies) - 1
+
+    def wrap(i, body):
+        def fn(v):
+            out = body(scatter(graph, v) if i == 0 else v)
+            return gather(graph, out) if i == last else out
+        return fn
+
+    return trace_stages([(s.name, wrap(i, b)) for i, (s, b) in
+                         enumerate(zip(graph.stages, bodies))])

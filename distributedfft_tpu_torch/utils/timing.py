@@ -12,6 +12,7 @@ import contextlib
 import math
 import statistics
 import time
+from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
@@ -78,3 +79,54 @@ def cuda_time_ms(fn: Callable[[], object], *, iters: int = 10,
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+@dataclass
+class StageTimes:
+    """Seconds per stage of a staged pipeline, in stage order."""
+
+    times: dict[str, float] = field(default_factory=dict)
+
+    @property
+    def total(self) -> float:
+        return sum(self.times.values())
+
+    def report(self) -> str:
+        return "\n".join(f"  {k}: {v:.6f} s" for k, v in self.times.items())
+
+
+def _device_of(v):
+    """The device of a stage value (a tensor or a list of blocks)."""
+    t = v[0] if isinstance(v, (list, tuple)) else v
+    return t.device
+
+
+def time_staged(stages, x, iters: int = 3) -> tuple[StageTimes, object]:
+    """Time a ``[(name, fn), ...]`` pipeline, each stage's output feeding
+    the next: the best of ``iters`` passes after one warm pass, per
+    stage. On a CUDA device each stage is bracketed by two CUDA events
+    (the device's time for the stage's work, the stream idle in between
+    only while the host launches); on the CPU by the host clock. Returns
+    the times and the last pass's output."""
+    cuda = _device_of(x).type == "cuda"
+    best: dict[str, float] = {}
+    out = None
+    for it in range(iters + 1):
+        cur = x
+        for name, fn in stages:
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                cur = fn(cur)
+                end.record()
+                end.synchronize()
+                dt = start.elapsed_time(end) / 1e3
+            else:
+                t0 = time.perf_counter()
+                cur = fn(cur)
+                dt = time.perf_counter() - t0
+            if it > 0:
+                best[name] = min(best.get(name, math.inf), dt)
+        out = cur
+    return StageTimes(best), out
