@@ -69,14 +69,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    under each t0..t3 span and the device's idle share over the traced
    window; then the transport, K, forward and backward times and the
    per-stage times of each plan;
-10. runs complex128 through the cuda executor's dft_matmul route and
+10. drives the brick, batched, layout and r2c_axis path at 512^3 on a
+   4-rank loopback world (counts from 0): the brick plans of
+   ``speed3d.py -bricks`` (uneven Z-slabs in, X-pencils out) over the
+   ring and the a2av edges, one with the in-bricks stored in shuffled
+   axis orders, gathered and held against the inner slab plan bit for
+   bit forward and backward; the R2C/C2R brick plans against the inner
+   real plan; the r2c_axis=0 plan against the canonical plan on the
+   transposed input; the batch = 2 slab and pencil C2C and slab R2C plans
+   against two unbatched calls (bit for bit, both directions); an
+   absorbed in_spec within the tier of torch.fft.fftn and an edge-wrapped
+   in_spec/out_spec on the 2x2 pencil against the default plan (bit for
+   bit); every kernel call at a shape the kernel phases held, no
+   fallback; then the brick plans' times beside the inner plan's (the
+   two edges' cost), the batched plans against two unbatched calls, the
+   peak device memory of each, and donate=True against donate=False
+   (bit for bit, peak memory and time; single and slab);
+11. runs complex128 through the cuda executor's dft_matmul route and
    through the torch executor (a 4-rank slab at 256^3 against
    torch.fft.fftn, 1e-11), and the matmul executor's three precision
    tiers on a [4096, 512] row batch against torch.fft.fft (each tier's
    error within its band, the three strictly ordered); prints one JSON
    line of the five kernels and, last, the device line.
 
-Each counted path (5, 6, 8, 9) also records the case of every kernel
+Each counted path (5, 6, 8, 9, 10) also records the case of every kernel
 call and fails on one that phases 2 and 3 did not hold against its plain
 version.
 
@@ -88,6 +104,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+from collections import Counter
 import math
 import os
 import subprocess
@@ -345,8 +362,8 @@ RADIX_WRAPPERS = ("fft_last", "fft2_last", "fft_axis0", "decode_fft",
 
 @contextlib.contextmanager
 def recording_cases(cf, cfu):
-    """Yield a set that gathers the case key of every call of the five
-    kernel wrappers inside the block: (kernel, forward, shape) as in
+    """Yield a Counter of the case key of every call of the five kernel
+    wrappers inside the block: (kernel, forward, shape) as in
     KERNEL_CASES, and for the fused kernels (kernel, codec, forward,
     shape, axis, tiles) as in FUSED_CASES. The calls are seen by
     ``sys.setprofile``, so the wrappers and their counts stay as they
@@ -356,7 +373,7 @@ def recording_cases(cf, cfu):
              cf.fft2_last.__code__: "fft2_last",
              cfu.fused_fft_encode.__code__: "fft_encode",
              cfu.fused_decode_fft.__code__: "decode_fft"}
-    seen = set()
+    seen = Counter()
 
     def on_call(frame, event, _arg):
         name = names.get(frame.f_code) if event == "call" else None
@@ -366,10 +383,10 @@ def recording_cases(cf, cfu):
         if name in ("fft_encode", "decode_fft"):
             shape = (a["x"].shape if name == "fft_encode"
                      else a["parts"][0].shape[:-1])
-            seen.add((name, a["wire_dtype"], a["forward"], tuple(shape),
-                      a["fft_axis"], a["tiles"]))
+            seen[(name, a["wire_dtype"], a["forward"], tuple(shape),
+                  a["fft_axis"], a["tiles"])] += 1
         else:
-            seen.add((name, a["forward"], tuple(a["x"].shape)))
+            seen[(name, a["forward"], tuple(a["x"].shape))] += 1
 
     sys.setprofile(on_call)
     try:
@@ -384,7 +401,7 @@ def check_covered(seen, path):
     plain version."""
     held = ({c[:3] for c in KERNEL_CASES}
             | {c[:6] for c in FUSED_CASES})
-    missing = sorted(seen - held, key=str)
+    missing = sorted(set(seen) - held, key=str)
     if missing:
         fail(f"{path} launches kernels at cases no kernel phase checked: "
              f"{missing}")
@@ -1359,6 +1376,265 @@ def time_transport_plans(torch, timing, dev, plans, n=512):
     torch.cuda.empty_cache()
 
 
+def batch_cases(n, ranks=SLAB_RANKS):
+    """The kernel cases the batch = 2 plans add at n^3: the slab C2C and
+    R2C/C2R on ``ranks`` ranks and the 2x2 pencil C2C, the batch folded
+    into each kernel's own batch axis (the plane's planes, the strided
+    kernel's ``lead``, the row kernel's rows)."""
+    q, h, m = n // ranks, n // 2 + 1, n // 2
+    return [
+        ("fft2_last", True, (2 * q, n, n), "batch=2 slab fwd t0"),
+        ("fft_axis0", True, (2, n, q * n), "batch=2 slab and pencil fwd t3"),
+        ("fft_axis0", False, (2, n, q * n),
+         "batch=2 slab and pencil bwd t0"),
+        ("fft_last", False, (2 * q * n, n),
+         "batch=2 slab bwd t0, pencil bwd t3"),
+        ("fft_axis0", False, (2 * q, n, n), "batch=2 slab bwd t3"),
+        ("fft_last", True, (2 * m * m, n), "batch=2 pencil fwd t0"),
+        ("fft_axis0", True, (2 * m, n, m), "batch=2 pencil fwd t1"),
+        ("fft_axis0", False, (2 * m, n, m), "batch=2 pencil bwd t1"),
+        ("fft_last", True, (2 * q * n, m), "batch=2 slab r2c t0"),
+        ("fft_last", False, (2 * q * n, m), "batch=2 slab c2r t0"),
+        ("fft_axis0", True, (2 * q, n, h), "batch=2 slab r2c t0 y"),
+        ("fft_axis0", False, (2 * q, n, h), "batch=2 slab c2r t0 y"),
+        ("fft_axis0", True, (2, n, q * h), "batch=2 slab r2c t3"),
+        ("fft_axis0", False, (2, n, q * h), "batch=2 slab c2r t3"),
+    ]
+
+
+def brick_boxes(dfft, shape, ranks=SLAB_RANKS, orders=False):
+    """The ``speed3d.py -bricks`` layouts of ``shape``: uneven (ceil)
+    Z-slabs in, X-pencils on the min-surface grid out; ``orders`` stores
+    the in-bricks in shuffled axis orders."""
+    geo = dfft.geometry
+    w = geo.world_box(shape)
+    ins = geo.make_slabs(w, ranks, axis=2, rule=geo.ceil_splits)
+    outs = geo.make_pencils(w, geo.pencil_grid_min_surface(shape, ranks), 0)
+    if orders:
+        ins = [b.with_order(o) for b, o in zip(
+            ins, [(2, 0, 1), (0, 1, 2), (1, 2, 0), (2, 1, 0)])]
+    return ins, outs
+
+
+def check_bricks(torch, dfft, dev, n=512):
+    """Phase 10a: the brick-in/brick-out, batched, layout and r2c_axis
+    plans at n^3 on a 4-rank loopback world, each against its inner,
+    unbatched or default plan bit for bit (the absorbed layout, whose
+    chain transforms in another order, within the tier of torch.fft).
+    Returns the plans the timing phase times."""
+    shape = (n, n, n)
+    world = dfft.make_world(SLAB_RANKS)
+    out = {}
+    x = seeded(torch, shape, dev)
+    inner_f = dfft.plan_dft_c2c_3d(shape, world, device=dev)
+    inner_b = dfft.plan_dft_c2c_3d(shape, world, direction=dfft.BACKWARD,
+                                   device=dev)
+    y0 = inner_f(x)
+    r0 = inner_b(y0)
+    for alg, orders in (("alltoall", False), ("alltoallv", False),
+                        ("alltoall", True)):
+        ins, outs = brick_boxes(dfft, shape, orders=orders)
+        f = dfft.plan_brick_dft_c2c_3d(shape, world, ins, outs,
+                                       algorithm=alg, device=dev)
+        b = dfft.plan_brick_dft_c2c_3d(shape, world, outs, ins,
+                                       algorithm=alg,
+                                       direction=dfft.BACKWARD, device=dev)
+        stack = dfft.scatter_bricks(x, ins)
+        ys = f(stack)
+        rs = b(dfft.scatter_bricks(y0, outs))
+        got = (dfft.gather_bricks(ys, outs), dfft.gather_bricks(rs, ins))
+        report = twin_report(torch, got, (y0, r0))
+        edges = [(e.algorithm, e.payload_elems, e.wire_elems)
+                 for e in f.brick_edges]
+        label = (f"brick c2c {n}^3 P={SLAB_RANKS} {alg}"
+                 f"{' ordered' if orders else ''}")
+        print(f"{label}: Z-slabs {f.in_shape} in, X-pencils {f.out_shape} "
+              f"out; edges (transport, payload, wire elems) {edges}; "
+              f"gathered vs the inner slab plan (forward, backward): "
+              f"{report}", flush=True)
+        if report != "bit-identical":
+            fail(f"{label}: {report}")
+        if not orders:
+            out[f"brick c2c {alg}"] = (f, b, stack, f(stack))
+        del ys, rs, got
+    del r0
+    torch.cuda.empty_cache()
+
+    # R2C / C2R brick plans against the inner real plan
+    xr = seeded_real(torch, shape, dev)
+    rf = dfft.plan_dft_r2c_3d(shape, world, device=dev)
+    rb = dfft.plan_dft_c2r_3d(shape, world, device=dev)
+    h0 = rf(xr)
+    g0 = rb(h0)
+    ins, _ = brick_boxes(dfft, shape)
+    _, couts = brick_boxes(dfft, (n, n, n // 2 + 1))
+    bf = dfft.plan_brick_dft_r2c_3d(shape, world, ins, couts, device=dev)
+    bb = dfft.plan_brick_dft_c2r_3d(shape, world, couts, ins, device=dev)
+    got = (dfft.gather_bricks(bf(dfft.scatter_bricks(xr, ins)), couts),
+           dfft.gather_bricks(bb(dfft.scatter_bricks(h0, couts)), ins))
+    report = twin_report(torch, got, (h0, g0))
+    print(f"brick r2c/c2r {n}^3 P={SLAB_RANKS}: vs the inner real plan "
+          f"(forward, backward): {report}", flush=True)
+    if report != "bit-identical":
+        fail(f"brick r2c/c2r: {report}")
+    del got, g0
+
+    # r2c_axis = 0: the canonical plan on the transposed input
+    a0 = dfft.plan_dft_r2c_3d(shape, world, r2c_axis=0, device=dev)
+    xt = xr.permute(2, 1, 0).contiguous()
+    report = twin_report(torch, (a0(xr),),
+                         (rf(xt).permute(2, 1, 0).contiguous(),))
+    print(f"r2c_axis=0 {n}^3 P={SLAB_RANKS}: vs the canonical plan on the "
+          f"transposed input: {report}", flush=True)
+    if report != "bit-identical":
+        fail(f"r2c_axis=0: {report}")
+    del xt, h0
+
+    # batch = 2 against two unbatched calls
+    x1 = seeded(torch, shape, dev, SEED + 1)
+    xb = torch.stack([x, x1])
+    for label, grid, kind in (("slab c2c", world, "c2c"),
+                              ("pencil c2c", PENCIL_GRID, "c2c"),
+                              ("slab r2c", world, "r2c")):
+        planner = (dfft.plan_dft_c2c_3d if kind == "c2c"
+                   else dfft.plan_dft_r2c_3d)
+        fb = planner(shape, grid, batch=2, device=dev)
+        bb_ = planner(shape, grid, batch=2, direction=dfft.BACKWARD,
+                      device=dev)
+        f1 = planner(shape, grid, device=dev)
+        b1 = planner(shape, grid, direction=dfft.BACKWARD, device=dev)
+        inp = xb if kind == "c2c" else xb.real.contiguous()
+        yb = fb(inp)
+        rb_ = bb_(yb)
+        ys = torch.stack([f1(inp[0]), f1(inp[1])])
+        rs = torch.stack([b1(yb[0]), b1(yb[1])])
+        report = twin_report(torch, (yb, rb_), (ys, rs))
+        print(f"{label} {n}^3 batch=2: vs two unbatched calls (forward, "
+              f"backward): {report}", flush=True)
+        if report != "bit-identical":
+            fail(f"{label} batch=2: {report}")
+        out[f"{label} batch=2"] = (fb, bb_, f1, b1, inp)
+        del yb, rb_, ys, rs
+    del xb, x1
+
+    # layouts: absorbed (Y-slabs in) and edge-wrapped (a 2x2 world's
+    # combined axis in and out) against the default-layout plans
+    ref = torch.fft.fftn(x)
+    ab = dfft.plan_dft_c2c_3d(shape, world, device=dev,
+                              in_spec=dfft.Spec(None, "slab", None))
+    errs = rel_err(torch, ab(x), ref)[:2]
+    print(f"absorbed in_spec {ab.in_spec} {n}^3 P={SLAB_RANKS}: slab axes "
+          f"{ab.logic.slab_axes}; vs torch.fft.fftn max rel err="
+          f"{errs[0]:.3e} l2 rel err={errs[1]:.3e}", flush=True)
+    if not ab.logic.in_absorbed or not max(errs) <= TOL:
+        fail(f"absorbed in_spec: absorbed {ab.logic.in_absorbed}, {errs}")
+    combined = ("row", "col")
+    wr = dfft.plan_dft_c2c_3d(shape, PENCIL_GRID, device=dev,
+                              in_spec=dfft.Spec(combined, None, None),
+                              out_spec=dfft.Spec(None, combined, None))
+    default = dfft.plan_dft_c2c_3d(shape, PENCIL_GRID, device=dev)
+    report = twin_report(torch, (wr(x),), (default(x),))
+    print(f"edge-wrapped in_spec {wr.in_spec} out_spec {wr.out_spec} "
+          f"{n}^3 2x2: vs the default-layout pencil plan: {report}",
+          flush=True)
+    if wr.logic.in_absorbed or wr.logic.out_absorbed or \
+            report != "bit-identical":
+        fail(f"edge-wrapped layouts: {report}")
+    out["layouts"] = (ab, wr, default)
+    del ref, x, y0
+    return out
+
+
+def peak_gib(torch, fn) -> float:
+    """Peak device memory (GiB) while ``fn`` runs, from a reset."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    r = fn()
+    torch.cuda.synchronize()
+    del r
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def time_bricks(torch, dfft, timing, dev, plans, n=512):
+    """Phase 10b: the brick plans' forward and backward ms beside their
+    inner slab plan's (median of 10), the batch = 2 plans against two
+    unbatched calls, the peak device memory of each, and donate against
+    not."""
+    shape = (n, n, n)
+    world = dfft.make_world(SLAB_RANKS)
+    x = seeded(torch, shape, dev)
+    for alg in ("alltoall", "alltoallv"):
+        # the inner chain runs the brick plan's transport
+        inner_f = dfft.plan_dft_c2c_3d(shape, world, algorithm=alg,
+                                       device=dev)
+        inner_b = dfft.plan_dft_c2c_3d(shape, world, algorithm=alg,
+                                       direction=dfft.BACKWARD, device=dev)
+        y = inner_f(x)
+        t_if = timing.cuda_time_ms(lambda: inner_f(x), iters=10)
+        t_ib = timing.cuda_time_ms(lambda: inner_b(y), iters=10)
+        print(f"inner slab c2c {n}^3 P={SLAB_RANKS} {alg}: forward_ms="
+              f"{t_if:.3f} backward_ms={t_ib:.3f}", flush=True)
+        del y
+        f, b, stack, ystack = plans[f"brick c2c {alg}"]
+        t_f = timing.cuda_time_ms(lambda: f(stack), iters=10)
+        t_b = timing.cuda_time_ms(lambda: b(ystack), iters=10)
+        mem = peak_gib(torch, lambda: f(stack))
+        print(f"brick c2c {n}^3 P={SLAB_RANKS} edges {alg} "
+              f"({f.brick_edges[0].algorithm}): forward_ms={t_f:.3f} "
+              f"backward_ms={t_b:.3f}; edges cost forward "
+              f"{t_f - t_if:.3f} backward {t_b - t_ib:.3f} ms over the "
+              f"inner plan; peak {mem:.2f} GiB", flush=True)
+    plans.pop("brick c2c alltoall")
+    plans.pop("brick c2c alltoallv")
+    del stack, ystack
+    torch.cuda.empty_cache()
+    for label in ("slab c2c batch=2", "pencil c2c batch=2",
+                  "slab r2c batch=2"):
+        fb, bb, f1, b1, inp = plans.pop(label)
+        yb = fb(inp)
+        t_bf = timing.cuda_time_ms(lambda: fb(inp), iters=10)
+        t_bb = timing.cuda_time_ms(lambda: bb(yb), iters=10)
+        t_2f = timing.cuda_time_ms(lambda: (f1(inp[0]), f1(inp[1])),
+                                   iters=10)
+        t_2b = timing.cuda_time_ms(lambda: (b1(yb[0]), b1(yb[1])),
+                                   iters=10)
+        mem = peak_gib(torch, lambda: fb(inp))
+        print(f"{label} {n}^3: forward_ms={t_bf:.3f} (two unbatched calls "
+              f"{t_2f:.3f}, ratio {t_bf / t_2f:.3f}) backward_ms={t_bb:.3f}"
+              f" (two unbatched {t_2b:.3f}, ratio {t_bb / t_2b:.3f}); peak "
+              f"{mem:.2f} GiB", flush=True)
+        del yb, inp
+        torch.cuda.empty_cache()
+    ab, wr, default = plans.pop("layouts")
+    for label, p in (("absorbed layout", ab), ("edge-wrapped layouts", wr),
+                     ("default pencil", default)):
+        t = timing.cuda_time_ms(lambda: p(x), iters=10)
+        print(f"{label} {n}^3: forward_ms={t:.3f}; peak "
+              f"{peak_gib(torch, lambda: p(x)):.2f} GiB", flush=True)
+    for label, grid in (("single", None), (f"slab P={SLAB_RANKS}", world)):
+        keep = dfft.plan_dft_c2c_3d(shape, grid, device=dev)
+        give = dfft.plan_dft_c2c_3d(shape, grid, device=dev, donate=True)
+        want = keep(x)
+        xd = x.clone()
+        report = twin_report(torch, (give(xd),), (want,))
+        del want
+        torch.cuda.empty_cache()
+        xd.copy_(x)
+        m_keep = peak_gib(torch, lambda: keep(xd))
+        m_give = peak_gib(torch, lambda: give(xd))
+        t_keep = timing.cuda_time_ms(lambda: keep(xd), iters=5)
+        t_give = timing.cuda_time_ms(lambda: give(xd), iters=5)
+        print(f"donate {label} c2c {n}^3: vs donate=False {report}; peak "
+              f"{m_give:.2f} GiB against {m_keep:.2f} GiB; forward_ms="
+              f"{t_give:.3f} against {t_keep:.3f}", flush=True)
+        if report != "bit-identical":
+            fail(f"donate {label}: {report}")
+        del xd
+        torch.cuda.empty_cache()
+    del x
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "distributedfft_tpu_torch")):
@@ -1394,6 +1670,7 @@ def main() -> None:
 
     auto_k = resolve_overlap_chunks("auto", (512,) * 3, SLAB_RANKS)
     KERNEL_CASES.extend(overlap_cases(512, (2, auto_k)))
+    KERNEL_CASES.extend(batch_cases(512))
     records = check_kernels(torch, cf, radix, timing, rates)
     records.update(check_fused_kernels(torch, cf, cfu, wire_codec, timing,
                                        rates))
@@ -1558,6 +1835,33 @@ def main() -> None:
     check_covered(seen, "the staged and traced runs")
     time_transport_plans(torch, timing, dev, transport)
     del transport
+    torch.cuda.empty_cache()
+
+    # ---- the brick, batched, layout and r2c_axis path: counts from 0 ----
+    cf.reset_launches()
+    cfu.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with recording_cases(cf, cfu) as seen:
+        bricks = check_bricks(torch, dfft, dev)
+    path = {**cf.launches(), **cfu.launches()}
+    print(f"launches on the brick path: {path}", flush=True)
+    check_routes(cf, "the brick path", {}, dict(cf.ROUTES))
+    check_covered(seen, "the brick path")
+    batch_keys = {c[:3]: c[3] for c in batch_cases(512)}
+    print("launches on the brick path at the batch = 2 shapes: " + "; ".join(
+        f"{k[0]} {'fwd' if k[1] else 'inv'} {list(k[2])} ({batch_keys[k]}):"
+        f" {seen[k]}" for k in batch_keys), flush=True)
+    print(f"peak device memory of the brick path: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for k in ("fft2_last", "fft_axis0", "fft_last"):
+        if path[k] <= 0:
+            fail(f"kernel {k} was not launched on the brick path")
+    for k, v in path.items():
+        records[k]["launches"] += v
+    if dict(cf.FALLBACKS) != fallbacks:
+        fail(f"the brick path took a fallback: {dict(cf.FALLBACKS)}")
+    time_bricks(torch, dfft, timing, dev, bricks)
+    del bricks
     torch.cuda.empty_cache()
 
     # ---- complex128 and the matmul tiers ----

@@ -19,6 +19,14 @@ under t3 (``overlap_chunks``), staged pipelines for per-stage times
 (:mod:`.parallel.staged`, :func:`.utils.timing.time_staged`) and trace
 spans around every stage (:mod:`.utils.trace`).
 
+Plans take the caller's data layout: ``in_spec`` / ``out_spec``
+(:class:`~.parallel.mesh.Spec` layouts, absorbed into the chain or
+reshaped at its edges), any per-rank boxes with a storage order (the
+brick planners, :func:`plan_brick_dft_c2c_3d` and the real pair, over
+the overlap-map edges of :mod:`.parallel.bricks`), the halved axis of a
+real plan (``r2c_axis``), B transforms through one chain (``batch=B``)
+and the input as workspace (``donate=True``).
+
 Quick start::
 
     import torch
@@ -36,6 +44,11 @@ Quick start::
     real = dfft.plan_dft_r2c_3d((512, 512, 512), 4, wire_dtype="split",
                                 fuse=True)
     h = real(torch.randn(512, 512, 512, device="cuda"))   # [512, 512, 257]
+    w = dfft.geometry.world_box((512, 512, 512))
+    ins = dfft.geometry.make_slabs(w, 4, axis=2)            # Z-slabs in
+    outs = dfft.geometry.make_pencils(w, (2, 2), 0)         # X-pencils out
+    brick = dfft.plan_brick_dft_c2c_3d((512, 512, 512), 4, ins, outs)
+    y = brick(dfft.scatter_bricks(x, ins))                  # [4, *pad] stacks
 
 Entry points run on the card; ``device="cpu"`` runs the kernels' plain
 PyTorch versions instead. This package imports neither JAX nor
@@ -47,17 +60,22 @@ from .api import (  # noqa: F401
     FORWARD,
     Plan3D,
     execute,
+    plan_brick_dft_c2c_3d,
+    plan_brick_dft_c2r_3d,
+    plan_brick_dft_r2c_3d,
     plan_dft_c2c_3d,
     plan_dft_c2r_3d,
     plan_dft_r2c_3d,
     plan_from_reference,
 )
+from .geometry import Box3  # noqa: F401
 from .local import (LocalPlan, plan_dft_c2c, plan_dft_c2c_1d,  # noqa: F401
                     plan_dft_c2c_2d)
 from .ops.executors import Scale  # noqa: F401
+from .parallel.bricks import gather_bricks, scatter_bricks  # noqa: F401
 from .parallel.exchange import ALGORITHMS  # noqa: F401
-from .parallel.mesh import (HYBRID_AXES, World, make_world,  # noqa: F401
-                            process_group_world)
+from .parallel.mesh import (HYBRID_AXES, Spec, World,  # noqa: F401
+                            make_world, process_group_world)
 from .plan_logic import (PlanOptions, choose_decomposition,  # noqa: F401
                          default_options)
 from .utils.trace import plan_info  # noqa: F401

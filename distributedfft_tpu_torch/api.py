@@ -1,6 +1,6 @@
 """Plan and execute distributed 3D FFTs -- the port of ``Plan3D`` /
-``plan_dft_c2c_3d`` / ``plan_dft_r2c_3d`` / ``plan_dft_c2r_3d`` /
-``execute`` of ``distributedfft_tpu/api.py``.
+``plan_dft_c2c_3d`` / ``plan_dft_r2c_3d`` / ``plan_dft_c2r_3d`` / the
+brick planners / ``execute`` of ``distributedfft_tpu/api.py``.
 
 A plan runs on ``torch.device("cuda")`` unless the caller passes another
 device; without a device and without CUDA, planning raises. On a world of
@@ -26,31 +26,54 @@ the stage graph to fuse the codec into the stages beside each exchange
 the codec, the transport's choice and K. The JAX package's
 ``DFFT_FUSE`` / ``DFFT_WIRE_DTYPE`` environment defaults are not read.
 
+Layouts and batches:
+
+- ``in_spec`` / ``out_spec`` (:class:`~.parallel.mesh.Spec`) name the
+  caller's layouts. A slab or pencil layout of the world re-axes the
+  chain (absorbed); any other even layout gets an edge reshape
+  (:mod:`.parallel.reshape`) into and out of the chain.
+- ``batch=B`` runs B transforms of one shape through one chain, every
+  exchange shared (I/O ``[B, *shape]``); ``batch=1`` is the unbatched
+  plan.
+- ``r2c_axis`` 0 or 1 halves that axis: the canonical chain on the
+  swapped view, shapes and boxes permuted back.
+- ``donate=True`` lets the plan use its input's storage as workspace.
+- The brick planners (:func:`plan_brick_dft_c2c_3d` and the real pair)
+  take any per-rank boxes, each with a storage ``order``, and bracket
+  the canonical chain with the overlap-map edges of
+  :mod:`.parallel.bricks`.
+
 I/O of a distributed plan: on a loopback world ``execute`` takes and
-returns the global array (forward: X-slabs in and Y-slabs out, or
-z-pencils in and x-pencils out); on a process-group world it takes this
-rank's input box and returns its output box.
+returns the global array (``[B, *shape]`` batched), a brick plan the
+``[P, *pad]`` stack of :func:`~.parallel.bricks.scatter_bricks` (zero
+padding on output); on a process-group world this rank's input box (a
+brick plan: its brick, in its box's storage order) and its output box.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass, field, replace
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
 
 import torch
 
 from . import geometry as geo
 from .ops.executors import (MM_EXECUTOR_BASES, Scale, apply_scale,
                             fused_name, get_c2r, get_executor, get_r2c,
-                            split_fuse, tiered_name)
+                            run_donated, split_fuse, tiered_name)
+from .parallel import bricks
 from .parallel.exchange import wire_codec
-from .parallel.mesh import World
+from .parallel.mesh import Spec, World, spec_boxes, spec_entries, spec_parts
 from .parallel.pencil import (PencilSpec, build_pencil_fft3d,
                               build_pencil_rfft3d)
-from .parallel.slab import SlabSpec, build_slab_fft3d, build_slab_rfft3d
-from .plan_logic import PlanOptions, io_boxes, logic_plan3d
-from .stagegraph import StageGraph, gather, plan_fusion, run_graph, scatter
+from .parallel.reshape import make_reshape3d, spec_gather, spec_scatter
+from .parallel.slab import (SlabSpec, build_slab_fft3d, build_slab_rfft3d,
+                            check_batch)
+from .plan_logic import LogicPlan, PlanOptions, io_boxes, logic_plan3d
+from .stagegraph import (BrickEdgeGraph, StageGraph, compile_brick_io,
+                         gather, plan_fusion, run_graph, scatter)
 from .utils.trace import add_trace
 
 # FFTW sign convention.
@@ -79,8 +102,14 @@ def resolve_device(device=None) -> torch.device:
 class Plan3D:
     """A distributed 3D FFT plan (one direction). ``shape`` is the
     real-space world; ``kind`` is ``"c2c"`` or ``"r2c"`` (a real plan:
-    forward real in, complex half-spectrum out along axis 2, backward
-    the mirror); ``dtype`` is the complex working dtype."""
+    forward real in, complex half-spectrum out along ``r2c_axis``,
+    backward the mirror); ``dtype`` is the complex working dtype.
+    ``in_shape`` / ``out_shape`` are what ``execute`` takes and returns
+    on a loopback world: the world (``[B, ...]`` batched) or a brick
+    plan's stack ``[P, *pad]``. ``brick_edges`` is a brick plan's (in,
+    out) :class:`~.parallel.bricks.BrickSpec` pair; ``runner`` the
+    execution of a plan whose edges wrap another (layouts, bricks, the
+    swapped view of ``r2c_axis``)."""
 
     shape: tuple[int, int, int]
     direction: int
@@ -98,6 +127,24 @@ class Plan3D:
     spec: SlabSpec | PencilSpec | None = None
     in_boxes: list[geo.Box3] = field(default_factory=list)
     out_boxes: list[geo.Box3] = field(default_factory=list)
+    in_shape: tuple | None = None
+    out_shape: tuple | None = None
+    batch: int | None = None
+    r2c_axis: int = 2
+    in_spec: Spec | None = None
+    out_spec: Spec | None = None
+    donate: bool = False
+    logic: LogicPlan | None = None
+    brick_edges: tuple | None = None
+    runner: Callable | None = None
+
+    def __post_init__(self) -> None:
+        bpfx = () if self.batch is None else (self.batch,)
+        side = (self.shape, self.complex_shape)
+        if self.in_shape is None:
+            self.in_shape = bpfx + side[0 if self.forward else 1]
+        if self.out_shape is None:
+            self.out_shape = bpfx + side[1 if self.forward else 0]
 
     @property
     def forward(self) -> bool:
@@ -109,17 +156,12 @@ class Plan3D:
 
     @property
     def complex_shape(self) -> tuple[int, int, int]:
-        """The complex side's global shape (axis 2 shrunk on r2c)."""
-        n0, n1, n2 = self.shape
-        return (n0, n1, n2 // 2 + 1) if self.kind == "r2c" else self.shape
-
-    @property
-    def in_shape(self) -> tuple[int, int, int]:
-        return self.shape if self.forward else self.complex_shape
-
-    @property
-    def out_shape(self) -> tuple[int, int, int]:
-        return self.complex_shape if self.forward else self.shape
+        """The complex side's global shape (``r2c_axis`` shrunk on r2c)."""
+        if self.kind != "r2c":
+            return self.shape
+        s = list(self.shape)
+        s[self.r2c_axis] = s[self.r2c_axis] // 2 + 1
+        return tuple(s)
 
     @property
     def in_dtype(self) -> torch.dtype:
@@ -135,8 +177,10 @@ class Plan3D:
         """The plan's geometry and routing as plain values (see
         :func:`plan_from_reference`); ``grid`` is the (rows, cols) of a
         2D world, else None; ``algorithm`` and ``overlap_chunks`` the
-        exchange's transport and resolved K."""
-        box = lambda b: (tuple(b.low), tuple(b.high))
+        exchange's transport and resolved K. A box is ``(low, high)``, or
+        ``(low, high, order)`` when its storage order is not the
+        identity; a spec its entries; ``brick_edges`` each edge's
+        transport, payload and wire elements and table bytes."""
         fusion = self.graph.meta["fusion"] if self.graph is not None else {
             "requested": split_fuse(self.executor)[1], "active": False,
             "reasons": ()}
@@ -153,8 +197,14 @@ class Plan3D:
             algorithm=self.algorithm,
             overlap_chunks=self.overlap_chunks,
             fusion={k: fusion[k] for k in ("requested", "active", "reasons")},
-            in_boxes=[box(b) for b in self.in_boxes],
-            out_boxes=[box(b) for b in self.out_boxes],
+            in_boxes=[_box_desc(b) for b in self.in_boxes],
+            out_boxes=[_box_desc(b) for b in self.out_boxes],
+            batch=self.batch,
+            r2c_axis=self.r2c_axis,
+            in_spec=None if self.in_spec is None else tuple(self.in_spec),
+            out_spec=None if self.out_spec is None else tuple(self.out_spec),
+            brick_edges=None if self.brick_edges is None else [
+                _edge_desc(bs) for bs in self.brick_edges],
         )
 
     def __call__(self, x: torch.Tensor, *, scale: Scale = Scale.NONE,
@@ -162,10 +212,21 @@ class Plan3D:
         return execute(self, x, scale=scale, timer=timer)
 
 
+def _box_desc(b: geo.Box3) -> tuple:
+    lh = (tuple(b.low), tuple(b.high))
+    return lh if tuple(b.order) == (0, 1, 2) else lh + (tuple(b.order),)
+
+
+def _edge_desc(bs) -> dict:
+    return dict(algorithm=bs.algorithm, payload_elems=bs.payload_elems,
+                wire_elems=bs.wire_elems,
+                a2av_table_bytes=bs.a2av_table_bytes)
+
+
 def _resolve_options(options: PlanOptions | None, executor: str,
                      wire_dtype: str | None, fuse: bool | None,
                      decomposition: str | None, algorithm: str,
-                     overlap_chunks) -> PlanOptions:
+                     overlap_chunks, donate: bool = False) -> PlanOptions:
     """One :class:`PlanOptions` from ``options=`` or the keywords (not
     both), its executor label canonical: the matmul tiers and the fuse
     flag composed in (the port of ``_apply_mm_tiers`` / ``_apply_fuse``,
@@ -173,7 +234,7 @@ def _resolve_options(options: PlanOptions | None, executor: str,
     if options is not None:
         if (executor != "cuda" or wire_dtype is not None or fuse is not None
                 or decomposition is not None or algorithm != "alltoall"
-                or overlap_chunks is not None):
+                or overlap_chunks is not None or donate):
             raise ValueError(
                 "pass either options= or individual plan keywords, not both")
         opts = options
@@ -183,7 +244,7 @@ def _resolve_options(options: PlanOptions | None, executor: str,
         opts = PlanOptions(decomposition=decomposition or "auto",
                            algorithm=algorithm, executor=executor,
                            overlap_chunks=overlap_chunks,
-                           wire_dtype=wire_dtype, fuse=fuse)
+                           wire_dtype=wire_dtype, fuse=fuse, donate=donate)
     ex = opts.executor
     if opts.mm_precision is not None or opts.mm_complex is not None:
         if not ex.split(":", 1)[0].startswith(MM_EXECUTOR_BASES):
@@ -198,8 +259,137 @@ def _resolve_options(options: PlanOptions | None, executor: str,
     return replace(opts, executor=ex, wire_dtype=wd)
 
 
+def _norm_batch(batch) -> int | None:
+    """``batch`` as None (unbatched) or an int >= 2: ``batch=1`` is the
+    unbatched plan."""
+    batch = check_batch(batch)
+    return None if batch == 1 else batch
+
+
+def _refuse_batched_layouts(batch, in_spec, out_spec) -> None:
+    if batch is not None and (in_spec is not None or out_spec is not None):
+        raise ValueError("batched plans take the canonical chain layouts; "
+                         "in_spec/out_spec require batch=None (or 1)")
+
+
+# -------------------------------------------------------- user layouts
+
+def _spec_divides(world: World, spec: Spec, shape) -> bool:
+    """True when every sharded dim of ``shape`` divides by its axes'
+    product."""
+    return all(shape[d] % spec_parts(world, e) == 0
+               for d, e in enumerate(spec_entries(world, spec, 3)))
+
+
+def _chain_specs(plan: Plan3D) -> tuple[Spec, Spec]:
+    """The (input, output) layouts of a chain plan's own endpoints."""
+    world, spec = plan.world, plan.spec
+    entries = [[None] * 3, [None] * 3]
+    if isinstance(spec, SlabSpec):
+        entries[0][spec.in_axis] = world.combined_axis
+        entries[1][spec.out_axis] = world.combined_axis
+    else:
+        row, col = world.axis_names
+        for side, (r, c) in enumerate((spec.in_placement,
+                                       spec.out_placement)):
+            entries[side][r], entries[side][c] = row, col
+    return Spec(*entries[0]), Spec(*entries[1])
+
+
+def _wrap_user_layout(plan: Plan3D, in_spec, out_spec, in_shape,
+                      out_shape) -> None:
+    """Edge reshapes around a chain for layouts it could not absorb (the
+    port of ``_wrap_user_layout``; heFFTe's planner prepends and appends
+    a reshape for such layouts, ``heffte_plan_logic.cpp:162-245``). The
+    user layouts must divide their extents evenly; the chain's own
+    (ceil-split) endpoints need not. The user layouts' rank boxes are
+    :func:`~.parallel.mesh.spec_boxes` (the JAX package's
+    ``_layout_boxes``), the chain's blocks those boxes' common pad. Sets
+    the plan's boxes and runner."""
+    world = plan.world
+    for label, spec, shp in (("in_spec", in_spec, in_shape),
+                             ("out_spec", out_spec, out_shape)):
+        if spec is not None and not _spec_divides(world, spec, shp):
+            raise ValueError(
+                f"{label}={spec} does not evenly divide extents "
+                f"{tuple(shp)} over the mesh; brick layouts need divisible "
+                f"shards")
+    chain_in, chain_out = list(plan.in_boxes), list(plan.out_boxes)
+    in_world, out_world = geo.world_box(in_shape), geo.world_box(out_shape)
+    into = outof = None
+    if in_spec is not None:
+        plan.in_boxes = spec_boxes(world, in_spec, in_world)
+        into = make_reshape3d(world, in_spec, None, in_shape,
+                              in_boxes=plan.in_boxes, out_boxes=chain_in,
+                              out_pad=bricks.pad_shape_for(chain_in))
+    if out_spec is not None:
+        plan.out_boxes = spec_boxes(world, out_spec, out_world)
+        outof = make_reshape3d(world, None, out_spec, out_shape,
+                               in_boxes=chain_out, out_boxes=plan.out_boxes)
+    graph, in_boxes, out_boxes = plan.graph, plan.in_boxes, plan.out_boxes
+
+    def run(x: torch.Tensor, timer) -> torch.Tensor:
+        if world.loopback:
+            _check_shape(x, in_shape, "plan input shape")
+        else:
+            _check_shape(x, in_boxes[world.rank].shape,
+                         f"rank {world.rank} input box")
+        if into is None:
+            blocks = scatter(graph, x)
+        else:
+            with add_trace("reshape3d_in"):
+                user = (spec_scatter(x, world, in_spec, in_boxes)
+                        if world.loopback else [x])
+                blocks = into(user)
+        blocks = run_graph(graph, blocks, timer, donate=plan.donate)
+        if outof is None:
+            return gather(graph, blocks)
+        with add_trace("reshape3d_out"):
+            user = outof(blocks)
+            if world.loopback:
+                return spec_gather(user, world, out_spec, out_shape,
+                                   out_boxes)
+            return user[0]
+
+    plan.runner = run
+
+
+def _even_fallback_spec(world: World, pref: Spec, shape) -> Spec:
+    """``pref`` if it divides ``shape`` evenly over the world, else the
+    first layout using every axis of the world that does."""
+    if _spec_divides(world, pref, shape):
+        return pref
+    names = list(world.axis_names)
+    cands = []
+    if world.grid is None:
+        for d in range(3):
+            e: list = [None, None, None]
+            e[d] = names[0]
+            cands.append(Spec(*e))
+    else:
+        for da, db in itertools.permutations(range(3), 2):
+            e = [None, None, None]
+            e[da], e[db] = names[0], names[1]
+            cands.append(Spec(*e))
+        for d in range(3):            # both axes merged onto one dim
+            e = [None, None, None]
+            e[d] = tuple(names)
+            cands.append(Spec(*e))
+    for c in cands:
+        if _spec_divides(world, c, shape):
+            return c
+    raise ValueError(
+        f"no mesh-expressible layout of {tuple(shape)} divides evenly over "
+        f"mesh axes {world.axis_names} of sizes "
+        f"{world.grid or (world.size,)}; brick plans need at least one "
+        f"even intermediate layout")
+
+
+# ------------------------------------------------------------ planning
+
 def _plan(shape, world, *, kind: str, direction: int, dtype: torch.dtype,
-          device, opts: PlanOptions) -> Plan3D:
+          device, opts: PlanOptions, in_spec=None, out_spec=None,
+          batch=None) -> Plan3D:
     shape = tuple(int(s) for s in shape)
     if len(shape) != 3:
         raise ValueError("3D plans require a 3D shape")
@@ -215,13 +405,31 @@ def _plan(shape, world, *, kind: str, direction: int, dtype: torch.dtype,
     device = resolve_device(device)
     forward = direction == FORWARD
     executor, wire_dtype = opts.executor, opts.wire_dtype
-    lp = logic_plan3d(shape, world, opts, forward=forward)
+    # r2c/c2r buffers never alias (real world against half spectrum), so
+    # donation is accepted and dropped there, as in the JAX package.
+    donate = bool(opts.donate) and kind == "c2c"
+    # Real chains keep the canonical axes (the real axis stays local):
+    # their layouts always take the edge reshape.
+    absorb = kind == "c2c"
+    lp = logic_plan3d(shape, world, opts, forward=forward,
+                      in_spec=in_spec if absorb else None,
+                      out_spec=out_spec if absorb else None, batch=batch)
+    if (in_spec is not None or out_spec is not None) and lp.world is None:
+        raise ValueError("in_spec/out_spec require a mesh")
+    if not absorb:
+        lp = replace(lp, in_absorbed=in_spec is None,
+                     out_absorbed=out_spec is None)
     graph = spec = None
     kw = dict(executor=executor, forward=forward, wire_dtype=wire_dtype,
-              algorithm=lp.algorithm, overlap_chunks=lp.overlap_chunks)
+              algorithm=lp.algorithm, overlap_chunks=lp.overlap_chunks,
+              batch=batch)
     if lp.decomposition == "slab":
-        build = build_slab_fft3d if kind == "c2c" else build_slab_rfft3d
-        graph, spec = build(lp.world, shape, **kw)
+        if kind == "c2c":
+            graph, spec = build_slab_fft3d(
+                lp.world, shape, in_axis=lp.slab_axes[0],
+                out_axis=lp.slab_axes[1], **kw)
+        else:
+            graph, spec = build_slab_rfft3d(lp.world, shape, **kw)
     elif lp.decomposition == "pencil":
         if kind == "c2c":
             graph, spec = build_pencil_fft3d(
@@ -234,16 +442,23 @@ def _plan(shape, world, *, kind: str, direction: int, dtype: torch.dtype,
     if graph is not None:
         graph.meta["fusion"] = plan_fusion(graph)
     in_boxes, out_boxes = io_boxes(lp, forward=forward, real=kind == "r2c")
-    return Plan3D(shape=shape, direction=direction, dtype=dtype,
+    plan = Plan3D(shape=shape, direction=direction, dtype=dtype,
                   decomposition=lp.decomposition, executor=executor,
                   world=lp.world, device=device, kind=kind,
                   wire_dtype=wire_dtype, algorithm=lp.algorithm,
                   overlap_chunks=lp.overlap_chunks,
                   options=replace(opts, decomposition=lp.decomposition,
                                   overlap_chunks=lp.overlap_chunks,
-                                  wire_dtype=wire_dtype),
+                                  wire_dtype=wire_dtype, donate=donate),
                   graph=graph, spec=spec, in_boxes=in_boxes,
-                  out_boxes=out_boxes)
+                  out_boxes=out_boxes, batch=batch, in_spec=in_spec,
+                  out_spec=out_spec, donate=donate, logic=lp)
+    wrap_in = None if lp.in_absorbed else in_spec
+    wrap_out = None if lp.out_absorbed else out_spec
+    if wrap_in is not None or wrap_out is not None:
+        _wrap_user_layout(plan, wrap_in, wrap_out,
+                          plan.in_shape, plan.out_shape)
+    return plan
 
 
 def plan_dft_c2c_3d(
@@ -260,6 +475,10 @@ def plan_dft_c2c_3d(
     algorithm: str = "alltoall",
     overlap_chunks: int | str | None = None,
     options: PlanOptions | None = None,
+    donate: bool = False,
+    in_spec: Spec | None = None,
+    out_spec: Spec | None = None,
+    batch: int | None = None,
 ) -> Plan3D:
     """Create a 3D complex-to-complex FFT plan over ``world`` (a
     :class:`~.parallel.mesh.World`, an int for a loopback world of that
@@ -269,12 +488,16 @@ def plan_dft_c2c_3d(
     Forward is unnormalized and backward scaled 1/N (numpy convention),
     as the JAX package's executors are; ``execute``'s ``scale``
     multiplies on top of that. ``wire_dtype``, ``fuse``,
-    ``decomposition``, ``algorithm``, ``overlap_chunks`` and
-    ``options`` as in the module docstring."""
+    ``decomposition``, ``algorithm``, ``overlap_chunks``, ``options``,
+    ``donate``, ``in_spec`` / ``out_spec`` and ``batch`` as in the
+    module docstring; a batched plan refuses layouts."""
+    batch = _norm_batch(batch)
+    _refuse_batched_layouts(batch, in_spec, out_spec)
     opts = _resolve_options(options, executor, wire_dtype, fuse,
-                            decomposition, algorithm, overlap_chunks)
+                            decomposition, algorithm, overlap_chunks, donate)
     return _plan(shape, world, kind="c2c", direction=direction, dtype=dtype,
-                 device=device, opts=opts)
+                 device=device, opts=opts, in_spec=in_spec,
+                 out_spec=out_spec, batch=batch)
 
 
 def plan_dft_r2c_3d(
@@ -291,23 +514,40 @@ def plan_dft_r2c_3d(
     algorithm: str = "alltoall",
     overlap_chunks: int | str | None = None,
     options: PlanOptions | None = None,
+    donate: bool = False,
+    in_spec: Spec | None = None,
+    out_spec: Spec | None = None,
     r2c_axis: int = 2,
+    batch: int | None = None,
 ) -> Plan3D:
     """Create a real-to-complex (forward) / complex-to-real (backward) 3D
     FFT plan. ``shape`` is the real-space world; the complex side is
-    shrunk along axis 2 to n2//2+1. Forward takes the real dtype of
-    ``dtype`` (float32 or float64) and returns ``dtype``; backward the
-    mirror, scaled 1/N. The flat transports only: ``hierarchical``
-    raises, as in the JAX package. Only the canonical ``r2c_axis=2``
-    chain is ported."""
+    shrunk along ``r2c_axis`` (heFFTe's ``r2c_direction``, default 2) to
+    n//2+1. Forward takes the real dtype of ``dtype`` (float32 or
+    float64) and returns ``dtype``; backward the mirror, scaled 1/N. The
+    flat transports only: ``hierarchical`` raises, as in the JAX package.
+    ``r2c_axis`` 0 or 1 runs the canonical chain on a view with that axis
+    and axis 2 swapped; a batched plan takes ``r2c_axis=2`` and no
+    layouts. ``donate`` is accepted and has no effect (the real and
+    half-spectrum buffers never alias)."""
+    batch = _norm_batch(batch)
     if r2c_axis != 2:
-        raise ValueError(
-            f"r2c_axis={r2c_axis}: the port runs the canonical r2c_axis=2 "
-            f"chain only")
+        if batch is not None:
+            raise ValueError(
+                "batched r2c plans run the canonical r2c_axis=2 chain; "
+                "transpose the batch's world instead of passing r2c_axis")
+        return _r2c_axis_wrapped(
+            shape, world, r2c_axis, direction=direction, executor=executor,
+            dtype=dtype, device=device, wire_dtype=wire_dtype, fuse=fuse,
+            decomposition=decomposition, algorithm=algorithm,
+            overlap_chunks=overlap_chunks, options=options, donate=donate,
+            in_spec=in_spec, out_spec=out_spec)
+    _refuse_batched_layouts(batch, in_spec, out_spec)
     opts = _resolve_options(options, executor, wire_dtype, fuse,
-                            decomposition, algorithm, overlap_chunks)
+                            decomposition, algorithm, overlap_chunks, donate)
     return _plan(shape, world, kind="r2c", direction=direction, dtype=dtype,
-                 device=device, opts=opts)
+                 device=device, opts=opts, in_spec=in_spec,
+                 out_spec=out_spec, batch=batch)
 
 
 def plan_dft_c2r_3d(shape, world=None, **kw) -> Plan3D:
@@ -316,6 +556,351 @@ def plan_dft_c2r_3d(shape, world=None, **kw) -> Plan3D:
     kw.setdefault("direction", BACKWARD)
     return plan_dft_r2c_3d(shape, world, **kw)
 
+
+# ---------------------------------------------------------- r2c_axis
+
+def _swap_perm(axis: int) -> tuple[int, int, int]:
+    """The self-inverse permutation swapping ``axis`` with 2."""
+    perm = [0, 1, 2]
+    perm[axis], perm[2] = perm[2], perm[axis]
+    return tuple(perm)
+
+
+def _permute_spec(spec, perm):
+    if spec is None:
+        return None
+    ent = tuple(spec) + (None,) * (3 - len(tuple(spec)))
+    return Spec(*(ent[p] for p in perm))
+
+
+def _r2c_axis_wrapped(shape, world, axis: int, *, in_spec, out_spec,
+                      **kw) -> Plan3D:
+    """r2c/c2r with the halved axis 0 or 1 (heFFTe ``r2c_direction``):
+    the canonical chain (real axis 2) on the view with ``axis`` and 2
+    swapped. Shapes, boxes and layouts are permuted back to the caller's
+    axes; ``spec``, ``logic`` and ``graph`` stay in the chain's. The
+    swap is its own inverse."""
+    if axis not in (0, 1):
+        raise ValueError(f"r2c_axis must be 0, 1, or 2; got {axis}")
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != 3:
+        raise ValueError("3D plans require a 3D shape")
+    perm = _swap_perm(axis)
+    try:
+        inner = plan_dft_r2c_3d(
+            tuple(shape[p] for p in perm), world,
+            in_spec=_permute_spec(in_spec, perm),
+            out_spec=_permute_spec(out_spec, perm), **kw)
+    except ValueError as e:
+        raise ValueError(
+            f"{e} [note: r2c_axis={axis} plans run on a transposed view -- "
+            f"specs and extents in this message are in the chain "
+            f"convention (axes {axis} and 2 swapped)]") from e
+
+    def permute_boxes(boxes):
+        return [geo.Box3(tuple(b.low[p] for p in perm),
+                         tuple(b.high[p] for p in perm)) for b in boxes]
+
+    def run(x: torch.Tensor, timer) -> torch.Tensor:
+        y = execute(inner, x.permute(perm).contiguous(), timer=timer)
+        return y.permute(perm).contiguous()
+
+    return replace(
+        inner, shape=shape, r2c_axis=axis,
+        in_boxes=permute_boxes(inner.in_boxes),
+        out_boxes=permute_boxes(inner.out_boxes),
+        in_shape=tuple(inner.in_shape[p] for p in perm),
+        out_shape=tuple(inner.out_shape[p] for p in perm),
+        in_spec=in_spec, out_spec=out_spec, runner=run)
+
+
+# ----------------------------------------------------------- brick plans
+
+def plan_brick_dft_c2c_3d(
+    shape: Sequence[int],
+    world: World | int | Sequence[int] | None,
+    in_boxes: Sequence[geo.Box3],
+    out_boxes: Sequence[geo.Box3],
+    *,
+    direction: int = FORWARD,
+    decomposition: str | None = None,
+    executor: str = "cuda",
+    dtype: torch.dtype = torch.complex64,
+    device=None,
+    donate: bool = False,
+    algorithm: str = "alltoall",
+    options: PlanOptions | None = None,
+) -> Plan3D:
+    """A 3D C2C plan with any per-rank input and output boxes (heFFTe's
+    ``fft3d(inbox, outbox, comm)``, ``heffte_fft3d.h:105-115``): one
+    :class:`~.geometry.Box3` per rank, rank order, each tiling list any
+    decomposition of the world (uneven, non-grid, axis-swapped), each box
+    with its buffer's storage ``order``. The plan brackets the canonical
+    chain with the overlap-map edges of :mod:`.parallel.bricks`: the
+    ``ring`` transport, or with ``algorithm="alltoallv"`` the exact
+    ``a2av`` one (the chain takes the same transport). I/O: the brick
+    stack ``[P, *pad]`` of :func:`~.parallel.bricks.scatter_bricks` on a
+    loopback world (``plan.in_shape`` / ``out_shape``), a rank's own
+    brick on a process group."""
+    inner = plan_dft_c2c_3d(
+        shape, world, direction=direction, decomposition=decomposition,
+        executor=executor, dtype=dtype, device=device, donate=donate,
+        algorithm=algorithm, options=options)
+    return _wrap_brick_io(inner, in_boxes, out_boxes)
+
+
+def plan_brick_dft_r2c_3d(
+    shape: Sequence[int],
+    world: World | int | Sequence[int] | None,
+    in_boxes: Sequence[geo.Box3],
+    out_boxes: Sequence[geo.Box3],
+    *,
+    direction: int = FORWARD,
+    r2c_axis: int = 2,
+    decomposition: str | None = None,
+    executor: str = "cuda",
+    dtype: torch.dtype = torch.complex64,
+    device=None,
+    donate: bool = False,
+    algorithm: str = "alltoall",
+    options: PlanOptions | None = None,
+) -> Plan3D:
+    """Real<->complex 3D plan with any per-rank boxes (heFFTe's
+    ``fft3d_r2c`` brick tier): forward, ``in_boxes`` tile the real world
+    and ``out_boxes`` the world shrunk to n//2+1 along ``r2c_axis``;
+    backward the roles swap. I/O as in :func:`plan_brick_dft_c2c_3d`.
+    ``r2c_axis`` 0 or 1 runs the canonical chain on the world with that
+    axis and axis 2 swapped: each brick is the same buffer there, its box
+    permuted and its storage order composed with the swap, so the edges
+    transpose nothing more."""
+    if r2c_axis not in (0, 1, 2):
+        raise ValueError(f"r2c_axis must be 0, 1, or 2; got {r2c_axis}")
+    perm = _swap_perm(r2c_axis)
+    shape = tuple(int(s) for s in shape)
+    inner = plan_dft_r2c_3d(
+        tuple(shape[p] for p in perm), world, direction=direction,
+        decomposition=decomposition, executor=executor, dtype=dtype,
+        device=device, donate=donate, algorithm=algorithm, options=options)
+    if r2c_axis == 2:
+        return _wrap_brick_io(inner, in_boxes, out_boxes)
+
+    def swapped(b: geo.Box3) -> geo.Box3:
+        # stored = caller.permute(order) = chain.permute(perm).permute(order)
+        return geo.Box3(tuple(b.low[p] for p in perm),
+                        tuple(b.high[p] for p in perm),
+                        tuple(perm[o] for o in b.order))
+
+    plan = _wrap_brick_io(inner, [swapped(b) for b in in_boxes],
+                          [swapped(b) for b in out_boxes])
+    edges = None if plan.brick_edges is None else tuple(
+        _swapped_spec(bs, perm) for bs in plan.brick_edges)
+    return replace(plan, shape=shape, r2c_axis=r2c_axis,
+                   in_boxes=list(in_boxes), out_boxes=list(out_boxes),
+                   brick_edges=edges)
+
+
+def _swapped_spec(bs, perm) -> "bricks.BrickSpec":
+    """A brick edge's accounting in the caller's axes: the same moves,
+    boxes and pads permuted back (the edges run in the chain's)."""
+    pb = lambda boxes: [geo.Box3(tuple(b.low[p] for p in perm),
+                                 tuple(b.high[p] for p in perm))
+                        for b in boxes]
+    pp = lambda pad: tuple(pad[p] for p in perm)
+    return bricks.compile_move(None, pb(bs.in_boxes), pb(bs.out_boxes),
+                               bs.algorithm, in_pad=pp(bs.in_pad),
+                               out_pad=pp(bs.out_pad)).spec
+
+
+def plan_brick_dft_c2r_3d(shape, world, in_boxes, out_boxes,
+                          **kw) -> Plan3D:
+    """The inverse of :func:`plan_brick_dft_r2c_3d`."""
+    kw.setdefault("direction", BACKWARD)
+    return plan_brick_dft_r2c_3d(shape, world, in_boxes, out_boxes, **kw)
+
+
+def _check_brick_algorithm(algorithm: str) -> None:
+    if algorithm not in ("alltoall", "alltoallv", "ppermute"):
+        raise ValueError(
+            f"unknown algorithm {algorithm!r} for a brick plan; "
+            f"expected alltoall|alltoallv|ppermute")
+
+
+def _check_world_coverage(in_boxes, out_boxes, in_world, out_world) -> None:
+    """Both box lists must span their side's world."""
+    for label, boxes, want in (("in_boxes", in_boxes, in_world),
+                               ("out_boxes", out_boxes, out_world)):
+        got = geo.find_world(boxes).shape
+        if got != tuple(want):
+            raise ValueError(
+                f"{label} cover a {got} world; this plan's side is "
+                f"{tuple(want)}")
+
+
+def _stack_alloc(world: World, boxes, dtype: torch.dtype) -> Callable:
+    """The output bricks of a brick plan: on a loopback world one stack
+    ``[*lead, P, *stack_pad]`` (zeros, unless every brick fills the pad)
+    and its bricks as views; on a process group this rank's brick, at
+    its storage shape."""
+    spad = bricks.stack_pad_for(boxes)
+
+    def alloc(like: torch.Tensor, lead: tuple):
+        if world is None or world.loopback:
+            full = all(b.storage_shape == spad for b in boxes)
+            make = torch.empty if full else torch.zeros
+            stack = make(lead + (len(boxes),) + spad, dtype=dtype,
+                         device=like.device)
+            return stack, list(stack.unbind(len(lead)))
+        out = torch.empty(lead + boxes[world.rank].storage_shape,
+                          dtype=dtype, device=like.device)
+        return out, [out]
+
+    return alloc
+
+
+def _held_bricks(plan: Plan3D, x: torch.Tensor) -> list:
+    """A brick plan's input as held bricks, its shape checked."""
+    world = plan.world
+    if world is None or world.loopback:
+        _check_shape(x, plan.in_shape, "brick plan input stack")
+        return list(x.unbind(0))
+    _check_shape(x, plan.in_boxes[world.rank].storage_shape,
+                 f"rank {world.rank} input brick")
+    return [x]
+
+
+def _order_views(world: World | None, boxes) -> Callable | None:
+    """Canonical views of held bricks stored in their boxes' orders (the
+    port of ``reorder_stack``, copying nothing); None when no box
+    declares an order."""
+    if not bricks.has_orders(boxes):
+        return None
+    ranks = (0,) if world is None else world.ranks
+    return lambda held: bricks.canonical_views(held, boxes, ranks)
+
+
+def _build_brick_edges(inner: Plan3D, in_boxes, out_boxes):
+    """The brick plan's edges: the nearest *even* layout to each chain
+    endpoint (:func:`_even_fallback_spec`), the overlap-map moves between
+    the user bricks and those layouts (``ring``, or ``a2av`` under
+    ``algorithm="alltoallv"``), and where an endpoint is itself uneven a
+    second move between the even layout and the chain's ceil-split
+    blocks. Returns the :class:`BrickEdgeGraph`'s pieces and the (in,
+    out) :class:`~.parallel.bricks.BrickSpec` pair."""
+    world = inner.world
+    _check_brick_algorithm(inner.algorithm)
+    _check_world_coverage(in_boxes, out_boxes, inner.in_shape,
+                          inner.out_shape)
+    chain_in, chain_out = _chain_specs(inner)
+    in_world = geo.world_box(inner.in_shape)
+    out_world = geo.world_box(inner.out_shape)
+    in_target = _even_fallback_spec(world, chain_in, inner.in_shape)
+    out_target = _even_fallback_spec(world, chain_out, inner.out_shape)
+    alg = "a2av" if inner.algorithm == "alltoallv" else "ring"
+    for label, boxes, w in (("input", in_boxes, in_world),
+                            ("output", out_boxes, out_world)):
+        bricks._validate(boxes, w, label)
+        if len(boxes) != world.size:
+            raise ValueError(f"need {world.size} {label} bricks, got "
+                             f"{len(boxes)}")
+    in_t, in_shard = bricks.even_spec_boxes(world, in_target, in_world,
+                                            "target")
+    out_t, out_shard = bricks.even_spec_boxes(world, out_target, out_world,
+                                              "source")
+    chain_in_pad = bricks.pad_shape_for(inner.in_boxes)
+    to_target = bricks.compile_move(world, in_boxes, in_t, alg,
+                                    out_pad=in_shard)
+    from_target = bricks.compile_move(world, out_t, out_boxes, alg,
+                                      in_pad=out_shard)
+    # An uneven chain endpoint: one more (exact) move between the even
+    # layout and the chain's own blocks.
+    in_fix = (None if in_target == chain_in else bricks.compile_move(
+        world, in_t, inner.in_boxes, "a2av", out_pad=chain_in_pad))
+    out_fix = (None if out_target == chain_out else bricks.compile_move(
+        world, inner.out_boxes, out_t, "a2av", out_pad=out_shard))
+
+    def reshape_in(views: list) -> list:
+        lead = tuple(views[0].shape[:-3])
+        blocks = to_target.run(views, bricks.new_blocks(
+            world, in_t, in_shard, lead, views[0]))
+        if in_fix is not None:
+            blocks = in_fix.run(blocks, bricks.new_blocks(
+                world, inner.in_boxes, chain_in_pad, lead, views[0]))
+        return blocks
+
+    def reshape_out(blocks: list, dst: list) -> list:
+        if out_fix is not None:
+            blocks = out_fix.run(blocks, bricks.new_blocks(
+                world, out_t, out_shard, tuple(blocks[0].shape[:-3]),
+                blocks[0]))
+        return from_target.run(blocks, dst)
+
+    return reshape_in, reshape_out, (to_target.spec, from_target.spec)
+
+
+def _chain_inner(inner: Plan3D) -> Callable:
+    """``fn(blocks, timer)``: a chain plan's graph over held blocks, or a
+    single-device plan's executor over its one block."""
+    if inner.graph is not None:
+        return lambda blocks, timer: run_graph(inner.graph, blocks, timer,
+                                               donate=inner.donate)
+
+    def single(blocks, timer):
+        (x,) = blocks
+        if timer is not None:
+            with timer.stage("t0"):
+                return [_execute_single(inner, x)]
+        return [_execute_single(inner, x)]
+
+    return single
+
+
+def _wrap_brick_io(inner: Plan3D, in_boxes: Sequence[geo.Box3],
+                   out_boxes: Sequence[geo.Box3]) -> Plan3D:
+    """Bracket a canonical-chain plan with the brick edges (shared by the
+    C2C and real brick planners), declared as a
+    :class:`~.stagegraph.BrickEdgeGraph` and composed by
+    :func:`~.stagegraph.compile_brick_io`. A single-device inner plan
+    takes one box per side: its edges are the storage-order views."""
+    in_boxes, out_boxes = list(in_boxes), list(out_boxes)
+    world = inner.world
+    if world is None:
+        for label, boxes in (("in_boxes", in_boxes),
+                             ("out_boxes", out_boxes)):
+            if len(boxes) != 1:
+                raise ValueError(
+                    f"single-device brick plans take exactly one box per "
+                    f"side; {label} has {len(boxes)}")
+        _check_world_coverage(in_boxes, out_boxes, inner.in_shape,
+                              inner.out_shape)
+        edges = BrickEdgeGraph(
+            edge_in=(_order_views(None, in_boxes),
+                     lambda views: [views[0].contiguous()]),
+            edge_out=(lambda y, dst: dst[0].copy_(y[0]),
+                      _order_views(None, out_boxes)),
+            alloc=_stack_alloc(None, out_boxes, inner.out_dtype))
+        specs = None
+    else:
+        reshape_in, reshape_out, specs = _build_brick_edges(
+            inner, in_boxes, out_boxes)
+        edges = BrickEdgeGraph(
+            edge_in=(_order_views(world, in_boxes), reshape_in),
+            edge_out=(reshape_out, _order_views(world, out_boxes)),
+            alloc=_stack_alloc(world, out_boxes, inner.out_dtype),
+            specs=specs)
+    fn = compile_brick_io(edges, _chain_inner(inner))
+    nb = 1 if world is None else world.size
+
+    def run(x: torch.Tensor, timer) -> torch.Tensor:
+        return fn(_held_bricks(plan, x), timer)
+
+    plan = replace(inner, in_boxes=in_boxes, out_boxes=out_boxes,
+                   in_shape=(nb,) + bricks.stack_pad_for(in_boxes),
+                   out_shape=(nb,) + bricks.stack_pad_for(out_boxes),
+                   brick_edges=specs, runner=run)
+    return plan
+
+
+# ------------------------------------------------- plans from the reference
 
 #: JAX executor bases and their port counterparts (tier and fuse flags
 #: carried over).
@@ -338,17 +923,31 @@ def _port_executor(label: str) -> str:
 _DTYPES = {"complex64": torch.complex64, "complex128": torch.complex128}
 
 
+def _desc_box(d) -> geo.Box3:
+    lo, hi, *order = d
+    return geo.Box3(tuple(lo), tuple(hi),
+                    tuple(order[0]) if order else (0, 1, 2))
+
+
+def _norm_boxes(boxes) -> list:
+    return [_box_desc(_desc_box(b)) for b in boxes]
+
+
 def plan_from_reference(desc: dict, *, device=None) -> Plan3D:
     """Build the port's plan, on a loopback world, from a JAX
     ``Plan3D``'s description in plain values: ``shape``, ``world_size``,
     ``direction``, ``dtype`` and the ``in_boxes`` / ``out_boxes`` as
-    ((low), (high)) tuples; optionally ``grid`` (the (rows, cols) of a
-    pencil plan's mesh, or of a hierarchical plan's hybrid mesh), ``kind``
-    (``"c2c"`` or ``"r2c"``), ``wire_dtype``, the JAX ``executor`` label
-    (``pallas`` when absent), ``algorithm``, ``overlap_chunks`` (the
-    resolved K) and the ``fusion`` decision (``requested``, ``active``,
-    ``reasons``). Raises when the port's geometry or fusion decision
-    differs from the description's."""
+    ``(low, high)`` or ``(low, high, order)`` tuples; optionally ``grid``
+    (the (rows, cols) of a pencil plan's mesh, or of a hierarchical
+    plan's hybrid mesh), ``kind`` (``"c2c"`` or ``"r2c"``),
+    ``wire_dtype``, the JAX ``executor`` label (``pallas`` when absent),
+    ``algorithm``, ``overlap_chunks`` (the resolved K), the ``fusion``
+    decision (``requested``, ``active``, ``reasons``), ``batch``,
+    ``r2c_axis``, the ``in_spec`` / ``out_spec`` entries, and
+    ``brick_edges`` (a brick plan: its boxes are the bricks, and each
+    edge's ``payload_elems`` must match). Raises when the port's
+    geometry, accounting or fusion decision differs from the
+    description's."""
     dtype = _DTYPES.get(str(desc["dtype"]))
     if dtype is None:
         raise ValueError(f"the port runs complex64 and complex128, got "
@@ -358,18 +957,38 @@ def plan_from_reference(desc: dict, *, device=None) -> Plan3D:
         raise ValueError(f"unknown plan kind {kind!r}")
     grid = desc.get("grid")
     world = tuple(grid) if grid is not None else int(desc["world_size"])
-    planner = plan_dft_c2c_3d if kind == "c2c" else plan_dft_r2c_3d
-    plan = planner(desc["shape"], world, direction=desc["direction"],
-                   dtype=dtype, device=device,
-                   executor=_port_executor(desc.get("executor", "pallas")),
-                   wire_dtype=desc.get("wire_dtype"),
-                   algorithm=desc.get("algorithm", "alltoall"),
-                   overlap_chunks=desc.get("overlap_chunks"))
+    kw = dict(direction=desc["direction"], dtype=dtype, device=device,
+              executor=_port_executor(desc.get("executor", "pallas")),
+              algorithm=desc.get("algorithm", "alltoall"))
+    if kind == "r2c":
+        kw["r2c_axis"] = desc.get("r2c_axis", 2)
+    edges = desc.get("brick_edges")
+    if edges is not None:
+        planner = (plan_brick_dft_c2c_3d if kind == "c2c"
+                   else plan_brick_dft_r2c_3d)
+        plan = planner(desc["shape"], world,
+                       [_desc_box(b) for b in desc["in_boxes"]],
+                       [_desc_box(b) for b in desc["out_boxes"]], **kw)
+    else:
+        planner = plan_dft_c2c_3d if kind == "c2c" else plan_dft_r2c_3d
+        spec = lambda k: (None if desc.get(k) is None
+                          else Spec(*desc[k]))
+        plan = planner(desc["shape"], world,
+                       wire_dtype=desc.get("wire_dtype"),
+                       overlap_chunks=desc.get("overlap_chunks"),
+                       in_spec=spec("in_spec"), out_spec=spec("out_spec"),
+                       batch=desc.get("batch"), **kw)
     mine = plan.describe()
     for key in ("in_boxes", "out_boxes"):
-        theirs = [(tuple(lo), tuple(hi)) for lo, hi in desc[key]]
-        if mine[key] != theirs:
+        theirs = _norm_boxes(desc[key])
+        if _norm_boxes(mine[key]) != theirs:
             raise ValueError(f"{key} differ: port {mine[key]}, reference {theirs}")
+    if edges is not None:
+        got = [e["payload_elems"] for e in mine["brick_edges"]]
+        want = [e["payload_elems"] for e in edges]
+        if got != want:
+            raise ValueError(
+                f"brick edge payloads differ: port {got}, reference {want}")
     if "fusion" in desc:
         theirs = {k: desc["fusion"][k] for k in ("requested", "active")}
         theirs["reasons"] = tuple(desc["fusion"]["reasons"])
@@ -379,11 +998,13 @@ def plan_from_reference(desc: dict, *, device=None) -> Plan3D:
     return plan
 
 
+# ------------------------------------------------------------- execute
+
 def execute(plan: Plan3D, x: torch.Tensor, *, scale: Scale = Scale.NONE,
             timer=None) -> torch.Tensor:
     """Run a plan. ``timer`` (:class:`.utils.timing.StageTimer`) records
     each stage under its kind (t0..t3; a pencil plan's exchanges under
-    t2a and t2b)."""
+    t2a and t2b). With ``donate`` the plan may overwrite ``x``."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"execute takes a torch.Tensor, got {type(x).__name__}")
     if x.dtype != plan.in_dtype or x.device != plan.device:
@@ -391,7 +1012,9 @@ def execute(plan: Plan3D, x: torch.Tensor, *, scale: Scale = Scale.NONE,
             f"plan takes {plan.in_dtype} on {plan.device}, got {x.dtype} on "
             f"{x.device}")
     with add_trace(f"execute_{_kind_label(plan)}_{plan.decomposition}"):
-        if plan.decomposition == "single":
+        if plan.runner is not None:
+            y = plan.runner(x, timer)
+        elif plan.decomposition == "single":
             _check_shape(x, plan.in_shape, "plan input shape")
             if timer is not None:
                 with timer.stage("t0"):
@@ -415,12 +1038,18 @@ def _check_shape(x: torch.Tensor, want, what: str) -> None:
 
 
 def _execute_single(plan: Plan3D, x: torch.Tensor) -> torch.Tensor:
-    ex = get_executor(plan.executor)
+    """The one-device transform over the trailing three axes (a batched
+    plan's leading axis rides the executors' own batch)."""
+    bo = x.dim() - 3
+    ax = (bo, bo + 1, bo + 2)
     if plan.kind == "c2c":
-        return ex(x, (0, 1, 2), plan.forward)
+        if plan.donate:
+            return run_donated(plan.executor, x, ax, plan.forward)
+        return get_executor(plan.executor)(x, ax, plan.forward)
+    ex = get_executor(plan.executor)
     if plan.forward:
-        return ex(get_r2c(plan.executor)(x, 2), (0, 1), True)
-    return get_c2r(plan.executor)(ex(x, (0, 1), False), plan.shape[2], 2)
+        return ex(get_r2c(plan.executor)(x, ax[2]), ax[:2], True)
+    return get_c2r(plan.executor)(ex(x, ax[:2], False), plan.shape[2], ax[2])
 
 
 def _execute_chain(plan: Plan3D, x: torch.Tensor, timer) -> torch.Tensor:
@@ -432,7 +1061,8 @@ def _execute_chain(plan: Plan3D, x: torch.Tensor, timer) -> torch.Tensor:
     if world.loopback:
         _check_shape(x, plan.in_shape, "plan input shape")
     else:
-        _check_shape(x, plan.in_boxes[world.rank].shape,
+        bpfx = () if plan.batch is None else (plan.batch,)
+        _check_shape(x, bpfx + plan.in_boxes[world.rank].shape,
                      f"rank {world.rank} input box")
     return gather(plan.graph, run_graph(plan.graph, scatter(plan.graph, x),
-                                        timer))
+                                        timer, donate=plan.donate))

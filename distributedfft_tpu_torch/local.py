@@ -3,7 +3,9 @@
 The port of ``distributedfft_tpu/local.py``: a :class:`LocalPlan` is the
 batched C2C transform of the trailing ``rank`` axes of a
 ``[batch, *shape]`` tensor through one executor. It runs on the card
-unless ``device`` names another. ``donate`` is not ported.
+unless ``device`` names another. With ``donate=True`` the plan may use
+its input's storage as workspace: the executor's first pass writes into
+it (its contents afterwards unspecified), the result the same bits.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 
 from .api import resolve_device
 from .geometry import fft_flops
-from .ops.executors import Scale, apply_scale, get_executor
+from .ops.executors import Scale, apply_scale, get_executor, run_donated
 
 FORWARD = -1
 BACKWARD = +1
@@ -32,6 +34,7 @@ class LocalPlan:
     dtype: torch.dtype
     executor: str
     device: torch.device
+    donate: bool = False
 
     @property
     def forward(self) -> bool:
@@ -52,17 +55,22 @@ class LocalPlan:
             raise ValueError(
                 f"plan input shape is {expect}, got {tuple(x.shape)}")
         axes = tuple(range(1, 1 + len(self.shape)))
-        y = get_executor(self.executor)(x.contiguous(), axes, self.forward)
+        if self.donate:
+            y = run_donated(self.executor, x.contiguous(), axes, self.forward)
+        else:
+            y = get_executor(self.executor)(x.contiguous(), axes,
+                                            self.forward)
         return apply_scale(y, scale, self.transform_size)
 
 
 def plan_dft_c2c(shape: Sequence[int] | int, *, batch: int = 1,
                  direction: int = FORWARD, executor: str = "cuda",
                  dtype: torch.dtype = torch.complex64,
-                 device=None) -> LocalPlan:
+                 device=None, donate: bool = False) -> LocalPlan:
     """Plan a batched local C2C FFT of rank ``len(shape)`` (1, 2 or 3):
     input and output ``[batch, *shape]``, the transform over the
-    trailing axes. Forward unnormalized, backward scaled 1/N."""
+    trailing axes. Forward unnormalized, backward scaled 1/N;
+    ``donate`` as in the module docstring."""
     if isinstance(shape, int):
         shape = (shape,)
     shape = tuple(int(s) for s in shape)
@@ -73,7 +81,7 @@ def plan_dft_c2c(shape: Sequence[int] | int, *, batch: int = 1,
     get_executor(executor)
     return LocalPlan(shape=shape, batch=int(batch), direction=direction,
                      dtype=dtype, executor=executor,
-                     device=resolve_device(device))
+                     device=resolve_device(device), donate=bool(donate))
 
 
 def plan_dft_c2c_1d(n: int, **kw) -> LocalPlan:

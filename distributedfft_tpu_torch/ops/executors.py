@@ -12,6 +12,12 @@ The port of the registry, label algebra and scaling of
 - ``"matmul"``: the DFT by matmuls of :mod:`.dft_matmul`;
 - ``"torch"`` (the JAX package's ``xla``): ``torch.fft``.
 
+Axes the call does not name ride in each kernel's own batch axis (the
+plane kernel's planes, the strided kernel's ``lead``, the row kernel's
+rows), so a batched plan's ``[B, ...]`` stage, over axes (1, 2, 3) on
+one device, launches each kernel once, as its unbatched twin does.
+:func:`run_donated` runs an executor with its input as workspace.
+
 Labels compose: ``matmul:bf16`` / ``:f32`` / ``:highest`` scope the
 matmul products' precision tier over the call, ``:gauss`` the
 three-product complex mode, ``cuda:fuse`` asks the stage graph's fusion
@@ -338,6 +344,39 @@ def _cuda_executor(x: torch.Tensor, axes: Sequence[int],
 
 
 register_executor("cuda", _cuda_executor)
+
+
+def first_pass(name: str, x: torch.Tensor,
+               axes: Sequence[int]) -> tuple[tuple, tuple]:
+    """(axes of the first pass, the rest) of executor ``name`` over
+    ``axes`` of ``x``: the ``cuda`` executor's trailing plane (or its
+    first axis), the ``matmul`` executor's first axis, every axis at
+    once for ``torch``. Running the first pass, then the rest, is the
+    executor's own order, so a donated input can take the first pass's
+    output (:func:`run_donated`) and give the same bits."""
+    base = split_fuse(name)[0].split(":", 1)[0]
+    axes = tuple(a % x.ndim for a in axes)
+    if base == "cuda":
+        if (len(axes) >= 2 and x.dtype == torch.complex64 and x.numel() > 0
+                and {axes[-2], axes[-1]} == {x.ndim - 2, x.ndim - 1}
+                and cuda_fft.eligible2d(x.shape[-2], x.shape[-1])):
+            return axes[-2:], axes[:-2]
+        return axes[:1], axes[1:]
+    if base == "matmul":
+        return axes[:1], axes[1:]
+    return axes, ()
+
+
+def run_donated(name: str, x: torch.Tensor, axes: Sequence[int],
+                forward: bool) -> torch.Tensor:
+    """Executor ``name`` over ``axes`` with ``x`` as workspace: the first
+    pass's output is written into ``x`` (whose contents are then
+    unspecified) and the rest run from there. Bit-identical to
+    ``get_executor(name)(x, axes, forward)``."""
+    ex = get_executor(name)
+    head, rest = first_pass(name, x, axes)
+    x.copy_(ex(x, head, forward))
+    return ex(x, rest, forward) if rest else x
 register_real_executor(
     "cuda",
     lambda x, axis: _half_or_promote_r2c(x, axis, cuda_fft.fft_along_axis),

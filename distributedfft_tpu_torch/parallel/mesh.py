@@ -24,6 +24,13 @@ backends:
   group; nothing here reads a cluster's environment. A 2D world makes
   one sub-group per row and per column; every rank makes all of them, in
   the same order, as ``torch.distributed.new_group`` requires.
+
+A layout of a 3D array over a world is a :class:`Spec`, the port's
+``jax.sharding.PartitionSpec``: one entry per array dim, each None
+(whole), one mesh-axis name, or a tuple of names (the dim split over
+their product, the first name slowest). :func:`spec_boxes` gives each
+rank's box of such a layout, ceil-split as the JAX package's
+``NamedSharding`` places uneven shards.
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ from dataclasses import dataclass, field
 from typing import Any, Sequence
 
 import torch.distributed as dist
+
+from ..geometry import Box3, ceil_splits
 
 SLAB_AXIS = "slab"
 PENCIL_AXES = ("row", "col")
@@ -199,3 +208,103 @@ def process_group_world(group=None, *, grid: Sequence[int] | None = None,
             if rank in ranks:
                 world.sub_groups[axis] = sub
     return world
+
+
+class Spec:
+    """A layout of a 3D array over a world's mesh axes (the port of
+    ``PartitionSpec``): ``Spec("slab", None, None)`` shards dim 0 over a
+    1D world, ``Spec(None, "row", "col")`` dims 1 and 2 over a 2D one,
+    ``Spec(("row", "col"), None, None)`` dim 0 over both. Missing
+    trailing entries are None; :func:`spec_entries` validates."""
+
+    __slots__ = ("entries",)
+
+    def __init__(self, *entries):
+        self.entries = tuple(tuple(e) if isinstance(e, list) else e
+                             for e in entries)
+
+    def __iter__(self):
+        return iter(self.entries)
+
+    def __eq__(self, other) -> bool:
+        if not isinstance(other, Spec):
+            return NotImplemented
+        return _padded(self.entries) == _padded(other.entries)
+
+    def __hash__(self) -> int:
+        return hash(_padded(self.entries))
+
+    def __repr__(self) -> str:
+        return f"Spec({', '.join(repr(e) for e in self.entries)})"
+
+
+def _padded(entries: tuple) -> tuple:
+    """Entries with trailing Nones dropped (a short spec equals its
+    padded form)."""
+    entries = tuple(entries)
+    while entries and entries[-1] is None:
+        entries = entries[:-1]
+    return entries
+
+
+def _names(entry) -> tuple:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def spec_entries(world: World, spec, ndim: int = 3) -> tuple:
+    """Validate a layout against ``world``'s axis names and return its
+    entries padded to ``ndim`` (``plan_logic.spec_entries`` of the JAX
+    package, its error text)."""
+    entries = tuple(spec)
+    if len(entries) > ndim:
+        raise ValueError(
+            f"PartitionSpec {spec} has more entries than the {ndim} array "
+            f"dims")
+    for entry in entries:
+        if entry is None:
+            continue
+        for nm in _names(entry):
+            if nm not in world.axis_names:
+                raise ValueError(
+                    f"spec {spec} names unknown mesh axis {nm!r}; mesh "
+                    f"axes: {world.axis_names}")
+    return entries + (None,) * (ndim - len(entries))
+
+
+def axis_coords(world: World, rank: int) -> dict:
+    """{axis name: rank's index along it}: a 1D world's one axis, a 2D
+    world's row (rank // cols) and column (rank % cols)."""
+    if world.grid is None:
+        return {world.axis_names[0]: rank}
+    cols = world.grid[1]
+    return dict(zip(world.axis_names, (rank // cols, rank % cols)))
+
+
+def spec_parts(world: World, entry) -> int:
+    """Ranks that share one dim under a spec entry (1 for None)."""
+    if entry is None:
+        return 1
+    return math.prod(world.axis_size(nm) for nm in _names(entry))
+
+
+def spec_boxes(world: World, spec, box: Box3) -> list[Box3]:
+    """Each rank's box of layout ``spec`` over ``box``, in rank order: a
+    sharded dim cut by the ceil rule into the product of its axes'
+    sizes, a rank's chunk its row-major index over the entry's axes;
+    dims no entry names are whole, so a spec that leaves an axis unused
+    repeats boxes."""
+    entries = spec_entries(world, spec, 3)
+    out = []
+    for r in range(world.size):
+        coords = axis_coords(world, r)
+        low, high = list(box.low), list(box.high)
+        for d, entry in enumerate(entries):
+            if entry is None:
+                continue
+            idx = 0
+            for nm in _names(entry):
+                idx = idx * world.axis_size(nm) + coords[nm]
+            a, b = ceil_splits(box.shape[d], spec_parts(world, entry))[idx]
+            low[d], high[d] = box.low[d] + a, box.low[d] + b
+        out.append(Box3(tuple(low), tuple(high)))
+    return out

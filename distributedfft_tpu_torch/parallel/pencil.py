@@ -17,7 +17,9 @@ each axis is cropped to its true extent before it is transformed, so the
 pads never touch a transform; the split axes keep their pads until the
 output is joined (``post``). Both exchanges take a flat transport
 (``algorithm``) and the overlap K (``overlap_chunks``, chunks of each
-exchange's bystander axis). Spectral operators (``midpoint``) are not
+exchange's bystander axis), and ``batch``: a leading batch axis of B
+transforms riding every stage and both exchanges (the
+:mod:`.slab` convention). Spectral operators (``midpoint``) are not
 ported.
 """
 
@@ -29,7 +31,7 @@ from ..geometry import pad_to
 from ..stagegraph import StageGraph, exchange_node, local_node
 from .exchange import FLAT_ALGORITHMS
 from .mesh import World
-from .slab import _L
+from .slab import _L, check_batch
 
 __all__ = ["PencilSpec", "chain_geometry", "build_pencil_general",
            "build_pencil_fft3d", "build_pencil_rfft3d"]
@@ -122,12 +124,14 @@ def build_pencil_general(world: World, shape: tuple[int, int, int], *,
                          executor: str = "cuda", forward: bool = True,
                          wire_dtype: str | None = None,
                          algorithm: str = "alltoall",
-                         overlap_chunks: int = 1
+                         overlap_chunks: int = 1,
+                         batch: int | None = None
                          ) -> tuple[StageGraph, PencilSpec]:
     """The C2C pencil chain for any input permutation and exchange order
     (see :class:`PencilSpec`); the mesh axes default to the world's
     names."""
     _flat(algorithm)
+    bo = 0 if check_batch(batch) is None else 1
     row_axis = row_axis or world.axis_names[0]
     col_axis = col_axis or world.axis_names[-1]
     if sorted(perm) != [0, 1, 2]:
@@ -143,23 +147,26 @@ def build_pencil_general(world: World, shape: tuple[int, int, int], *,
         perm, order, rows, cols, row_axis, col_axis, n)
     fft_names = (f"t0_fft_{_L[seq[0][2]]}", f"t1_fft_{_L[seq[1][2]]}")
     exch_names = (f"t2a_exchange_{seq[0][0]}", f"t2b_exchange_{seq[1][0]}")
-    nodes = [local_node("t0", fft_names[0], ("fft", (seq[0][2],), forward))]
+    nodes = [local_node("t0", fft_names[0],
+                        ("fft", (seq[0][2] + bo,), forward))]
     for i, (mesh_ax, parts, split, concat) in enumerate(seq):
         nodes.append(exchange_node(
             "t2a" if i == 0 else "t2b", exch_names[i], mesh_axis=mesh_ax,
-            parts=parts, split=split, concat=concat))
+            parts=parts, split=split + bo, concat=concat + bo,
+            chunk_axis=3 - split - concat + bo))
         nodes.append(local_node(
             "t1" if i == 0 else "t3",
             fft_names[1] if i == 0 else f"t3_fft_{_L[last_fft]}",
-            ("crop", concat, n[concat]), ("fft", (concat,), forward),
-            fuse=True))
+            ("crop", concat + bo, n[concat]),
+            ("fft", (concat + bo,), forward), fuse=True))
     graph = StageGraph(
         world=world, nodes=tuple(nodes), executor=executor,
         wire_dtype=wire_dtype,
-        pre=tuple(("pad", ax, to) for ax, to in in_pads),
-        post=tuple(("crop", ax, to) for ax, to in out_crops),
-        in_dims=spec.in_placement, out_dims=spec.out_placement,
-        algorithm=algorithm, overlap_chunks=overlap_chunks)
+        pre=tuple(("pad", ax + bo, to) for ax, to in in_pads),
+        post=tuple(("crop", ax + bo, to) for ax, to in out_crops),
+        in_dims=tuple(d + bo for d in spec.in_placement),
+        out_dims=tuple(d + bo for d in spec.out_placement),
+        algorithm=algorithm, overlap_chunks=overlap_chunks, batch=batch)
     return graph.validate(), spec
 
 
@@ -168,7 +175,8 @@ def build_pencil_fft3d(world: World, shape: tuple[int, int, int], *,
                        perm: tuple[int, int, int] | None = None,
                        order: str | None = None,
                        wire_dtype: str | None = None,
-                       algorithm: str = "alltoall", overlap_chunks: int = 1
+                       algorithm: str = "alltoall", overlap_chunks: int = 1,
+                       batch: int | None = None
                        ) -> tuple[StageGraph, PencilSpec]:
     """The canonical orientation over :func:`build_pencil_general`:
     forward z-pencils to x-pencils, backward the mirror, unless the
@@ -180,13 +188,14 @@ def build_pencil_fft3d(world: World, shape: tuple[int, int, int], *,
     return build_pencil_general(world, shape, perm=perm, order=order,
                                 executor=executor, forward=forward,
                                 wire_dtype=wire_dtype, algorithm=algorithm,
-                                overlap_chunks=overlap_chunks)
+                                overlap_chunks=overlap_chunks, batch=batch)
 
 
 def build_pencil_rfft3d(world: World, shape: tuple[int, int, int], *,
                         executor: str = "cuda", forward: bool = True,
                         wire_dtype: str | None = None,
-                        algorithm: str = "alltoall", overlap_chunks: int = 1
+                        algorithm: str = "alltoall", overlap_chunks: int = 1,
+                        batch: int | None = None
                         ) -> tuple[StageGraph, PencilSpec]:
     """The pencil real-to-complex (forward) / complex-to-real (backward)
     chain: the real axis Z is whole in the z-pencils, so the r2c shrink
@@ -195,6 +204,8 @@ def build_pencil_rfft3d(world: World, shape: tuple[int, int, int], *,
     backward is its inverse (the real Z transform after the last
     exchange, on the whole joined axis)."""
     _flat(algorithm)
+    bo = 0 if check_batch(batch) is None else 1
+    x_, y_, z_ = bo, 1 + bo, 2 + bo
     rows, cols = _grid(world)
     row, col = world.axis_names
     spec = PencilSpec(tuple(int(s) for s in shape), rows, cols, row, col,
@@ -204,35 +215,36 @@ def build_pencil_rfft3d(world: World, shape: tuple[int, int, int], *,
     n2h = n2 // 2 + 1
     if forward:
         nodes = (
-            local_node("t0", "t0_r2c_z", ("r2c", 2)),
+            local_node("t0", "t0_r2c_z", ("r2c", z_)),
             exchange_node("t2a", f"t2a_exchange_{col}", mesh_axis=col,
-                          parts=cols, split=2, concat=1),
-            local_node("t1", "t1_fft_y", ("crop", 1, n1),
-                       ("fft", (1,), True), fuse=True),
+                          parts=cols, split=z_, concat=y_, chunk_axis=x_),
+            local_node("t1", "t1_fft_y", ("crop", y_, n1),
+                       ("fft", (y_,), True), fuse=True),
             exchange_node("t2b", f"t2b_exchange_{row}", mesh_axis=row,
-                          parts=rows, split=1, concat=0),
-            local_node("t3", "t3_fft_x", ("crop", 0, n0),
-                       ("fft", (0,), True), fuse=True),
+                          parts=rows, split=y_, concat=x_, chunk_axis=z_),
+            local_node("t3", "t3_fft_x", ("crop", x_, n0),
+                       ("fft", (x_,), True), fuse=True),
         )
-        pre = (("pad", 0, spec.n0p), ("pad", 1, spec.n1p_col))
-        post = (("crop", 1, n1), ("crop", 2, n2h))
+        pre = (("pad", x_, spec.n0p), ("pad", y_, spec.n1p_col))
+        post = (("crop", y_, n1), ("crop", z_, n2h))
     else:
         nodes = (
-            local_node("t3", "t3_ifft_x", ("fft", (0,), False)),
+            local_node("t3", "t3_ifft_x", ("fft", (x_,), False)),
             exchange_node("t2b", f"t2b_exchange_{row}", mesh_axis=row,
-                          parts=rows, split=0, concat=1),
-            local_node("t1", "t1_ifft_y", ("crop", 1, n1),
-                       ("fft", (1,), False), fuse=True),
+                          parts=rows, split=x_, concat=y_, chunk_axis=z_),
+            local_node("t1", "t1_ifft_y", ("crop", y_, n1),
+                       ("fft", (y_,), False), fuse=True),
             exchange_node("t2a", f"t2a_exchange_{col}", mesh_axis=col,
-                          parts=cols, split=1, concat=2),
-            local_node("t1", "t1_crop", ("crop", 2, n2h), fuse=True),
-            local_node("t0", "t0_c2r_z", ("c2r", n2, 2)),
+                          parts=cols, split=y_, concat=z_, chunk_axis=x_),
+            local_node("t1", "t1_crop", ("crop", z_, n2h), fuse=True),
+            local_node("t0", "t0_c2r_z", ("c2r", n2, z_)),
         )
-        pre = (("pad", 1, spec.n1p_row), ("pad", 2, pad_to(n2h, cols)))
-        post = (("crop", 0, n0), ("crop", 1, n1))
+        pre = (("pad", y_, spec.n1p_row), ("pad", z_, pad_to(n2h, cols)))
+        post = (("crop", x_, n0), ("crop", y_, n1))
     graph = StageGraph(world=world, nodes=nodes, executor=executor,
                        wire_dtype=wire_dtype, pre=pre, post=post,
-                       in_dims=spec.in_placement,
-                       out_dims=spec.out_placement, algorithm=algorithm,
-                       overlap_chunks=overlap_chunks)
+                       in_dims=tuple(d + bo for d in spec.in_placement),
+                       out_dims=tuple(d + bo for d in spec.out_placement),
+                       algorithm=algorithm, overlap_chunks=overlap_chunks,
+                       batch=batch)
     return graph.validate(), spec

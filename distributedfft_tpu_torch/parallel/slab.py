@@ -18,8 +18,11 @@ transform. :func:`build_slab_rfft3d` is the real-to-complex chain
 (``t0_r2c_zy`` ... ``t3_fft_x`` forward, ``t3_ifft_x`` ... ``t0_c2r_z``
 backward). Every builder takes the exchange's ``algorithm``, its overlap
 K (``overlap_chunks``, chunks of the bystander axis) and its
-``wire_dtype``. On a 2D hybrid world the C2C chain runs over the
-combined axis (rank ``d*I + e`` holds slab ``d*I + e``), its exchange
+``wire_dtype``, and ``batch``: a leading batch axis of B transforms
+(array axis a + 1 is spatial axis a), every stage batched and each
+exchange one shared exchange with the batch a bystander (names and
+:class:`SlabSpec` stay spatial). On a 2D hybrid world the C2C chain runs
+over the combined axis (rank ``d*I + e`` holds slab ``d*I + e``), its exchange
 named ``t2_exchange_dcn+ici``; the hierarchical transport splits it into
 the legs ``t2a_exchange_ici`` and ``t2b_exchange_dcn``.
 :func:`build_slab_stages` is the staged pipeline of the C2C chain.
@@ -68,6 +71,18 @@ class SlabSpec:
         return tuple(s)
 
 
+def check_batch(batch: int | None) -> int | None:
+    """Validate a ``batch`` argument: None is the unbatched 3D chain; an
+    int >= 1 prepends a leading batch axis of that extent, B independent
+    transforms through one shared exchange per t2 stage (the batch a
+    bystander of every collective)."""
+    if batch is None:
+        return None
+    if not isinstance(batch, int) or isinstance(batch, bool) or batch < 1:
+        raise ValueError(f"batch must be an int >= 1 or None, got {batch!r}")
+    return batch
+
+
 def _slab_axis(world: World) -> tuple:
     """(mesh-axis spec, parts, axis_sizes) of the slab chain's exchange:
     a 1D world's axis, or a 2D world's combined axis with its grid."""
@@ -77,37 +92,41 @@ def _slab_axis(world: World) -> tuple:
 def build_slab_general(world: World, shape: tuple[int, int, int], *,
                        in_axis: int, out_axis: int, executor="cuda",
                        forward: bool = True, wire_dtype: str | None = None,
-                       algorithm: str = "alltoall", overlap_chunks: int = 1
+                       algorithm: str = "alltoall", overlap_chunks: int = 1,
+                       batch: int | None = None
                        ) -> tuple[StageGraph, SlabSpec]:
     """The slab chain for any ordered pair of distinct axes: the input is
     sharded along ``in_axis``, the other two axes are transformed
     locally, one exchange reshards ``in_axis`` <-> ``out_axis``, and
     ``in_axis`` is transformed last. ``algorithm`` and
     ``overlap_chunks`` pick the exchange's transport and K,
-    ``wire_dtype`` compresses it."""
+    ``wire_dtype`` compresses it, ``batch`` prepends a batch axis."""
     if in_axis == out_axis or not (0 <= in_axis < 3 and 0 <= out_axis < 3):
         raise ValueError(f"need distinct 3D axes, got {in_axis}, {out_axis}")
+    bo = 0 if check_batch(batch) is None else 1
     mesh_axis, p, axis_sizes = _slab_axis(world)
     spec = SlabSpec(tuple(int(s) for s in shape), p, in_axis, out_axis)
     n_in = spec.shape[in_axis]
     local_axes = tuple(a for a in range(3) if a != in_axis)
+    ax_in, ax_out = in_axis + bo, out_axis + bo
     nodes = (
         local_node("t0", f"t0_fft_{''.join(_L[a] for a in local_axes)}",
-                   ("fft", local_axes, forward)),
-        local_node("t1", "t1_pack", ("pack", out_axis, spec.out_padded_extent)),
+                   ("fft", tuple(a + bo for a in local_axes), forward)),
+        local_node("t1", "t1_pack", ("pack", ax_out, spec.out_padded_extent)),
         exchange_node("t2", f"t2_exchange_{_axis_label(mesh_axis)}",
-                      mesh_axis=mesh_axis, parts=p, split=out_axis,
-                      concat=in_axis, axis_sizes=axis_sizes),
+                      mesh_axis=mesh_axis, parts=p, split=ax_out,
+                      concat=ax_in, axis_sizes=axis_sizes,
+                      chunk_axis=3 - in_axis - out_axis + bo),
         local_node("t3", f"t3_fft_{_L[in_axis]}",
-                   ("crop", in_axis, n_in), ("fft", (in_axis,), forward),
+                   ("crop", ax_in, n_in), ("fft", (ax_in,), forward),
                    fuse=True),
     )
     graph = StageGraph(
         world=world, nodes=nodes, executor=executor, wire_dtype=wire_dtype,
-        pre=(("pad", in_axis, spec.in_padded_extent),),
-        post=(("crop", out_axis, spec.shape[out_axis]),),
-        in_dims=(in_axis,), out_dims=(out_axis,), algorithm=algorithm,
-        overlap_chunks=overlap_chunks)
+        pre=(("pad", ax_in, spec.in_padded_extent),),
+        post=(("crop", ax_out, spec.shape[out_axis]),),
+        in_dims=(ax_in,), out_dims=(ax_out,), algorithm=algorithm,
+        overlap_chunks=overlap_chunks, batch=batch)
     return graph.validate(), spec
 
 
@@ -120,21 +139,25 @@ def slab_axes(forward: bool) -> tuple[int, int]:
 def build_slab_fft3d(world: World, shape: tuple[int, int, int], *,
                      executor="cuda", forward: bool = True,
                      wire_dtype: str | None = None,
-                     algorithm: str = "alltoall", overlap_chunks: int = 1
+                     algorithm: str = "alltoall", overlap_chunks: int = 1,
+                     in_axis: int | None = None, out_axis: int | None = None,
+                     batch: int | None = None
                      ) -> tuple[StageGraph, SlabSpec]:
-    """The slab chain in the canonical orientation (:func:`slab_axes`)."""
-    in_axis, out_axis = slab_axes(forward)
-    return build_slab_general(world, shape, in_axis=in_axis,
-                              out_axis=out_axis, executor=executor,
-                              forward=forward, wire_dtype=wire_dtype,
-                              algorithm=algorithm,
-                              overlap_chunks=overlap_chunks)
+    """The slab chain in the canonical orientation (:func:`slab_axes`)
+    unless the planner gives its axes."""
+    d_in, d_out = slab_axes(forward)
+    return build_slab_general(
+        world, shape, in_axis=d_in if in_axis is None else in_axis,
+        out_axis=d_out if out_axis is None else out_axis, executor=executor,
+        forward=forward, wire_dtype=wire_dtype, algorithm=algorithm,
+        overlap_chunks=overlap_chunks, batch=batch)
 
 
 def build_slab_rfft3d(world: World, shape: tuple[int, int, int], *,
                       executor="cuda", forward: bool = True,
                       wire_dtype: str | None = None,
-                      algorithm: str = "alltoall", overlap_chunks: int = 1
+                      algorithm: str = "alltoall", overlap_chunks: int = 1,
+                      batch: int | None = None
                       ) -> tuple[StageGraph, SlabSpec]:
     """The slab real-to-complex (forward) / complex-to-real (backward)
     chain, the port of ``build_slab_rfft3d``: the real axis is axis 2,
@@ -147,43 +170,46 @@ def build_slab_rfft3d(world: World, shape: tuple[int, int, int], *,
     the C2C chains."""
     if world.grid is not None:
         raise ValueError("the slab R2C/C2R chain runs on a 1D world")
+    bo = 0 if check_batch(batch) is None else 1
     in_axis, out_axis = slab_axes(forward)
     spec = SlabSpec(tuple(int(s) for s in shape), world.size, in_axis,
                     out_axis)
     n0, n1, n2 = spec.shape
     p = world.size
+    x_, y_, z_ = bo, 1 + bo, 2 + bo
     if forward:
         nodes = (
-            local_node("t0", "t0_r2c_zy", ("r2c", 2), ("fft", (1,), True)),
-            local_node("t1", "t1_pack", ("pack", 1, spec.out_padded_extent)),
-            exchange_node("t2", "t2_exchange_slab", parts=p, split=1,
-                          concat=0),
-            local_node("t3", "t3_fft_x", ("crop", 0, n0),
-                       ("fft", (0,), True), fuse=True),
+            local_node("t0", "t0_r2c_zy", ("r2c", z_), ("fft", (y_,), True)),
+            local_node("t1", "t1_pack", ("pack", y_, spec.out_padded_extent)),
+            exchange_node("t2", "t2_exchange_slab", parts=p, split=y_,
+                          concat=x_, chunk_axis=z_),
+            local_node("t3", "t3_fft_x", ("crop", x_, n0),
+                       ("fft", (x_,), True), fuse=True),
         )
     else:
         nodes = (
-            local_node("t3", "t3_ifft_x", ("fft", (0,), False)),
-            local_node("t1", "t1_pack", ("pack", 0, spec.out_padded_extent)),
-            exchange_node("t2", "t2_exchange_slab", parts=p, split=0,
-                          concat=1),
-            local_node("t0", "t0_ifft_y", ("crop", 1, n1),
-                       ("fft", (1,), False), fuse=True),
-            local_node("t0", "t0_c2r_z", ("c2r", n2, 2)),
+            local_node("t3", "t3_ifft_x", ("fft", (x_,), False)),
+            local_node("t1", "t1_pack", ("pack", x_, spec.out_padded_extent)),
+            exchange_node("t2", "t2_exchange_slab", parts=p, split=x_,
+                          concat=y_, chunk_axis=z_),
+            local_node("t0", "t0_ifft_y", ("crop", y_, n1),
+                       ("fft", (y_,), False), fuse=True),
+            local_node("t0", "t0_c2r_z", ("c2r", n2, z_)),
         )
     graph = StageGraph(
         world=world, nodes=nodes, executor=executor, wire_dtype=wire_dtype,
-        pre=(("pad", in_axis, spec.in_padded_extent),),
-        post=(("crop", out_axis, spec.shape[out_axis]),),
-        in_dims=(in_axis,), out_dims=(out_axis,), algorithm=algorithm,
-        overlap_chunks=overlap_chunks)
+        pre=(("pad", in_axis + bo, spec.in_padded_extent),),
+        post=(("crop", out_axis + bo, spec.shape[out_axis]),),
+        in_dims=(in_axis + bo,), out_dims=(out_axis + bo,),
+        algorithm=algorithm, overlap_chunks=overlap_chunks, batch=batch)
     return graph.validate(), spec
 
 
 def build_slab_stages(world: World, shape: tuple[int, int, int], *,
                       executor="cuda", forward: bool = True,
                       algorithm: str = "alltoall", overlap_chunks: int = 1,
-                      wire_dtype: str | None = None
+                      wire_dtype: str | None = None,
+                      batch: int | None = None
                       ) -> tuple[list, SlabSpec]:
     """The slab C2C chain as separately timed stages (the reference's
     per-execute t0..t3 breakdown): forward ``t0_fft_yz``,
@@ -193,13 +219,16 @@ def build_slab_stages(world: World, shape: tuple[int, int, int], *,
     ``t2b_exchange_<dcn>``, each a stage of its own (each with the
     codec's encode/decode pair when ``wire_dtype`` is set); at K > 1 it
     stays one stage whose chunks run the leg pipeline. The composition
-    of the stages is the plan's transform, bit for bit."""
+    of the stages is the plan's transform, bit for bit; ``batch`` as in
+    :func:`build_slab_general`."""
+    bo = 0 if check_batch(batch) is None else 1
     mesh_axis, p, axis_sizes = _slab_axis(world)
     in_axis, out_axis = slab_axes(forward)
     spec = SlabSpec(tuple(int(s) for s in shape), p, in_axis, out_axis)
     n0, n1, _ = spec.shape
     n0p, n1p = pad_to(n0, p), pad_to(n1, p)
-    split, concat = out_axis, in_axis
+    x_, y_, z_ = bo, 1 + bo, 2 + bo
+    split, concat = out_axis + bo, in_axis + bo
     if algorithm == "hierarchical" and overlap_chunks <= 1:
         dcn, ici = mesh_axis
         leg = dict(mesh_axis=mesh_axis, split=split, concat=concat,
@@ -211,25 +240,26 @@ def build_slab_stages(world: World, shape: tuple[int, int, int], *,
     else:
         t2 = [StagedStage("t2", "t2_all_to_all", exchange=dict(
             mesh_axis=mesh_axis, parts=p, split=split, concat=concat,
-            chunk_axis=2, axis_sizes=axis_sizes))]
+            chunk_axis=z_, axis_sizes=axis_sizes))]
     if forward:
         stages = [StagedStage("t0", "t0_fft_yz",
-                              local=(("fft", (1, 2), True), ("pad", 1, n1p))),
+                              local=(("fft", (y_, z_), True),
+                                     ("pad", y_, n1p))),
                   *t2,
                   StagedStage("t3", "t3_fft_x",
-                              local=(("crop", 0, n0), ("fft", (0,), True)))]
+                              local=(("crop", x_, n0), ("fft", (x_,), True)))]
     else:
         stages = [StagedStage("t3", "t3_ifft_x",
-                              local=(("fft", (0,), False), ("pad", 0, n0p))),
+                              local=(("fft", (x_,), False), ("pad", x_, n0p))),
                   *t2,
                   StagedStage("t0", "t0_ifft_yz",
-                              local=(("crop", 1, n1),
-                                     ("fft", (1, 2), False)))]
+                              local=(("crop", y_, n1),
+                                     ("fft", (y_, z_), False)))]
     graph = StagedGraph(
         world=world, stages=tuple(stages), algorithm=algorithm,
         wire_dtype=wire_dtype, overlap_chunks=overlap_chunks,
         executor=executor,
-        pre=(("pad", in_axis, spec.in_padded_extent),),
-        post=(("crop", out_axis, spec.shape[out_axis]),),
-        in_dims=(in_axis,), out_dims=(out_axis,))
+        pre=(("pad", in_axis + bo, spec.in_padded_extent),),
+        post=(("crop", out_axis + bo, spec.shape[out_axis]),),
+        in_dims=(in_axis + bo,), out_dims=(out_axis + bo,))
     return compile_staged(graph), spec

@@ -5,14 +5,20 @@ The port of the decomposition logic of ``distributedfft_tpu/
 plan_logic.py``: :class:`PlanOptions` with its validation,
 :func:`choose_decomposition`, :func:`eligible_decompositions`,
 :func:`negotiate_device_count`, the overlap knob
-(:func:`auto_overlap_chunks`, :func:`resolve_overlap_chunks`) and
-:func:`logic_plan3d` without layout absorption. A world of one rank (or
-none) is ``"single"``, a 1D world ``"slab"``, a 2D world ``"pencil"``
-(or, under the hierarchical transport, the slab chain over its combined
-axis); an int world picks by :func:`choose_decomposition`, a pencil grid
-by :func:`~.geometry.pencil_grid_min_surface`. Per-rank boxes follow the
-ceil rule (``stage_layouts``); a real-to-complex plan's complex side is
-shrunk along axis 2 (``Box3.r2c``).
+(:func:`auto_overlap_chunks`, :func:`resolve_overlap_chunks`), the layout
+classifier (:func:`classify_layout`) and :func:`logic_plan3d` with its
+layout absorption. A world of one rank (or none) is ``"single"``, a 1D
+world ``"slab"``, a 2D world ``"pencil"`` (or, under the hierarchical
+transport, the slab chain over its combined axis); an int world picks by
+:func:`choose_decomposition`, a pencil grid by
+:func:`~.geometry.pencil_grid_min_surface`. A caller's ``in_spec`` /
+``out_spec`` that is a slab or pencil layout of the world re-axes the
+chain to start or end there (heFFTe's reshape minimization,
+``heffte_plan_logic.cpp:162-245,265-408``); ``in_absorbed`` /
+``out_absorbed`` say which were. Per-rank boxes follow the ceil rule
+(``stage_layouts``); a real-to-complex plan's complex side is shrunk
+along axis 2 (``Box3.r2c``). ``batch`` records a leading batch axis of B
+transforms, whose per-rank block the overlap heuristic sees B-fold.
 """
 
 from __future__ import annotations
@@ -26,8 +32,8 @@ from typing import Sequence
 from . import geometry as geo
 from .ops.executors import MM_COMPLEX_MODES, MM_TIERS, TIER_ALIASES
 from .parallel.exchange import ALGORITHMS, WIRE_DTYPES
-from .parallel.mesh import HYBRID_AXES, World, make_world
-from .parallel.slab import slab_axes
+from .parallel.mesh import HYBRID_AXES, World, make_world, spec_entries
+from .parallel.slab import check_batch, slab_axes
 
 DECOMPOSITIONS = ("single", "slab", "pencil")
 
@@ -58,11 +64,13 @@ class PlanOptions:
     into the executor label. ``fuse``: the ``:fuse`` flag (None keeps the
     label's own).
 
+    ``donate``: the plan may use its input's storage as workspace (its
+    contents afterwards unspecified; the result is the same).
+
     Differences from the JAX package: ``wire_dtype=None`` and
     ``fuse=None`` read no environment default (``DFFT_WIRE_DTYPE``,
-    ``DFFT_FUSE``); ``donate=True``, ``tune`` other than off and a
-    ``max_roundtrip_err`` budget raise ``NotImplementedError``: their
-    machinery is not ported.
+    ``DFFT_FUSE``); ``tune`` other than off and a ``max_roundtrip_err``
+    budget raise ``NotImplementedError``: their machinery is not ported.
     """
 
     decomposition: str = "auto"
@@ -156,8 +164,8 @@ class PlanOptions:
         elif fu is not None and not isinstance(fu, bool):
             raise ValueError(
                 f"fuse must be a bool or None, got {self.fuse!r}")
-        if self.donate:
-            raise _unported("donate=True (consuming the input buffer)", "2")
+        if not isinstance(self.donate, bool):
+            raise ValueError(f"donate must be a bool, got {self.donate!r}")
         if self.tune not in (None, "off"):
             raise _unported(f"tune={self.tune!r} (the tuner)", "9")
         if mre is not None:
@@ -228,6 +236,36 @@ class LogicPlan:
     negotiated: tuple | None = None
     algorithm: str = "alltoall"
     overlap_chunks: int = 1
+    # Whether the caller's in/out layouts are the chain's own endpoints
+    # (True) or still need an edge reshape (False).
+    in_absorbed: bool = True
+    out_absorbed: bool = True
+    # Leading batch axis of B coalesced transforms (None: unbatched);
+    # geometry and boxes stay per transform.
+    batch: int | None = None
+
+
+def classify_layout(world: World, spec) -> tuple[str, tuple]:
+    """A layout against the chain shapes: ``("slab", (axis,))`` when a 1D
+    world's axis shards exactly one dim, ``("pencil", (row_dim,
+    col_dim))`` when a 2D world's axes each shard one distinct dim, else
+    ``("other", ())`` (replicated dims, tupled axes, partial
+    placements)."""
+    entries = spec_entries(world, spec, 3)
+    placement: dict = {}
+    for d, e in enumerate(entries):
+        if e is None:
+            continue
+        names = e if isinstance(e, tuple) else (e,)
+        if len(names) != 1:
+            return ("other", ())
+        placement[names[0]] = d
+    names = list(world.axis_names)
+    if world.grid is None and set(placement) == set(names):
+        return ("slab", (placement[names[0]],))
+    if world.grid is not None and set(placement) == set(names):
+        return ("pencil", (placement[names[0]], placement[names[1]]))
+    return ("other", ())
 
 
 def eligible_decompositions(shape: Sequence[int], ndev: int
@@ -328,17 +366,22 @@ def _int_world(shape, decomp: str, ndev: int) -> World:
 
 def logic_plan3d(shape, world: World | int | Sequence[int] | None,
                  options: PlanOptions = DEFAULT_OPTIONS, *,
-                 forward: bool = True) -> LogicPlan:
-    """Resolve (shape, world, options) to a plan skeleton. ``world`` is
-    None (one device), an int (a loopback world of that many ranks, the
-    decomposition chosen here and the count renegotiated by
-    ``options.renegotiate``), a ``(rows, cols)`` tuple (a loopback 2D
+                 forward: bool = True, in_spec=None, out_spec=None,
+                 batch: int | None = None) -> LogicPlan:
+    """Resolve (shape, world, options, layouts) to a plan skeleton.
+    ``world`` is None (one device), an int (a loopback world of that
+    many ranks, the decomposition chosen here and the count renegotiated
+    by ``options.renegotiate``), a ``(rows, cols)`` tuple (a loopback 2D
     world) or a :class:`World` (1D: slab, 2D: pencil).
     ``options.decomposition`` overrides the choice; a world that cannot
     run it raises. ``algorithm="hierarchical"`` runs the slab chain over
     a 2D world's combined axis (a tuple is a loopback hybrid world).
+    ``in_spec`` / ``out_spec`` (this plan's orientation) that classify as
+    a slab or pencil layout of the world re-axe the chain to start or end
+    there; the renegotiation is judged on those axes.
     ``options.overlap_chunks`` is resolved to K on the final world."""
     shape = tuple(int(s) for s in shape)
+    batch = check_batch(batch)
     decomp = options.decomposition
     hier = options.algorithm == "hierarchical"
     if hier:
@@ -367,32 +410,68 @@ def logic_plan3d(shape, world: World | int | Sequence[int] | None,
     elif world is not None and not isinstance(world, World):
         world = make_world(tuple(world))
     if decomp == "single" or world is None or world.size == 1:
-        return LogicPlan(shape, "single", None)
+        return LogicPlan(shape, "single", None, batch=batch)
     if decomp == "auto":
         decomp = "pencil" if world.grid is not None else "slab"
     if decomp == "slab" and world.grid is not None and not hier:
         raise ValueError("slab decomposition requires a 1D world")
     if decomp == "pencil" and world.grid is None:
         raise ValueError("pencil decomposition requires a 2D world")
+
+    # ---- axis assignment (reshape minimization); the hierarchical slab
+    # chain runs over the combined axis, so its layouts are not read as
+    # a pencil grid's and take the edge reshape.
+    kin = (classify_layout(world, in_spec)
+           if in_spec is not None and not hier else None)
+    kout = (classify_layout(world, out_spec)
+            if out_spec is not None and not hier else None)
+    in_absorbed, out_absorbed = in_spec is None, out_spec is None
     axes: dict = {}
     if decomp == "slab":
-        axes = dict(slab_axes=slab_axes(forward))
+        default_in, default_out = slab_axes(forward)
+        in_axis = default_in
+        if kin is not None and kin[0] == "slab":
+            in_axis, in_absorbed = kin[1][0], True
+        if kout is not None and kout[0] == "slab" and kout[1][0] != in_axis:
+            out_axis, out_absorbed = kout[1][0], True
+        else:
+            out_axis = default_out if default_out != in_axis else default_in
+        axes = dict(slab_axes=(in_axis, out_axis))
     else:
-        axes = dict(perm=(0, 1, 2) if forward else (1, 2, 0),
-                    order="col_first" if forward else "row_first")
+        perm = (0, 1, 2) if forward else (1, 2, 0)
+        order = "col_first" if forward else "row_first"
+        if kin is not None and kin[0] == "pencil":
+            a, b = kin[1]
+            perm, in_absorbed = (a, b, 3 - a - b), True
+        # The two exchange orders reach two output layouts; take the one
+        # matching the caller's out_spec when there is one.
+        if kout is not None and kout[0] == "pencil":
+            if kout[1] == (perm[1], perm[2]):
+                order, out_absorbed = "col_first", True
+            elif kout[1] == (perm[2], perm[0]):
+                order, out_absorbed = "row_first", True
+        axes = dict(perm=perm, order=order)
     negotiated = None
     if requested is not None:
         used, negotiated = _renegotiate(shape, requested, decomp,
                                         options.renegotiate, **axes)
-        if used == 1:
-            return LogicPlan(shape, "single", None, negotiated=negotiated)
         if used != requested:
-            world = _int_world(shape, decomp, used)
+            if used == 1 and (in_spec is not None or out_spec is not None):
+                # Layout-carrying plans need a world; keep the request.
+                negotiated = (requested, requested,
+                              "kept: in_spec/out_spec require a mesh")
+            elif used == 1:
+                return LogicPlan(shape, "single", None,
+                                 negotiated=negotiated, batch=batch)
+            else:
+                world = _int_world(shape, decomp, used)
     overlap = resolve_overlap_chunks(options.overlap_chunks, shape=shape,
-                                     ndev=world.size)
+                                     ndev=world.size,
+                                     itemsize=8 * (batch or 1))
     return LogicPlan(shape, decomp, world, axes.get("slab_axes"),
                      axes.get("perm"), axes.get("order"), negotiated,
-                     options.algorithm, overlap)
+                     options.algorithm, overlap, in_absorbed, out_absorbed,
+                     batch)
 
 
 def _grid_boxes(world: geo.Box3, placements: dict[int, int], *,

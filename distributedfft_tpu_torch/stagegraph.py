@@ -5,7 +5,8 @@ The port of the node vocabulary of ``distributedfft_tpu/stagegraph.py``
 (``LocalNode``, ``ExchangeNode``, ``StageGraph``), of its fusion pass
 (``plan_fusion``, ``_fused_senders``, ``_run_fused_site``), of the op
 interpreter and of the staged compiler (``StagedStage``,
-``StagedGraph``, ``compile_staged``). Builders emit a graph;
+``StagedGraph``, ``compile_staged``), and the brick-I/O edge tier
+(``BrickEdgeGraph``, ``compile_brick_io``). Builders emit a graph;
 :func:`run_graph` executes it on the blocks one process holds. Local ops
 are ``("fft", axes, forward)``, ``("r2c", axis)``, ``("c2r", n, axis)``,
 ``("pack", axis, to)`` (a pad that the ``alltoallv`` transport skips:
@@ -25,6 +26,10 @@ all-to-all, then the decode and the stage after it as one kernel
 (:func:`.ops.cuda_fuse.fused_decode_fft`) where that stage is a crop and
 an FFT along the concat axis. The routes and their fallbacks are those
 of the JAX package, recorded per site in ``graph.meta["fusion"]``.
+
+A batched graph (``batch=B``) carries every axis one place up (its
+builders offset them); :func:`scatter` and :func:`gather` cut and join
+the spatial dims they name, the leading batch dim whole.
 """
 
 from __future__ import annotations
@@ -117,8 +122,10 @@ class StageGraph:
     first node, and joins the output along ``out_dims`` and crops it
     (``post``: ``("crop", axis, to)``) after the last (:func:`scatter`,
     :func:`gather`). ``algorithm`` is every exchange's transport,
-    ``overlap_chunks`` its K, ``wire_dtype`` its codec; ``meta`` holds
-    planner records (the fusion pass's under ``"fusion"``)."""
+    ``overlap_chunks`` its K, ``wire_dtype`` its codec; ``batch`` the
+    leading batch axis's extent (None: unbatched; the axes the nodes and
+    dims name are then offset by one); ``meta`` holds planner records
+    (the fusion pass's under ``"fusion"``)."""
 
     world: World
     nodes: tuple
@@ -130,6 +137,7 @@ class StageGraph:
     out_dims: tuple = ()
     algorithm: str = "alltoall"
     overlap_chunks: int = 1
+    batch: int | None = None
     meta: dict = field(default_factory=dict, compare=False)
 
     def validate(self) -> "StageGraph":
@@ -418,12 +426,23 @@ def _overlap_pair(blocks: list, graph: StageGraph, interp: _Interp,
             exchange_name=n.name, compute_name=nxt.name, **kw)
 
 
+def _into(blocks: list, outs: list) -> list:
+    """Each output written into its input's storage where shape and dtype
+    match (a donated input), else the output as it is."""
+    return [b.copy_(y) if (y.shape == b.shape and y.dtype == b.dtype
+                           and y.data_ptr() != b.data_ptr()) else y
+            for b, y in zip(blocks, outs)]
+
+
 def run_graph(graph: StageGraph, blocks: list[torch.Tensor],
-              timer=None) -> list[torch.Tensor]:
+              timer=None, *, donate: bool = False) -> list[torch.Tensor]:
     """Run every node of ``graph`` on the held ``blocks`` (one per rank of
     ``graph.world.ranks``). ``timer`` (:class:`..utils.timing.StageTimer`)
     times each node under its stage kind. The fusion pass runs once per
-    graph, its record in ``graph.meta["fusion"]``."""
+    graph, its record in ``graph.meta["fusion"]``. ``donate``: the first
+    stage writes its output into the blocks' storage (when it is a plain
+    local stage of the blocks' shape and dtype), so the caller's input
+    is workspace; the result is the same bits."""
     graph.validate()
     interp = _Interp(graph.executor, graph.algorithm)
     stage = timer.stage if timer is not None else (
@@ -451,7 +470,8 @@ def run_graph(graph: StageGraph, blocks: list[torch.Tensor],
             i += 2
         else:
             with _node_span(stage, node):
-                blocks = [interp.run(node.ops, b) for b in blocks]
+                outs = [interp.run(node.ops, b) for b in blocks]
+                blocks = _into(blocks, outs) if donate and i == 0 else outs
             i += 1
     return blocks
 
@@ -562,3 +582,65 @@ def compile_staged(graph: StagedGraph) -> list:
 
     return trace_stages([(s.name, wrap(i, b)) for i, (s, b) in
                          enumerate(zip(graph.stages, bodies))])
+
+
+# --------------------------------------------------- brick-I/O edge tier
+
+@dataclass(frozen=True)
+class BrickEdgeGraph:
+    """A brick-I/O plan's edges around its chain (the port of the JAX
+    package's ``BrickEdgeGraph``). ``edge_in`` is the ``(reorder | None,
+    reshape)`` pair applied to the caller's held bricks: ``reorder``
+    gives canonical-order views of bricks stored in their boxes' orders,
+    ``reshape`` moves them into the chain's input blocks (the
+    bricks-to-layout overlap map, then the edge to the chain's own
+    layout where the two differ). ``edge_out`` is ``(reshape, reorder |
+    None)``: ``reshape(blocks, dst)`` moves the chain's output blocks into
+    ``dst``, the canonical views ``reorder`` gives of the output bricks
+    (or the bricks themselves). ``alloc(like, lead)`` makes the output:
+    ``(result, bricks)``, the value the plan returns and the held bricks
+    it holds (zeros beyond each box). ``specs`` is the ``(in, out)``
+    :class:`~.parallel.bricks.BrickSpec` accounting pair (None on the
+    single-device tier), not read here."""
+
+    edge_in: tuple
+    edge_out: tuple
+    alloc: Any = None
+    specs: tuple | None = None
+
+    def __post_init__(self):
+        for label, pair in (("edge_in", self.edge_in),
+                            ("edge_out", self.edge_out)):
+            if len(pair) != 2:
+                raise ValueError(
+                    f"{label} must be a (reorder|None, reshape) pair "
+                    f"(edge_out: (reshape, reorder|None)), got {pair!r}")
+
+
+#: Span names of the two edges: those of the JAX package's functions that
+#: build them (``plan_bricks_to_spec``, ``plan_spec_to_bricks``), whose
+#: programs run inside one jitted call there and have no span of their
+#: own.
+BRICK_SPANS = ("bricks_to_spec", "spec_to_bricks")
+
+
+def compile_brick_io(graph: BrickEdgeGraph, inner_fn):
+    """The brick plan's ``fn(bricks) -> bricks`` over held bricks: the
+    order views, the in-edge move, ``inner_fn`` (held chain blocks in and
+    out), the out-edge move into the allocated output bricks, each edge
+    under its :data:`BRICK_SPANS` span."""
+    in_reorder, in_reshape = graph.edge_in
+    out_reshape, out_reorder = graph.edge_out
+
+    def fn(bricks: list, timer=None) -> list:
+        with add_trace(BRICK_SPANS[0]):
+            views = bricks if in_reorder is None else in_reorder(bricks)
+            x = in_reshape(views)
+        y = inner_fn(x, timer)
+        with add_trace(BRICK_SPANS[1]):
+            result, held = graph.alloc(y[0], tuple(y[0].shape[:-3]))
+            out_reshape(y, held if out_reorder is None
+                        else out_reorder(held))
+        return result
+
+    return fn

@@ -304,6 +304,35 @@ def plan_info(plan) -> str:
             f"exchange-compute interleave along the bystander axis)")
     if plan.wire_dtype is not None:
         lines.append(f"wire: {plan.wire_dtype}")
+    if plan.batch is not None:
+        lines.append(f"batch: {plan.batch} coalesced transforms (one "
+                     f"shared exchange per t2 stage)")
+    if plan.r2c_axis != 2:
+        lines.append(f"r2c axis: {plan.r2c_axis} (the chain runs on the "
+                     f"view with axes {plan.r2c_axis} and 2 swapped)")
+    for label in ("in_spec", "out_spec"):
+        spec = getattr(plan, label)
+        if spec is not None:
+            absorbed = getattr(plan.logic, label.replace("spec", "absorbed"))
+            lines.append(f"{label}: {spec} ("
+                         f"{'absorbed by the chain' if absorbed else 'edge reshape'})")
+    if plan.brick_edges is not None:
+        # The overlap-map accounting of the brick edges: true payload
+        # against what the transport ships (the send_size/recv_size tables
+        # of heffte_reshape3d's overlap maps).
+        itemsize = torch.empty((), dtype=plan.dtype).element_size()
+        for label, bs in zip(("in->chain", "chain->out"), plan.brick_edges):
+            t = bs.payload_elems * itemsize
+            wb = bs.wire_elems * itemsize
+            ov = f"ratio {bs.wire_ratio:.2f}x" if t else "ratio n/a"
+            how = (f"{len(bs.steps)} ring steps" if bs.algorithm == "ring"
+                   else "a2av exact counts")
+            tbl = ("" if bs.a2av_table_bytes is None else
+                   f" | index tables {bs.a2av_table_bytes / 1024:.1f} "
+                   f"KB/device (RLE)")
+            lines.append(f"brick edge {label}: {how}, payload "
+                         f"{t * _MB:.2f} MB | wire {wb * _MB:.2f} MB ({ov})"
+                         + tbl)
     world = plan.world
     if world is not None:
         axes = (world.axis_names if world.grid is not None
@@ -318,7 +347,8 @@ def plan_info(plan) -> str:
         (), dtype=plan.in_dtype).element_size()
     out_b = math.prod(plan.out_shape) * torch.empty(
         (), dtype=plan.out_dtype).element_size()
-    work = max(in_b, out_b, math.prod(plan.complex_shape) * itemsize)
+    work = max(in_b, out_b, math.prod(plan.complex_shape) * itemsize
+               * (plan.batch or 1))
     lines.append(
         f"memory/rank (est): in {in_b / nranks * _MB:.1f} MB + out "
         f"{out_b / nranks * _MB:.1f} MB + work {work / nranks * _MB:.1f} MB")
@@ -326,6 +356,8 @@ def plan_info(plan) -> str:
         lines.append(f"padded extents: {plan.spec}")
     for label, boxes in (("in", plan.in_boxes), ("out", plan.out_boxes)):
         for i, b in enumerate(boxes):
+            order = ("" if tuple(b.order) == (0, 1, 2)
+                     else f" order={tuple(b.order)}")
             lines.append(f"{label} box[{i}]: low={b.low} high={b.high} "
-                         f"shape={b.shape}")
+                         f"shape={b.shape}{order}")
     return "\n".join(lines)

@@ -424,12 +424,20 @@ def test_plan_options_raise_the_jax_errors(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(donate=True), "item 2"), (dict(tune="wisdom"), "item 9"),
+    (dict(tune="wisdom"), "item 9"),
     (dict(tune="measure"), "item 9"), (dict(max_roundtrip_err=1e-3),
                                        "item 9")])
 def test_plan_options_refuse_what_is_not_ported(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         tpl.PlanOptions(**kw)
+
+
+def test_plan_options_take_donate():
+    """``donate`` is a plan knob (the input as workspace); a non-bool
+    raises."""
+    assert tpl.PlanOptions(donate=True).donate
+    with pytest.raises(ValueError, match="donate"):
+        tpl.PlanOptions(donate="yes")
 
 
 def test_plan_options_normalise_as_jax():
