@@ -85,16 +85,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    two edges' cost), the batched plans against two unbatched calls, the
    peak device memory of each, and donate=True against donate=False
    (bit for bit, peak memory and time; single and slab);
-11. runs complex128 through the cuda executor's dft_matmul route and
+11. drives the spectral-operator path at 512^3 (counts from 0): the
+   Poisson and gradient(1) op plans on the 4-rank slab, the Gaussian on
+   the 2x2 pencil and the single-device Poisson, each within 5e-4 of
+   ifftn(m * fftn(x)) computed in complex128 with torch.fft; every
+   transport, K = 2, the 2x2 hybrid world and batch = 2 bit for bit
+   against the alltoall, K = 1, unbatched plan, with the collective
+   rounds of one call (exchange.ROUNDS: 2 slab, 4 pencil, 2K, 2(P - 1)
+   on the ring); the split op plans fused against unfused bit for bit on
+   the JAX package's fusion routes; a convolution at 256^3 against the
+   shift it is; every kernel of the path launched, no fallback; then the
+   staged op pipeline against the fused plan with its stage times, one
+   traced call (device time per stage, under t_mid_pointwise, and the
+   idle share), and the op plans' times and peak memory beside the
+   unfused pair (forward plan, multiply, backward plan), each printed
+   with the card's name and power limit;
+12. runs complex128 through the cuda executor's dft_matmul route and
    through the torch executor (a 4-rank slab at 256^3 against
    torch.fft.fftn, 1e-11), and the matmul executor's three precision
    tiers on a [4096, 512] row batch against torch.fft.fft (each tier's
    error within its band, the three strictly ordered); prints one JSON
    line of the five kernels and, last, the device line.
 
-Each counted path (5, 6, 8, 9, 10) also records the case of every kernel
-call and fails on one that phases 2 and 3 did not hold against its plain
-version.
+Each counted path (5, 6, 8, 9, 10, 11) also records the case of every
+kernel call and fails on one that phases 2 and 3 did not hold against
+its plain version.
 
 Any failed check exits nonzero before the last line. Without a CUDA
 device, or without the package beside it, it exits nonzero at once.
@@ -1635,6 +1650,319 @@ def time_bricks(torch, dfft, timing, dev, plans, n=512):
     torch.cuda.empty_cache()
 
 
+# The launch shapes the operator path adds at n^3 (the rest are cases of
+# the paths above): the inverse X FFT of t_mid on a K = 2 chunk (the
+# forward one is the transform's own K = 2 t3 chunk), and the slab
+# convolution at c^3 (its plan makes the kernel's spectrum on the host).
+def op_cases(n, c=256, ranks=SLAB_RANKS):
+    q = c // ranks
+    return [("fft_axis0", False, (1, n, n * n // (ranks * 2)),
+             "K=2 op t_mid inverse chunk"),
+            ("fft2_last", True, (q, c, c), f"op convolve {c}^3 t0"),
+            ("fft_axis0", True, (1, c, q * c), f"op convolve {c}^3 t_mid"),
+            ("fft_axis0", False, (1, c, q * c), f"op convolve {c}^3 t_mid"),
+            ("fft_axis0", False, (q, c, c), f"op convolve {c}^3 t3_ifft_y"),
+            ("fft_last", False, (q * c, c), f"op convolve {c}^3 t3_ifft_z")]
+
+
+#: The fused sites' (sender, receiver) routes of the split op plans (JAX's,
+#: tests/test_torch_operators.py): the slab's outbound sender is t0 and
+#: t1_pack (multi_axis), its t_mid a factory receiver, its return sender
+#: t1_pack alone (ops); the pencil's senders after a fused node are empty.
+OP_SITE_ROUTES = {
+    "slab": [("multi_axis", "factory"), ("ops", "kernel")],
+    "pencil": [("kernel", "kernel"), ("encode_only", "factory"),
+               ("encode_only", "kernel"), ("encode_only", "kernel")]}
+
+
+# A split-wire op plan against the exact one: each leg quantizes with a
+# step of 2^-15 of its tile's largest value, and a solve amplifies the
+# noise of its smallest wavenumbers (the Poisson slab at 512^3: 3.3e-3 on
+# an H100); a codec fault shows as an O(1) error.
+OP_WIRE_BOUND = 1e-2
+
+
+def op_rounds(torch, dex, plan, x):
+    """Collective rounds of one plan call (``exchange.ROUNDS``)."""
+    before = sum(dex.ROUNDS.values())
+    y = plan(x)
+    del y
+    return sum(dex.ROUNDS.values()) - before
+
+
+def check_operators(torch, dfft, dev, card, n=512, c=256):
+    """Phase 11a: the spectral-operator plans at n^3. The Poisson slab (P
+    = 4), gradient(1) slab, Gaussian 2x2 pencil and single-device Poisson
+    against ifftn(m * fftn(x)) in complex128 with torch.fft on the card;
+    every transport, K = 2, the hierarchical 2x2 hybrid world and batch =
+    2 against the alltoall, K = 1, unbatched twin bit for bit, with the
+    collective rounds of one call; the split fused op plans against their
+    unfused twins bit for bit, on JAX's fusion routes; a convolution at
+    c^3 against the shift it is. Returns the plans the timing phase
+    times."""
+    from distributedfft_tpu_torch import operators as dop
+    from distributedfft_tpu_torch.parallel import exchange as dex
+
+    shape = (n, n, n)
+    flat = dfft.make_world(SLAB_RANKS)
+    hybrid = dfft.make_world(PENCIL_GRID, dfft.HYBRID_AXES)
+    kw = dict(device=dev)
+    x = seeded(torch, shape, dev)
+    big = torch.fft.fftn(x.to(torch.complex128))
+    ops = {"poisson": dop.poisson(), "gradient1": dop.gradient(1),
+           "gaussian": dop.gaussian(0.01)}
+    plans = {}
+    for label, world, name in (("slab P=4", flat, "poisson"),
+                               ("slab P=4", flat, "gradient1"),
+                               ("pencil 2x2", PENCIL_GRID, "gaussian"),
+                               ("single", None, "poisson")):
+        plan = dop.plan_spectral_op(shape, world, op=ops[name], **kw)
+        y = plan(x)
+        sync(torch, dev)
+        if tuple(y.shape) != shape or y.dtype != torch.complex64 or not bool(
+                torch.isfinite(torch.view_as_real(y)).all()):
+            fail(f"op {name} {label}: output {y.dtype} {tuple(y.shape)}, "
+                 f"not finite complex64 of {shape}")
+        m = dop.multiplier_grid(ops[name], shape, torch.complex128, **kw)
+        ref = torch.fft.ifftn(m * big)
+        del m
+        err = rel_err(torch, y, ref)[:2]
+        del ref, y
+        print(f"op {name} {n}^3 {label}: vs ifftn(m * fftn(x)) in complex128"
+              f" (torch.fft) max rel err={err[0]:.3e} l2 rel err={err[1]:.3e}"
+              f" [{card}]", flush=True)
+        if not max(err) <= TOL:
+            fail(f"op {name} {label}: error over {TOL}")
+        plans[f"{name} {label}"] = plan
+    del big
+    torch.cuda.empty_cache()
+
+    # the twins: each transport, K = 2, the hybrid world and batch = 2
+    # against the alltoall, K = 1, unbatched plan, bit for bit
+    x2 = seeded(torch, shape, dev, SEED + 1)
+    for kind, world, name, base_key in (
+            ("slab", flat, "poisson", "poisson slab P=4"),
+            ("pencil", PENCIL_GRID, "gaussian", "gaussian pencil 2x2")):
+        base = plans[base_key]
+        y0, y1 = base(x), base(x2)
+        rounds = op_rounds(torch, dex, base, x)
+        want_rounds = {"slab": 2, "pencil": 4}[kind]
+        print(f"op {name} {kind} alltoall K=1: {rounds} collective rounds "
+              f"per call (expected {want_rounds})", flush=True)
+        if rounds != want_rounds:
+            fail(f"op {name} {kind}: {rounds} rounds, expected {want_rounds}")
+        twins = [("K=2", dict(overlap_chunks=2), 2 * want_rounds)]
+        if kind == "slab":
+            twins = [("alltoallv", dict(algorithm="alltoallv"), 2),
+                     ("ppermute", dict(algorithm="ppermute"),
+                      2 * (SLAB_RANKS - 1)),
+                     ("hierarchical 2x2 hybrid",
+                      dict(algorithm="hierarchical"), 4)] + twins
+        for label, tkw, want in twins:
+            w = hybrid if "hierarchical" in label else world
+            plan = dop.plan_spectral_op(shape, w, op=ops[name], **tkw, **kw)
+            report = twin_report(torch, (plan(x),), (y0,))
+            rounds = op_rounds(torch, dex, plan, x)
+            print(f"op {name} {kind} {label}: vs the alltoall K=1 plan "
+                  f"{report}; {rounds} collective rounds per call (expected "
+                  f"{want})", flush=True)
+            if report != "bit-identical" or rounds != want:
+                fail(f"op {name} {kind} {label}: {report}, {rounds} rounds")
+        xb = torch.stack([x, x2])
+        plan = dop.plan_spectral_op(shape, world, op=ops[name], batch=2, **kw)
+        yb = plan(xb)
+        report = twin_report(torch, (yb[0], yb[1]), (y0, y1))
+        rounds = op_rounds(torch, dex, plan, xb)
+        print(f"op {name} {kind} batch=2: vs two unbatched calls {report}; "
+              f"{rounds} collective rounds per call", flush=True)
+        if report != "bit-identical" or rounds != want_rounds:
+            fail(f"op {name} {kind} batch=2: {report}, {rounds} rounds")
+        plans[f"{name} {kind} batch=2"] = (plan, xb)
+        del yb, y0, y1, xb
+        torch.cuda.empty_cache()
+    del x2
+
+    # the split codec fused against its unfused twin
+    for kind, world, name, exact in (
+            ("slab", flat, "poisson", "poisson slab P=4"),
+            ("pencil", PENCIL_GRID, "gaussian", "gaussian pencil 2x2")):
+        fused = dop.plan_spectral_op(shape, world, op=ops[name],
+                                     wire_dtype="split", fuse=True, **kw)
+        twin = dop.plan_spectral_op(shape, world, op=ops[name],
+                                    wire_dtype="split", **kw)
+        yf = fused(x)
+        report = twin_report(torch, (yf,), (twin(x),))
+        err = rel_err(torch, yf, plans[exact](x))[:2]
+        sites = list(fused.graph.meta["fusion"]["sites"].values())
+        routes = [(st["sender"], st["receiver"]) for st in sites]
+        label = f"op {name} {kind} split fused {n}^3"
+        print(f"{label}: vs the unfused twin {report}; vs the exact op plan "
+              f"max rel err={err[0]:.3e} l2 rel err={err[1]:.3e}; fusion "
+              f"sites {sites}", flush=True)
+        if report != "bit-identical" or routes != OP_SITE_ROUTES[kind]:
+            fail(f"{label}: {report}, sites {routes}")
+        if not max(err) <= OP_WIRE_BOUND:
+            fail(f"{label}: error over {OP_WIRE_BOUND}")
+        plans[f"{name} {kind} split fused"] = fused
+        plans[f"{name} {kind} split unfused"] = twin
+        del yf
+
+    # a convolution at c^3: the kernel's spectrum made on the host at plan
+    # time, held once on the card for the four ranks
+    xc = seeded(torch, (c, c, c), dev)
+    kernel = torch.zeros((c, c, c), dtype=torch.float64)
+    kernel[3, 5, 7] = 1.0
+    t0 = time.perf_counter()
+    plan = dop.plan_spectral_op((c, c, c), flat, op=dop.convolve(kernel),
+                                **kw)
+    made = time.perf_counter() - t0
+    err = rel_err(torch, plan(xc), torch.roll(xc, (3, 5, 7), (0, 1, 2)))[:2]
+    print(f"op convolve {c}^3 slab P=4 (delta at (3, 5, 7)): vs the shifted "
+          f"input max rel err={err[0]:.3e} l2 rel err={err[1]:.3e}; plan "
+          f"made in {made:.2f} s (host fftn of the kernel)", flush=True)
+    if not max(err) <= TOL:
+        fail(f"op convolve {c}^3: error over {TOL}")
+    del xc, x, plan
+    torch.cuda.empty_cache()
+    return plans
+
+
+def span_device_us(path, name):
+    """(device us, spans): the device time of every operation launched
+    inside a span called ``name`` of a torch.profiler chrome trace."""
+    events = json.load(open(path))["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e["name"] == name]
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    total = 0.0
+    for op in events:
+        if op.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        t = launch.get(op.get("args", {}).get("correlation"))
+        if t is not None and any(s["ts"] <= t <= s["ts"] + s["dur"]
+                                 for s in spans):
+            total += op["dur"]
+    return total, len(spans)
+
+
+def check_op_staged_and_traced(torch, dfft, timing, dev, here, card, plans,
+                               n=512):
+    """Phase 11b: the staged op pipeline (t0_fft_yz, t2_exchange_out,
+    t_mid, t2_exchange_back, t3_ifft_yz) against the fused Poisson slab
+    plan (within the tier: its t3 runs Y and Z as one plane pass), with
+    each stage's CUDA-event time; then one traced call of that plan: the
+    device time under each stage key, under ``t_mid_pointwise``, and the
+    device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributedfft_tpu_torch.parallel.staged import build_slab_op_stages
+    from distributedfft_tpu_torch.utils import trace
+
+    shape = (n, n, n)
+    plan = plans["poisson slab P=4"]
+    x = seeded(torch, shape, dev)
+    stages, _ = build_slab_op_stages(plan.world, shape, plan.multiplier)
+    times, out = timing.time_staged(stages, x, iters=5)
+    err = rel_err(torch, out, plan(x))[:2]
+    print(f"staged op poisson {n}^3 P={SLAB_RANKS}: stages (CUDA events, "
+          f"best of 5, ms) " + " ".join(
+              f"{k}={v * 1e3:.3f}" for k, v in times.times.items())
+          + f" total={times.total * 1e3:.3f}; composed vs the fused plan max "
+          f"rel err={err[0]:.3e} l2 rel err={err[1]:.3e} [{card}]",
+          flush=True)
+    if not max(err) <= TOL:
+        fail(f"staged op pipeline: error over {TOL}")
+    del out
+
+    out_dir = os.path.join(here, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    plan(x)                                   # warm
+    torch.cuda.synchronize()
+    trace.init_tracing(os.path.join(out_dir, "chip_smoke_op_trace"))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        plan(x)
+        torch.cuda.synchronize()
+    trace.finalize_tracing()
+    path = os.path.join(out_dir, "chip_smoke_op_trace.json")
+    prof.export_chrome_trace(path)
+    per_span, per_key, idle, window, busy, nops = trace_breakdown(path)
+    pointwise, nspans = span_device_us(path, "t_mid_pointwise")
+    print(f"traced op poisson {n}^3 P={SLAB_RANKS} (torch.profiler, {nops} "
+          f"device operations): device time per stage (ms) "
+          + " ".join(f"{k}={v / 1e3:.3f}" for k, v in sorted(per_key.items()))
+          + f"; t_mid_pointwise {pointwise / 1e3:.3f} ms over {nspans} spans"
+          f"; traced window {window / 1e3:.3f} ms, device busy "
+          f"{busy / 1e3:.3f} ms, idle share {idle:.4f} [{card}]", flush=True)
+    if not {"t0", "t2", "t_mid", "t3"} <= set(per_key) or pointwise <= 0:
+        fail(f"traced op run: device time under {sorted(per_key)}, "
+             f"t_mid_pointwise {pointwise}")
+    del x
+
+
+def time_operators(torch, dfft, timing, dev, card, plans, n=512):
+    """Phase 11c: each op plan's ms per call (CUDA events, median of 10)
+    and its stage medians (the two t2 legs summed) beside the unfused
+    pair (forward plan, the multiply by ``multiplier_grid``, backward
+    plan) and each part of it, with the peak device memory of each; the
+    split fused op plans against their unfused twins; batch = 2 against
+    two calls."""
+    from distributedfft_tpu_torch import operators as dop
+    from distributedfft_tpu_torch.stagegraph import apply_multiplier
+
+    shape = (n, n, n)
+    x = seeded(torch, shape, dev)
+    for key in ("poisson slab P=4", "gaussian pencil 2x2"):
+        plan = plans.pop(key)
+        world = plan.world
+        fwd = dfft.plan_dft_c2c_3d(shape, world, device=dev)
+        bwd = dfft.plan_dft_c2c_3d(shape, world, direction=dfft.BACKWARD,
+                                   device=dev)
+        m = dop.multiplier_grid(plan.op_spec, shape, torch.complex64,
+                                device=dev)
+        y = fwd(x)
+        t_op = timing.cuda_time_ms(lambda: plan(x), iters=10)
+        t_pair = timing.cuda_time_ms(
+            lambda: bwd(apply_multiplier(fwd(x), m)), iters=10)
+        t_f = timing.cuda_time_ms(lambda: fwd(x), iters=10)
+        t_m = timing.cuda_time_ms(lambda: apply_multiplier(y, m), iters=10)
+        t_b = timing.cuda_time_ms(lambda: bwd(y), iters=10)
+        mem_op = peak_gib(torch, lambda: plan(x))
+        mem_pair = peak_gib(torch, lambda: bwd(apply_multiplier(fwd(x), m)))
+        print(f"op {key} {n}^3: op plan ms={t_op:.3f} (peak {mem_op:.2f} GiB)"
+              f"; unfused pair ms={t_pair:.3f} (forward {t_f:.3f} + multiply "
+              f"{t_m:.3f} + backward {t_b:.3f}; peak {mem_pair:.2f} GiB); "
+              f"ratio {t_op / t_pair:.3f} [{card}]", flush=True)
+        stage_medians(torch, timing, plan, x, f"op {key} {n}^3")
+        del y, m
+        torch.cuda.empty_cache()
+    for kind in ("slab", "pencil"):
+        name = "poisson" if kind == "slab" else "gaussian"
+        fused = plans.pop(f"{name} {kind} split fused")
+        twin = plans.pop(f"{name} {kind} split unfused")
+        t_fu = timing.cuda_time_ms(lambda: fused(x), iters=10)
+        t_un = timing.cuda_time_ms(lambda: twin(x), iters=10)
+        print(f"op {name} {kind} split {n}^3: fused ms={t_fu:.3f} unfused "
+              f"ms={t_un:.3f} [{card}]", flush=True)
+        stage_medians(torch, timing, fused, x,
+                      f"op {name} {kind} split fused {n}^3", reps=5)
+        plan, xb = plans.pop(f"{name} {kind} batch=2")
+        one = dop.plan_spectral_op(shape, plan.world, op=plan.op_spec,
+                                   device=dev)
+        t_b2 = timing.cuda_time_ms(lambda: plan(xb), iters=10)
+        t_2 = timing.cuda_time_ms(lambda: (one(xb[0]), one(xb[1])), iters=10)
+        print(f"op {name} {kind} batch=2 {n}^3: ms={t_b2:.3f} (two unbatched "
+              f"calls {t_2:.3f}, ratio {t_b2 / t_2:.3f}); peak "
+              f"{peak_gib(torch, lambda: plan(xb)):.2f} GiB [{card}]",
+              flush=True)
+        del xb
+        torch.cuda.empty_cache()
+    del x
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "distributedfft_tpu_torch")):
@@ -1653,7 +1981,8 @@ def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip(), flush=True)
+    card = smi.stdout.strip()
+    print(card, flush=True)
     name = torch.cuda.get_device_name(0)
     rates = card_rates(name)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; bound "
@@ -1671,6 +2000,7 @@ def main() -> None:
     auto_k = resolve_overlap_chunks("auto", (512,) * 3, SLAB_RANKS)
     KERNEL_CASES.extend(overlap_cases(512, (2, auto_k)))
     KERNEL_CASES.extend(batch_cases(512))
+    KERNEL_CASES.extend(op_cases(512))
     records = check_kernels(torch, cf, radix, timing, rates)
     records.update(check_fused_kernels(torch, cf, cfu, wire_codec, timing,
                                        rates))
@@ -1862,6 +2192,37 @@ def main() -> None:
         fail(f"the brick path took a fallback: {dict(cf.FALLBACKS)}")
     time_bricks(torch, dfft, timing, dev, bricks)
     del bricks
+    torch.cuda.empty_cache()
+
+    # ---- the spectral-operator path: counts from 0 ----
+    cf.reset_launches()
+    cfu.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with recording_cases(cf, cfu) as seen:
+        ops = check_operators(torch, dfft, dev, card)
+    path = {**cf.launches(), **cfu.launches()}
+    print(f"launches on the operator path: {path}", flush=True)
+    check_routes(cf, "the operator path", {}, dict(cf.ROUTES))
+    check_covered(seen, "the operator path")
+    op_keys = {c[:3]: c[3] for c in op_cases(512)}
+    print("launches on the operator path at its own shapes: " + "; ".join(
+        f"{k[0]} {'fwd' if k[1] else 'inv'} {list(k[2])} ({op_keys[k]}):"
+        f" {seen[k]}" for k in op_keys), flush=True)
+    print(f"peak device memory of the operator path: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for k in ("fft2_last", "fft_axis0", "fft_last", "fft_encode",
+              "decode_fft"):
+        if path[k] <= 0:
+            fail(f"kernel {k} was not launched on the operator path")
+    for k, v in path.items():
+        records[k]["launches"] += v
+    if dict(cf.FALLBACKS) != fallbacks:
+        fail(f"the operator path took a fallback: {dict(cf.FALLBACKS)}")
+    with recording_cases(cf, cfu) as seen:
+        check_op_staged_and_traced(torch, dfft, timing, dev, here, card, ops)
+    check_covered(seen, "the staged and traced operator runs")
+    time_operators(torch, dfft, timing, dev, card, ops)
+    del ops
     torch.cuda.empty_cache()
 
     # ---- complex128 and the matmul tiers ----

@@ -27,6 +27,12 @@ the overlap-map edges of :mod:`.parallel.bricks`), the halved axis of a
 real plan (``r2c_axis``), B transforms through one chain (``batch=B``)
 and the input as workspace (``donate=True``).
 
+Spectral operators (:mod:`.operators`): a Poisson solve, a spectral
+derivative, a Gaussian filter, a convolution or any pointwise multiplier
+as one plan, FFT -> multiply at the transposed midpoint (``t_mid``) ->
+inverse FFT, half the exchanges of a forward plan, a multiply and a
+backward plan in the caller's layout.
+
 Quick start::
 
     import torch
@@ -49,15 +55,18 @@ Quick start::
     outs = dfft.geometry.make_pencils(w, (2, 2), 0)         # X-pencils out
     brick = dfft.plan_brick_dft_c2c_3d((512, 512, 512), 4, ins, outs)
     y = brick(dfft.scatter_bricks(x, ins))                  # [4, *pad] stacks
+    u = dfft.solve_poisson((512, 512, 512), 4)(x)           # X-slabs in/out
 
 Entry points run on the card; ``device="cpu"`` runs the kernels' plain
 PyTorch versions instead. This package imports neither JAX nor
 ``distributedfft_tpu``.
 """
 
+from . import operators  # noqa: F401
 from .api import (  # noqa: F401
     BACKWARD,
     FORWARD,
+    OpPlan3D,
     Plan3D,
     execute,
     plan_brick_dft_c2c_3d,
@@ -71,6 +80,8 @@ from .api import (  # noqa: F401
 from .geometry import Box3  # noqa: F401
 from .local import (LocalPlan, plan_dft_c2c, plan_dft_c2c_1d,  # noqa: F401
                     plan_dft_c2c_2d)
+from .operators import (fft_convolve, gaussian_filter,  # noqa: F401
+                        plan_spectral_op, solve_poisson, spectral_gradient)
 from .ops.executors import Scale  # noqa: F401
 from .parallel.bricks import gather_bricks, scatter_bricks  # noqa: F401
 from .parallel.exchange import ALGORITHMS  # noqa: F401

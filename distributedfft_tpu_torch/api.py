@@ -43,6 +43,10 @@ Layouts and batches:
   the canonical chain with the overlap-map edges of
   :mod:`.parallel.bricks`.
 
+:class:`OpPlan3D` is a spectral operator's plan (:mod:`.operators`): a
+forward chain, the ``t_mid`` multiplier and the inverse chain as one
+call, its I/O the chain's input layout on both sides.
+
 I/O of a distributed plan: on a loopback world ``execute`` takes and
 returns the global array (``[B, *shape]`` batched), a brick plan the
 ``[P, *pad]`` stack of :func:`~.parallel.bricks.scatter_bricks` (zero
@@ -212,6 +216,24 @@ class Plan3D:
         return execute(self, x, scale=scale, timer=timer)
 
 
+@dataclass
+class OpPlan3D(Plan3D):
+    """A spectral-operator plan (:mod:`.operators`): FFT, the pointwise
+    multiplier at the chain's transposed midpoint, inverse FFT, as one
+    plan call whose I/O is the chain's input layout on both sides.
+    ``op`` is the operator's label (``"poisson"``), ``op_spec`` its
+    :class:`~.operators.SpectralOp`, ``multiplier`` its generator (the
+    staged pipeline rebuilds ``t_mid`` from it)."""
+
+    op: str = ""
+    op_spec: Any = None
+    multiplier: Any = None
+
+    def describe(self) -> dict[str, Any]:
+        """:meth:`Plan3D.describe` with the operator's label as ``op``."""
+        return dict(super().describe(), op=self.op)
+
+
 def _box_desc(b: geo.Box3) -> tuple:
     lh = (tuple(b.low), tuple(b.high))
     return lh if tuple(b.order) == (0, 1, 2) else lh + (tuple(b.order),)
@@ -226,7 +248,8 @@ def _edge_desc(bs) -> dict:
 def _resolve_options(options: PlanOptions | None, executor: str,
                      wire_dtype: str | None, fuse: bool | None,
                      decomposition: str | None, algorithm: str,
-                     overlap_chunks, donate: bool = False) -> PlanOptions:
+                     overlap_chunks, donate: bool = False, tune=None,
+                     max_roundtrip_err=None) -> PlanOptions:
     """One :class:`PlanOptions` from ``options=`` or the keywords (not
     both), its executor label canonical: the matmul tiers and the fuse
     flag composed in (the port of ``_apply_mm_tiers`` / ``_apply_fuse``,
@@ -234,7 +257,8 @@ def _resolve_options(options: PlanOptions | None, executor: str,
     if options is not None:
         if (executor != "cuda" or wire_dtype is not None or fuse is not None
                 or decomposition is not None or algorithm != "alltoall"
-                or overlap_chunks is not None or donate):
+                or overlap_chunks is not None or donate
+                or tune is not None or max_roundtrip_err is not None):
             raise ValueError(
                 "pass either options= or individual plan keywords, not both")
         opts = options
@@ -244,7 +268,8 @@ def _resolve_options(options: PlanOptions | None, executor: str,
         opts = PlanOptions(decomposition=decomposition or "auto",
                            algorithm=algorithm, executor=executor,
                            overlap_chunks=overlap_chunks,
-                           wire_dtype=wire_dtype, fuse=fuse, donate=donate)
+                           wire_dtype=wire_dtype, fuse=fuse, donate=donate,
+                           tune=tune, max_roundtrip_err=max_roundtrip_err)
     ex = opts.executor
     if opts.mm_precision is not None or opts.mm_complex is not None:
         if not ex.split(":", 1)[0].startswith(MM_EXECUTOR_BASES):
@@ -945,9 +970,12 @@ def plan_from_reference(desc: dict, *, device=None) -> Plan3D:
     decision (``requested``, ``active``, ``reasons``), ``batch``,
     ``r2c_axis``, the ``in_spec`` / ``out_spec`` entries, and
     ``brick_edges`` (a brick plan: its boxes are the bricks, and each
-    edge's ``payload_elems`` must match). Raises when the port's
-    geometry, accounting or fusion decision differs from the
-    description's."""
+    edge's ``payload_elems`` must match). An operator plan's description
+    also has ``op`` (its label) and ``op_spec`` (its ``SpectralOp``, of
+    either package: :func:`.operators.op_from_reference`); the port's
+    :func:`.operators.plan_spectral_op` is built from it. Raises when the
+    port's geometry, accounting, operator or fusion decision differs
+    from the description's."""
     dtype = _DTYPES.get(str(desc["dtype"]))
     if dtype is None:
         raise ValueError(f"the port runs complex64 and complex128, got "
@@ -963,7 +991,22 @@ def plan_from_reference(desc: dict, *, device=None) -> Plan3D:
     if kind == "r2c":
         kw["r2c_axis"] = desc.get("r2c_axis", 2)
     edges = desc.get("brick_edges")
-    if edges is not None:
+    if desc.get("op"):
+        from .operators import op_from_reference, plan_spectral_op
+
+        if desc.get("op_spec") is None:
+            raise ValueError("an operator plan's description needs its "
+                             "op_spec (the SpectralOp)")
+        kw.pop("direction")
+        plan = plan_spectral_op(
+            desc["shape"], world, op=op_from_reference(desc["op_spec"]),
+            wire_dtype=desc.get("wire_dtype"),
+            overlap_chunks=desc.get("overlap_chunks"),
+            batch=desc.get("batch"), **kw)
+        if plan.op != desc["op"]:
+            raise ValueError(f"op differs: port {plan.op!r}, reference "
+                             f"{desc['op']!r}")
+    elif edges is not None:
         planner = (plan_brick_dft_c2c_3d if kind == "c2c"
                    else plan_brick_dft_r2c_3d)
         plan = planner(desc["shape"], world,
@@ -1027,6 +1070,9 @@ def execute(plan: Plan3D, x: torch.Tensor, *, scale: Scale = Scale.NONE,
 
 
 def _kind_label(plan: Plan3D) -> str:
+    op = getattr(plan, "op", "")
+    if op:
+        return f"op_{op}"          # the span is execute_op_<name>_<decomp>
     if plan.kind == "c2c":
         return "c2c"
     return "r2c" if plan.forward else "c2r"

@@ -813,7 +813,8 @@ def _hierarchical_pipelined(blocks: list, world: World, *, split_axis: int,
                             wire_dtype: str | None,
                             bounds: list[tuple[int, int]], chunk_axis: int,
                             compute=None,
-                            compute_name: str = "t3_fft") -> list:
+                            compute_name: str = "t3_fft",
+                            compute_takes_bounds: bool = False) -> list:
     """The leg-level pipeline of the hierarchical exchange over K > 1
     chunks: chunk k's leg A (within each node) is issued before chunk
     k-1's leg B (across nodes) and its ``compute`` run. Per chunk the
@@ -821,7 +822,8 @@ def _hierarchical_pipelined(blocks: list, world: World, *, split_axis: int,
     exchange's -- so every K gives the same bits. Spans
     ``t2a_exchange_<ici>[k]`` / ``t2b_exchange_<dcn>[k]`` (and
     ``{compute_name}[k]``) show the interleave. ``compute=None`` is the
-    staged tier: the exchanged chunks joined back."""
+    staged tier: the exchanged chunks joined back.
+    ``compute_takes_bounds`` as in :func:`exchange_overlapped`."""
     dcn_name, ici_name, d, i = _hier_names_sizes(mesh_axis, axis_sizes)
     p = d * i
     leg_ici, leg_dcn = hierarchical_legs(
@@ -854,7 +856,8 @@ def _hierarchical_pipelined(blocks: list, world: World, *, split_axis: int,
         if compute is None:
             return y
         with add_trace(f"{compute_name}[{k}]"):
-            return compute(y)
+            return (compute(y, *bounds[k]) if compute_takes_bounds
+                    else compute(y))
 
     out = []
     inflight = leg_a(0, _take(blocks, chunk_axis, *bounds[0]))
@@ -873,7 +876,8 @@ def exchange_overlapped(blocks: list, world: World, *, split_axis: int,
                         axis_sizes: tuple[int, int] | None = None,
                         wire_dtype: str | None = None,
                         exchange_name: str = "t2_exchange",
-                        compute_name: str = "t3_fft") -> list:
+                        compute_name: str = "t3_fft",
+                        compute_takes_bounds: bool = False) -> list:
     """An exchange (:func:`exchange_uneven`) and the ``compute`` after it
     (held blocks in, held blocks out: the crop and FFT of the next stage),
     pipelined over ``overlap_chunks`` chunks of ``chunk_axis`` (default
@@ -888,26 +892,40 @@ def exchange_overlapped(blocks: list, world: World, *, split_axis: int,
     once under the spans ``exchange_name`` and ``compute_name``; K > 1
     under ``{exchange_name}[k]`` / ``{compute_name}[k]``, and the
     hierarchical transport pipelines its legs
-    (:func:`_hierarchical_pipelined`)."""
+    (:func:`_hierarchical_pipelined`).
+
+    ``compute_takes_bounds=True`` calls ``compute(blocks, lo, hi)`` with
+    the chunk's (start, stop) along ``chunk_axis`` (``(0, extent)`` at K
+    <= 1): the bystander axis keeps its positions through the exchange,
+    so the bounds are the chunk's slice of the block -- the hook through
+    which a spectral operator's midpoint generates its multiplier for
+    exactly that slice."""
     check_algorithm(algorithm)
     if chunk_axis is None:
         chunk_axis = 3 - split_axis - concat_axis
     kw = dict(split_axis=split_axis, concat_axis=concat_axis,
               mesh_axis=mesh_axis, algorithm=algorithm,
               axis_sizes=axis_sizes, wire_dtype=wire_dtype)
-    bounds = overlap_chunk_bounds(blocks[0].shape[chunk_axis],
-                                  overlap_chunks)
+    extent = blocks[0].shape[chunk_axis]
+    bounds = overlap_chunk_bounds(extent, overlap_chunks)
+
+    def run(k, y):
+        return (compute(y, *bounds[k]) if compute_takes_bounds
+                else compute(y))
+
     if len(bounds) <= 1:
         with add_trace(exchange_name):
             y = exchange_uneven(blocks, world, **kw)
         with add_trace(compute_name):
-            return compute(y)
+            return (compute(y, 0, extent) if compute_takes_bounds
+                    else compute(y))
     if algorithm == "hierarchical":
         return _hierarchical_pipelined(
             blocks, world, split_axis=split_axis, concat_axis=concat_axis,
             mesh_axis=mesh_axis, axis_sizes=axis_sizes,
             wire_dtype=wire_dtype, bounds=bounds, chunk_axis=chunk_axis,
-            compute=compute, compute_name=compute_name)
+            compute=compute, compute_name=compute_name,
+            compute_takes_bounds=compute_takes_bounds)
 
     def issue(k):
         with add_trace(f"{exchange_name}[{k}]"):
@@ -919,10 +937,10 @@ def exchange_overlapped(blocks: list, world: World, *, split_axis: int,
     for k in range(1, len(bounds)):
         nxt = issue(k)                 # issued before chunk k-1's compute
         with add_trace(f"{compute_name}[{k - 1}]"):
-            out.append(compute(inflight.wait()))
+            out.append(run(k - 1, inflight.wait()))
         inflight = nxt
     with add_trace(f"{compute_name}[{len(bounds) - 1}]"):
-        out.append(compute(inflight.wait()))
+        out.append(run(len(bounds) - 1, inflight.wait()))
     return _join(out, chunk_axis)
 
 

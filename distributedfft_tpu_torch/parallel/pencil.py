@@ -19,22 +19,28 @@ output is joined (``post``). Both exchanges take a flat transport
 (``algorithm``) and the overlap K (``overlap_chunks``, chunks of each
 exchange's bystander axis), and ``batch``: a leading batch axis of B
 transforms riding every stage and both exchanges (the
-:mod:`.slab` convention). Spectral operators (``midpoint``) are not
-ported.
+:mod:`.slab` convention). :func:`build_pencil_spectral_op` (the
+``midpoint=`` hook) is the spectral operator's chain: the forward chain
+stopped in the transposed x-pencil layout, the ``t_mid`` node, and the
+inverse legs back to z-pencils, four exchanges in all.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable
 
 from ..geometry import pad_to
-from ..stagegraph import StageGraph, exchange_node, local_node
-from .exchange import FLAT_ALGORITHMS
-from .mesh import World
-from .slab import _L, check_batch
+from ..ops.executors import get_executor
+from ..stagegraph import (StageGraph, apply_midpoint, exchange_node,
+                          local_node)
+from .exchange import FLAT_ALGORITHMS, _crop_axis
+from .mesh import World, axis_coords
+from .slab import _L, check_batch, index_grids
 
 __all__ = ["PencilSpec", "chain_geometry", "build_pencil_general",
-           "build_pencil_fft3d", "build_pencil_rfft3d"]
+           "build_pencil_fft3d", "build_pencil_rfft3d",
+           "build_pencil_spectral_op"]
 
 
 @dataclass(frozen=True)
@@ -125,11 +131,24 @@ def build_pencil_general(world: World, shape: tuple[int, int, int], *,
                          wire_dtype: str | None = None,
                          algorithm: str = "alltoall",
                          overlap_chunks: int = 1,
-                         batch: int | None = None
+                         batch: int | None = None,
+                         midpoint: Callable | None = None
                          ) -> tuple[StageGraph, PencilSpec]:
     """The C2C pencil chain for any input permutation and exchange order
     (see :class:`PencilSpec`); the mesh axes default to the world's
-    names."""
+    names. ``midpoint`` (a multiplier generator) builds the spectral
+    operator's chain instead (:func:`build_pencil_spectral_op`), in the
+    canonical forward orientation only."""
+    if midpoint is not None:
+        if (not forward or tuple(perm) != (0, 1, 2)
+                or order != "col_first"):
+            raise ValueError(
+                "the midpoint (spectral-operator) hook runs the canonical "
+                "forward chain: forward=True, perm=(0, 1, 2), col_first")
+        return build_pencil_spectral_op(
+            world, shape, midpoint, row_axis=row_axis, col_axis=col_axis,
+            executor=executor, wire_dtype=wire_dtype, algorithm=algorithm,
+            overlap_chunks=overlap_chunks, batch=batch)
     _flat(algorithm)
     bo = 0 if check_batch(batch) is None else 1
     row_axis = row_axis or world.axis_names[0]
@@ -247,4 +266,79 @@ def build_pencil_rfft3d(world: World, shape: tuple[int, int, int], *,
                        out_dims=tuple(d + bo for d in spec.out_placement),
                        algorithm=algorithm, overlap_chunks=overlap_chunks,
                        batch=batch)
+    return graph.validate(), spec
+
+
+def build_pencil_spectral_op(world: World, shape: tuple[int, int, int],
+                             multiplier: Callable, *,
+                             row_axis: str | None = None,
+                             col_axis: str | None = None,
+                             executor: str = "cuda",
+                             wire_dtype: str | None = None,
+                             algorithm: str = "alltoall",
+                             overlap_chunks: int = 1,
+                             batch: int | None = None
+                             ) -> tuple[StageGraph, PencilSpec]:
+    """The pencil spectral operator's chain, the port of
+    ``build_pencil_spectral_op``: the canonical z-pencil to x-pencil
+    chain stopped in the x-pencil layout (k0 whole, k1 on the rows, k2 on
+    the columns), ``t_mid`` there (crop, forward X FFT, the multiplier
+    over this rank's (row, col) offsets and the overlap chunk's k2
+    slice, inverse X FFT), and the inverse legs back: t2b and t2a out,
+    t2b and t2a back, where the pair of plans in the caller's layout
+    takes six. :func:`.slab.build_slab_spectral_op` has the multiplier's
+    contract. I/O is the z-pencil layout on both sides."""
+    _flat(algorithm)
+    bo = 0 if check_batch(batch) is None else 1
+    rows, cols = _grid(world)
+    row_axis = row_axis or world.axis_names[0]
+    col_axis = col_axis or world.axis_names[-1]
+    spec = PencilSpec(tuple(int(s) for s in shape), rows, cols, row_axis,
+                      col_axis, (0, 1, 2), "col_first")
+    ex = get_executor(executor)
+    n0, n1, n2 = spec.shape
+    n0p, n1pc, n1pr = spec.n0p, spec.n1p_col, spec.n1p_row
+    c1 = n1pr // rows                  # midpoint k1 extent (row shard)
+    c2 = pad_to(n2, cols) // cols      # midpoint k2 extent (col shard)
+
+    def mid_factory(rank: int):
+        coords = axis_coords(world, rank)
+        k1_lo = coords[row_axis] * c1
+        k2_lo = coords[col_axis] * c2
+
+        def mid_chunk(u, lo, hi):
+            u = ex(_crop_axis(u, bo, n0), (bo,), True)
+            u = apply_midpoint(u, multiplier, index_grids(
+                n0, (k1_lo, k1_lo + c1), (k2_lo + lo, k2_lo + hi),
+                u.device))
+            return ex(u, (bo,), False)
+
+        return mid_chunk
+
+    x_, y_, z_ = bo, 1 + bo, 2 + bo
+    nodes = (
+        local_node("t0", "t0_fft_z", ("fft", (z_,), True)),
+        exchange_node("t2a", f"t2a_exchange_{col_axis}", mesh_axis=col_axis,
+                      parts=cols, split=z_, concat=y_, chunk_axis=x_),
+        local_node("t1", "t1_fft_y", ("crop", y_, n1), ("fft", (y_,), True),
+                   fuse=True),
+        exchange_node("t2b", f"t2b_exchange_{row_axis}", mesh_axis=row_axis,
+                      parts=rows, split=y_, concat=x_, chunk_axis=z_),
+        local_node("t_mid", "t_mid", fuse=True, takes_bounds=True,
+                   factory=mid_factory),
+        exchange_node("t2b", f"t2b_exchange_{row_axis}", mesh_axis=row_axis,
+                      parts=rows, split=x_, concat=y_, chunk_axis=z_),
+        local_node("t3", "t3_ifft_y", ("crop", y_, n1),
+                   ("fft", (y_,), False), fuse=True),
+        exchange_node("t2a", f"t2a_exchange_{col_axis}", mesh_axis=col_axis,
+                      parts=cols, split=y_, concat=z_, chunk_axis=x_),
+        local_node("t3", "t3_ifft_z", ("crop", z_, n2),
+                   ("fft", (z_,), False), fuse=True),
+    )
+    graph = StageGraph(
+        world=world, nodes=nodes, executor=executor, wire_dtype=wire_dtype,
+        pre=(("pad", x_, n0p), ("pad", y_, n1pc)),
+        post=(("crop", x_, n0), ("crop", y_, n1)),
+        in_dims=(x_, y_), out_dims=(x_, y_), algorithm=algorithm,
+        overlap_chunks=overlap_chunks, batch=batch)
     return graph.validate(), spec

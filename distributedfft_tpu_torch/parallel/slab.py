@@ -26,17 +26,27 @@ over the combined axis (rank ``d*I + e`` holds slab ``d*I + e``), its exchange
 named ``t2_exchange_dcn+ici``; the hierarchical transport splits it into
 the legs ``t2a_exchange_ici`` and ``t2b_exchange_dcn``.
 :func:`build_slab_stages` is the staged pipeline of the C2C chain.
+
+:func:`build_slab_spectral_op` is the spectral operator's chain (the
+``midpoint=`` hook of :func:`build_slab_general`): the forward chain
+stopped in the transposed Y-slab layout, the ``t_mid`` node, and the
+inverse legs back to X-slabs, two exchanges in all.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable
+
+import torch
 
 from ..geometry import pad_to
+from ..ops.executors import get_executor
 from ..stagegraph import (StagedGraph, StagedStage, StageGraph,
-                          compile_staged, exchange_node, local_node)
-from .exchange import _axis_label
-from .mesh import World
+                          apply_midpoint, compile_staged, exchange_node,
+                          local_node)
+from .exchange import _axis_label, _crop_axis
+from .mesh import World, axis_coords
 
 _L = "xyz"  # axis index -> stage-name letter
 
@@ -93,14 +103,27 @@ def build_slab_general(world: World, shape: tuple[int, int, int], *,
                        in_axis: int, out_axis: int, executor="cuda",
                        forward: bool = True, wire_dtype: str | None = None,
                        algorithm: str = "alltoall", overlap_chunks: int = 1,
-                       batch: int | None = None
+                       batch: int | None = None,
+                       midpoint: Callable | None = None
                        ) -> tuple[StageGraph, SlabSpec]:
     """The slab chain for any ordered pair of distinct axes: the input is
     sharded along ``in_axis``, the other two axes are transformed
     locally, one exchange reshards ``in_axis`` <-> ``out_axis``, and
     ``in_axis`` is transformed last. ``algorithm`` and
     ``overlap_chunks`` pick the exchange's transport and K,
-    ``wire_dtype`` compresses it, ``batch`` prepends a batch axis."""
+    ``wire_dtype`` compresses it, ``batch`` prepends a batch axis.
+    ``midpoint`` (a multiplier generator) builds the spectral operator's
+    chain instead (:func:`build_slab_spectral_op`), in the canonical
+    forward orientation only."""
+    if midpoint is not None:
+        if not forward or (in_axis, out_axis) != (0, 1):
+            raise ValueError(
+                "the midpoint (spectral-operator) hook runs the canonical "
+                "forward chain: forward=True, (in_axis, out_axis)=(0, 1)")
+        return build_slab_spectral_op(
+            world, shape, midpoint, executor=executor,
+            wire_dtype=wire_dtype, algorithm=algorithm,
+            overlap_chunks=overlap_chunks, batch=batch)
     if in_axis == out_axis or not (0 <= in_axis < 3 and 0 <= out_axis < 3):
         raise ValueError(f"need distinct 3D axes, got {in_axis}, {out_axis}")
     bo = 0 if check_batch(batch) is None else 1
@@ -126,6 +149,103 @@ def build_slab_general(world: World, shape: tuple[int, int, int], *,
         pre=(("pad", ax_in, spec.in_padded_extent),),
         post=(("crop", ax_out, spec.shape[out_axis]),),
         in_dims=(ax_in,), out_dims=(ax_out,), algorithm=algorithm,
+        overlap_chunks=overlap_chunks, batch=batch)
+    return graph.validate(), spec
+
+
+def combined_axis_index(world: World, mesh_axis, rank: int) -> int:
+    """``rank``'s index along a chain's mesh-axis spec: its coordinate on
+    a plain axis, or the row-major index over a combined axis's names (a
+    hybrid world's (dcn, ici): d * I + e, the rank itself) -- the order
+    the exchange lays the blocks in, so per-rank wavenumber offsets
+    agree with where each block sits."""
+    coords = axis_coords(world, rank)
+    names = (tuple(mesh_axis) if isinstance(mesh_axis, (tuple, list))
+             else (mesh_axis,))
+    idx = 0
+    for a in names:
+        idx = idx * world.axis_size(a) + coords[a]
+    return idx
+
+
+def index_grids(n0: int, k1: tuple[int, int], k2: tuple[int, int],
+                device) -> tuple:
+    """Broadcastable int32 global index grids of a midpoint block: all
+    of axis 0, ``[lo, hi)`` of axes 1 and 2."""
+    ar = lambda lo, hi: torch.arange(lo, hi, dtype=torch.int32,
+                                     device=device)
+    return (ar(0, n0)[:, None, None], ar(*k1)[None, :, None],
+            ar(*k2)[None, None, :])
+
+
+def build_slab_spectral_op(world: World, shape: tuple[int, int, int],
+                           multiplier: Callable, *, executor="cuda",
+                           wire_dtype: str | None = None,
+                           algorithm: str = "alltoall",
+                           overlap_chunks: int = 1,
+                           batch: int | None = None
+                           ) -> tuple[StageGraph, SlabSpec]:
+    """The slab spectral operator's chain, the port of
+    ``build_slab_spectral_op``: t0 (YZ FFTs), t1 pack, the outbound
+    exchange, then ``t_mid`` in the transposed Y-slab layout (crop, the
+    forward X FFT, the multiplier, the inverse X FFT), t1 pack, the
+    return exchange, ``t3_ifft_y`` and ``t3_ifft_z`` back to X-slabs:
+    two exchanges where a forward plan, a multiply and a backward plan
+    in the caller's layout take four.
+
+    ``multiplier(i0, i1, i2)`` takes broadcastable int32 global index
+    grids (this rank's k1 rows, the overlap chunk's k2 columns) and
+    returns the pointwise factor; rows in the k1 ceil pad are cropped
+    before any inverse transform, so they need only be finite. Every
+    knob of :func:`build_slab_general` composes: K chunks both exchanges
+    (the multiplier generated per chunk), ``batch`` rides as a bystander
+    (the multiplier broadcasts over it), ``wire_dtype`` compresses each
+    leg (the multiplier applies to the decoded payload), and a hybrid
+    world's ``hierarchical`` transport runs each leg in two. I/O is the
+    X-slab layout on both sides; a unit multiplier is the identity."""
+    bo = 0 if check_batch(batch) is None else 1
+    mesh_axis, p, axis_sizes = _slab_axis(world)
+    spec = SlabSpec(tuple(int(s) for s in shape), p, 0, 1)
+    ex = get_executor(executor)
+    n0, n1, _ = spec.shape
+    n0p, n1p = spec.in_padded_extent, spec.out_padded_extent
+    c1 = n1p // p          # the midpoint's local extent of the k1 axis
+    t2_name = f"t2_exchange_{_axis_label(mesh_axis)}"
+
+    def mid_factory(rank: int):
+        # k0 whole, k1 this rank's rows, k2 the overlap chunk's columns
+        k1_lo = combined_axis_index(world, mesh_axis, rank) * c1
+
+        def mid_chunk(u, lo, hi):
+            u = ex(_crop_axis(u, bo, n0), (bo,), True)
+            u = apply_midpoint(u, multiplier, index_grids(
+                n0, (k1_lo, k1_lo + c1), (lo, hi), u.device))
+            return ex(u, (bo,), False)
+
+        return mid_chunk
+
+    nodes = (
+        local_node("t0", "t0_fft_yz", ("fft", (1 + bo, 2 + bo), True)),
+        local_node("t1", "t1_pack", ("pack", 1 + bo, n1p)),
+        exchange_node("t2", t2_name, mesh_axis=mesh_axis, parts=p,
+                      split=1 + bo, concat=bo, chunk_axis=2 + bo,
+                      axis_sizes=axis_sizes),
+        local_node("t_mid", "t_mid", fuse=True, takes_bounds=True,
+                   factory=mid_factory),
+        local_node("t1", "t1_pack", ("pack", bo, n0p)),
+        exchange_node("t2", t2_name, mesh_axis=mesh_axis, parts=p,
+                      split=bo, concat=1 + bo, chunk_axis=2 + bo,
+                      axis_sizes=axis_sizes),
+        local_node("t3", "t3_ifft_y", ("crop", 1 + bo, n1),
+                   ("fft", (1 + bo,), False), fuse=True),
+        # the inverse Z pass transforms the chunk axis: it runs on the
+        # joined block, after the chunked exchange
+        local_node("t3", "t3_ifft_z", ("fft", (2 + bo,), False)),
+    )
+    graph = StageGraph(
+        world=world, nodes=nodes, executor=executor, wire_dtype=wire_dtype,
+        pre=(("pad", bo, n0p),), post=(("crop", bo, n0),),
+        in_dims=(bo,), out_dims=(bo,), algorithm=algorithm,
         overlap_chunks=overlap_chunks, batch=batch)
     return graph.validate(), spec
 

@@ -8,23 +8,27 @@ transform bit for bit, each stage under its trace span, for
 :func:`..utils.timing.time_staged` to time one by one. The stage names
 are the JAX package's, in its order. :func:`..parallel.slab
 .build_slab_stages` is the slab C2C pipeline; this module has the
-single-device, pencil and real ones. Stages pass the blocks each process
-holds; the first takes the plan's input and the last returns its output.
-``build_slab_op_stages`` waits for the spectral operators.
+single-device, pencil and real ones, and :func:`build_slab_op_stages`,
+the slab spectral operator's chain with its ``t_mid`` stage. Stages pass
+the blocks each process holds; the first takes the plan's input and the
+last returns its output.
 """
 
 from __future__ import annotations
 
 from ..geometry import pad_to
 from ..ops.executors import get_executor
-from ..stagegraph import StagedGraph, StagedStage, compile_staged
+from ..stagegraph import (StagedGraph, StagedStage, apply_multiplier,
+                          compile_staged)
 from ..utils.trace import trace_stages
+from .exchange import _crop_axis, _pad_axis
 from .mesh import World
 from .pencil import FLAT_ALGORITHMS, PencilSpec, _grid
-from .slab import SlabSpec, _L
+from .slab import SlabSpec, _L, check_batch, index_grids
 
 __all__ = ["build_single_stages", "build_pencil_stages",
-           "build_slab_rfft_stages", "build_pencil_rfft_stages"]
+           "build_slab_rfft_stages", "build_pencil_rfft_stages",
+           "build_slab_op_stages"]
 
 
 def build_single_stages(shape: tuple[int, int, int], *,
@@ -214,4 +218,60 @@ def build_pencil_rfft_stages(world: World, shape: tuple[int, int, int], *,
         wire_dtype=wire_dtype, overlap_chunks=overlap_chunks,
         executor=executor, pre=pre, post=post,
         in_dims=spec.in_placement, out_dims=spec.out_placement)
+    return compile_staged(graph), spec
+
+
+def build_slab_op_stages(world: World, shape: tuple[int, int, int],
+                         multiplier, *, executor: str = "cuda",
+                         algorithm: str = "alltoall",
+                         overlap_chunks: int = 1,
+                         batch: int | None = None,
+                         wire_dtype: str | None = None
+                         ) -> tuple[list, SlabSpec]:
+    """The slab spectral operator's chain
+    (:func:`.slab.build_slab_spectral_op`) as five stages, so ``t_mid``
+    is timed beside t0, t2 and t3: ``t0_fft_yz`` (forward YZ FFTs and the
+    Y pad), ``t2_exchange_out``, ``t_mid`` (crop, forward X FFT, the
+    multiplier over this rank's k1 rows and all of k2, inverse X FFT, X
+    pad), ``t2_exchange_back`` and ``t3_ifft_yz`` (crop, inverse YZ FFTs).
+    ``multiplier`` follows the fused builder's contract. K > 1 runs each
+    exchange stage as K chunked exchanges. Flat transports on a 1D world
+    only: the hierarchical chain is measured fused."""
+    _check_flat(algorithm)
+    if world.grid is not None:
+        raise ValueError("the staged operator pipeline runs on a 1D world")
+    bo = 0 if check_batch(batch) is None else 1
+    p = world.size
+    spec = SlabSpec(tuple(int(s) for s in shape), p, 0, 1)
+    ex = get_executor(executor)
+    n0, n1, n2 = spec.shape
+    n0p, n1p = spec.in_padded_extent, spec.out_padded_extent
+    c1 = n1p // p
+
+    def mid_local(u, rank):
+        u = ex(_crop_axis(u, bo, n0), (bo,), True)    # final forward X
+        k1_lo = rank * c1                      # a 1D world's slab index
+        u = apply_multiplier(u, multiplier(*index_grids(
+            n0, (k1_lo, k1_lo + c1), (0, n2), u.device)))
+        return _pad_axis(ex(u, (bo,), False), bo, n0p)  # inverse X
+
+    exch = dict(mesh_axis=world.combined_axis, parts=p, chunk_axis=2 + bo)
+    stages = (
+        StagedStage("t0", "t0_fft_yz",
+                    local=(("fft", (1 + bo, 2 + bo), True),
+                           ("pad", 1 + bo, n1p))),
+        StagedStage("t2", "t2_exchange_out",
+                    exchange=dict(exch, split=1 + bo, concat=bo)),
+        StagedStage("t_mid", "t_mid", local=(("call", mid_local),)),
+        StagedStage("t2", "t2_exchange_back",
+                    exchange=dict(exch, split=bo, concat=1 + bo)),
+        StagedStage("t3", "t3_ifft_yz",
+                    local=(("crop", 1 + bo, n1),
+                           ("fft", (1 + bo, 2 + bo), False))),
+    )
+    graph = StagedGraph(
+        world=world, stages=stages, algorithm=algorithm,
+        wire_dtype=wire_dtype, overlap_chunks=overlap_chunks,
+        executor=executor, pre=(("pad", bo, n0p),),
+        post=(("crop", bo, n0),), in_dims=(bo,), out_dims=(bo,))
     return compile_staged(graph), spec

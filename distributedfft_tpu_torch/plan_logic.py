@@ -243,6 +243,8 @@ class LogicPlan:
     # Leading batch axis of B coalesced transforms (None: unbatched);
     # geometry and boxes stay per transform.
     batch: int | None = None
+    # A spectral operator plan's op label (None: a transform).
+    op: str | None = None
 
 
 def classify_layout(world: World, spec) -> tuple[str, tuple]:

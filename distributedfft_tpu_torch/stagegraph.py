@@ -10,7 +10,9 @@ interpreter and of the staged compiler (``StagedStage``,
 :func:`run_graph` executes it on the blocks one process holds. Local ops
 are ``("fft", axes, forward)``, ``("r2c", axis)``, ``("c2r", n, axis)``,
 ``("pack", axis, to)`` (a pad that the ``alltoallv`` transport skips:
-it ships true slices), ``("pad", axis, to)`` and ``("crop", axis, to)``.
+it ships true slices), ``("pad", axis, to)``, ``("crop", axis, to)`` and
+``("call", fn)`` (an opaque per-block callable, the midpoint's escape
+hatch).
 An exchange node names its mesh axis (``"slab"``, a pencil chain's two
 axes, or a hybrid world's combined axis), and the graph names the
 transport (``algorithm``) and the overlap K: at K > 1 each exchange and
@@ -30,13 +32,21 @@ of the JAX package, recorded per site in ``graph.meta["fusion"]``.
 A batched graph (``batch=B``) carries every axis one place up (its
 builders offset them); :func:`scatter` and :func:`gather` cut and join
 the spatial dims they name, the leading batch dim whole.
+
+A spectral operator's chain (:mod:`.operators`) carries a ``t_mid`` node
+after its outbound exchange: a *factory* node whose per-rank compute
+(the forward transform's last FFT, the wavenumber multiplier over the
+block's global indices, the inverse's first FFT) takes the overlap
+chunk's bounds (``takes_bounds``), so the multiplier is generated for
+exactly the chunk's slice. :func:`apply_midpoint` applies it under the
+``t_mid_pointwise`` span.
 """
 
 from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -60,12 +70,19 @@ EXCHANGE_KINDS = ("t2", "t2a", "t2b")
 @dataclass(frozen=True)
 class LocalNode:
     """One local (per-shard, collective-free) stage. ``fuse=True`` marks
-    the compute that follows an exchange node."""
+    the compute that follows an exchange node. ``factory`` (in place of
+    ``ops``) is called with a held block's rank right before the exchange
+    before it issues, and returns that block's compute (the midpoint
+    closures read their rank's wavenumber offsets there);
+    ``takes_bounds`` adds the overlap chunk's (lo, hi) along the
+    exchange's chunk axis to each compute call."""
 
     kind: str
     name: str
     ops: tuple = ()
     fuse: bool = False
+    takes_bounds: bool = False
+    factory: Callable | None = field(default=None, compare=False)
 
     def __post_init__(self):
         if self.kind not in STAGE_KINDS:
@@ -98,8 +115,11 @@ class ExchangeNode:
                 f"got {self.kind!r}")
 
 
-def local_node(kind: str, name: str, *ops, fuse: bool = False) -> LocalNode:
-    return LocalNode(kind=kind, name=name, ops=tuple(ops), fuse=fuse)
+def local_node(kind: str, name: str, *ops, fuse: bool = False,
+               takes_bounds: bool = False,
+               factory: Callable | None = None) -> LocalNode:
+    return LocalNode(kind=kind, name=name, ops=tuple(ops), fuse=fuse,
+                     takes_bounds=takes_bounds, factory=factory)
 
 
 def exchange_node(kind: str, name: str, *, parts: int, split: int,
@@ -226,7 +246,9 @@ def gather(graph, blocks: list[torch.Tensor]) -> torch.Tensor:
 class _Interp:
     """The op interpreter: the graph's executor and real pair, resolved
     once, applied to one block in declared order. ``pack`` pads except
-    under ``alltoallv``, which ships the true slices."""
+    under ``alltoallv``, which ships the true slices; ``("call", fn)``
+    runs ``fn(y, rank)``, or ``fn(y, rank, lo, hi)`` given the chunk's
+    ``bounds``, ``rank`` being the rank whose block ``y`` is."""
 
     def __init__(self, executor: str, algorithm: str = "alltoall"):
         self.ex = get_executor(executor)
@@ -234,7 +256,8 @@ class _Interp:
         self.c2r = get_c2r(executor)
         self.algorithm = algorithm
 
-    def run(self, ops, y: torch.Tensor) -> torch.Tensor:
+    def run(self, ops, y: torch.Tensor, bounds: tuple | None = None,
+            rank: int | None = None) -> torch.Tensor:
         for op in ops:
             tag = op[0]
             if tag == "fft":
@@ -250,9 +273,35 @@ class _Interp:
                 y = self.r2c(y, op[1])
             elif tag == "c2r":
                 y = self.c2r(y, op[1], op[2])
+            elif tag == "call":
+                y = op[1](y, rank, *(bounds or ()))
             else:
                 raise ValueError(f"unknown stage op {tag!r}")
         return y
+
+
+def apply_multiplier(u: torch.Tensor, m) -> torch.Tensor:
+    """Pointwise spectral multiply without dtype surprises: a real
+    multiplier is cast to the payload's component dtype (a float64
+    constant must not promote a complex64 chain to complex128), a complex
+    one to the payload's dtype. ``m`` is rank 3 (spatial), or a scalar,
+    and broadcasts over a leading batch axis."""
+    if not isinstance(m, torch.Tensor):
+        m = torch.as_tensor(m, device=u.device)
+    if m.is_complex():
+        return u * m.to(u.dtype)
+    real = torch.float64 if u.dtype == torch.complex128 else torch.float32
+    return u * m.to(real)
+
+
+def apply_midpoint(u: torch.Tensor, multiplier: Callable,
+                   grids: tuple) -> torch.Tensor:
+    """The ``t_mid`` pointwise stage: the wavenumber-diagonal multiplier
+    generated over the block's (or chunk's) global index ``grids`` and
+    applied, under the ``t_mid_pointwise`` span (a sub-span of ``t_mid``
+    that :func:`.utils.trace.stage_key` maps to no stage key)."""
+    with add_trace("t_mid_pointwise"):
+        return apply_multiplier(u, multiplier(*grids))
 
 
 # ---------------------------------------------------------- fusion pass
@@ -366,7 +415,8 @@ def _run_fused_site(blocks: list, graph: StageGraph, interp: _Interp,
                                              kernel_reason)
         for nd in senders:
             with _node_span(stage, nd):
-                blocks = [interp.run(nd.ops, y) for y in blocks]
+                blocks = [interp.run(nd.ops, y, rank=r)
+                          for r, y in zip(graph.world.ranks, blocks)]
         with stage(senders[-1].kind if senders else n.kind):
             parts = [codec.encode(y, tile_axis=n.split, tiles=n.parts)
                      for y in blocks]
@@ -381,7 +431,8 @@ def _run_fused_site(blocks: list, graph: StageGraph, interp: _Interp,
     rshape = shipped[0][0].shape[:-1]
     rops = nxt.ops
     recv_kernel = (
-        1 <= len(rops) <= 2 and rops[-1][0] == "fft"
+        nxt.factory is None and not nxt.takes_bounds
+        and 1 <= len(rops) <= 2 and rops[-1][0] == "fft"
         and len(rops[-1][1]) == 1
         and (len(rops) == 1
              or (rops[0][0] == "crop" and rshape[rops[0][1]] == rops[0][2])))
@@ -393,14 +444,35 @@ def _run_fused_site(blocks: list, graph: StageGraph, interp: _Interp,
                 forward=rops[-1][2], tile_axis=n.concat, tiles=n.parts,
                 wire_dtype=graph.wire_dtype, site=f"{nxt.name}:receiver")
                 for w in shipped]
-        site["receiver"] = "ops"
-        cuda_fuse.record_fusion_fallback(f"{nxt.name}:receiver", "ops")
-        return [interp.run(nxt.ops, codec.decode(
-            w, payload_dtype, tile_axis=n.concat, tiles=n.parts))
-            for w in shipped]
+        # A factory receiver (the t_mid midpoint) is the plain decode and
+        # the factory's compute: no fused kernel holds a midpoint.
+        site["receiver"] = "factory" if nxt.factory is not None else "ops"
+        if nxt.factory is None:
+            cuda_fuse.record_fusion_fallback(f"{nxt.name}:receiver", "ops")
+        out = []
+        for fn, w in zip(_computes(graph, interp, nxt), shipped):
+            v = codec.decode(w, payload_dtype, tile_axis=n.concat,
+                             tiles=n.parts)
+            out.append(fn(v, 0, v.shape[n.chunk_axis]) if nxt.takes_bounds
+                       else fn(v))
+        return out
 
 
 # ------------------------------------------------------------ executor
+
+def _computes(graph: StageGraph, interp: _Interp, nxt: LocalNode) -> list:
+    """The per-block computes of a fused node, one per held rank: the
+    factory's (called here, once per rank, right before the exchange
+    issues) or the node's ops; each takes ``(v, lo, hi)`` when the node
+    takes bounds, else ``(v)``."""
+    ranks = graph.world.ranks
+    if nxt.factory is not None:
+        return [nxt.factory(r) for r in ranks]
+    if nxt.takes_bounds:
+        return [lambda v, lo, hi, _r=r: interp.run(
+            nxt.ops, v, bounds=(lo, hi), rank=_r) for r in ranks]
+    return [lambda v, _r=r: interp.run(nxt.ops, v, rank=_r) for r in ranks]
+
 
 def _overlap_pair(blocks: list, graph: StageGraph, interp: _Interp,
                   n: ExchangeNode, nxt: LocalNode, stage) -> list:
@@ -408,20 +480,27 @@ def _overlap_pair(blocks: list, graph: StageGraph, interp: _Interp,
     :func:`.parallel.exchange.exchange_overlapped` at the graph's K. At
     K = 1 (or a chunk axis of extent 1) each is timed under its own
     stage kind; at K > 1 they interleave, and the pair is timed as one
-    span under ``"<kind>+<kind>"`` (``t2+t3``)."""
-    compute = lambda bs: [interp.run(nxt.ops, b) for b in bs]
+    span under ``"<kind>+<kind>"`` (``t2+t3``). A node that takes bounds
+    gets each chunk's (lo, hi) along the chunk axis."""
+    fns = _computes(graph, interp, nxt)
+    if nxt.takes_bounds:
+        compute = lambda bs, lo, hi: [f(b, lo, hi) for f, b in zip(fns, bs)]
+    else:
+        compute = lambda bs: [f(b) for f, b in zip(fns, bs)]
     kw = dict(split_axis=n.split, concat_axis=n.concat,
               algorithm=graph.algorithm, mesh_axis=n.mesh_axis,
               axis_sizes=n.axis_sizes, wire_dtype=graph.wire_dtype)
-    if len(overlap_chunk_bounds(blocks[0].shape[n.chunk_axis],
-                                graph.overlap_chunks)) <= 1:
+    extent = blocks[0].shape[n.chunk_axis]
+    if len(overlap_chunk_bounds(extent, graph.overlap_chunks)) <= 1:
         with _node_span(stage, n):
             blocks = exchange_uneven(blocks, graph.world, **kw)
         with _node_span(stage, nxt):
-            return compute(blocks)
+            return (compute(blocks, 0, blocks[0].shape[n.chunk_axis])
+                    if nxt.takes_bounds else compute(blocks))
     with stage(f"{n.kind}+{nxt.kind}"):
         return exchange_overlapped(
             blocks, graph.world, compute=compute,
+            compute_takes_bounds=nxt.takes_bounds,
             overlap_chunks=graph.overlap_chunks, chunk_axis=n.chunk_axis,
             exchange_name=n.name, compute_name=nxt.name, **kw)
 
@@ -470,7 +549,8 @@ def run_graph(graph: StageGraph, blocks: list[torch.Tensor],
             i += 2
         else:
             with _node_span(stage, node):
-                outs = [interp.run(node.ops, b) for b in blocks]
+                outs = [interp.run(node.ops, b, rank=r)
+                        for r, b in zip(graph.world.ranks, blocks)]
                 blocks = _into(blocks, outs) if donate and i == 0 else outs
             i += 1
     return blocks
@@ -569,7 +649,8 @@ def compile_staged(graph: StagedGraph) -> list:
                 wire_dtype=graph.wire_dtype)
         if stage.leg is not None:
             return _leg_body(stage, graph)
-        return lambda blocks: [interp.run(stage.local, b) for b in blocks]
+        return lambda blocks: [interp.run(stage.local, b, rank=r)
+                               for r, b in zip(world.ranks, blocks)]
 
     bodies = [build_stage(s) for s in graph.stages]
     last = len(bodies) - 1

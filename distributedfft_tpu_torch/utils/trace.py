@@ -307,6 +307,12 @@ def plan_info(plan) -> str:
     if plan.batch is not None:
         lines.append(f"batch: {plan.batch} coalesced transforms (one "
                      f"shared exchange per t2 stage)")
+    op = getattr(plan, "op", "")
+    if op:
+        lines.append(
+            f"operator: fused {op} (FFT -> pointwise -> iFFT in one plan; "
+            f"multiplier applied at the transposed t_mid midpoint, "
+            f"skipping the cancelling transpose pair)")
     if plan.r2c_axis != 2:
         lines.append(f"r2c axis: {plan.r2c_axis} (the chain runs on the "
                      f"view with axes {plan.r2c_axis} and 2 swapped)")
