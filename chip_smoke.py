@@ -100,16 +100,36 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    idle share), and the op plans' times and peak memory beside the
    unfused pair (forward plan, multiply, backward plan), each printed
    with the card's name and power limit;
-12. runs complex128 through the cuda executor's dft_matmul route and
+12. drives the two-level path (counts from 0): ``fft_along_axis`` of
+   [1, 5^11], [1, 2^24] and [64, 2^20] complex64 (lengths past one
+   kernel's reach: the strided and row kernels unnormalized, with the
+   twiddle and transpose between them), forward and inverse, each
+   within 5e-4 of torch.fft in complex128; then the distributed 1D path
+   (counts from 0): ``plan_dft_c2c_1d_dist`` at n = 2^28 and 3 * 2^26 on
+   a 4-rank loopback world, both orders, forward against torch.fft in
+   complex128 and backward by round trip, ``ppermute`` equal to
+   ``alltoall`` bit for bit; each path's launches by the route their
+   lengths take (past 8192: direct) and no fallback; then the two-level
+   transform against its plain composition, its time beside torch.fft's,
+   its bound and its split over stage 1, twiddle, stage 2 and
+   transpose, and the 2^28 plans' times and stages;
+13. drives the concurrent path (counts from 0): two 512^3 slab plans on
+   4 loopback ranks, and a slab (hierarchical) and a pencil plan on the
+   2x2 hybrid world, through ``schedule_concurrent``, each output equal
+   to its plan called alone bit for bit, and a WaveSchedule of 4 waves
+   of width 2 (depth 2, each wave the same bits, retired in order);
+   then each schedule's time against the two calls;
+14. runs complex128 through the cuda executor's dft_matmul route and
    through the torch executor (a 4-rank slab at 256^3 against
    torch.fft.fftn, 1e-11), and the matmul executor's three precision
    tiers on a [4096, 512] row batch against torch.fft.fft (each tier's
    error within its band, the three strictly ordered); prints one JSON
    line of the five kernels and, last, the device line.
 
-Each counted path (5, 6, 8, 9, 10, 11) also records the case of every
-kernel call and fails on one that phases 2 and 3 did not hold against
-its plain version.
+Each counted path (5, 6, 8, 9, 10, 11, 12, 13) also records the case of
+every kernel call and fails on one that phases 2 and 3 did not hold
+against its plain version (the two-level stages as their unnormalized
+inverse where they run it).
 
 Any failed check exits nonzero before the last line. Without a CUDA
 device, or without the package beside it, it exits nonzero at once.
@@ -275,13 +295,23 @@ def device_breakdown(torch, fn, reps=10) -> str:
                                                             reverse=True))
 
 
-def library_call(torch, name, fwd):
-    """The torch.fft call that computes what kernel ``name`` does."""
+def library_call(torch, name, fwd, normalize=True):
+    """The torch.fft call that computes what kernel ``name`` does
+    (``normalize=False``: the inverse without its 1/n)."""
     if name == "fft2_last":
         return torch.fft.fft2 if fwd else torch.fft.ifft2
     dim = 1 if name == "fft_axis0" else -1
     f = torch.fft.fft if fwd else torch.fft.ifft
-    return lambda x: f(x, dim=dim)
+    norm = "backward" if normalize else "forward"
+    return lambda x: f(x, dim=dim, norm=norm)
+
+
+def case_key(case):
+    """The key :func:`recording_cases` gives a kernel case: (kernel,
+    forward, shape), and "unnormalized" after an inverse case whose fifth
+    entry is False (a stage of the two-level transform)."""
+    unnormalized = len(case) > 4 and not case[4] and not case[1]
+    return tuple(case[:3]) + (("unnormalized",) if unnormalized else ())
 
 
 def check_kernels(torch, cf, radix, timing, rates):
@@ -290,12 +320,14 @@ def check_kernels(torch, cf, radix, timing, rates):
     hbm, fp32, _ = rates
     dev = torch.device("cuda", torch.cuda.current_device())
     records = {}
-    for i, (name, fwd, shape, where) in enumerate(KERNEL_CASES):
-        kernel = getattr(cf, name)
-        plain = getattr(cf, f"{name}_plain")
-        lib = library_call(torch, name, fwd)
-        label = (f"{'fwd' if fwd else 'inv'} [{','.join(map(str, shape))}]"
-                 f" ({where})")
+    for i, case in enumerate(KERNEL_CASES):
+        name, fwd, shape, where = case[:4]
+        kw = {} if case_key(case) == tuple(case[:3]) else {"normalize": False}
+        kernel = lambda x, f, _k=getattr(cf, name): _k(x, f, **kw)
+        plain = lambda x, f, _p=getattr(cf, f"{name}_plain"): _p(x, f, **kw)
+        lib = library_call(torch, name, fwd, not kw)
+        label = (f"{'fwd' if fwd else 'inv'}{' unnormalized' if kw else ''} "
+                 f"[{','.join(map(str, shape))}] ({where})")
         x = seeded(torch, shape, dev, SEED + i)
         y = kernel(x, fwd)
         torch.cuda.synchronize()
@@ -401,7 +433,10 @@ def recording_cases(cf, cfu):
             seen[(name, a["wire_dtype"], a["forward"], tuple(shape),
                   a["fft_axis"], a["tiles"])] += 1
         else:
-            seen[(name, a["forward"], tuple(a["x"].shape))] += 1
+            key = (name, a["forward"], tuple(a["x"].shape))
+            if not a["forward"] and not a.get("normalize", True):
+                key += ("unnormalized",)
+            seen[key] += 1
 
     sys.setprofile(on_call)
     try:
@@ -414,7 +449,7 @@ def check_covered(seen, path):
     """Fail unless every kernel call of ``path`` (keys of
     :func:`recording_cases`) is a case the kernel phases held against its
     plain version."""
-    held = ({c[:3] for c in KERNEL_CASES}
+    held = ({case_key(c) for c in KERNEL_CASES}
             | {c[:6] for c in FUSED_CASES})
     missing = sorted(set(seen) - held, key=str)
     if missing:
@@ -1963,6 +1998,306 @@ def time_operators(torch, dfft, timing, dev, card, plans, n=512):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------- long 1D paths
+
+# The two-level phase's (batch, n): the reference's largest 1D size (5^11
+# = 3125 x 15625, its row stage on the direct route), 2^24 (4096 x 4096)
+# and a batched 2^20 (1024 x 1024).
+TWO_LEVEL = ((1, 5 ** 11), (1, 1 << 24), (64, 1 << 20))
+# The distributed 1D plan's lengths on SLAB_RANKS loopback ranks: 2^28
+# (A = B = 16384) and 3 * 2^26 (12288 x 16384), both stages direct.
+DIST1D = (1 << 28, 3 << 26)
+
+
+def long_cases(cf, choose_split_1d, ranks=SLAB_RANKS):
+    """The kernel cases the long 1D paths launch: each two-level
+    transform's two stages, unnormalized (False: the inverse launched
+    without its 1/n), and the distributed 1D plan's s1 (the strided
+    kernel over A of each rank's [A, B/P] columns) and s4 (the row kernel
+    over B of its [A/P, B] rows)."""
+    cases = []
+    for batch, n in TWO_LEVEL:
+        m1, m2 = cf.outer_split(n)
+        for fwd in (True, False):
+            cases += [("fft_axis0", fwd, (batch, m1, m2),
+                       f"two-level [{batch},{n}] stage 1", False),
+                      ("fft_last", fwd, (batch * m1, m2),
+                       f"two-level [{batch},{n}] stage 2", False)]
+    for n in DIST1D:
+        a, b = choose_split_1d(n, ranks)
+        for fwd in (True, False):
+            cases += [("fft_axis0", fwd, (1, a, b // ranks),
+                       f"dist 1D n={n} P={ranks} s1"),
+                      ("fft_last", fwd, (a // ranks, b),
+                       f"dist 1D n={n} P={ranks} s4")]
+    return cases
+
+
+def check_routes_by_length(cf, seen, path):
+    """Fail unless every row, strided and plane launch of ``path`` took
+    the route its length takes (``cuda_fft.route``): the long paths'
+    lengths past 8192 take the direct one."""
+    want = Counter()
+    for key, v in seen.items():
+        name, shape = key[0], key[2]
+        if name == "fft2_last":
+            want[(name, cf.route2d(*shape[1:]))] += v
+        elif name in ("fft_axis0", "fft_last"):
+            n = shape[1] if name == "fft_axis0" else shape[-1]
+            want[(name, cf.route(n))] += v
+    got = {k: v for k, v in cf.ROUTES.items() if v}
+    print(f"routes on {path} (wrapper, route): {got}", flush=True)
+    if got != dict(want):
+        fail(f"{path}: routes {got}, the lengths take {dict(want)}")
+
+
+def check_two_level(torch, cf, dev):
+    """Phase 12: the two-level transform (``cuda_fft.fft_along_axis`` of
+    a length past 65536) at each TWO_LEVEL shape, forward and inverse,
+    against torch.fft in complex128."""
+    for batch, n in TWO_LEVEL:
+        x = seeded(torch, (batch, n), dev)
+        ref = x.to(torch.complex128)
+        for fwd in (True, False):
+            y = cf.fft_along_axis(x, 1, fwd)
+            torch.cuda.synchronize()
+            if tuple(y.shape) != (batch, n) or not bool(torch.isfinite(
+                    torch.view_as_real(y)).all()):
+                fail(f"two-level [{batch},{n}]: output not finite or of "
+                     f"shape {tuple(y.shape)}")
+            f = torch.fft.fft if fwd else torch.fft.ifft
+            err, l2, _ = rel_err(torch, y, f(ref, dim=1))
+            del y
+            print(f"two-level [{batch},{n}] {cf.outer_split(n)} "
+                  f"{'fwd' if fwd else 'inv'}: vs torch.fft (complex128) "
+                  f"max rel err={err:.3e} l2 rel err={l2:.3e}", flush=True)
+            if not max(err, l2) <= TOL:
+                fail(f"two-level [{batch},{n}]: error over {TOL}")
+        del x, ref
+        torch.cuda.empty_cache()
+
+
+def time_two_level(torch, cf, timing, dev, card, rates):
+    """The two-level transform against its plain composition
+    (``_fft_last_big_plain``, 5e-4), its time beside the plain
+    composition's, torch.fft's and the least time for one read and one
+    write of the array, and the split over stage 1, twiddle, stage 2 and
+    transpose (CUDA events, median of 10)."""
+    hbm = rates[0]
+    for batch, n in TWO_LEVEL:
+        m1, m2 = cf.outer_split(n)
+        x = seeded(torch, (batch, n), dev, SEED + 7)
+        for fwd in (True, False):
+            err, l2, abs_err = rel_err(torch, cf._fft_last_big(x, n, fwd),
+                                       cf._fft_last_big_plain(x, n, fwd))
+            if not max(err, l2) <= TOL:
+                fail(f"two-level [{batch},{n}]: vs _fft_last_big_plain "
+                     f"max {err:.3e} l2 {l2:.3e} > {TOL}")
+            f = torch.fft.fft if fwd else torch.fft.ifft
+            ms = timing.cuda_time_ms(lambda: cf.fft_along_axis(x, 1, fwd))
+            plain_ms = timing.cuda_time_ms(
+                lambda: cf._fft_last_big_plain(x, n, fwd), iters=3)
+            lib_ms = timing.cuda_time_ms(lambda: f(x, dim=1))
+            a = x.reshape(batch, m1, m2)
+            b = cf.fft_axis0(a, fwd, normalize=False)
+            c = cf.fft_last(b.reshape(batch * m1, m2), fwd, normalize=False)
+            split = {
+                "stage1": lambda: cf.fft_axis0(a, fwd, normalize=False),
+                "twiddle": lambda: cf._two_level_twiddle(b, n, fwd),
+                "stage2": lambda: cf.fft_last(b.reshape(batch * m1, m2), fwd,
+                                              normalize=False),
+                "transpose": lambda: c.reshape(batch, m1, m2).transpose(
+                    1, 2).reshape(batch, n)}
+            parts = {k: timing.cuda_time_ms(fn) for k, fn in split.items()}
+            del b, c
+            bound = 2 * batch * n * 8 / hbm * 1e3
+            print(f"two-level [{batch},{n}] ({m1} x {m2}) "
+                  f"{'fwd' if fwd else 'inv'}: vs plain max rel err="
+                  f"{err:.3e} l2 rel err={l2:.3e} max abs err={abs_err:.3e}; "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (median of "
+                  f"3) library_ms={lib_ms:.4f} "
+                  f"bound_ms={bound:.4f} (bytes); split (ms) "
+                  + " ".join(f"{k}={v:.4f}" for k, v in parts.items())
+                  + f" [{card}]", flush=True)
+        del x
+        torch.cuda.empty_cache()
+
+
+def check_dist1d(torch, dfft, dev, ranks=SLAB_RANKS):
+    """Phase 13: ``plan_dft_c2c_1d_dist`` on a loopback world of
+    ``ranks`` at each DIST1D length, both orders and directions, under
+    ``alltoall`` and ``ppermute``: the forward against torch.fft in
+    complex128 (the transposed order read back to natural), the backward
+    by round trip, and ``ppermute`` equal to ``alltoall`` bit for bit.
+    Returns the 2^28 plans, for the times."""
+    world = dfft.make_world(ranks)
+    keep = {}
+    for n in DIST1D:
+        x = seeded(torch, (n,), dev)
+        ref = torch.fft.fft(x.to(torch.complex128))
+        for order in ("transposed", "natural"):
+            plans = {(alg, d): dfft.plan_dft_c2c_1d_dist(
+                n, world, direction=d, order=order, algorithm=alg,
+                device=dev)
+                for alg in ("alltoall", "ppermute") for d in (-1, 1)}
+            f, b = plans[("alltoall", -1)], plans[("alltoall", 1)]
+            y = f(x)
+            torch.cuda.synchronize()
+            if tuple(y.shape) != (n,) or not bool(torch.isfinite(
+                    torch.view_as_real(y)).all()):
+                fail(f"dist 1D n={n} {order}: output not finite or of "
+                     f"shape {tuple(y.shape)}")
+            nat = (y if order == "natural" else
+                   y.reshape(f.spec.a, f.spec.b).t().reshape(-1))
+            errs = rel_err(torch, nat, ref)[:2]
+            del nat
+            r = b(y)
+            errs += rel_err(torch, r, x)[:2]
+            same = (torch.equal(plans[("ppermute", -1)](x), y)
+                    and torch.equal(plans[("ppermute", 1)](y), r))
+            del y, r
+            print(f"dist 1D n={n} ({f.spec.a} x {f.spec.b}) P={ranks} "
+                  f"{order}: forward vs torch.fft (complex128) max rel err="
+                  f"{errs[0]:.3e} l2 rel err={errs[1]:.3e}; roundtrip max "
+                  f"rel err={errs[2]:.3e} l2 rel err={errs[3]:.3e}; "
+                  f"ppermute vs alltoall: "
+                  f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
+            if not max(errs) <= TOL or not same:
+                fail(f"dist 1D n={n} {order}: errors {errs}, ppermute "
+                     f"bit-identical {same}")
+            if n == DIST1D[0]:
+                keep[order] = plans
+            torch.cuda.empty_cache()
+        del x, ref
+        torch.cuda.empty_cache()
+    return keep
+
+
+def time_dist1d(torch, timing, dev, card, rates, kept):
+    """The 2^28 plans' forward and backward ms per order and transport
+    (median of 10 under alltoall, of 5 under ppermute: a call takes
+    ~0.4 s) and their stages (median of 3 per stage), beside one
+    torch.fft call on the card and one read and write of the vector."""
+    n = DIST1D[0]
+    x = seeded(torch, (n,), dev)
+    lib_ms = timing.cuda_time_ms(lambda: torch.fft.fft(x))
+    print(f"dist 1D n={n}: library_ms={lib_ms:.4f} (one torch.fft.fft on "
+          f"one card) bound_ms={2 * n * 8 / rates[0] * 1e3:.4f} (bytes) "
+          f"[{card}]", flush=True)
+    for order, plans in kept.items():
+        for alg in ("alltoall", "ppermute"):
+            f, b = plans[(alg, -1)], plans[(alg, 1)]
+            y = f(x)
+            reps = 10 if alg == "alltoall" else 5
+            t_f = timing.cuda_time_ms(lambda: f(x), iters=reps, warmup=1)
+            t_b = timing.cuda_time_ms(lambda: b(y), iters=reps, warmup=1)
+            print(f"dist 1D n={n} P={SLAB_RANKS} {order} {alg}: "
+                  f"forward_ms={t_f:.3f} backward_ms={t_b:.3f} (median of "
+                  f"{reps}) [{card}]", flush=True)
+            for what, plan, inp in (("forward", f, x), ("backward", b, y)):
+                runs = []
+                for _ in range(3):
+                    timer = timing.StageTimer(dev)
+                    plan(inp, timer=timer)
+                    runs.append(timer.times())
+                med = {k: sorted(r[k] for r in runs)[len(runs) // 2]
+                       for k in runs[0]}
+                print(f"dist 1D n={n} {order} {alg} {what} stages (CUDA "
+                      f"events, median of 3, ms): " + " ".join(
+                          f"{k}={v * 1e3:.3f}" for k, v in med.items()),
+                      flush=True)
+            del y
+            torch.cuda.empty_cache()
+    del x
+    torch.cuda.empty_cache()
+
+
+def check_concurrent(torch, dfft, dev, n=512):
+    """Phase 14: two slab plans on a loopback world of SLAB_RANKS, and a
+    slab (hierarchical) and a pencil plan on the 2x2 hybrid world,
+    through ``schedule_concurrent``, each output equal to its plan called
+    alone bit for bit; then a WaveSchedule of 4 waves of width 2 (depth
+    2), each wave's outputs the same bits. Returns the pairs and inputs."""
+    shape = (n, n, n)
+    world = dfft.make_world(SLAB_RANKS)
+    hybrid = dfft.make_world(PENCIL_GRID, dfft.HYBRID_AXES)
+    pairs = {
+        f"slab+slab P={SLAB_RANKS}": [
+            dfft.plan_dft_c2c_3d(shape, world, device=dev) for _ in range(2)],
+        "slab+pencil 2x2 hybrid": [
+            dfft.plan_dft_c2c_3d(shape, hybrid, algorithm="hierarchical",
+                                 device=dev),
+            dfft.plan_dft_c2c_3d(shape, hybrid, decomposition="pencil",
+                                 device=dev)]}
+    xs = [seeded(torch, shape, dev, SEED + 1), seeded(torch, shape, dev,
+                                                       SEED + 2)]
+    for label, plans in pairs.items():
+        ys = dfft.schedule_concurrent(plans)(*xs)
+        same = [torch.equal(y, p(x)) for p, x, y in zip(plans, xs, ys)]
+        del ys
+        print(f"concurrent {label} {n}^3: outputs vs the plans called one "
+              f"after another: {same}", flush=True)
+        if not all(same):
+            fail(f"concurrent {label}: not bit-identical ({same})")
+    plans = pairs[f"slab+slab P={SLAB_RANKS}"]
+    want = [p(x) for p, x in zip(plans, xs)]
+    ws = dfft.WaveSchedule(max_width=2, depth=2)
+    for _ in range(4):
+        outs = ws.dispatch(plans, xs)
+        if ws.inflight > 2:
+            fail(f"wave schedule: {ws.inflight} waves in flight at depth 2")
+        if not all(torch.equal(o, w) for o, w in zip(outs, want)):
+            fail("wave schedule: a wave's outputs differ from the plans'")
+        del outs
+    ws.drain()
+    print("wave schedule (4 waves of width 2, depth 2) records: "
+          + "; ".join(f"index={r['index']} width={r['width']} interleaved="
+                      f"{r['interleaved']} duration_s={r['duration_s']:.6f}"
+                      for r in ws.records), flush=True)
+    if [r["index"] for r in ws.records] != [0, 1, 2, 3]:
+        fail(f"wave schedule retired {[r['index'] for r in ws.records]}")
+    del want
+    torch.cuda.empty_cache()
+    return pairs, xs
+
+
+def time_concurrent(torch, dfft, timing, card, pairs, xs, n=512):
+    """Each pair's schedule against the two calls one after another
+    (CUDA events, median of 10), and 4 waves through a WaveSchedule
+    against 4 pairs of calls (host clock, each from an idle card)."""
+    for label, plans in pairs.items():
+        cp = dfft.schedule_concurrent(plans)
+        t_cc = timing.cuda_time_ms(lambda: cp(*xs), iters=10)
+        t_seq = timing.cuda_time_ms(lambda: seq_pair(plans, xs), iters=10)
+        print(f"concurrent {label} {n}^3: schedule_ms={t_cc:.3f} "
+              f"sequential_ms={t_seq:.3f} (ratio {t_cc / t_seq:.3f}; one "
+              f"card, loopback world: the exchanges are copies on the "
+              f"compute stream, so no gain is expected) [{card}]",
+              flush=True)
+    plans = pairs[f"slab+slab P={SLAB_RANKS}"]
+    for label, run in (
+            ("wave schedule", lambda: _waves(dfft, plans, xs)),
+            ("sequential", lambda: [seq_pair(plans, xs) for _ in range(4)])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        print(f"concurrent 4 waves of slab+slab {n}^3 {label}: "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms host clock "
+              f"[{card}]", flush=True)
+
+
+def _waves(dfft, plans, xs, waves=4):
+    ws = dfft.WaveSchedule(max_width=2, depth=2)
+    for _ in range(waves):
+        ws.dispatch(plans, xs)
+    ws.drain()
+
+
+def seq_pair(plans, xs):
+    return [p(x) for p, x in zip(plans, xs)]
+
+
 def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "distributedfft_tpu_torch")):
@@ -2001,6 +2336,9 @@ def main() -> None:
     KERNEL_CASES.extend(overlap_cases(512, (2, auto_k)))
     KERNEL_CASES.extend(batch_cases(512))
     KERNEL_CASES.extend(op_cases(512))
+    from distributedfft_tpu_torch.parallel.fft1d import choose_split_1d
+
+    KERNEL_CASES.extend(long_cases(cf, choose_split_1d))
     records = check_kernels(torch, cf, radix, timing, rates)
     records.update(check_fused_kernels(torch, cf, cfu, wire_codec, timing,
                                        rates))
@@ -2223,6 +2561,56 @@ def main() -> None:
     check_covered(seen, "the staged and traced operator runs")
     time_operators(torch, dfft, timing, dev, card, ops)
     del ops
+    torch.cuda.empty_cache()
+
+    # ---- the long 1D paths: two-level axes, then the distributed plan ----
+    for label, drive in (
+            ("the two-level path", lambda: check_two_level(torch, cf, dev)),
+            ("the distributed 1D path",
+             lambda: check_dist1d(torch, dfft, dev))):
+        cf.reset_launches()
+        cfu.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with recording_cases(cf, cfu) as seen:
+            kept = drive()
+        path = {**cf.launches(), **cfu.launches()}
+        print(f"launches on {label}: {path}", flush=True)
+        check_routes_by_length(cf, seen, label)
+        check_covered(seen, label)
+        print(f"peak device memory of {label}: "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        for k in ("fft_axis0", "fft_last"):
+            if path[k] <= 0:
+                fail(f"kernel {k} was not launched on {label}")
+        for k, v in path.items():
+            records[k]["launches"] += v
+        if dict(cf.FALLBACKS) != fallbacks:
+            fail(f"{label} took a fallback: {dict(cf.FALLBACKS)}")
+    time_two_level(torch, cf, timing, dev, card, rates)
+    time_dist1d(torch, timing, dev, card, rates, kept)
+    del kept
+    torch.cuda.empty_cache()
+
+    # ---- the concurrent scheduler: counts from 0 ----
+    cf.reset_launches()
+    cfu.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with recording_cases(cf, cfu) as seen:
+        pairs, xs = check_concurrent(torch, dfft, dev)
+    path = {**cf.launches(), **cfu.launches()}
+    print(f"launches on the concurrent path: {path}", flush=True)
+    check_routes(cf, "the concurrent path", {}, dict(cf.ROUTES))
+    check_covered(seen, "the concurrent path")
+    print(f"peak device memory of the concurrent path: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for k in ("fft2_last", "fft_axis0", "fft_last"):
+        if path[k] <= 0:
+            fail(f"kernel {k} was not launched on the concurrent path")
+    for k, v in path.items():
+        records[k]["launches"] += v
+    time_concurrent(torch, dfft, timing, card, pairs, xs)
+    del pairs, xs
     torch.cuda.empty_cache()
 
     # ---- complex128 and the matmul tiers ----

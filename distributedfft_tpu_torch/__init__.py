@@ -33,6 +33,16 @@ as one plan, FFT -> multiply at the transposed midpoint (``t_mid``) ->
 inverse FFT, half the exchanges of a forward plan, a multiply and a
 backward plan in the caller's layout.
 
+Long 1D transforms: an axis past one kernel's reach (65536) whose length
+splits into two kernel lengths runs two kernel passes with a twiddle
+between them (any local plan, e.g. ``plan_dft_c2c_1d(1 << 24)``), and
+:func:`plan_dft_c2c_1d_dist` cuts one sequence over a world's ranks
+(the four-step identity, its reorders as exchanges; transposed or
+natural output order). Several plans over one world run as one
+interleaved program (:func:`schedule_concurrent`: one transform's
+exchange issued while another's FFTs run), rolled wave by wave with at
+most ``depth`` waves in flight by :class:`WaveSchedule`.
+
 Quick start::
 
     import torch
@@ -56,6 +66,14 @@ Quick start::
     brick = dfft.plan_brick_dft_c2c_3d((512, 512, 512), 4, ins, outs)
     y = brick(dfft.scatter_bricks(x, ins))                  # [4, *pad] stacks
     u = dfft.solve_poisson((512, 512, 512), 4)(x)           # X-slabs in/out
+    v = torch.randn(1 << 28, dtype=torch.complex64, device="cuda")
+    s = dfft.plan_dft_c2c_1d_dist(1 << 28, 4, order="natural")(v)
+    long = dfft.plan_dft_c2c_1d(5 ** 11)(v[:5 ** 11][None])  # two levels
+    a, b = plan, dfft.plan_dft_c2c_3d((512, 512, 512), dfft.make_world(4))
+    ya, yb = dfft.schedule_concurrent([a, b])(x, x)         # interleaved
+    waves = dfft.WaveSchedule(max_width=2)
+    outs = waves.dispatch([a, b], [x, x])                  # in flight
+    waves.drain()                                          # retired
 
 Entry points run on the card; ``device="cpu"`` runs the kernels' plain
 PyTorch versions instead. This package imports neither JAX nor
@@ -85,8 +103,12 @@ from .operators import (fft_convolve, gaussian_filter,  # noqa: F401
 from .ops.executors import Scale  # noqa: F401
 from .parallel.bricks import gather_bricks, scatter_bricks  # noqa: F401
 from .parallel.exchange import ALGORITHMS  # noqa: F401
+from .parallel.fft1d import (DistPlan1D, build_dist_fft1d,  # noqa: F401
+                             choose_split_1d, plan_dft_c2c_1d_dist)
 from .parallel.mesh import (HYBRID_AXES, Spec, World,  # noqa: F401
                             make_world, process_group_world)
 from .plan_logic import (PlanOptions, choose_decomposition,  # noqa: F401
                          default_options)
+from .stagegraph import (ConcurrentPlan, WaveSchedule,  # noqa: F401
+                         graph_of, schedule_concurrent, schedule_waves)
 from .utils.trace import plan_info  # noqa: F401

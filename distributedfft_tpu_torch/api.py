@@ -1048,12 +1048,7 @@ def execute(plan: Plan3D, x: torch.Tensor, *, scale: Scale = Scale.NONE,
     """Run a plan. ``timer`` (:class:`.utils.timing.StageTimer`) records
     each stage under its kind (t0..t3; a pencil plan's exchanges under
     t2a and t2b). With ``donate`` the plan may overwrite ``x``."""
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"execute takes a torch.Tensor, got {type(x).__name__}")
-    if x.dtype != plan.in_dtype or x.device != plan.device:
-        raise ValueError(
-            f"plan takes {plan.in_dtype} on {plan.device}, got {x.dtype} on "
-            f"{x.device}")
+    _check_input(plan, x)
     with add_trace(f"execute_{_kind_label(plan)}_{plan.decomposition}"):
         if plan.runner is not None:
             y = plan.runner(x, timer)
@@ -1067,6 +1062,15 @@ def execute(plan: Plan3D, x: torch.Tensor, *, scale: Scale = Scale.NONE,
         else:
             y = _execute_chain(plan, x, timer)
         return apply_scale(y, scale, plan.world_size)
+
+
+def _check_input(plan: Plan3D, x) -> None:
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"execute takes a torch.Tensor, got {type(x).__name__}")
+    if x.dtype != plan.in_dtype or x.device != plan.device:
+        raise ValueError(
+            f"plan takes {plan.in_dtype} on {plan.device}, got {x.dtype} on "
+            f"{x.device}")
 
 
 def _kind_label(plan: Plan3D) -> str:
@@ -1098,11 +1102,12 @@ def _execute_single(plan: Plan3D, x: torch.Tensor) -> torch.Tensor:
     return get_c2r(plan.executor)(ex(x, ax[:2], False), plan.shape[2], ax[2])
 
 
-def _execute_chain(plan: Plan3D, x: torch.Tensor, timer) -> torch.Tensor:
-    """A slab or pencil chain: the input cut into the held blocks
-    (:func:`.stagegraph.scatter`: on a loopback world the global array,
-    on a process group this rank's box padded to its block), the graph
-    run, the output joined and cropped (:func:`.stagegraph.gather`)."""
+def chain_blocks(plan: Plan3D, x: torch.Tensor) -> list[torch.Tensor]:
+    """A chain plan's input as the held blocks, checked as
+    :func:`execute` checks it (:func:`.stagegraph.scatter`: on a loopback
+    world the global array, on a process group this rank's box padded to
+    its block)."""
+    _check_input(plan, x)
     world = plan.world
     if world.loopback:
         _check_shape(x, plan.in_shape, "plan input shape")
@@ -1110,5 +1115,12 @@ def _execute_chain(plan: Plan3D, x: torch.Tensor, timer) -> torch.Tensor:
         bpfx = () if plan.batch is None else (plan.batch,)
         _check_shape(x, bpfx + plan.in_boxes[world.rank].shape,
                      f"rank {world.rank} input box")
-    return gather(plan.graph, run_graph(plan.graph, scatter(plan.graph, x),
+    return scatter(plan.graph, x)
+
+
+def _execute_chain(plan: Plan3D, x: torch.Tensor, timer) -> torch.Tensor:
+    """A slab or pencil chain: the input cut into the held blocks
+    (:func:`chain_blocks`), the graph run, the output joined and cropped
+    (:func:`.stagegraph.gather`)."""
+    return gather(plan.graph, run_graph(plan.graph, chain_blocks(plan, x),
                                         timer, donate=plan.donate))

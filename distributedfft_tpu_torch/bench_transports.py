@@ -1,4 +1,5 @@
-"""Time the exchange transports of the slab C2C plan across processes.
+"""Time the exchange transports of the slab C2C plan, or two plans as
+one concurrent schedule, across processes.
 
 One process per card (NCCL; ``--cpu`` runs gloo on the CPU at a small
 size to rehearse), meeting at a ``file://`` store under ``--out``. For
@@ -10,9 +11,20 @@ the forward plan (CUDA events, median of 10, the largest over the
 ranks) and its staged pipeline (best of 5 per stage, the largest over
 the ranks: t0, t2 -- at K = 1 the hierarchical t2a and t2b legs -- and
 t3), and prints one JSON line per case after a line with the card's
-name and power limit. Run from the root of a checkout::
+name and power limit.
+
+With ``--concurrent`` it takes two pairs of n^3 C2C plans instead: two
+slab plans on the 1D world of all ranks, and a slab (``hierarchical``)
+and a pencil plan on the (2, P/2) hybrid world. For each pair it checks
+that :func:`.stagegraph.schedule_concurrent`'s outputs equal the plans
+called one after another, bit for bit on every rank, times the schedule
+against the two calls (as above), then a
+:class:`.stagegraph.WaveSchedule` of 4 waves of the pair (``depth`` 2),
+and prints one JSON line per pair. Run from the root of a checkout::
 
     python -m distributedfft_tpu_torch.bench_transports --ranks 4 --n 512
+    python -m distributedfft_tpu_torch.bench_transports --ranks 4 --n 512 \
+        --concurrent
 """
 
 from __future__ import annotations
@@ -23,6 +35,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 
 import torch
 import torch.distributed as dist
@@ -32,7 +45,12 @@ from .api import plan_dft_c2c_3d
 from .parallel.exchange import ALGORITHMS
 from .parallel.mesh import HYBRID_AXES, process_group_world
 from .parallel.slab import build_slab_stages
+from .stagegraph import WaveSchedule, schedule_concurrent
 from .utils.timing import cuda_time_ms, time_staged
+
+#: Each mode's result file and the key that says its check held.
+RESULTS = {False: ("bench_transports.json", "bit_identical_to_alltoall_k1"),
+           True: ("bench_concurrent.json", "bit_identical_to_sequential")}
 
 
 def _max(v: float, device) -> float:
@@ -41,8 +59,92 @@ def _max(v: float, device) -> float:
     return float(t)
 
 
-def _rank(rank: int, size: int, n: int, cpu: bool, init: str,
-          out: str) -> None:
+def _worlds(size: int):
+    return process_group_world(), process_group_world(
+        grid=(2, size // 2), axis_names=HYBRID_AXES)
+
+
+def _ms(fn, cpu: bool, device) -> float:
+    return float("nan") if cpu else _max(cuda_time_ms(fn, iters=10), device)
+
+
+def _transport_rows(rank: int, size: int, n: int, cpu: bool,
+                    device) -> list:
+    flat, hybrid = _worlds(size)
+    shape = (n, n, n)
+    g = torch.Generator(device=device)
+    g.manual_seed(4242 + rank)
+    base = plan_dft_c2c_3d(shape, flat, device=device)
+    x = torch.randn(base.in_boxes[rank].shape, generator=g,
+                    device=device, dtype=torch.complex64)
+    y0 = base(x)
+    rows = []
+    for alg in ALGORITHMS:
+        world = hybrid if alg == "hierarchical" else flat
+        for k in (1, 2, "auto"):
+            plan = plan_dft_c2c_3d(shape, world, device=device,
+                                   algorithm=alg, overlap_chunks=k)
+            same = torch.equal(plan(x), y0)
+            ok = _max(0.0 if same else 1.0, device) == 0.0
+            ms = _ms(lambda: plan(x), cpu, device)
+            stages, _ = build_slab_stages(
+                world, shape, algorithm=alg,
+                overlap_chunks=plan.overlap_chunks)
+            times, _ = time_staged(stages, x, iters=5)
+            rows.append(dict(
+                algorithm=alg, K=plan.overlap_chunks,
+                world=list(world.grid) if world.grid else [size],
+                bit_identical_to_alltoall_k1=ok, forward_ms=ms,
+                stages_ms={s: _max(t, device) * 1e3
+                           for s, t in times.times.items()}))
+    return rows
+
+
+def _concurrent_rows(rank: int, size: int, n: int, cpu: bool,
+                     device) -> list:
+    flat, hybrid = _worlds(size)
+    shape = (n, n, n)
+    pairs = {
+        "slab+slab": [plan_dft_c2c_3d(shape, flat, device=device)
+                      for _ in range(2)],
+        "slab+pencil": [plan_dft_c2c_3d(shape, hybrid, device=device,
+                                        algorithm="hierarchical"),
+                        plan_dft_c2c_3d(shape, hybrid, device=device,
+                                        decomposition="pencil")],
+    }
+    rows = []
+    for label, plans in pairs.items():
+        g = torch.Generator(device=device)
+        g.manual_seed(4242 + rank)
+        xs = [torch.randn(p.in_boxes[rank].shape, generator=g,
+                          device=device, dtype=torch.complex64)
+              for p in plans]
+        cp = schedule_concurrent(plans)
+        seq = lambda: tuple(p(x) for p, x in zip(plans, xs))
+        same = all(torch.equal(a, b) for a, b in zip(cp(*xs), seq()))
+        ok = _max(0.0 if same else 1.0, device) == 0.0
+        ws = WaveSchedule(max_width=2, depth=2)
+        start = time.perf_counter()
+        for _ in range(4):
+            ws.dispatch(plans, xs)
+        ws.drain()
+        waves_s = time.perf_counter() - start
+        rows.append(dict(
+            pair=label, n=n, ranks=size,
+            decompositions=[p.decomposition for p in plans],
+            algorithms=[p.algorithm for p in plans],
+            bit_identical_to_sequential=ok,
+            concurrent_ms=_ms(lambda: cp(*xs), cpu, device),
+            sequential_ms=_ms(seq, cpu, device),
+            waves_host_s=_max(waves_s, device),
+            wave_records=[{k: r[k] for k in ("index", "width",
+                                             "interleaved", "duration_s")}
+                          for r in ws.records]))
+    return rows
+
+
+def _rank(rank: int, size: int, n: int, cpu: bool, concurrent: bool,
+          init: str, out: str) -> None:
     device = torch.device("cpu")
     if not cpu:
         device = torch.device("cuda", rank)
@@ -50,41 +152,10 @@ def _rank(rank: int, size: int, n: int, cpu: bool, init: str,
     dist.init_process_group("gloo" if cpu else "nccl", init_method=init,
                             rank=rank, world_size=size)
     try:
-        flat = process_group_world()
-        hybrid = process_group_world(grid=(2, size // 2),
-                                     axis_names=HYBRID_AXES)
-        shape = (n, n, n)
-        g = torch.Generator(device=device)
-        g.manual_seed(4242 + rank)
-        base = plan_dft_c2c_3d(shape, flat, device=device)
-        x = torch.randn(base.in_boxes[rank].shape, generator=g,
-                        device=device, dtype=torch.complex64)
-        y0 = base(x)
-        rows = []
-        for alg in ALGORITHMS:
-            world = hybrid if alg == "hierarchical" else flat
-            for k in (1, 2, "auto"):
-                plan = plan_dft_c2c_3d(shape, world, device=device,
-                                       algorithm=alg, overlap_chunks=k)
-                same = torch.equal(plan(x), y0)
-                ok = _max(0.0 if same else 1.0, device) == 0.0
-                if cpu:
-                    ms = float("nan")
-                else:
-                    ms = _max(cuda_time_ms(lambda: plan(x), iters=10),
-                              device)
-                stages, _ = build_slab_stages(
-                    world, shape, algorithm=alg,
-                    overlap_chunks=plan.overlap_chunks)
-                times, _ = time_staged(stages, x, iters=5)
-                rows.append(dict(
-                    algorithm=alg, K=plan.overlap_chunks,
-                    world=list(world.grid) if world.grid else [size],
-                    bit_identical_to_alltoall_k1=ok, forward_ms=ms,
-                    stages_ms={s: _max(t, device) * 1e3
-                               for s, t in times.times.items()}))
+        rows = (_concurrent_rows if concurrent else _transport_rows)(
+            rank, size, n, cpu, device)
         if rank == 0:
-            with open(os.path.join(out, "bench_transports.json"), "w") as f:
+            with open(os.path.join(out, RESULTS[concurrent][0]), "w") as f:
                 json.dump(rows, f)
     finally:
         dist.destroy_process_group()
@@ -96,6 +167,8 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=512)
     ap.add_argument("--cpu", action="store_true",
                     help="gloo on the CPU (a rehearsal: no times)")
+    ap.add_argument("--concurrent", action="store_true",
+                    help="time two plans as one concurrent schedule")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args(argv)
     if not args.cpu:
@@ -113,15 +186,15 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=args.out) as tmp:
         mp.start_processes(
-            _rank, args=(args.ranks, args.n, args.cpu,
+            _rank, args=(args.ranks, args.n, args.cpu, args.concurrent,
                          f"file://{os.path.join(os.path.abspath(tmp), 's')}",
                          args.out),
             nprocs=args.ranks, join=True, start_method="spawn")
-    rows = json.load(open(os.path.join(args.out, "bench_transports.json")))
-    bad = [r for r in rows if not r["bit_identical_to_alltoall_k1"]]
+    name, ok = RESULTS[args.concurrent]
+    rows = json.load(open(os.path.join(args.out, name)))
     for r in rows:
         print(json.dumps(r), flush=True)
-    return 1 if bad else 0
+    return 0 if all(r[ok] for r in rows) else 1
 
 
 if __name__ == "__main__":

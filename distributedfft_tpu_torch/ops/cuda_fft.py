@@ -26,7 +26,12 @@ math as ``torch.einsum`` with the same LUTs); on a CUDA tensor it
 launches its kernel or raises. Each counts its launches in
 ``<wrapper>.launches``, and by route in :data:`ROUTES`. Forward
 transforms are unnormalized, inverse ones scaled by 1/n (numpy
-convention).
+convention); ``normalize=False`` leaves the inverse unscaled.
+
+An axis longer than one kernel's reach whose length splits into two
+kernel lengths (:func:`outer_split`) runs the two-level transform of the
+JAX package's ``_fft_last_big``: the strided kernel, a twiddle, the row
+kernel and a transpose (:func:`_fft_last_big`).
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ _SMEM_BUDGET = 96 * 1024
 #: Routes away from a kernel, by (axis, reason): ``plane2d`` counts planes
 #: the 2D kernel does not take (they run per axis); ``dtype``, ``empty``
 #: and ``length`` count transforms :func:`fft_along_axis` sends to
-#: :mod:`.dft_matmul` (or, for ``length``, refuses).
+#: :mod:`.dft_matmul` (a two-level length is no fallback).
 FALLBACKS: Counter = Counter()
 
 #: Kernel launches by (wrapper, route), route ``radix`` or ``direct``.
@@ -156,17 +161,19 @@ def _rows_plain(x2: torch.Tensor, n: int, forward: bool,
     return four_step_plain(x2, n, forward)
 
 
-def fft_last_plain(x: torch.Tensor, forward: bool = True) -> torch.Tensor:
+def fft_last_plain(x: torch.Tensor, forward: bool = True,
+                   normalize: bool = True) -> torch.Tensor:
     n = x.shape[-1]
     y = _rows_plain(x, n, forward, route(n))
-    return y if forward else y * (1.0 / n)
+    return y if forward or not normalize else y * (1.0 / n)
 
 
-def fft_axis0_plain(x: torch.Tensor, forward: bool = True) -> torch.Tensor:
+def fft_axis0_plain(x: torch.Tensor, forward: bool = True,
+                    normalize: bool = True) -> torch.Tensor:
     lead, n, cols = x.shape
     y = _rows_plain(x.transpose(1, 2).reshape(-1, n), n, forward, route(n))
     y = y.reshape(lead, cols, n).transpose(1, 2).contiguous()
-    return y if forward else y * (1.0 / n)
+    return y if forward or not normalize else y * (1.0 / n)
 
 
 def fft2_last_plain(x: torch.Tensor, forward: bool = True) -> torch.Tensor:
@@ -233,14 +240,17 @@ def _radices(n: int):
     return len(plan), (ctypes.c_int * len(plan))(*plan)
 
 
-def fft_last(x: torch.Tensor, forward: bool = True) -> torch.Tensor:
-    """DFT over the rows of ``x`` [batch, n] (the 1D kernel)."""
+def fft_last(x: torch.Tensor, forward: bool = True,
+             normalize: bool = True) -> torch.Tensor:
+    """DFT over the rows of ``x`` [batch, n] (the 1D kernel).
+    ``normalize=False`` skips the inverse's 1/n (a stage of a composed
+    transform)."""
     _check(x, 2, "fft_last", x.shape[1])
     if x.device.type == "cpu":
-        return fft_last_plain(x, forward)
+        return fft_last_plain(x, forward, normalize)
     batch, n = x.shape
     y = torch.empty_like(x)
-    scale = 1.0 if forward else 1.0 / n
+    scale = 1.0 if forward or not normalize else 1.0 / n
     how = route(n)
     if how == "radix":
         tw = radix.device_twiddles(n, forward, x.device)
@@ -258,16 +268,18 @@ def fft_last(x: torch.Tensor, forward: bool = True) -> torch.Tensor:
     return y
 
 
-def fft_axis0(x: torch.Tensor, forward: bool = True) -> torch.Tensor:
+def fft_axis0(x: torch.Tensor, forward: bool = True,
+              normalize: bool = True) -> torch.Tensor:
     """DFT over axis 1 of ``x`` [lead, n, cols]: the leading-axis
     transform of each of ``lead`` [n, cols] blocks (the strided kernel;
-    a plain axis-0 transform passes lead = 1)."""
+    a plain axis-0 transform passes lead = 1). ``normalize`` as in
+    :func:`fft_last`."""
     _check(x, 3, "fft_axis0", x.shape[1])
     if x.device.type == "cpu":
-        return fft_axis0_plain(x, forward)
+        return fft_axis0_plain(x, forward, normalize)
     lead, n, cols = x.shape
     y = torch.empty_like(x)
-    scale = 1.0 if forward else 1.0 / n
+    scale = 1.0 if forward or not normalize else 1.0 / n
     how = route(n)
     if how == "radix":
         tw = radix.device_twiddles(n, forward, x.device)
@@ -360,6 +372,70 @@ def outer_split(n: int) -> tuple[int, int] | None:
     return None
 
 
+def _two_level_angle(m1: int, m2: int, n: int, forward: bool,
+                     device) -> torch.Tensor:
+    """The two-level twiddle's angle over (k1, j2), [m1, m2] float32. The
+    phase k1*j2 < m1*m2 = n < 2^31 is the JAX package's ``(i*j) % n``
+    with the mod an identity, and float32(k1*j2) is the float32 product
+    of the two index vectors (each exact below 2^24, the product rounded
+    once), so ``(sign*pi/n) * float32(phase)`` is formed bit for bit as
+    there from two broadcast vectors, with no integer tensor of the full
+    [m1, m2] size."""
+    i = torch.arange(m1, device=device, dtype=torch.float32)[:, None]
+    j = torch.arange(m2, device=device, dtype=torch.float32)[None, :]
+    sign = -2.0 if forward else 2.0
+    return (sign * math.pi / n) * (i * j)
+
+
+@functools.lru_cache(maxsize=4)
+def _two_level_table(m1: int, m2: int, n: int, forward: bool,
+                     device: str) -> torch.Tensor:
+    """The [m1, m2] complex64 twiddle w_n^(k1*j2) from
+    :func:`_two_level_angle`, made once per (shape, direction, device):
+    as large as one batch row of the transform, so the last four are
+    kept."""
+    ang = _two_level_angle(m1, m2, n, forward, device)
+    return torch.complex(torch.cos(ang), torch.sin(ang))
+
+
+def _two_level_twiddle(b: torch.Tensor, n: int,
+                       forward: bool) -> torch.Tensor:
+    """``b`` [batch, m1, m2] (k1, j2) times the two-level twiddle
+    (:func:`_two_level_table`)."""
+    _, m1, m2 = b.shape
+    return b * _two_level_table(m1, m2, n, forward, str(b.device))
+
+
+def _two_level(x2: torch.Tensor, n: int, forward: bool, axis0,
+               last) -> torch.Tensor:
+    """The two-level four-step over [batch, n] (``_fft_last_big``), its
+    two DFT stages ``axis0`` and ``last`` unnormalized: with n = m1*m2
+    (:func:`outer_split`), j = j1*m2 + j2 and k = k1 + m1*k2, the DFT over
+    j1 of each [m1, m2] block (the strided kernel), the twiddle
+    (:func:`_two_level_twiddle`), the DFT over j2 of the batch*m1 rows
+    (the row kernel), and the transpose to k order. Unnormalized both
+    ways: the inverse's 1/n is the caller's."""
+    m1, m2 = outer_split(n)
+    batch = x2.shape[0]
+    b = axis0(x2.reshape(batch, m1, m2), forward, normalize=False)
+    b = _two_level_twiddle(b, n, forward)
+    c = last(b.reshape(batch * m1, m2), forward, normalize=False)
+    return c.reshape(batch, m1, m2).transpose(1, 2).reshape(batch, n)
+
+
+def _fft_last_big(x2: torch.Tensor, n: int, forward: bool) -> torch.Tensor:
+    """The two-level transform of [batch, n] complex64 rows through the
+    strided and row kernels (the JAX package's ``_fft_last_big``); on a
+    CPU tensor each kernel's plain version runs."""
+    return _two_level(x2, n, forward, fft_axis0, fft_last)
+
+
+def _fft_last_big_plain(x2: torch.Tensor, n: int,
+                        forward: bool) -> torch.Tensor:
+    """:func:`_fft_last_big` with each stage's plain version."""
+    return _two_level(x2, n, forward, fft_axis0_plain, fft_last_plain)
+
+
 def fft_along_axis(x: torch.Tensor, axis: int,
                    forward: bool = True) -> torch.Tensor:
     """C2C DFT along one axis through the kernels: the last axis by the
@@ -368,23 +444,23 @@ def fft_along_axis(x: torch.Tensor, axis: int,
     other than complex64, an empty tensor, or a length with neither a
     kernel split nor a two-level one (:func:`outer_split`) runs
     :func:`.dft_matmul.fft_along_axis`, the reason counted in
-    :data:`FALLBACKS`. A length the JAX package runs as two kernel
-    passes (``_fft_last_big``, not ported) raises ``ValueError`` with
-    reason ``length``."""
+    :data:`FALLBACKS`; a two-level length moves its axis last and runs
+    :func:`_fft_last_big` (no fallback: both stages are kernels)."""
     ax = axis % x.ndim
     n = x.shape[ax]
     if x.dtype != torch.complex64 or x.numel() == 0:
         record_fallback(ax, "empty" if x.numel() == 0 else "dtype")
         return dft_matmul.fft_along_axis(x, ax, forward)
-    if not eligible(n):
-        record_fallback(ax, "length")
-        if outer_split(n) is None:
-            return dft_matmul.fft_along_axis(x, ax, forward)
-        raise ValueError(
-            f"cuda executor: axis {ax} of {tuple(x.shape)} has length {n}, "
-            f"which the JAX package runs as two kernel passes "
-            f"(_fft_last_big, not ported; reason: length)")
     shape = x.shape
+    if not eligible(n):
+        if outer_split(n) is None:
+            record_fallback(ax, "length")
+            return dft_matmul.fft_along_axis(x, ax, forward)
+        moved = x.movedim(ax, -1)
+        y = _fft_last_big(moved.reshape(-1, n).contiguous(), n, forward)
+        if not forward:
+            y = y * (1.0 / n)
+        return y.reshape(moved.shape).movedim(-1, ax).contiguous()
     if ax < x.ndim - 1:
         lead = math.prod(shape[:ax])
         cols = math.prod(shape[ax + 1:])

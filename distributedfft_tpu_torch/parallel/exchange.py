@@ -738,20 +738,24 @@ def exchange(blocks: list[torch.Tensor], world: World, *, split_axis: int,
 def ship_parts(parts: list[tuple], world: World, *, split_axis: int,
                concat_axis: int, mesh_axis=SLAB_AXIS,
                algorithm: str = "alltoall",
-               axis_sizes: tuple[int, int] | None = None) -> list[tuple]:
+               axis_sizes: tuple[int, int] | None = None,
+               async_op: bool = False):
     """Exchange already-encoded wire parts: ``parts[b]`` is held block
     b's tuple; part i of every block travels in one exchange by
     ``algorithm``, its split axis ceil-padded to a multiple of the group
     size first (the bytes the unfused exchange of the padded block would
-    ship) except under ``alltoallv``, which ships the true slices."""
+    ship) except under ``alltoallv``, which ships the true slices.
+    ``async_op=True`` returns the exchange in flight (its ``wait()``
+    gives the received parts)."""
     check_algorithm(algorithm)
     if algorithm != "alltoallv":
         p = world.axis_size(mesh_axis)
         parts = [tuple(_pad_axis(w, split_axis,
                                  pad_to(w.shape[split_axis], p))
                        for w in ps) for ps in parts]
-    return _start_parts(parts, world, split_axis, concat_axis, mesh_axis,
-                        algorithm, axis_sizes).wait()
+    pend = _start_parts(parts, world, split_axis, concat_axis, mesh_axis,
+                        algorithm, axis_sizes)
+    return pend if async_op else pend.wait()
 
 
 def _start_uneven(blocks, world, split_axis, concat_axis, mesh_axis,
@@ -767,19 +771,23 @@ def exchange_uneven(blocks: list[torch.Tensor], world: World, *,
                     split_axis: int, concat_axis: int,
                     wire_dtype: str | None = None, mesh_axis=SLAB_AXIS,
                     algorithm: str = "alltoall",
-                    axis_sizes: tuple[int, int] | None = None
-                    ) -> list[torch.Tensor]:
+                    axis_sizes: tuple[int, int] | None = None,
+                    async_op: bool = False):
     """An exchange whose split extent need not divide by the group size.
     The dense transports ceil-pad the split axis first; ``alltoallv``
     ships the true slices of the unpadded axis (and, with a codec,
     encodes it unpadded: the codec's ceil tiles are the ragged ownership,
     and the int8 sidecar's split extent is the group size). Either way
     the result's concat axis holds one ceil-chunk per sender; the caller
-    crops it to its true extent."""
+    crops it to its true extent. ``async_op=True`` returns the exchange
+    in flight: its ``wait()`` gives the blocks (a process group's
+    collectives issued asynchronously; a loopback exchange is done when
+    issued)."""
     check_algorithm(algorithm)
     _check_blocks(blocks, world)
-    return _start_uneven(blocks, world, split_axis, concat_axis, mesh_axis,
-                         algorithm, axis_sizes, wire_dtype).wait()
+    pend = _start_uneven(blocks, world, split_axis, concat_axis, mesh_axis,
+                         algorithm, axis_sizes, wire_dtype)
+    return pend if async_op else pend.wait()
 
 
 # ------------------------------------------------ pipelined t2/t3 overlap

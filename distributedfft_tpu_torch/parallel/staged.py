@@ -32,14 +32,16 @@ __all__ = ["build_single_stages", "build_pencil_stages",
 
 
 def build_single_stages(shape: tuple[int, int, int], *,
-                        executor: str = "cuda",
-                        forward: bool = True) -> list:
+                        executor: str = "cuda", forward: bool = True,
+                        batch: int | None = None) -> list:
     """One device: ``t0_fft_yz`` (the YZ planes) and ``t3_fft_x`` (the X
-    lines) as two stages."""
+    lines) as two stages; ``batch=B`` runs them over ``[B, ...]``
+    tensors."""
+    bo = 0 if check_batch(batch) is None else 1
     ex = get_executor(executor)
     return trace_stages([
-        ("t0_fft_yz", lambda x: ex(x, (1, 2), forward)),
-        ("t3_fft_x", lambda y: ex(y, (0,), forward)),
+        ("t0_fft_yz", lambda x: ex(x, (1 + bo, 2 + bo), forward)),
+        ("t3_fft_x", lambda y: ex(y, (bo,), forward)),
     ])
 
 
@@ -55,13 +57,16 @@ def build_pencil_stages(world: World, shape: tuple[int, int, int], *,
                         algorithm: str = "alltoall",
                         perm: tuple[int, int, int] | None = None,
                         order: str | None = None, overlap_chunks: int = 1,
-                        wire_dtype: str | None = None
+                        wire_dtype: str | None = None,
+                        batch: int | None = None
                         ) -> tuple[list, PencilSpec]:
     """The pencil C2C chain as five stages: t0 (first FFT), t2a (first
     exchange), t1 (middle FFT), t2b (second exchange), t3 (last FFT).
     ``overlap_chunks > 1`` runs each exchange stage as K chunked
-    exchanges."""
+    exchanges; ``batch=B`` runs the stages over ``[B, ...]`` tensors
+    (every axis one place up, one shared exchange per chunk)."""
     _check_flat(algorithm)
+    bo = 0 if check_batch(batch) is None else 1
     if perm is None:
         perm = (0, 1, 2) if forward else (1, 2, 0)
     if order is None:
@@ -83,33 +88,34 @@ def build_pencil_stages(world: World, shape: tuple[int, int, int], *,
     mid_pad = pad_to(n[seq[1][2]], seq[1][1])
 
     def exch(mesh_axis, parts, split, concat):
-        return dict(mesh_axis=mesh_axis, parts=parts, split=split,
-                    concat=concat, chunk_axis=3 - split - concat)
+        return dict(mesh_axis=mesh_axis, parts=parts, split=split + bo,
+                    concat=concat + bo, chunk_axis=3 - split - concat + bo)
 
     concat0, concat1 = seq[0][3], seq[1][3]
     stages = (
         StagedStage("t0", f"t0_fft_{_L[c]}",
-                    local=(("fft", (c,), forward),
-                           ("pad", seq[0][2], first_pad))),
+                    local=(("fft", (c + bo,), forward),
+                           ("pad", seq[0][2] + bo, first_pad))),
         StagedStage("t2a", f"t2a_exchange_{seq[0][0]}",
                     exchange=exch(*seq[0])),
         StagedStage("t1", f"t1_fft_{_L[mid_fft]}",
-                    local=(("crop", concat0, n[concat0]),
-                           ("fft", (mid_fft,), forward),
-                           ("pad", seq[1][2], mid_pad))),
+                    local=(("crop", concat0 + bo, n[concat0]),
+                           ("fft", (mid_fft + bo,), forward),
+                           ("pad", seq[1][2] + bo, mid_pad))),
         StagedStage("t2b", f"t2b_exchange_{seq[1][0]}",
                     exchange=exch(*seq[1])),
         StagedStage("t3", f"t3_fft_{_L[last_fft]}",
-                    local=(("crop", concat1, n[concat1]),
-                           ("fft", (last_fft,), forward))),
+                    local=(("crop", concat1 + bo, n[concat1]),
+                           ("fft", (last_fft + bo,), forward))),
     )
     graph = StagedGraph(
         world=world, stages=stages, algorithm=algorithm,
         wire_dtype=wire_dtype, overlap_chunks=overlap_chunks,
         executor=executor,
-        pre=(("pad", a, pads[a]), ("pad", b, pads[b])),
-        post=tuple(("crop", ax, n[ax]) for ax in spec.out_placement),
-        in_dims=spec.in_placement, out_dims=spec.out_placement)
+        pre=(("pad", a + bo, pads[a]), ("pad", b + bo, pads[b])),
+        post=tuple(("crop", ax + bo, n[ax]) for ax in spec.out_placement),
+        in_dims=tuple(d + bo for d in spec.in_placement),
+        out_dims=tuple(d + bo for d in spec.out_placement))
     return compile_staged(graph), spec
 
 
@@ -117,12 +123,15 @@ def build_slab_rfft_stages(world: World, shape: tuple[int, int, int], *,
                            executor: str = "cuda", forward: bool = True,
                            algorithm: str = "alltoall",
                            overlap_chunks: int = 1,
-                           wire_dtype: str | None = None
+                           wire_dtype: str | None = None,
+                           batch: int | None = None
                            ) -> tuple[list, SlabSpec]:
     """The slab R2C (forward) / C2R (backward) chain as three stages:
     ``t0_r2c_zy``, ``t2_exchange``, ``t3_fft_x`` forward;
-    ``t3_ifft_x``, ``t2_exchange``, ``t0_ifft_y_c2r`` backward."""
+    ``t3_ifft_x``, ``t2_exchange``, ``t0_ifft_y_c2r`` backward;
+    ``batch`` as in :func:`build_pencil_stages`."""
     _check_flat(algorithm)
+    bo = 0 if check_batch(batch) is None else 1
     if world.grid is not None:
         raise ValueError("the slab R2C/C2R pipeline runs on a 1D world")
     p = world.size
@@ -130,34 +139,35 @@ def build_slab_rfft_stages(world: World, shape: tuple[int, int, int], *,
     spec = SlabSpec(tuple(int(s) for s in shape), p, in_axis, out_axis)
     n0, n1, n2 = spec.shape
     n0p, n1p = pad_to(n0, p), pad_to(n1, p)
-    exch = dict(mesh_axis=world.combined_axis, parts=p, chunk_axis=2)
+    x_, y_, z_ = bo, 1 + bo, 2 + bo
+    exch = dict(mesh_axis=world.combined_axis, parts=p, chunk_axis=z_)
     if forward:
         stages = (
             StagedStage("t0", "t0_r2c_zy",
-                        local=(("r2c", 2), ("fft", (1,), True),
-                               ("pad", 1, n1p))),
+                        local=(("r2c", z_), ("fft", (y_,), True),
+                               ("pad", y_, n1p))),
             StagedStage("t2", "t2_exchange",
-                        exchange=dict(exch, split=1, concat=0)),
+                        exchange=dict(exch, split=y_, concat=x_)),
             StagedStage("t3", "t3_fft_x",
-                        local=(("crop", 0, n0), ("fft", (0,), True))),
+                        local=(("crop", x_, n0), ("fft", (x_,), True))),
         )
     else:
         stages = (
             StagedStage("t3", "t3_ifft_x",
-                        local=(("fft", (0,), False), ("pad", 0, n0p))),
+                        local=(("fft", (x_,), False), ("pad", x_, n0p))),
             StagedStage("t2", "t2_exchange",
-                        exchange=dict(exch, split=0, concat=1)),
+                        exchange=dict(exch, split=x_, concat=y_)),
             StagedStage("t0", "t0_ifft_y_c2r",
-                        local=(("crop", 1, n1), ("fft", (1,), False),
-                               ("c2r", n2, 2))),
+                        local=(("crop", y_, n1), ("fft", (y_,), False),
+                               ("c2r", n2, z_))),
         )
     graph = StagedGraph(
         world=world, stages=stages, algorithm=algorithm,
         wire_dtype=wire_dtype, overlap_chunks=overlap_chunks,
         executor=executor,
-        pre=(("pad", in_axis, spec.in_padded_extent),),
-        post=(("crop", out_axis, spec.shape[out_axis]),),
-        in_dims=(in_axis,), out_dims=(out_axis,))
+        pre=(("pad", in_axis + bo, spec.in_padded_extent),),
+        post=(("crop", out_axis + bo, spec.shape[out_axis]),),
+        in_dims=(in_axis + bo,), out_dims=(out_axis + bo,))
     return compile_staged(graph), spec
 
 
@@ -165,11 +175,14 @@ def build_pencil_rfft_stages(world: World, shape: tuple[int, int, int], *,
                              executor: str = "cuda", forward: bool = True,
                              algorithm: str = "alltoall",
                              overlap_chunks: int = 1,
-                             wire_dtype: str | None = None
+                             wire_dtype: str | None = None,
+                             batch: int | None = None
                              ) -> tuple[list, PencilSpec]:
     """The pencil R2C / C2R chain as five stages with t2a/t2b exchange
-    lines (the canonical chains of :func:`.pencil.build_pencil_rfft3d`)."""
+    lines (the canonical chains of :func:`.pencil.build_pencil_rfft3d`);
+    ``batch`` as in :func:`build_pencil_stages`."""
     _check_flat(algorithm)
+    bo = 0 if check_batch(batch) is None else 1
     rows, cols = _grid(world)
     row, col = world.axis_names
     spec = PencilSpec(tuple(int(s) for s in shape), rows, cols, row, col,
@@ -179,45 +192,47 @@ def build_pencil_rfft_stages(world: World, shape: tuple[int, int, int], *,
     n0p, n1pc, n1pr = spec.n0p, spec.n1p_col, spec.n1p_row
     n2h = n2 // 2 + 1
     n2hp = pad_to(n2h, cols)
-    exch_a = dict(mesh_axis=col, parts=cols, chunk_axis=0)
-    exch_b = dict(mesh_axis=row, parts=rows, chunk_axis=2)
+    x_, y_, z_ = bo, 1 + bo, 2 + bo
+    exch_a = dict(mesh_axis=col, parts=cols, chunk_axis=x_)
+    exch_b = dict(mesh_axis=row, parts=rows, chunk_axis=z_)
     if forward:
         stages = (
             StagedStage("t0", "t0_r2c_z",
-                        local=(("r2c", 2), ("pad", 2, n2hp))),
+                        local=(("r2c", z_), ("pad", z_, n2hp))),
             StagedStage("t2a", f"t2a_exchange_{col}",
-                        exchange=dict(exch_a, split=2, concat=1)),
+                        exchange=dict(exch_a, split=z_, concat=y_)),
             StagedStage("t1", "t1_fft_y",
-                        local=(("crop", 1, n1), ("fft", (1,), True),
-                               ("pad", 1, n1pr))),
+                        local=(("crop", y_, n1), ("fft", (y_,), True),
+                               ("pad", y_, n1pr))),
             StagedStage("t2b", f"t2b_exchange_{row}",
-                        exchange=dict(exch_b, split=1, concat=0)),
+                        exchange=dict(exch_b, split=y_, concat=x_)),
             StagedStage("t3", "t3_fft_x",
-                        local=(("crop", 0, n0), ("fft", (0,), True))),
+                        local=(("crop", x_, n0), ("fft", (x_,), True))),
         )
-        pre = (("pad", 0, n0p), ("pad", 1, n1pc))
-        post = (("crop", 1, n1), ("crop", 2, n2h))
+        pre = (("pad", x_, n0p), ("pad", y_, n1pc))
+        post = (("crop", y_, n1), ("crop", z_, n2h))
     else:
         stages = (
             StagedStage("t3", "t3_ifft_x",
-                        local=(("fft", (0,), False), ("pad", 0, n0p))),
+                        local=(("fft", (x_,), False), ("pad", x_, n0p))),
             StagedStage("t2b", f"t2b_exchange_{row}",
-                        exchange=dict(exch_b, split=0, concat=1)),
+                        exchange=dict(exch_b, split=x_, concat=y_)),
             StagedStage("t1", "t1_ifft_y",
-                        local=(("crop", 1, n1), ("fft", (1,), False),
-                               ("pad", 1, n1pc))),
+                        local=(("crop", y_, n1), ("fft", (y_,), False),
+                               ("pad", y_, n1pc))),
             StagedStage("t2a", f"t2a_exchange_{col}",
-                        exchange=dict(exch_a, split=1, concat=2)),
+                        exchange=dict(exch_a, split=y_, concat=z_)),
             StagedStage("t0", "t0_c2r_z",
-                        local=(("crop", 2, n2h), ("c2r", n2, 2))),
+                        local=(("crop", z_, n2h), ("c2r", n2, z_))),
         )
-        pre = (("pad", 1, n1pr), ("pad", 2, n2hp))
-        post = (("crop", 0, n0), ("crop", 1, n1))
+        pre = (("pad", y_, n1pr), ("pad", z_, n2hp))
+        post = (("crop", x_, n0), ("crop", y_, n1))
     graph = StagedGraph(
         world=world, stages=stages, algorithm=algorithm,
         wire_dtype=wire_dtype, overlap_chunks=overlap_chunks,
         executor=executor, pre=pre, post=post,
-        in_dims=spec.in_placement, out_dims=spec.out_placement)
+        in_dims=tuple(d + bo for d in spec.in_placement),
+        out_dims=tuple(d + bo for d in spec.out_placement))
     return compile_staged(graph), spec
 
 

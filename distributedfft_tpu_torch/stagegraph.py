@@ -5,9 +5,13 @@ The port of the node vocabulary of ``distributedfft_tpu/stagegraph.py``
 (``LocalNode``, ``ExchangeNode``, ``StageGraph``), of its fusion pass
 (``plan_fusion``, ``_fused_senders``, ``_run_fused_site``), of the op
 interpreter and of the staged compiler (``StagedStage``,
-``StagedGraph``, ``compile_staged``), and the brick-I/O edge tier
-(``BrickEdgeGraph``, ``compile_brick_io``). Builders emit a graph;
-:func:`run_graph` executes it on the blocks one process holds. Local ops
+``StagedGraph``, ``compile_staged``), the brick-I/O edge tier
+(``BrickEdgeGraph``, ``compile_brick_io``) and the concurrent scheduler
+(``schedule_concurrent``, ``schedule_waves``, ``WaveSchedule``).
+Builders emit a graph; :func:`_graph_steps` cuts it into schedulable
+steps, which :func:`run_graph` walks in order on the blocks one process
+holds and :func:`schedule_concurrent` interleaves across several
+graphs. Local ops
 are ``("fft", axes, forward)``, ``("r2c", axis)``, ``("c2r", n, axis)``,
 ``("pack", axis, to)`` (a pad that the ``alltoallv`` transport skips:
 it ships true slices), ``("pad", axis, to)``, ``("crop", axis, to)`` and
@@ -45,14 +49,17 @@ exactly the chunk's slice. :func:`apply_midpoint` applies it under the
 from __future__ import annotations
 
 import contextlib
+import time
+from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Callable
+from typing import Any, Callable, Sequence
 
 import torch
 
 from .ops import cuda_fuse
 from .ops.executors import get_c2r, get_executor, get_r2c, split_fuse
-from .parallel.exchange import (_crop_axis, _pad_axis, check_algorithm,
+from .parallel.exchange import (_Pending, _crop_axis, _pad_axis,
+                                check_algorithm,
                                 exchange_chunked, exchange_overlapped,
                                 exchange_uneven, hierarchical_legs,
                                 overlap_chunk_bounds, ship_parts,
@@ -71,9 +78,9 @@ EXCHANGE_KINDS = ("t2", "t2a", "t2b")
 class LocalNode:
     """One local (per-shard, collective-free) stage. ``fuse=True`` marks
     the compute that follows an exchange node. ``factory`` (in place of
-    ``ops``) is called with a held block's rank right before the exchange
-    before it issues, and returns that block's compute (the midpoint
-    closures read their rank's wavenumber offsets there);
+    ``ops``) is called with a held block's rank once per run, before the
+    compute, and returns that block's compute (the midpoint closures read
+    their rank's wavenumber offsets there);
     ``takes_bounds`` adds the overlap chunk's (lo, hi) along the
     exchange's chunk axis to each compute call."""
 
@@ -359,112 +366,139 @@ def _fused_senders(nodes: tuple) -> tuple[dict, set]:
     return sender_of, consumed
 
 
-@contextlib.contextmanager
-def _node_span(stage, node):
-    """The node's trace span and its stage kind's timer."""
-    with add_trace(node.name), stage(node.kind):
-        yield
+def _timer_spans(timer):
+    """The span factory of one plan call: ``span(kind, name=None,
+    traced=True)`` is the trace span ``name`` (when given and ``traced``)
+    and ``timer``'s stage ``kind``."""
+    stage = timer.stage if timer is not None else (
+        lambda kind: contextlib.nullcontext())
+
+    @contextlib.contextmanager
+    def span(kind, name=None, traced=True):
+        with (add_trace(name) if name and traced
+              else contextlib.nullcontext()), stage(kind):
+            yield
+
+    return span
 
 
-def _run_fused_site(blocks: list, graph: StageGraph, interp: _Interp,
-                    n: ExchangeNode, nxt: LocalNode, senders: tuple,
-                    site: dict, stage) -> list:
-    """One fused exchange site over the held blocks: sender stage and
-    encode (one kernel when the stage is a single FFT along the split
-    axis and its packs are no-ops or skipped), the wire parts through the
-    graph's transport, then decode and receiver stage (one kernel when
-    the receiver is an FFT along one axis, after at most a no-op crop).
-    Each route away from a kernel is counted by its reason, as in the
-    JAX package. The codec is timed under the stage it runs with."""
+def _resolve(state):
+    """A step's input: the blocks, once an exchange in flight has
+    landed."""
+    return state.wait() if isinstance(state, _Pending) else state
+
+
+def _fused_site_steps(graph: StageGraph, interp: _Interp, n: ExchangeNode,
+                      nxt: LocalNode, senders: tuple, site: dict) -> list:
+    """One fused exchange site as three steps: sender stage and encode
+    (one kernel when the stage is a single FFT along the split axis and
+    its packs are no-ops or skipped), the wire parts through the graph's
+    transport, then decode and receiver stage (one kernel when the
+    receiver is an FFT along one axis, after at most a no-op crop). Each
+    route away from a kernel is counted by its reason, as in the JAX
+    package. The codec is timed under the stage it runs with."""
     codec = wire_codec(graph.wire_dtype)
     sender_ops = tuple(op for nd in senders for op in nd.ops)
     packs = [op for op in sender_ops if op[0] == "pack"]
     core = [op for op in sender_ops if op[0] != "pack"]
-    y0 = blocks[0]
     run_pack = graph.algorithm != "alltoallv"
-    packs_noop = all((not run_pack) or y0.shape[op[1]] == op[2]
-                     for op in packs)
+    ranks = graph.world.ranks
 
-    kernel_reason = None
-    if not senders:
-        site["sender"] = "encode_only"
-    elif (len(core) == 1 and core[0][0] == "fft"
-          and len(core[0][1]) == 1 and packs_noop):
-        site["sender"] = "kernel"
-    else:
-        if len(core) == 1 and core[0][0] == "fft" and len(core[0][1]) > 1:
-            kernel_reason = "multi_axis"
-        elif not packs_noop:
-            kernel_reason = "uneven_pack"
+    def encode(state, span, defer):
+        blocks = _resolve(state)
+        y0 = blocks[0]
+        packs_noop = all((not run_pack) or y0.shape[op[1]] == op[2]
+                         for op in packs)
+        kernel_reason = None
+        if not senders:
+            site["sender"] = "encode_only"
+        elif (len(core) == 1 and core[0][0] == "fft"
+              and len(core[0][1]) == 1 and packs_noop):
+            site["sender"] = "kernel"
         else:
-            kernel_reason = "ops"
-        site["sender"] = kernel_reason
+            if len(core) == 1 and core[0][0] == "fft" and len(core[0][1]) > 1:
+                kernel_reason = "multi_axis"
+            elif not packs_noop:
+                kernel_reason = "uneven_pack"
+            else:
+                kernel_reason = "ops"
+            site["sender"] = kernel_reason
 
-    if site["sender"] == "kernel":
-        fft_node = next(nd for nd in senders
-                        if any(op[0] == "fft" for op in nd.ops))
-        with _node_span(stage, fft_node):
-            parts = [cuda_fuse.fused_fft_encode(
-                y, fft_axis=core[0][1][0], forward=core[0][2],
-                tile_axis=n.split, tiles=n.parts,
-                wire_dtype=graph.wire_dtype, site=f"{n.name}:sender")
-                for y in blocks]
-    else:
+        if site["sender"] == "kernel":
+            fft_node = next(nd for nd in senders
+                            if any(op[0] == "fft" for op in nd.ops))
+            with span(fft_node.kind, fft_node.name):
+                return [cuda_fuse.fused_fft_encode(
+                    y, fft_axis=core[0][1][0], forward=core[0][2],
+                    tile_axis=n.split, tiles=n.parts,
+                    wire_dtype=graph.wire_dtype, site=f"{n.name}:sender")
+                    for y in blocks], y0.dtype
         if kernel_reason is not None:
             cuda_fuse.record_fusion_fallback(f"{n.name}:sender",
                                              kernel_reason)
         for nd in senders:
-            with _node_span(stage, nd):
+            with span(nd.kind, nd.name):
                 blocks = [interp.run(nd.ops, y, rank=r)
-                          for r, y in zip(graph.world.ranks, blocks)]
-        with stage(senders[-1].kind if senders else n.kind):
-            parts = [codec.encode(y, tile_axis=n.split, tiles=n.parts)
-                     for y in blocks]
-    payload_dtype = blocks[0].dtype
+                          for r, y in zip(ranks, blocks)]
+        with span(senders[-1].kind if senders else n.kind):
+            return [codec.encode(y, tile_axis=n.split, tiles=n.parts)
+                    for y in blocks], blocks[0].dtype
 
-    with _node_span(stage, n):
-        shipped = ship_parts(parts, graph.world, split_axis=n.split,
-                             concat_axis=n.concat, mesh_axis=n.mesh_axis,
-                             algorithm=graph.algorithm,
-                             axis_sizes=n.axis_sizes)
+    def ship(state, span, defer):
+        parts, payload_dtype = state
+        with span(n.kind, n.name):
+            pend = ship_parts(parts, graph.world, split_axis=n.split,
+                              concat_axis=n.concat, mesh_axis=n.mesh_axis,
+                              algorithm=graph.algorithm,
+                              axis_sizes=n.axis_sizes, async_op=True)
+            done = _Pending(lambda: (pend.wait(), payload_dtype))
+            return done if defer else done.wait()
 
-    rshape = shipped[0][0].shape[:-1]
-    rops = nxt.ops
-    recv_kernel = (
-        nxt.factory is None and not nxt.takes_bounds
-        and 1 <= len(rops) <= 2 and rops[-1][0] == "fft"
-        and len(rops[-1][1]) == 1
-        and (len(rops) == 1
-             or (rops[0][0] == "crop" and rshape[rops[0][1]] == rops[0][2])))
-    with _node_span(stage, nxt):
-        if recv_kernel:
-            site["receiver"] = "kernel"
-            return [cuda_fuse.fused_decode_fft(
-                w, payload_dtype, fft_axis=rops[-1][1][0],
-                forward=rops[-1][2], tile_axis=n.concat, tiles=n.parts,
-                wire_dtype=graph.wire_dtype, site=f"{nxt.name}:receiver")
-                for w in shipped]
-        # A factory receiver (the t_mid midpoint) is the plain decode and
-        # the factory's compute: no fused kernel holds a midpoint.
-        site["receiver"] = "factory" if nxt.factory is not None else "ops"
-        if nxt.factory is None:
-            cuda_fuse.record_fusion_fallback(f"{nxt.name}:receiver", "ops")
-        out = []
-        for fn, w in zip(_computes(graph, interp, nxt), shipped):
-            v = codec.decode(w, payload_dtype, tile_axis=n.concat,
-                             tiles=n.parts)
-            out.append(fn(v, 0, v.shape[n.chunk_axis]) if nxt.takes_bounds
-                       else fn(v))
-        return out
+    def receive(state, span, defer):
+        shipped, payload_dtype = _resolve(state)
+        rshape = shipped[0][0].shape[:-1]
+        rops = nxt.ops
+        recv_kernel = (
+            nxt.factory is None and not nxt.takes_bounds
+            and 1 <= len(rops) <= 2 and rops[-1][0] == "fft"
+            and len(rops[-1][1]) == 1
+            and (len(rops) == 1
+                 or (rops[0][0] == "crop"
+                     and rshape[rops[0][1]] == rops[0][2])))
+        with span(nxt.kind, nxt.name):
+            if recv_kernel:
+                site["receiver"] = "kernel"
+                return [cuda_fuse.fused_decode_fft(
+                    w, payload_dtype, fft_axis=rops[-1][1][0],
+                    forward=rops[-1][2], tile_axis=n.concat, tiles=n.parts,
+                    wire_dtype=graph.wire_dtype, site=f"{nxt.name}:receiver")
+                    for w in shipped]
+            # A factory receiver (the t_mid midpoint) is the plain decode
+            # and the factory's compute: no fused kernel holds a midpoint.
+            site["receiver"] = "factory" if nxt.factory is not None else "ops"
+            if nxt.factory is None:
+                cuda_fuse.record_fusion_fallback(f"{nxt.name}:receiver",
+                                                 "ops")
+            out = []
+            for fn, w in zip(_computes(graph, interp, nxt), shipped):
+                v = codec.decode(w, payload_dtype, tile_axis=n.concat,
+                                 tiles=n.parts)
+                out.append(fn(v, 0, v.shape[n.chunk_axis])
+                           if nxt.takes_bounds else fn(v))
+            return out
+
+    label = senders[-1] if senders else n
+    return [(label.kind, label.name, encode), (n.kind, n.name, ship),
+            (nxt.kind, nxt.name, receive)]
 
 
 # ------------------------------------------------------------ executor
 
 def _computes(graph: StageGraph, interp: _Interp, nxt: LocalNode) -> list:
     """The per-block computes of a fused node, one per held rank: the
-    factory's (called here, once per rank, right before the exchange
-    issues) or the node's ops; each takes ``(v, lo, hi)`` when the node
-    takes bounds, else ``(v)``."""
+    factory's (called here, once per rank and run) or the node's ops;
+    each takes ``(v, lo, hi)`` when the node takes bounds, else
+    ``(v)``."""
     ranks = graph.world.ranks
     if nxt.factory is not None:
         return [nxt.factory(r) for r in ranks]
@@ -474,35 +508,61 @@ def _computes(graph: StageGraph, interp: _Interp, nxt: LocalNode) -> list:
     return [lambda v, _r=r: interp.run(nxt.ops, v, rank=_r) for r in ranks]
 
 
-def _overlap_pair(blocks: list, graph: StageGraph, interp: _Interp,
-                  n: ExchangeNode, nxt: LocalNode, stage) -> list:
-    """An exchange and its fused compute node, through
-    :func:`.parallel.exchange.exchange_overlapped` at the graph's K. At
-    K = 1 (or a chunk axis of extent 1) each is timed under its own
-    stage kind; at K > 1 they interleave, and the pair is timed as one
-    span under ``"<kind>+<kind>"`` (``t2+t3``). A node that takes bounds
-    gets each chunk's (lo, hi) along the chunk axis."""
+def _compute_of(graph: StageGraph, interp: _Interp, nxt: LocalNode):
+    """``compute(blocks[, lo, hi])`` of a fused node over the held
+    blocks."""
     fns = _computes(graph, interp, nxt)
     if nxt.takes_bounds:
-        compute = lambda bs, lo, hi: [f(b, lo, hi) for f, b in zip(fns, bs)]
-    else:
-        compute = lambda bs: [f(b) for f, b in zip(fns, bs)]
+        return lambda bs, lo, hi: [f(b, lo, hi) for f, b in zip(fns, bs)]
+    return lambda bs: [f(b) for f, b in zip(fns, bs)]
+
+
+def _pair_steps(graph: StageGraph, interp: _Interp, n: ExchangeNode,
+                nxt: LocalNode) -> list:
+    """An exchange and its fused compute node. At K = 1 two steps: the
+    exchange, issued (asynchronously on a process group) under its span,
+    and the compute after it lands. At K > 1 one step through
+    :func:`.parallel.exchange.exchange_overlapped`, the pair timed as
+    one span under ``"<kind>+<kind>"`` (``t2+t3``), unless the chunk
+    axis has extent 1 (then the K = 1 pair, in that one step). A node
+    that takes bounds gets each chunk's (lo, hi) along the chunk axis."""
     kw = dict(split_axis=n.split, concat_axis=n.concat,
               algorithm=graph.algorithm, mesh_axis=n.mesh_axis,
               axis_sizes=n.axis_sizes, wire_dtype=graph.wire_dtype)
-    extent = blocks[0].shape[n.chunk_axis]
-    if len(overlap_chunk_bounds(extent, graph.overlap_chunks)) <= 1:
-        with _node_span(stage, n):
-            blocks = exchange_uneven(blocks, graph.world, **kw)
-        with _node_span(stage, nxt):
+
+    def compute_whole(blocks, span):
+        compute = _compute_of(graph, interp, nxt)
+        with span(nxt.kind, nxt.name):
             return (compute(blocks, 0, blocks[0].shape[n.chunk_axis])
                     if nxt.takes_bounds else compute(blocks))
-    with stage(f"{n.kind}+{nxt.kind}"):
-        return exchange_overlapped(
-            blocks, graph.world, compute=compute,
-            compute_takes_bounds=nxt.takes_bounds,
-            overlap_chunks=graph.overlap_chunks, chunk_axis=n.chunk_axis,
-            exchange_name=n.name, compute_name=nxt.name, **kw)
+
+    def issue(state, span, defer):
+        blocks = _resolve(state)
+        with span(n.kind, n.name):
+            pend = exchange_uneven(blocks, graph.world, async_op=True, **kw)
+            return pend if defer else pend.wait()
+
+    def compute(state, span, defer):
+        return compute_whole(_resolve(state), span)
+
+    if graph.overlap_chunks <= 1:
+        return [(n.kind, n.name, issue), (nxt.kind, nxt.name, compute)]
+
+    def pair(state, span, defer):
+        blocks = _resolve(state)
+        extent = blocks[0].shape[n.chunk_axis]
+        if len(overlap_chunk_bounds(extent, graph.overlap_chunks)) <= 1:
+            with span(n.kind, n.name):
+                blocks = exchange_uneven(blocks, graph.world, **kw)
+            return compute_whole(blocks, span)
+        with span(f"{n.kind}+{nxt.kind}", n.name, traced=False):
+            return exchange_overlapped(
+                blocks, graph.world, compute=_compute_of(graph, interp, nxt),
+                compute_takes_bounds=nxt.takes_bounds,
+                overlap_chunks=graph.overlap_chunks, chunk_axis=n.chunk_axis,
+                exchange_name=n.name, compute_name=nxt.name, **kw)
+
+    return [(n.kind, n.name, pair)]
 
 
 def _into(blocks: list, outs: list) -> list:
@@ -513,25 +573,30 @@ def _into(blocks: list, outs: list) -> list:
             for b, y in zip(blocks, outs)]
 
 
-def run_graph(graph: StageGraph, blocks: list[torch.Tensor],
-              timer=None, *, donate: bool = False) -> list[torch.Tensor]:
-    """Run every node of ``graph`` on the held ``blocks`` (one per rank of
-    ``graph.world.ranks``). ``timer`` (:class:`..utils.timing.StageTimer`)
-    times each node under its stage kind. The fusion pass runs once per
-    graph, its record in ``graph.meta["fusion"]``. ``donate``: the first
-    stage writes its output into the blocks' storage (when it is a plain
-    local stage of the blocks' shape and dtype), so the caller's input
-    is workspace; the result is the same bits."""
+def _graph_steps(graph: StageGraph, interp: _Interp, *,
+                 donate: bool = False) -> list:
+    """The chain as a list of ``(kind, name, run)`` schedulable steps:
+    each local node, each exchange and the compute after it (one step
+    for an overlap-K pair), a fused site's sender, wire exchange and
+    receiver. ``run(state, span, defer)`` takes the held blocks (or the
+    step before's exchange in flight, waited on first) and returns the
+    next state; ``span(kind, name=None, traced=True)`` opens each node's
+    trace span and timer stage (:func:`_timer_spans`); an exchange step
+    with ``defer`` returns its exchange in flight rather than waiting.
+    :func:`run_graph` walks them in order; :func:`schedule_concurrent`
+    interleaves several chains' steps, so its outputs are those of the
+    plans run one after another by construction. The fusion pass runs
+    once per graph, its record in ``graph.meta["fusion"]``; ``donate``
+    writes the first local stage's output into the blocks' storage."""
     graph.validate()
-    interp = _Interp(graph.executor, graph.algorithm)
-    stage = timer.stage if timer is not None else (
-        lambda kind: contextlib.nullcontext())
     nodes = graph.nodes
     fusion = graph.meta.get("fusion")
     if fusion is None:
         fusion = graph.meta["fusion"] = plan_fusion(graph)
     sender_of, consumed = (_fused_senders(nodes) if fusion["active"]
                            else ({}, set()))
+    ranks = graph.world.ranks
+    steps: list = []
     i = 0
     while i < len(nodes):
         node = nodes[i]
@@ -540,20 +605,42 @@ def run_graph(graph: StageGraph, blocks: list[torch.Tensor],
         elif isinstance(node, ExchangeNode):
             if fusion["active"]:
                 site = fusion["sites"].setdefault(i, {"exchange": node.name})
-                blocks = _run_fused_site(
-                    blocks, graph, interp, node, nodes[i + 1],
-                    tuple(nodes[j] for j in sender_of[i]), site, stage)
+                steps += _fused_site_steps(
+                    graph, interp, node, nodes[i + 1],
+                    tuple(nodes[j] for j in sender_of[i]), site)
             else:
-                blocks = _overlap_pair(blocks, graph, interp, node,
-                                       nodes[i + 1], stage)
+                steps += _pair_steps(graph, interp, node, nodes[i + 1])
             i += 2
         else:
-            with _node_span(stage, node):
-                outs = [interp.run(node.ops, b, rank=r)
-                        for r, b in zip(graph.world.ranks, blocks)]
-                blocks = _into(blocks, outs) if donate and i == 0 else outs
+            def local(state, span, defer, _n=node, _into_first=(
+                    donate and i == 0)):
+                blocks = _resolve(state)
+                with span(_n.kind, _n.name):
+                    outs = [interp.run(_n.ops, b, rank=r)
+                            for r, b in zip(ranks, blocks)]
+                    return _into(blocks, outs) if _into_first else outs
+
+            steps.append((node.kind, node.name, local))
             i += 1
-    return blocks
+    return steps
+
+
+def run_graph(graph: StageGraph, blocks: list[torch.Tensor],
+              timer=None, *, donate: bool = False) -> list[torch.Tensor]:
+    """Run every node of ``graph`` on the held ``blocks`` (one per rank of
+    ``graph.world.ranks``): its steps (:func:`_graph_steps`) in order,
+    each exchange waited on in its own span. ``timer``
+    (:class:`..utils.timing.StageTimer`) times each node under its stage
+    kind. ``donate``: the first stage writes its output into the blocks'
+    storage (when it is a plain local stage of the blocks' shape and
+    dtype), so the caller's input is workspace; the result is the same
+    bits."""
+    span = _timer_spans(timer)
+    interp = _Interp(graph.executor, graph.algorithm)
+    state = blocks
+    for _, _, run in _graph_steps(graph, interp, donate=donate):
+        state = run(state, span, False)
+    return state
 
 
 # ----------------------------------------------------- staged compiler
@@ -663,6 +750,288 @@ def compile_staged(graph: StagedGraph) -> list:
 
     return trace_stages([(s.name, wrap(i, b)) for i, (s, b) in
                          enumerate(zip(graph.stages, bodies))])
+
+
+# ----------------------------------------------- concurrent scheduling
+
+def graph_of(obj) -> StageGraph | None:
+    """The :class:`StageGraph` a plan runs (``plan.graph``), or the one a
+    callable carries as ``stage_graph``; None below the IR tier (a
+    single-device plan) -- the feature-detection hook of the concurrent
+    scheduler."""
+    g = getattr(obj, "graph", None)
+    return g if isinstance(g, StageGraph) else getattr(obj, "stage_graph",
+                                                       None)
+
+
+def _chain_graph(plan) -> StageGraph | None:
+    """The chain a plan's call runs whole: its graph, unless it has none
+    or runs it inside layout edges (a ``runner``: user layouts, bricks,
+    ``r2c_axis``), which the scheduler does not interleave."""
+    g = graph_of(plan)
+    return g if g is not None and getattr(plan, "runner", None) is None \
+        else None
+
+
+def _mesh_compatible(a: World, b: World) -> bool:
+    """One shared world under :func:`schedule_concurrent`'s rule: the
+    same object, or the same ranks, grid, axes and group."""
+    return a is b or (a.size == b.size and a.rank == b.rank
+                      and a.grid == b.grid and a.axis_names == b.axis_names
+                      and a.group is b.group)
+
+
+def _cc_spans(j: int):
+    """The span factory of transform ``j`` of a schedule: each named
+    span as ``cc<j>:<name>``, no timer."""
+
+    @contextlib.contextmanager
+    def span(kind, name=None, traced=True):
+        if name is None:
+            yield
+        else:
+            with add_trace(f"cc{j}:{name}"):
+                yield
+
+    return span
+
+
+@dataclass
+class ConcurrentPlan:
+    """N independent transforms scheduled as one interleaved program.
+
+    ``fn`` takes the N inputs (one per plan, each what that plan's call
+    takes) and returns the N outputs; calling the object does the same.
+    ``plans`` are the source plans in schedule order, ``world`` the world
+    they share. Every span of transform j carries the prefix ``cc<j>:``
+    (:func:`.utils.trace.stage_key` drops it)."""
+
+    fn: Callable
+    plans: tuple
+    world: World
+
+    def __call__(self, *xs):
+        if len(xs) == 1 and isinstance(xs[0], (list, tuple)):
+            xs = tuple(xs[0])
+        if len(xs) != len(self.plans):
+            raise ValueError(
+                f"concurrent schedule of {len(self.plans)} transforms "
+                f"takes {len(self.plans)} inputs, got {len(xs)}")
+        return self.fn(*xs)
+
+
+#: Memoized schedules: the same plan tuple (by identity) gives the same
+#: schedule. Values hold the plans, keeping their ids valid.
+_CONCURRENT_CACHE: dict = {}
+
+
+def schedule_concurrent(plans: Sequence) -> ConcurrentPlan:
+    """Merge N independent transforms' step lists into one interleaved
+    program (the port of the JAX package's ``schedule_concurrent``):
+    transform j's exchanges issue while the others' FFTs run, so wire
+    time can hide under another transform's compute even when each
+    alone has nothing left to hide it under.
+
+    Policy: transform ``j`` runs its step ``wave - j`` in each wave, and
+    within a wave lower ``j`` (deeper into its chain) issues first, so
+    two slab transforms issue ``A.t0, A.t2, B.t0, A.t3, B.t2, B.t3``. On
+    a process group an exchange step issues its collectives
+    asynchronously and its wait runs at the start of that transform's
+    next step, so the compute issued between them can overlap it; on a
+    loopback world an exchange is copies on the compute stream, done
+    when issued.
+
+    Requirements: every plan runs a chain graph whole (a slab or pencil
+    plan, C2C, real or operator, without layout edges) over one shared
+    world. The steps are the ones :func:`run_graph` walks, so outputs
+    equal the plans run one after another, bit for bit. Schedules are
+    memoized per plan tuple (at most 64)."""
+    plans = tuple(plans)
+    if len(plans) < 1:
+        raise ValueError("schedule_concurrent takes at least one plan")
+    key = tuple(id(p) for p in plans)
+    hit = _CONCURRENT_CACHE.get(key)
+    if hit is not None:
+        return hit[1]
+    cp = _build_concurrent(plans)
+    if len(_CONCURRENT_CACHE) >= 64:  # bound the program memo
+        _CONCURRENT_CACHE.pop(next(iter(_CONCURRENT_CACHE)))
+    _CONCURRENT_CACHE[key] = (plans, cp)
+    return cp
+
+
+def _build_concurrent(plans: tuple) -> ConcurrentPlan:
+    """Uncached :func:`schedule_concurrent` body."""
+    from .api import chain_blocks
+
+    graphs = []
+    for p in plans:
+        g = _chain_graph(p)
+        if g is None:
+            why = ("whose layout edges wrap its stage graph"
+                   if graph_of(p) is not None else "without a stage graph")
+            raise ValueError(
+                "schedule_concurrent needs plans built through the "
+                f"stage-graph IR (slab/pencil chains); got a plan {why}: "
+                f"{type(p).__name__}(decomposition="
+                f"{getattr(p, 'decomposition', None)!r})")
+        graphs.append(g)
+    world = graphs[0].world
+    for g in graphs[1:]:
+        if not _mesh_compatible(g.world, world):
+            raise ValueError(
+                "schedule_concurrent requires one shared mesh; got "
+                f"{g.world} vs {world}")
+    progs = [_graph_steps(g, _Interp(g.executor, g.algorithm))
+             for g in graphs]
+    lens = [len(p) for p in progs]
+    n = len(progs)
+    spans = [_cc_spans(j) for j in range(n)]
+
+    def fn(*xs):
+        states = [chain_blocks(p, x) for p, x in zip(plans, xs)]
+        for wave in range(max(lens) + n - 1):
+            for j in range(n):
+                k = wave - j
+                if 0 <= k < lens[j]:
+                    states[j] = progs[j][k][2](states[j], spans[j], True)
+        return tuple(gather(g, _resolve(s)) for g, s in zip(graphs, states))
+
+    return ConcurrentPlan(fn=fn, plans=plans, world=world)
+
+
+# ----------------------------------------------------- wave scheduling
+
+def schedule_waves(plans: Sequence, width: int = 4) -> list[tuple]:
+    """Partition N plans into dispatch *waves*: consecutive runs of at
+    most ``width`` plans that :func:`schedule_concurrent` can interleave
+    (each runs its chain whole, all on one shared world). A plan it
+    cannot take breaks the run and rides a singleton wave; a plan on
+    another world starts a new run. Order-preserving."""
+    if not isinstance(width, int) or width < 1:
+        raise ValueError(f"wave width must be a positive int, got {width!r}")
+    waves: list[tuple] = []
+    cur: list = []
+    cur_world = None
+    for p in plans:
+        g = _chain_graph(p)
+        if g is None:
+            if cur:
+                waves.append(tuple(cur))
+                cur, cur_world = [], None
+            waves.append((p,))
+            continue
+        if cur and (len(cur) >= width
+                    or not _mesh_compatible(g.world, cur_world)):
+            waves.append(tuple(cur))
+            cur = []
+        if not cur:
+            cur_world = g.world
+        cur.append(p)
+    if cur:
+        waves.append(tuple(cur))
+    return waves
+
+
+def _ready_events(outs) -> list:
+    """One CUDA event recorded on the current stream of each card the
+    outputs lie on, after the wave's last launch (none for CPU
+    outputs)."""
+    events = []
+    for dev in {t.device for t in outs if t.is_cuda}:
+        with torch.cuda.device(dev):
+            ev = torch.cuda.Event()
+            ev.record()
+            events.append(ev)
+    return events
+
+
+class WaveSchedule:
+    """Rolling wave-at-a-time dispatch over :func:`schedule_concurrent`
+    (the port of the JAX package's ``WaveSchedule``). :meth:`dispatch`
+    issues a wave (the card runs it while the host goes on) and enqueues
+    it as the newest in flight; :meth:`barrier` waits until the *oldest*
+    wave has drained -- on a CUDA event recorded after its last launch,
+    not on the whole device -- and retires it. With ``depth=2`` wave k+1
+    is assembled and dispatched while wave k still runs; at most
+    ``depth`` waves are ever in flight, and they retire in order."""
+
+    def __init__(self, *, max_width: int = 4, depth: int = 2):
+        if not isinstance(max_width, int) or max_width < 1:
+            raise ValueError(
+                f"max_width must be a positive int, got {max_width!r}")
+        if not isinstance(depth, int) or depth < 1:
+            raise ValueError(f"depth must be a positive int, got {depth!r}")
+        self.max_width = max_width
+        self.depth = depth
+        self.waves = 0  # waves dispatched over the schedule's lifetime
+        self.records: list[dict] = []  # retired waves, barrier order
+        self._inflight: deque = deque()  # (record, outputs, events)
+
+    @property
+    def inflight(self) -> int:
+        """Waves dispatched but not yet retired by a barrier."""
+        return len(self._inflight)
+
+    def dispatch(self, plans: Sequence, inputs: Sequence) -> tuple:
+        """Issue one wave and return its outputs (still being computed on
+        the card). Two or more plans :func:`schedule_concurrent` takes,
+        on one world, interleave; anything else dispatches plan by plan
+        in order. Already ``depth`` waves deep, it first retires the
+        oldest (:meth:`barrier`)."""
+        plans = tuple(plans)
+        inputs = tuple(inputs)
+        if len(plans) != len(inputs):
+            raise ValueError(
+                f"wave of {len(plans)} plans takes {len(plans)} inputs, "
+                f"got {len(inputs)}")
+        if not plans:
+            raise ValueError("cannot dispatch an empty wave")
+        if len(plans) > self.max_width:
+            raise ValueError(
+                f"wave of {len(plans)} plans exceeds max_width="
+                f"{self.max_width}; partition with schedule_waves first")
+        while len(self._inflight) >= self.depth:
+            self.barrier()
+        graphs = [_chain_graph(p) for p in plans]
+        interleaved = (len(plans) >= 2 and all(g is not None for g in graphs)
+                       and all(_mesh_compatible(g.world, graphs[0].world)
+                               for g in graphs[1:]))
+        if interleaved:
+            outs = schedule_concurrent(plans)(*inputs)
+        else:
+            outs = tuple(p(x) for p, x in zip(plans, inputs))
+        rec = {"index": self.waves, "width": len(plans),
+               "interleaved": interleaved,
+               "dispatched_at": time.perf_counter()}
+        self.waves += 1
+        self._inflight.append((rec, outs, _ready_events(outs)))
+        return outs
+
+    def barrier(self) -> dict | None:
+        """Retire the oldest in-flight wave: wait until its outputs are
+        ready, stamp its drain time and duration, append it to
+        :attr:`records` and return the record (None when nothing is in
+        flight)."""
+        if not self._inflight:
+            return None
+        rec, _, events = self._inflight.popleft()
+        try:
+            for ev in events:
+                ev.synchronize()
+        finally:
+            rec["drained_at"] = time.perf_counter()
+            rec["duration_s"] = rec["drained_at"] - rec["dispatched_at"]
+            self.records.append(rec)
+        return rec
+
+    def drain(self) -> list[dict]:
+        """Barrier until nothing is in flight; the retired records in
+        barrier order."""
+        recs = []
+        while self._inflight:
+            recs.append(self.barrier())
+        return recs
 
 
 # --------------------------------------------------- brick-I/O edge tier

@@ -367,3 +367,23 @@ def test_fft_encode_steps_match_the_codec_at_powers_of_two(card, codec):
             want = cuda_fuse.fused_fft_encode_plain(x, **kw)
             assert torch.equal(got[1], want[1]), (k, re, im)
             assert torch.equal(got[0], want[0]), (k, re, im)
+
+
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("batch,n", [(4, 1 << 20), (1, 5 ** 8),
+                                     (2, 3 * 2 ** 17)])
+def test_two_level_axis_matches_plain_and_torch_fft(card, batch, n, forward):
+    """A length beyond one kernel's reach: the strided and row kernels
+    with the twiddle and transpose between them (``_fft_last_big``),
+    against its plain composition and torch.fft, one launch of each."""
+    assert not cuda_fft.eligible(n) and cuda_fft.outer_split(n) is not None
+    x = _c64(29, (batch, n), card)
+    before = cuda_fft.launches()
+    y = cuda_fft.fft_along_axis(x, 1, forward)
+    after = cuda_fft.launches()
+    assert after["fft_axis0"] - before["fft_axis0"] == 1
+    assert after["fft_last"] - before["fft_last"] == 1
+    big = cuda_fft._fft_last_big(x, n, forward)
+    assert _err(big, cuda_fft._fft_last_big_plain(x, n, forward)) < C64
+    f = torch.fft.fft if forward else torch.fft.ifft
+    assert _err(y, f(x.to(torch.complex128), dim=1)) < C64

@@ -208,12 +208,18 @@ def test_executor_raises_on_empty():
 
 
 def test_executor_raises_for_two_kernel_lengths():
-    """A length the JAX package runs as two kernel passes
-    (``_fft_last_big``, not ported) still raises, reason ``length``."""
+    """Named for what it pinned before the two-level path was ported: a
+    length the JAX package runs as two kernel passes (``_fft_last_big``)
+    now runs, through the ported two-level transform, with no fallback
+    counted, and matches numpy."""
     assert cuda_fft.outer_split(131072) == pallas_fft.outer_split(131072)
-    x = torch.zeros((1, 131072), dtype=torch.complex64)
-    with pytest.raises(ValueError, match="reason: length"):
-        get_executor("cuda")(x, (1,), True)
+    rng = np.random.default_rng(2)
+    x = (rng.standard_normal((1, 131072))
+         + 1j * rng.standard_normal((1, 131072))).astype(np.complex64)
+    before = dict(cuda_fft.FALLBACKS)
+    y = get_executor("cuda")(torch.from_numpy(x), (1,), True)
+    assert dict(cuda_fft.FALLBACKS) == before
+    assert testing.rel_error(y.numpy(), np.fft.fft(x, axis=1)) < 5e-4
 
 
 @pytest.mark.parametrize("bad", ["dtype", "ndim", "contiguous", "length"])

@@ -11,7 +11,10 @@ the exchange (as the JAX package's do) where the plan transforms X and
 Z there, and the single
 device at these short lengths, whose plan takes the axes one by one from
 X (the plane kernel takes Y and Z together only at its lengths, 64 and
-up, and then both orders are plane, then X).
+up, and then both orders are plane, then X). With ``batch=2`` the
+single, pencil and real pipelines take the JAX builders' stage names,
+compose to the batched plan, and agree with JAX's batched pipelines
+within the complex64 tier.
 :func:`~distributedfft_tpu_torch.utils.timing.time_staged` times each
 stage.
 """
@@ -176,3 +179,72 @@ def test_staged_pipelines_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="1D world"):
         tst.build_slab_rfft_stages(make_world((2, 2), HYBRID_AXES),
                                    (8, 8, 8))
+
+
+BATCH_KINDS = ("single", "pencil", "slab_r2c", "pencil_r2c")
+
+
+def _jax_batched(kind, shape, forward):
+    from distributedfft_tpu.parallel import staged as jstaged
+
+    m = _jax_meshes()
+    if kind == "single":
+        return jstaged.build_single_stages(shape, forward=forward, batch=2)
+    build = {"pencil": (jstaged.build_pencil_stages, "pencil"),
+             "slab_r2c": (jstaged.build_slab_rfft_stages, "slab"),
+             "pencil_r2c": (jstaged.build_pencil_rfft_stages, "pencil")}
+    fn, mesh = build[kind]
+    return fn(m[mesh], shape, forward=forward, batch=2)[0]
+
+
+def _port_batched(kind, shape, forward):
+    d = tdfft.FORWARD if forward else tdfft.BACKWARD
+    if kind == "single":
+        return (tst.build_single_stages(shape, forward=forward, batch=2),
+                tdfft.plan_dft_c2c_3d(shape, device="cpu", direction=d,
+                                      batch=2))
+    world = make_world(4) if kind == "slab_r2c" else make_world((2, 2))
+    build = {"pencil": tst.build_pencil_stages,
+             "slab_r2c": tst.build_slab_rfft_stages,
+             "pencil_r2c": tst.build_pencil_rfft_stages}[kind]
+    planner = (tdfft.plan_dft_c2c_3d if kind == "pencil"
+               else tdfft.plan_dft_r2c_3d)
+    return (build(world, shape, forward=forward, batch=2)[0],
+            planner(shape, world, device="cpu", direction=d, batch=2))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("kind", BATCH_KINDS)
+def test_batched_stages_are_the_jax_stages_and_the_plan(kind, forward,
+                                                        shape):
+    """``batch=2`` on the single, pencil and real pipelines: the JAX
+    builders' stage names, the composition equal to the batched plan (bit
+    for bit; the single device within 1e-5, as unbatched) and within the
+    complex64 tier of JAX's batched staged pipeline on the same input (a
+    real pipeline's backward on a half spectrum of real data)."""
+    stages, plan = _port_batched(kind, shape, forward)
+    jstages = _jax_batched(kind, shape, forward)
+    assert [n for n, _ in stages] == [n for n, _ in jstages]
+    real_in = kind.endswith("r2c") and forward
+    x = testing.make_world_data(plan.in_shape,
+                                np.float32 if real_in else np.complex64,
+                                seed=5)
+    if kind.endswith("r2c") and not forward:
+        # a half spectrum of real data: the C2R of any other input
+        # depends on how each implementation reads its redundant bins
+        real = testing.make_world_data((2,) + shape, np.float32, seed=5)
+        x = np.fft.rfftn(real, axes=(1, 2, 3)).astype(np.complex64)
+    cur = torch.from_numpy(x)
+    for _, fn in stages:
+        cur = fn(cur)
+    want = plan(torch.from_numpy(x))
+    if kind == "single":
+        assert testing.rel_error(cur.numpy(), want.numpy()) < 1e-5
+    else:
+        assert torch.equal(cur, want)
+    jcur = x
+    for _, fn in jstages:
+        jcur = fn(jcur)
+    assert cur.shape == tuple(jcur.shape)
+    assert testing.rel_error(cur.numpy(), np.asarray(jcur)) < 5e-4
