@@ -123,8 +123,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    through the torch executor (a 4-rank slab at 256^3 against
    torch.fft.fftn, 1e-11), and the matmul executor's three precision
    tiers on a [4096, 512] row batch against torch.fft.fft (each tier's
-   error within its band, the three strictly ordered); prints one JSON
-   line of the five kernels and, last, the device line.
+   error within its band, the three strictly ordered);
+15. drives the dd tier at 512^3 (the (hi, lo) pairs of
+   ``dd_from_host`` on seeded numpy data, joined into complex128 on the
+   ``torch`` engine): the C2C plans on one card, on 4 loopback ranks
+   (slab) and on the 2x2 pencil, forward against scipy.fft.fftn in
+   float64 on the host and backward by round trip, the R2C/C2R plans
+   against scipy.fft.rfftn and by round trip, a brick plan (Z-slabs in,
+   X-pencils out) against the slab plan (bits reported), batch = 2
+   against two calls (bits reported), each within 1e-11; no kernel
+   launch and no fallback on that path; then each dd plan's times
+   beside the complex128 plan on the ``torch`` executor and the
+   complex64 exact plan (median of 10), the join and split alone, the
+   memory each call needs over the data held, and one line of the
+   metrics registry's counters after one planned pass (plan builds,
+   cache hits, executes, exchange bytes); prints one JSON line of the
+   five kernels and, last, the device line.
 
 Each counted path (5, 6, 8, 9, 10, 11, 12, 13) also records the case of
 every kernel call and fails on one that phases 2 and 3 did not hold
@@ -1596,7 +1610,9 @@ def check_bricks(torch, dfft, dev, n=512):
 
 
 def peak_gib(torch, fn) -> float:
-    """Peak device memory (GiB) while ``fn`` runs, from a reset."""
+    """Peak device memory (GiB) while ``fn`` runs, from a reset, with
+    no plan kept alive by the plan cache but those ``fn`` holds."""
+    sys.modules["distributedfft_tpu_torch"].clear_plan_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     r = fn()
@@ -2298,6 +2314,245 @@ def seq_pair(plans, xs):
     return [p(x) for p, x in zip(plans, xs)]
 
 
+# ------------------------------------------------------- the dd tier
+
+def dd_data(shape, real=False, seed=SEED):
+    """Seeded numpy float64 data: complex128, or float64 when ``real``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape)
+    return x if real else x + 1j * rng.standard_normal(shape)
+
+
+def dd_rel(torch, ddfft, pair, ref) -> float:
+    """max |value of the pair - ref| / max |ref|, on the pair's device."""
+    return float((ddfft.join(*pair) - ref).abs().max() / ref.abs().max())
+
+
+def dd_worlds():
+    grid = f"{PENCIL_GRID[0]}x{PENCIL_GRID[1]}"
+    return {"single": None, f"slab P={SLAB_RANKS}": SLAB_RANKS,
+            f"pencil {grid}": PENCIL_GRID}
+
+
+def check_dd(torch, dfft, dev, n=512):
+    """Phase 15: the dd tier at n^3 (counts from 0): the C2C plans on one
+    card, a slab of SLAB_RANKS loopback ranks and the PENCIL_GRID pencil,
+    forward against scipy.fft.fftn in float64 on the host and backward
+    by round trip; the R2C/C2R plans against scipy.fft.rfftn and by
+    round trip; a brick plan (Z-slabs in, X-pencils out) against the
+    slab plan; batch = 2 against two calls (bits reported, the tier
+    held). Every error <= 1e-11; every dd plan runs its chains on the
+    ``torch`` engine (the ``_dd`` executor: no kernel launch, no
+    fallback). Returns what the timing phase times."""
+    import scipy.fft
+
+    from distributedfft_tpu_torch.ops import cuda_fft as cf, ddfft
+
+    shape = (n, n, n)
+    x = dd_data(shape)
+    pair = dfft.dd_from_host(x, device=dev)
+    t0 = time.perf_counter()
+    want = torch.from_numpy(scipy.fft.fftn(x, workers=-1)).to(dev)
+    host_s = time.perf_counter() - t0
+    xt = torch.from_numpy(x).to(dev)
+    del x
+    before = dict(cf.FALLBACKS)
+    cf.reset_launches()
+    plans, outs = {}, {}
+    for label, w in dd_worlds().items():
+        f = dfft.plan_dd_dft_c2c_3d(shape, w, device=dev)
+        b = dfft.plan_dd_dft_c2c_3d(shape, w, direction=dfft.BACKWARD,
+                                    device=dev)
+        for p in (f, b):
+            if p.graph is not None and p.graph.executor != ddfft.PLAN_EXECUTOR:
+                fail(f"dd {label}: not on the torch engine")
+        y = f(*pair)
+        e_f = dd_rel(torch, ddfft, y, want)
+        e_rt = dd_rel(torch, ddfft, b(*y), xt)
+        print(f"dd c2c {label} {n}^3: forward vs scipy.fft.fftn (float64, "
+              f"host) max rel err={e_f:.3e}; roundtrip max rel err="
+              f"{e_rt:.3e}", flush=True)
+        if not max(e_f, e_rt) <= TOL128:
+            fail(f"dd c2c {label}: error over {TOL128}")
+        plans[label] = (f, b)
+        outs[label] = y
+    print(f"scipy.fft.fftn at {n}^3 on the host (workers=-1): "
+          f"{host_s:.1f} s", flush=True)
+    # bricks: Z-slabs in, X-pencils out, around the slab chain
+    slab = f"slab P={SLAB_RANKS}"
+    wbox = dfft.geometry.world_box(shape)
+    ins = dfft.geometry.make_slabs(wbox, SLAB_RANKS, axis=2)
+    bouts = dfft.geometry.make_pencils(wbox, PENCIL_GRID, 0)
+    bp = dfft.plan_dd_brick_dft_c2c_3d(shape, SLAB_RANKS, ins, bouts,
+                                       device=dev)
+    stacks = tuple(dfft.scatter_bricks(c, ins) for c in pair)
+    yb = bp(*stacks)
+    got = tuple(dfft.gather_bricks(c, bouts) for c in yb)
+    e_b = dd_rel(torch, ddfft, got, want)
+    same = all(torch.equal(a, c) for a, c in zip(got, outs[slab]))
+    print(f"dd brick c2c (Z-slabs in, X-pencils out) {slab} {n}^3: vs "
+          f"scipy max rel err={e_b:.3e}; equal to the slab plan bit for "
+          f"bit: {same}", flush=True)
+    if not e_b <= TOL128:
+        fail(f"dd brick plan: error over {TOL128}")
+    del got, yb, outs
+    # batch = 2: the pair and half of it, against two calls
+    pb = dfft.plan_dd_dft_c2c_3d(shape, SLAB_RANKS, batch=2, device=dev)
+    items = [pair, tuple(c * 0.5 for c in pair)]
+    bh, bl = pb(*(torch.stack([it[k] for it in items]) for k in (0, 1)))
+    f = plans[slab][0]
+    for i, it in enumerate(items):
+        one = f(*it)
+        bits = torch.equal(bh[i], one[0]) and torch.equal(bl[i], one[1])
+        e_i = dd_rel(torch, ddfft, (bh[i], bl[i]), ddfft.join(*one))
+        print(f"dd batch = 2 {slab} {n}^3 item {i}: equal to one call bit "
+              f"for bit: {bits}; max rel diff={e_i:.3e}", flush=True)
+        if not e_i <= TOL128:
+            fail(f"dd batch item {i}: over the tier against one call")
+    del bh, bl, items, want
+    # real plans
+    xr = dd_data(shape, real=True, seed=SEED + 1)
+    rpair = dfft.dd_from_host(xr, device=dev)
+    want_r = torch.from_numpy(scipy.fft.rfftn(xr, workers=-1)).to(dev)
+    xrt = torch.from_numpy(xr).to(dev)
+    del xr
+    rplans = {}
+    for label, w in dd_worlds().items():
+        f = dfft.plan_dd_dft_r2c_3d(shape, w, device=dev)
+        b = dfft.plan_dd_dft_c2r_3d(shape, w, device=dev)
+        y = f(*rpair)
+        e_f = dd_rel(torch, ddfft, y, want_r)
+        e_rt = dd_rel(torch, ddfft, b(*y), xrt)
+        print(f"dd r2c/c2r {label} {n}^3: forward vs scipy.fft.rfftn max "
+              f"rel err={e_f:.3e}; roundtrip max rel err={e_rt:.3e}",
+              flush=True)
+        if not max(e_f, e_rt) <= TOL128:
+            fail(f"dd r2c/c2r {label}: error over {TOL128}")
+        rplans[label] = (f, b)
+        del y
+    del want_r, xrt
+    launched = cf.launches()
+    print(f"kernel launches on the dd path: {launched}; fallbacks added: "
+          f"{ {k: v for k, v in cf.FALLBACKS.items() if before.get(k) != v} }",
+          flush=True)
+    if any(launched.values()):
+        fail("a dd plan launched a complex64 kernel")
+    if dict(cf.FALLBACKS) != before:
+        fail(f"the dd path took a fallback: {dict(cf.FALLBACKS)}")
+    return dict(pair=pair, rpair=rpair, plans=plans, rplans=rplans,
+                brick=(bp, stacks), batch=pb)
+
+
+def extra_gib(torch, fn) -> float:
+    """Device memory (GiB) ``fn`` needs over what is allocated before it
+    runs (:func:`peak_gib` less the memory held)."""
+    sys.modules["distributedfft_tpu_torch"].clear_plan_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    return peak_gib(torch, fn) - held
+
+
+def time_dd(torch, dfft, timing, dev, card, kept, n=512):
+    """Phase 15b: the dd plans' forward and backward ms (median of 10)
+    beside the complex128 plan on the ``torch`` executor and the
+    complex64 exact plan of the same world, the join and split alone,
+    and the device memory each forward call needs over the data held."""
+    from distributedfft_tpu_torch.ops import ddfft
+
+    shape = (n, n, n)
+    pair = kept["pair"]
+    xc = ddfft.join(*pair)
+    t_js = timing.cuda_time_ms(lambda: ddfft.split(ddfft.join(*pair)),
+                               iters=10)
+    print(f"dd join + split alone {n}^3 (complex64 pair -> complex128 -> "
+          f"pair): {t_js:.3f} ms [{card}]", flush=True)
+    for label, w in dd_worlds().items():
+        f, b = kept["plans"][label]
+        y = f(*pair)
+        t_f = timing.cuda_time_ms(lambda: f(*pair), iters=10)
+        t_b = timing.cuda_time_ms(lambda: b(*y), iters=10)
+        mem = extra_gib(torch, lambda: f(*pair))
+        del y
+        c128 = dict(dtype=torch.complex128, executor="torch", device=dev)
+        cf_ = dfft.plan_dft_c2c_3d(shape, w, **c128)
+        cb_ = dfft.plan_dft_c2c_3d(shape, w, direction=dfft.BACKWARD, **c128)
+        yc = cf_(xc)
+        c_f = timing.cuda_time_ms(lambda: cf_(xc), iters=10)
+        c_b = timing.cuda_time_ms(lambda: cb_(yc), iters=10)
+        mem_c = extra_gib(torch, lambda: cf_(xc))
+        del yc
+        sf = dfft.plan_dft_c2c_3d(shape, w, device=dev)
+        sb = dfft.plan_dft_c2c_3d(shape, w, direction=dfft.BACKWARD,
+                                  device=dev)
+        ys = sf(pair[0])
+        s_f = timing.cuda_time_ms(lambda: sf(pair[0]), iters=10)
+        s_b = timing.cuda_time_ms(lambda: sb(ys), iters=10)
+        del ys
+        print(f"dd c2c {label} {n}^3: forward_ms={t_f:.3f} backward_ms="
+              f"{t_b:.3f} +{mem:.2f} GiB; c128 torch plan {c_f:.3f} / "
+              f"{c_b:.3f} +{mem_c:.2f} GiB; c64 exact plan {s_f:.3f} / "
+              f"{s_b:.3f} [{card}]", flush=True)
+        torch.cuda.empty_cache()
+    rpair = kept["rpair"]
+    for label, (f, b) in kept["rplans"].items():
+        y = f(*rpair)
+        t_f = timing.cuda_time_ms(lambda: f(*rpair), iters=10)
+        t_b = timing.cuda_time_ms(lambda: b(*y), iters=10)
+        mem = extra_gib(torch, lambda: f(*rpair))
+        del y
+        print(f"dd r2c/c2r {label} {n}^3: forward_ms={t_f:.3f} "
+              f"backward_ms={t_b:.3f} +{mem:.2f} GiB [{card}]",
+              flush=True)
+    bp, stacks = kept["brick"]
+    t_br = timing.cuda_time_ms(lambda: bp(*stacks), iters=10)
+    print(f"dd brick c2c slab P={SLAB_RANKS} {n}^3: forward_ms={t_br:.3f} "
+          f"+{extra_gib(torch, lambda: bp(*stacks)):.2f} GiB [{card}]",
+          flush=True)
+    pb = kept["batch"]
+    xb = tuple(torch.stack([c, c]) for c in pair)
+    t_bt = timing.cuda_time_ms(lambda: pb(*xb), iters=10)
+    f = kept["plans"][f"slab P={SLAB_RANKS}"][0]
+    t_two = timing.cuda_time_ms(lambda: (f(*pair), f(*pair)), iters=10)
+    print(f"dd batch = 2 slab P={SLAB_RANKS} {n}^3: {t_bt:.3f} ms against "
+          f"two calls {t_two:.3f} ms [{card}]", flush=True)
+
+
+def dd_metrics_line(torch, dfft, dev, pair, n=512):
+    """One planned pass with the metrics registry on: the slab dd plan
+    and the slab complex64 plan, each planned twice (a build, then a
+    cache hit) and called once. Prints the counters as one line."""
+    from distributedfft_tpu_torch.utils import metrics
+
+    shape = (n, n, n)
+    dfft.clear_plan_cache()
+    metrics.metrics_reset()
+    metrics.enable_metrics()
+    try:
+        for _ in range(2):
+            dd = dfft.plan_dd_dft_c2c_3d(shape, SLAB_RANKS, device=dev)
+            c64 = dfft.plan_dft_c2c_3d(shape, SLAB_RANKS, device=dev)
+        dd(*pair)
+        c64(pair[0])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        snap = metrics.metrics_snapshot()
+    finally:
+        metrics.enable_metrics(False)
+        metrics.metrics_reset()
+    c = snap["counters"]
+    print("metrics after one planned pass: " + json.dumps({
+        "plan_builds": c.get("plan_builds", {}),
+        "plan_cache_hits": c.get("plan_cache_hits", {}),
+        "plan_cache_misses": c.get("plan_cache_misses", {}),
+        "executes": c.get("executes", {}),
+        "exchange_true_bytes": c.get("exchange_true_bytes", {}),
+        "exchange_wire_bytes": c.get("exchange_wire_bytes", {}),
+        "plan_build_seconds": {
+            k: v["total"] for k, v in snap["histograms"].get(
+                "plan_build_seconds", {}).items()}}), flush=True)
+
+
 def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "distributedfft_tpu_torch")):
@@ -2349,6 +2604,7 @@ def main() -> None:
     fallbacks = dict(cf.FALLBACKS)   # no complex64 phase at 512 may add one
     with recording_cases(cf, cfu) as seen:
         cf.reset_launches()
+        dfft.clear_plan_cache()
         torch.cuda.reset_peak_memory_stats()
         n = 512
         x = seeded(torch, (n, n, n), dev)
@@ -2399,6 +2655,7 @@ def main() -> None:
     # ---- the compressed and real path: counts from 0, each plan once ----
     cf.reset_launches()
     cfu.reset_launches()
+    dfft.clear_plan_cache()
     torch.cuda.reset_peak_memory_stats()
     with recording_cases(cf, cfu) as seen:
         plans = check_fused_plans(torch, dfft, world)
@@ -2438,6 +2695,7 @@ def main() -> None:
     # ---- the pencil path: counts from 0, each plan once ----
     cf.reset_launches()
     cfu.reset_launches()
+    dfft.clear_plan_cache()
     torch.cuda.reset_peak_memory_stats()
     with recording_cases(cf, cfu) as seen:
         pencil = check_pencil(torch, dfft, dev)
@@ -2480,6 +2738,7 @@ def main() -> None:
     # ---- the transports, overlap and staged path: counts from 0 ----
     cf.reset_launches()
     cfu.reset_launches()
+    dfft.clear_plan_cache()
     torch.cuda.reset_peak_memory_stats()
     with recording_cases(cf, cfu) as seen:
         transport = check_transports(torch, dfft, dev)
@@ -2508,6 +2767,7 @@ def main() -> None:
     # ---- the brick, batched, layout and r2c_axis path: counts from 0 ----
     cf.reset_launches()
     cfu.reset_launches()
+    dfft.clear_plan_cache()
     torch.cuda.reset_peak_memory_stats()
     with recording_cases(cf, cfu) as seen:
         bricks = check_bricks(torch, dfft, dev)
@@ -2535,6 +2795,7 @@ def main() -> None:
     # ---- the spectral-operator path: counts from 0 ----
     cf.reset_launches()
     cfu.reset_launches()
+    dfft.clear_plan_cache()
     torch.cuda.reset_peak_memory_stats()
     with recording_cases(cf, cfu) as seen:
         ops = check_operators(torch, dfft, dev, card)
@@ -2570,6 +2831,7 @@ def main() -> None:
              lambda: check_dist1d(torch, dfft, dev))):
         cf.reset_launches()
         cfu.reset_launches()
+        dfft.clear_plan_cache()
         torch.cuda.reset_peak_memory_stats()
         with recording_cases(cf, cfu) as seen:
             kept = drive()
@@ -2595,6 +2857,7 @@ def main() -> None:
     # ---- the concurrent scheduler: counts from 0 ----
     cf.reset_launches()
     cfu.reset_launches()
+    dfft.clear_plan_cache()
     torch.cuda.reset_peak_memory_stats()
     with recording_cases(cf, cfu) as seen:
         pairs, xs = check_concurrent(torch, dfft, dev)
@@ -2628,6 +2891,21 @@ def main() -> None:
           flush=True)
     torch.cuda.empty_cache()
     check_matmul_tiers(torch, timing, dev)
+
+    # ---- the dd tier: counts from 0, then times and one metrics pass ----
+    dfft.clear_plan_cache()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_dd = time.perf_counter()
+    kept = check_dd(torch, dfft, dev)
+    print(f"peak device memory of the dd path: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    time_dd(torch, dfft, timing, dev, card, kept)
+    dd_metrics_line(torch, dfft, dev, kept["pair"])
+    print(f"dd phase: {time.perf_counter() - t_dd:.1f} s", flush=True)
+    del kept
+    dfft.clear_plan_cache()
+    torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": [
         {k: rec[k] for k in ("name", "route", "source", "replaces",

@@ -84,12 +84,20 @@ from . import operators  # noqa: F401
 from .api import (  # noqa: F401
     BACKWARD,
     FORWARD,
+    DDPlan3D,
     OpPlan3D,
     Plan3D,
+    clear_plan_cache,
     execute,
     plan_brick_dft_c2c_3d,
     plan_brick_dft_c2r_3d,
     plan_brick_dft_r2c_3d,
+    plan_dd_brick_dft_c2c_3d,
+    plan_dd_brick_dft_c2r_3d,
+    plan_dd_brick_dft_r2c_3d,
+    plan_dd_dft_c2c_3d,
+    plan_dd_dft_c2r_3d,
+    plan_dd_dft_r2c_3d,
     plan_dft_c2c_3d,
     plan_dft_c2r_3d,
     plan_dft_r2c_3d,
@@ -100,6 +108,7 @@ from .local import (LocalPlan, plan_dft_c2c, plan_dft_c2c_1d,  # noqa: F401
                     plan_dft_c2c_2d)
 from .operators import (fft_convolve, gaussian_filter,  # noqa: F401
                         plan_spectral_op, solve_poisson, spectral_gradient)
+from .ops.ddfft import dd_from_host, dd_to_host  # noqa: F401
 from .ops.executors import Scale  # noqa: F401
 from .parallel.bricks import gather_bricks, scatter_bricks  # noqa: F401
 from .parallel.exchange import ALGORITHMS  # noqa: F401
@@ -111,4 +120,6 @@ from .plan_logic import (PlanOptions, choose_decomposition,  # noqa: F401
                          default_options)
 from .stagegraph import (ConcurrentPlan, WaveSchedule,  # noqa: F401
                          graph_of, schedule_concurrent, schedule_waves)
+from .utils.metrics import (enable_metrics, metrics_enabled,  # noqa: F401
+                            metrics_reset, metrics_snapshot)
 from .utils.trace import plan_info  # noqa: F401

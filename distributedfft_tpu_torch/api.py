@@ -56,8 +56,12 @@ brick plan: its brick, in its box's storage order) and its output box.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import itertools
 import math
+import os
+import time
 from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Sequence
 
@@ -66,18 +70,22 @@ import torch
 from . import geometry as geo
 from .ops.executors import (MM_EXECUTOR_BASES, Scale, apply_scale,
                             fused_name, get_c2r, get_executor, get_r2c,
-                            run_donated, split_fuse, tiered_name)
+                            run_donated, scale_factor, split_fuse,
+                            tiered_name)
 from .parallel import bricks
-from .parallel.exchange import wire_codec
-from .parallel.mesh import Spec, World, spec_boxes, spec_entries, spec_parts
+from .parallel.exchange import WIRE_BYTE_KEYS, wire_codec
+from .parallel.mesh import (Spec, World, make_world, spec_boxes, spec_entries,
+                            spec_parts)
 from .parallel.pencil import (PencilSpec, build_pencil_fft3d,
                               build_pencil_rfft3d)
 from .parallel.reshape import make_reshape3d, spec_gather, spec_scatter
 from .parallel.slab import (SlabSpec, build_slab_fft3d, build_slab_rfft3d,
                             check_batch)
-from .plan_logic import LogicPlan, PlanOptions, io_boxes, logic_plan3d
+from .plan_logic import (LogicPlan, PlanOptions, exchange_payloads, io_boxes,
+                         logic_plan3d)
 from .stagegraph import (BrickEdgeGraph, StageGraph, compile_brick_io,
                          gather, plan_fusion, run_graph, scatter)
+from .utils import metrics as _metrics
 from .utils.trace import add_trace
 
 # FFTW sign convention.
@@ -925,6 +933,416 @@ def _wrap_brick_io(inner: Plan3D, in_boxes: Sequence[geo.Box3],
     return plan
 
 
+# ---------------------------------------------------------- the dd tier
+
+@dataclass
+class DDPlan3D:
+    """A 3D FFT plan at the emulated-double (dd) tier (the port of the
+    JAX package's ``DDPlan3D``): its I/O is a (hi, lo) pair, complex64
+    (float32 on the real side of an r2c/c2r plan), ~49 significand bits
+    (:mod:`.ops.ddfft`). ``fn(hi, lo, timer=None)`` joins the pair into
+    complex128, runs the port's complex128 chain on ``torch.fft`` (the
+    internal ``_dd`` executor) and splits the result. ``kind`` is ``"c2c"`` or
+    ``"r2c"``; ``graph`` the complex128 chain (None on one device).
+    ``world``, ``spec``, the boxes and shapes are those of a
+    :class:`Plan3D` of the same chain; a brick plan's in/out shapes are
+    its stacks'. Host conversion: :func:`.ops.ddfft.dd_from_host` /
+    :func:`.ops.ddfft.dd_to_host`."""
+
+    shape: tuple[int, int, int]
+    direction: int
+    decomposition: str            # "single" | "slab" | "pencil" | "bricks-*"
+    world: World | None
+    fn: Callable
+    device: torch.device
+    kind: str = "c2c"
+    graph: StageGraph | None = None
+    spec: SlabSpec | PencilSpec | None = None
+    in_boxes: list[geo.Box3] = field(default_factory=list)
+    out_boxes: list[geo.Box3] = field(default_factory=list)
+    in_shape: tuple | None = None
+    out_shape: tuple | None = None
+    batch: int | None = None
+    r2c_axis: int = 2
+    donate: bool = False
+    algorithm: str = "alltoall"
+    overlap_chunks: int = 1
+    brick_edges: tuple | None = None
+
+    @property
+    def forward(self) -> bool:
+        return self.direction == FORWARD
+
+    @property
+    def in_dtype(self) -> torch.dtype:
+        return (torch.float32 if self.kind == "r2c" and self.forward
+                else torch.complex64)
+
+    @property
+    def out_dtype(self) -> torch.dtype:
+        return (torch.float32 if self.kind == "r2c" and not self.forward
+                else torch.complex64)
+
+    def __call__(self, hi: torch.Tensor, lo: torch.Tensor, *,
+                 scale: Scale = Scale.NONE, timer=None):
+        if _metrics._enabled:
+            _metrics.inc("executes", kind="dd",
+                         decomposition=self.decomposition, executor="dd")
+        with add_trace(f"execute_dd_{self.decomposition}"):
+            _check_pair(self, hi, lo)
+            yh, yl = self.fn(hi, lo, timer)
+            if scale != Scale.NONE:
+                from .ops.ddfft import dd_scale
+
+                yh, yl = dd_scale(yh, yl, scale_factor(
+                    scale, math.prod(self.shape)))
+        return yh, yl
+
+
+def _check_pair(plan: DDPlan3D, hi, lo) -> None:
+    for t in (hi, lo):
+        _check_input(plan, t)
+    if hi.shape != lo.shape:
+        raise ValueError(f"hi and lo differ in shape: {tuple(hi.shape)} "
+                         f"and {tuple(lo.shape)}")
+    world = plan.world
+    if plan.decomposition.startswith("bricks-"):
+        return                     # the brick edges check their stacks
+    if world is None or world.loopback:
+        _check_shape(hi, plan.in_shape, "plan input shape")
+    else:
+        bpfx = () if plan.batch is None else (plan.batch,)
+        _check_shape(hi, bpfx + plan.in_boxes[world.rank].shape,
+                     f"rank {world.rank} input box")
+
+
+def _dd_shape(shape, direction) -> tuple[tuple[int, int, int], bool]:
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != 3:
+        raise ValueError("3D plans require a 3D shape")
+    if direction not in (FORWARD, BACKWARD):
+        raise ValueError("direction must be FORWARD (-1) or BACKWARD (+1)")
+    return shape, direction == FORWARD
+
+
+def _dd_world(world) -> World | None:
+    """The world of a dd plan: None (one device), an int (a loopback 1D
+    world of that many ranks, even 1), a ``(rows, cols)`` tuple (a
+    loopback 2D world) or a :class:`World`."""
+    if world is None or isinstance(world, World):
+        return world
+    try:
+        return make_world(world if isinstance(world, int) else tuple(world))
+    except (TypeError, ValueError):
+        raise ValueError("dd plans support single-device, 1D, or 2D "
+                         "meshes") from None
+
+
+def _dd_single(shape, *, kind: str, forward: bool, batch, donate: bool):
+    """One device: ``fn(hi, lo, timer=None)`` joining the pair, the
+    complex128 transform over the trailing three axes (the real axis 2
+    first forward, last backward on an r2c plan) and the split;
+    ``fn.wide`` is that transform alone."""
+    from .ops import ddfft
+
+    for n in shape:
+        ddfft._check_length(n)
+    bo = 0 if batch is None else 1
+    axes = (bo, 1 + bo, 2 + bo)
+    name = ddfft.PLAN_EXECUTOR
+    ex, r2c, c2r = get_executor(name), get_r2c(name), get_c2r(name)
+    if kind == "c2c":
+        def wide(y):
+            return ex(y, axes, forward)
+    elif forward:
+        def wide(y):
+            return ex(r2c(y, axes[2]), axes[:2], True)
+    else:
+        def wide(y):
+            return c2r(ex(y, axes[:2], False), shape[2], axes[2])
+
+    def fn(hi, lo, timer=None):
+        with _stage(timer, "t0"):
+            return ddfft.split(wide(ddfft.join(hi, lo)),
+                               out=(hi, lo) if donate else None)
+
+    fn.wide = wide
+    return fn
+
+
+def _stage(timer, kind: str):
+    return contextlib.nullcontext() if timer is None else timer.stage(kind)
+
+
+def _dd_plan(shape, world, *, kind: str, direction: int, device, donate,
+             overlap_chunks, batch) -> DDPlan3D:
+    """The dd plan over the world as the JAX planners read it: one
+    device, a 1D world's slab chain, a 2D world's pencil chain."""
+    from .parallel import ddslab
+    from .plan_logic import resolve_overlap_chunks
+
+    shape, forward = _dd_shape(shape, direction)
+    batch = _norm_batch(batch)
+    world = _dd_world(world)
+    device = resolve_device(device)
+    real = kind == "r2c"
+    donate = bool(donate) and not real
+    common = dict(shape=shape, direction=direction, device=device,
+                  kind=kind, batch=batch, donate=donate,
+                  **_dd_io_shapes(shape, kind, forward, batch))
+    if world is None:
+        lp = LogicPlan(shape, "single", None, batch=batch)
+        ins, outs = io_boxes(lp, forward=forward, real=real)
+        return DDPlan3D(decomposition="single", world=None,
+                        fn=_dd_single(shape, kind=kind, forward=forward,
+                                      batch=batch, donate=donate),
+                        in_boxes=ins, out_boxes=outs, **common)
+    overlap = resolve_overlap_chunks(overlap_chunks, shape=shape,
+                                     ndev=world.size,
+                                     itemsize=8 * (batch or 1))
+    kw = dict(forward=forward, overlap_chunks=overlap, batch=batch)
+    if kind == "c2c":
+        kw["donate"] = donate
+    if world.grid is None:
+        build = (ddslab.build_dd_slab_fft3d if kind == "c2c"
+                 else ddslab.build_dd_slab_rfft3d)
+        fn, spec = build(world, shape, **kw)
+        lp = LogicPlan(shape, "slab", world,
+                       slab_axes=(spec.in_axis, spec.out_axis), batch=batch)
+    else:
+        build = (ddslab.build_dd_pencil_fft3d if kind == "c2c"
+                 else ddslab.build_dd_pencil_rfft3d)
+        fn, spec = build(world, shape, **kw)
+        lp = LogicPlan(shape, "pencil", world, pencil_perm=spec.perm,
+                       pencil_order=spec.order, batch=batch)
+    ins, outs = io_boxes(lp, forward=forward, real=real)
+    return DDPlan3D(decomposition=lp.decomposition, world=world, fn=fn,
+                    graph=fn.stage_graph, spec=spec, in_boxes=ins,
+                    out_boxes=outs, overlap_chunks=overlap, **common)
+
+
+def _dd_io_shapes(shape, kind: str, forward: bool, batch) -> dict:
+    bpfx = () if batch is None else (batch,)
+    half = shape[:2] + (shape[2] // 2 + 1,) if kind == "r2c" else shape
+    ins, outs = (shape, half) if forward else (half, shape)
+    return dict(in_shape=bpfx + ins, out_shape=bpfx + outs)
+
+
+def plan_dd_dft_c2c_3d(
+    shape: Sequence[int],
+    world: World | int | Sequence[int] | None = None,
+    *,
+    direction: int = FORWARD,
+    donate: bool = False,
+    overlap_chunks: int | str | None = None,
+    batch: int | None = None,
+    device=None,
+) -> DDPlan3D:
+    """A 3D C2C plan at the emulated-double tier: one device
+    (``world=None``), the slab chain over a 1D world (an int is a
+    loopback world of that many ranks), the pencil chain over a 2D world
+    (a ``(rows, cols)`` tuple or a 2D :class:`World`). Forward
+    unnormalized, backward scaled 1/N. ``overlap_chunks`` and ``batch``
+    as in :func:`plan_dft_c2c_3d` (both components carry the batch
+    axis); ``donate=True`` writes the result into the input pair where
+    it has the input's shape."""
+    return _dd_plan(shape, world, kind="c2c", direction=direction,
+                    device=device, donate=donate,
+                    overlap_chunks=overlap_chunks, batch=batch)
+
+
+def plan_dd_dft_r2c_3d(
+    shape: Sequence[int],
+    world: World | int | Sequence[int] | None = None,
+    *,
+    direction: int = FORWARD,
+    r2c_axis: int = 2,
+    donate: bool = False,
+    overlap_chunks: int | str | None = None,
+    batch: int | None = None,
+    device=None,
+) -> DDPlan3D:
+    """A real<->complex 3D plan at the dd tier: ``shape`` is the real
+    world; forward takes real float32 pairs and returns the half-spectrum
+    complex64 pairs (``r2c_axis`` shrunk to n//2+1), backward inverts,
+    scaled 1/N. ``r2c_axis`` 0 or 1 runs the canonical chain on the view
+    with that axis and axis 2 swapped (not batched). ``donate`` is
+    accepted and has no effect (the real and half-spectrum buffers never
+    alias)."""
+    batch = _norm_batch(batch)
+    if r2c_axis != 2:
+        if batch is not None:
+            raise ValueError(
+                "batched dd r2c plans run the canonical r2c_axis=2 chain; "
+                "transpose the batch's world instead of passing r2c_axis")
+        return _dd_r2c_axis_wrapped(shape, world, r2c_axis,
+                                    direction=direction,
+                                    overlap_chunks=overlap_chunks,
+                                    device=device)
+    del donate
+    return _dd_plan(shape, world, kind="r2c", direction=direction,
+                    device=device, donate=False,
+                    overlap_chunks=overlap_chunks, batch=batch)
+
+
+def plan_dd_dft_c2r_3d(shape, world=None, **kw) -> DDPlan3D:
+    """The inverse of :func:`plan_dd_dft_r2c_3d`."""
+    kw.setdefault("direction", BACKWARD)
+    return plan_dd_dft_r2c_3d(shape, world, **kw)
+
+
+def _dd_r2c_axis_wrapped(shape, world, axis: int, *, direction,
+                         overlap_chunks=None, device=None) -> DDPlan3D:
+    """dd r2c/c2r with the halved axis 0 or 1: the canonical chain on the
+    view of both components with ``axis`` and 2 swapped; shapes and
+    boxes permuted back to the caller's axes."""
+    if axis not in (0, 1):
+        raise ValueError(f"r2c_axis must be 0, 1, or 2; got {axis}")
+    shape, _ = _dd_shape(shape, direction)
+    perm = _swap_perm(axis)
+    try:
+        inner = plan_dd_dft_r2c_3d(tuple(shape[p] for p in perm), world,
+                                   direction=direction,
+                                   overlap_chunks=overlap_chunks,
+                                   device=device)
+    except ValueError as e:
+        raise ValueError(
+            f"{e} [note: r2c_axis={axis} plans run on a transposed view -- "
+            f"extents in this message are in the chain convention (axes "
+            f"{axis} and 2 swapped)]") from e
+    inner_fn = inner.fn
+
+    def fn(hi, lo, timer=None):
+        yh, yl = inner_fn(hi.permute(perm).contiguous(),
+                          lo.permute(perm).contiguous(), timer)
+        return yh.permute(perm).contiguous(), yl.permute(perm).contiguous()
+
+    def permute_boxes(boxes):
+        return [geo.Box3(tuple(b.low[p] for p in perm),
+                         tuple(b.high[p] for p in perm)) for b in boxes]
+
+    return replace(inner, shape=shape, r2c_axis=axis, fn=fn,
+                   in_boxes=permute_boxes(inner.in_boxes),
+                   out_boxes=permute_boxes(inner.out_boxes),
+                   in_shape=tuple(inner.in_shape[p] for p in perm),
+                   out_shape=tuple(inner.out_shape[p] for p in perm))
+
+
+def plan_dd_brick_dft_c2c_3d(
+    shape: Sequence[int],
+    world: World | int | Sequence[int] | None,
+    in_boxes: Sequence[geo.Box3],
+    out_boxes: Sequence[geo.Box3],
+    *,
+    direction: int = FORWARD,
+    algorithm: str = "alltoall",
+    donate: bool = False,
+    device=None,
+) -> DDPlan3D:
+    """Any per-rank boxes at the dd tier (heFFTe's arbitrary-box double
+    capability): the joined complex128 stack travels the brick edges of
+    :func:`plan_brick_dft_c2c_3d` (``ring``, or ``a2av`` under
+    ``algorithm="alltoallv"``) around the dd chain, ``Box3.order``
+    honoured on both sides. I/O is a pair of ``[P, *pad]`` stacks
+    (:func:`~.parallel.bricks.scatter_bricks` of each component) on a
+    loopback world, a rank's own pair of bricks on a process group."""
+    shape, _ = _dd_shape(shape, direction)
+    inner = plan_dd_dft_c2c_3d(shape, world, direction=direction,
+                               device=device)
+    return _dd_brick_wrap(inner, in_boxes, out_boxes, algorithm, donate)
+
+
+def plan_dd_brick_dft_r2c_3d(
+    shape: Sequence[int],
+    world: World | int | Sequence[int] | None,
+    in_boxes: Sequence[geo.Box3],
+    out_boxes: Sequence[geo.Box3],
+    *,
+    direction: int = FORWARD,
+    algorithm: str = "alltoall",
+    donate: bool = False,
+    device=None,
+) -> DDPlan3D:
+    """The real<->complex brick plan at the dd tier: forward, ``in_boxes``
+    tile the real world (float32 pairs) and ``out_boxes`` the world
+    halved along axis 2; backward the roles swap. Canonical
+    ``r2c_axis=2`` only; ``donate`` has no effect."""
+    del donate
+    shape, _ = _dd_shape(shape, direction)
+    inner = plan_dd_dft_r2c_3d(shape, world, direction=direction,
+                               device=device)
+    return _dd_brick_wrap(inner, in_boxes, out_boxes, algorithm, False)
+
+
+def plan_dd_brick_dft_c2r_3d(shape, world, in_boxes, out_boxes,
+                             **kw) -> DDPlan3D:
+    """The inverse of :func:`plan_dd_brick_dft_r2c_3d`."""
+    kw.setdefault("direction", BACKWARD)
+    return plan_dd_brick_dft_r2c_3d(shape, world, in_boxes, out_boxes, **kw)
+
+
+def _dd_brick_wrap(inner: DDPlan3D, in_boxes, out_boxes, algorithm: str,
+                   donate: bool) -> DDPlan3D:
+    """Bracket a dd plan with the brick edges of :func:`_wrap_brick_io`:
+    the caller's pair of stacks is joined into one complex128 stack, the
+    edges and the chain run on it, and the output stack is split."""
+    from .ops import ddfft
+
+    in_boxes, out_boxes = list(in_boxes), list(out_boxes)
+    world = inner.world
+    _check_brick_algorithm(algorithm)
+    wide_out = ddfft._WIDE[inner.out_dtype]
+    if world is None:
+        for label, boxes in (("in_boxes", in_boxes),
+                             ("out_boxes", out_boxes)):
+            if len(boxes) != 1:
+                raise ValueError(
+                    f"single-device brick plans take exactly one box per "
+                    f"side; {label} has {len(boxes)}")
+        _check_world_coverage(in_boxes, out_boxes, inner.in_shape,
+                              inner.out_shape)
+        wide = inner.fn.wide
+
+        def chain(blocks, timer):
+            with _stage(timer, "t0"):
+                return [wide(blocks[0])]
+
+        edges = BrickEdgeGraph(
+            edge_in=(_order_views(None, in_boxes),
+                     lambda views: [views[0].contiguous()]),
+            edge_out=(lambda y, dst: dst[0].copy_(y[0]),
+                      _order_views(None, out_boxes)),
+            alloc=_stack_alloc(None, out_boxes, wide_out))
+        specs = None
+    else:
+        reshape_in, reshape_out, specs = _build_brick_edges(
+            replace(inner, algorithm=algorithm), in_boxes, out_boxes)
+        graph = inner.graph
+
+        def chain(blocks, timer):
+            return run_graph(graph, blocks, timer)
+
+        edges = BrickEdgeGraph(
+            edge_in=(_order_views(world, in_boxes), reshape_in),
+            edge_out=(reshape_out, _order_views(world, out_boxes)),
+            alloc=_stack_alloc(world, out_boxes, wide_out), specs=specs)
+    io = compile_brick_io(edges, chain)
+    nb = 1 if world is None else world.size
+    in_shape = (nb,) + bricks.stack_pad_for(in_boxes)
+    out_shape = (nb,) + bricks.stack_pad_for(out_boxes)
+    into = donate and in_shape == out_shape
+
+    def fn(hi, lo, timer=None):
+        y = io(_held_bricks(plan, ddfft.join(hi, lo)), timer)
+        return ddfft.split(y, out=(hi, lo) if into else None)
+
+    plan = replace(inner, decomposition=f"bricks-{inner.decomposition}",
+                   fn=fn, in_boxes=in_boxes, out_boxes=out_boxes,
+                   in_shape=in_shape, out_shape=out_shape, algorithm=algorithm,
+                   brick_edges=specs, donate=bool(donate))
+    return plan
+
+
 # ------------------------------------------------- plans from the reference
 
 #: JAX executor bases and their port counterparts (tier and fuse flags
@@ -1049,6 +1467,13 @@ def execute(plan: Plan3D, x: torch.Tensor, *, scale: Scale = Scale.NONE,
     each stage under its kind (t0..t3; a pencil plan's exchanges under
     t2a and t2b). With ``donate`` the plan may overwrite ``x``."""
     _check_input(plan, x)
+    if _metrics._enabled:
+        _metrics.inc("executes", kind=_kind_label(plan),
+                     decomposition=plan.decomposition, executor=plan.executor)
+        true_b, wire_b = _plan_exchange_bytes(plan)
+        if true_b or wire_b:
+            _metrics.inc("exchange_true_bytes", float(true_b))
+            _metrics.inc("exchange_wire_bytes", float(wire_b))
     with add_trace(f"execute_{_kind_label(plan)}_{plan.decomposition}"):
         if plan.runner is not None:
             y = plan.runner(x, timer)
@@ -1124,3 +1549,108 @@ def _execute_chain(plan: Plan3D, x: torch.Tensor, timer) -> torch.Tensor:
     (:func:`.stagegraph.gather`)."""
     return gather(plan.graph, run_graph(plan.graph, chain_blocks(plan, x),
                                         timer, donate=plan.donate))
+
+
+def _plan_exchange_bytes(plan: Plan3D) -> tuple[int, int]:
+    """(true, wire) bytes one execution of ``plan`` moves between ranks:
+    the chain's exchanges by :func:`.plan_logic.exchange_payloads` under
+    the plan's transport, plus its brick edges. Computed once per plan
+    (kept on it)."""
+    cached = getattr(plan, "_exchange_bytes", None)
+    if cached is not None:
+        return cached
+    true_b = wire_b = 0
+    itemsize = torch.empty((), dtype=plan.dtype).element_size()
+    lp = plan.logic
+    if lp is not None and lp.world is not None:
+        # the complex side of the chain's own world (r2c: axis 2 halved)
+        shape = lp.shape if plan.kind == "c2c" else (
+            lp.shape[:2] + (lp.shape[2] // 2 + 1,))
+        wire_key = WIRE_BYTE_KEYS[lp.algorithm]
+        for e in exchange_payloads(lp, shape, itemsize):
+            true_b += e["true_bytes"]
+            wire_b += int(e[wire_key] * e["wire_factor"])
+    for bs in plan.brick_edges or ():
+        true_b += bs.payload_elems * itemsize
+        wire_b += bs.wire_elems * itemsize
+    plan._exchange_bytes = (true_b, wire_b)
+    return true_b, wire_b
+
+
+# ------------------------------------------------------------ plan cache
+# Plans are immutable once built and cost host time to build, so the
+# public planners memoize on their whole argument set: kind, shape,
+# world, the keywords, the resolved device and DFFT_OVERLAP (the one
+# environment variable planning reads, for overlap_chunks=None).
+# Unhashable arguments, and
+# worlds over a process group (whose group may be destroyed and another
+# made with equal fields), bypass the cache. It holds _PLAN_CACHE_MAX
+# plans, the oldest evicted first.
+
+_PLAN_CACHE: dict = {}
+_PLAN_CACHE_MAX = 128
+
+
+def clear_plan_cache() -> None:
+    """Drop every memoized plan (tests, peak-memory readings)."""
+    _PLAN_CACHE.clear()
+
+
+def _plan_cache_key(kind: str, shape, world, kw: dict):
+    """Hashable cache key, or None when the call bypasses the cache."""
+    if isinstance(world, World) and not world.loopback:
+        return None
+    kw = dict(kw)
+    device = resolve_device(kw.pop("device", None))
+    # each value with its type: batch=True must not find the batch=1 plan
+    args = tuple(sorted((k, type(v), v) for k, v in kw.items()))
+    key = (kind, shape, type(world), world, args, device,
+           os.environ.get("DFFT_OVERLAP", ""))
+    try:
+        hash(key)
+    except TypeError:
+        return None
+    return key
+
+
+def _timed_build(kind: str, build: Callable, shape, world, kw: dict):
+    t0 = time.perf_counter()
+    plan = build(shape, world, **kw)
+    if _metrics._enabled:
+        _metrics.observe("plan_build_seconds", time.perf_counter() - t0,
+                         kind=kind)
+        _metrics.inc("plan_builds", kind=kind,
+                     decomposition=plan.decomposition,
+                     executor=getattr(plan, "executor", "dd"))
+    return plan
+
+
+def _plan_cached(kind: str, build: Callable) -> Callable:
+    """Memoizing wrapper of a public planner (``plan_cache_hits`` /
+    ``plan_cache_misses`` by ``kind``)."""
+
+    @functools.wraps(build)
+    def wrapper(shape, world=None, **kw):
+        shape = tuple(int(s) for s in shape)
+        key = _plan_cache_key(kind, shape, world, kw)
+        if key is None:
+            return _timed_build(kind, build, shape, world, kw)
+        plan = _PLAN_CACHE.get(key)
+        if plan is not None:
+            if _metrics._enabled:
+                _metrics.inc("plan_cache_hits", kind=kind)
+            return plan
+        if _metrics._enabled:
+            _metrics.inc("plan_cache_misses", kind=kind)
+        plan = _PLAN_CACHE[key] = _timed_build(kind, build, shape, world, kw)
+        while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
+            _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
+        return plan
+
+    return wrapper
+
+
+plan_dft_c2c_3d = _plan_cached("c2c", plan_dft_c2c_3d)
+plan_dft_r2c_3d = _plan_cached("r2c", plan_dft_r2c_3d)
+plan_dd_dft_c2c_3d = _plan_cached("dd_c2c", plan_dd_dft_c2c_3d)
+plan_dd_dft_r2c_3d = _plan_cached("dd_r2c", plan_dd_dft_r2c_3d)

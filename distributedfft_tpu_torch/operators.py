@@ -43,6 +43,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from . import api as _api
 from .api import (FORWARD, REAL_DTYPE, OpPlan3D, _check_shape, _norm_batch,
                   _resolve_options, resolve_device)
 from .ops.executors import get_executor, run_donated
@@ -456,6 +457,9 @@ def plan_spectral_op(
     if graph is None:
         plan.runner = _single_runner(plan, mult)
     return plan
+
+
+plan_spectral_op = _api._plan_cached("op", plan_spectral_op)
 
 
 def solve_poisson(shape, world=None, **kw) -> OpPlan3D:

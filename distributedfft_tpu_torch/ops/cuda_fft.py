@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..utils import metrics as _metrics
 from . import dft_matmul, radix
 from ._build import check, library
 
@@ -98,7 +99,10 @@ def route2d(ny: int, nz: int) -> str:
 
 
 def record_fallback(axis: int, reason: str) -> None:
+    """Count one transform sent away from the kernels in
+    :data:`FALLBACKS` and in the metrics series ``pallas_fallback``."""
     FALLBACKS[(int(axis), reason)] += 1
+    _metrics.inc("pallas_fallback", axis=int(axis), reason=reason)
 
 
 # ------------------------------------------------------------------ LUTs

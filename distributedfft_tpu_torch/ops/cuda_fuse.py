@@ -44,6 +44,7 @@ from collections import Counter
 import torch
 
 from ..parallel.exchange import wire_codec
+from ..utils import metrics as _metrics
 from . import cuda_fft, radix
 from .cuda_fft import (_block_seqs, _launch, _luts, _ptr, _radices, eligible,
                        split_for)
@@ -63,7 +64,10 @@ FUSION_FALLBACKS: Counter = Counter()
 
 
 def record_fusion_fallback(site, reason: str) -> None:
+    """Count one site that runs unfused in :data:`FUSION_FALLBACKS` and
+    in the metrics series ``fusion_fallback``."""
     FUSION_FALLBACKS[(str(site), str(reason))] += 1
+    _metrics.inc("fusion_fallback", site=str(site), reason=str(reason))
 
 
 def kernel_ineligible(shape, fft_axis: int, tile_axis: int, tiles: int,

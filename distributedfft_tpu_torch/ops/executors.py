@@ -238,7 +238,9 @@ def get_executor(name: str) -> ExecutorFn:
 
 
 def available_executors() -> list[str]:
-    return sorted(_REGISTRY)
+    """The executors a plan's ``executor=`` takes; a name starting with
+    ``_`` is internal (the dd tier's ``_dd``) and not listed."""
+    return sorted(n for n in _REGISTRY if not n.startswith("_"))
 
 
 def get_r2c(name: str) -> Callable:

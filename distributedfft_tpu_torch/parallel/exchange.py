@@ -60,6 +60,16 @@ FLAT_ALGORITHMS = ("alltoall", "alltoallv", "ppermute")
 #: Every transport, with the two-leg one of a hybrid world.
 ALGORITHMS = FLAT_ALGORITHMS + ("hierarchical",)
 
+#: The :func:`..plan_logic.exchange_payloads` entry that holds the bytes
+#: each transport ships: the dense ones and the ring ship the pads too,
+#: the ragged one the true slices of the split axis.
+WIRE_BYTE_KEYS = {
+    "alltoall": "alltoall_bytes",
+    "ppermute": "alltoall_bytes",
+    "alltoallv": "alltoallv_bytes",
+    "hierarchical": "alltoall_bytes",
+}
+
 #: Collective rounds issued, by (algorithm, mesh-axis label): one per
 #: dense or ragged all-to-all, P - 1 per ring, one per hierarchical leg
 #: (labelled by the leg's axis). A loopback world counts a round once for

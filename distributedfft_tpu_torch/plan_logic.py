@@ -31,7 +31,7 @@ from typing import Sequence
 
 from . import geometry as geo
 from .ops.executors import MM_COMPLEX_MODES, MM_TIERS, TIER_ALIASES
-from .parallel.exchange import ALGORITHMS, WIRE_DTYPES
+from .parallel.exchange import ALGORITHMS, WIRE_DTYPES, wire_itemsize
 from .parallel.mesh import HYBRID_AXES, World, make_world, spec_entries
 from .parallel.slab import check_batch, slab_axes
 
@@ -245,6 +245,8 @@ class LogicPlan:
     batch: int | None = None
     # A spectral operator plan's op label (None: a transform).
     op: str | None = None
+    # The exchanges' wire codec (None: exact).
+    wire_dtype: str | None = None
 
 
 def classify_layout(world: World, spec) -> tuple[str, tuple]:
@@ -470,10 +472,11 @@ def logic_plan3d(shape, world: World | int | Sequence[int] | None,
     overlap = resolve_overlap_chunks(options.overlap_chunks, shape=shape,
                                      ndev=world.size,
                                      itemsize=8 * (batch or 1))
+    wire = None if options.wire_dtype == "none" else options.wire_dtype
     return LogicPlan(shape, decomp, world, axes.get("slab_axes"),
                      axes.get("perm"), axes.get("order"), negotiated,
                      options.algorithm, overlap, in_absorbed, out_absorbed,
-                     batch)
+                     batch, wire_dtype=wire)
 
 
 def _grid_boxes(world: geo.Box3, placements: dict[int, int], *,
@@ -528,3 +531,97 @@ def io_boxes(lp: LogicPlan, *, forward: bool = True, real: bool = False
     in_world, out_world = (world, cworld) if forward else (cworld, world)
     return (list(stage_layouts(lp, in_world)[0][1]),
             list(stage_layouts(lp, out_world)[-1][1]))
+
+
+def exchange_payloads(lp: LogicPlan, shape, itemsize: int) -> list[dict]:
+    """Per-exchange payload accounting of a plan skeleton (the port of
+    ``plan_logic.exchange_payloads``): the true information each
+    exchange moves against the bytes each transport ships, for one
+    execution of ``shape`` (the per-transform 3D complex-side shape) at
+    ``itemsize`` bytes an element.
+
+    Entries ``{stage, mesh_axis, parts, link, wire_factor, true_bytes,
+    alltoall_bytes, alltoallv_bytes}``: ``alltoall`` (and the ring) ship
+    both the split and the concat axis's ceil pads, ``alltoallv`` strips
+    the split axis's; ``link`` is ``"dcn"`` on the hybrid world's node
+    axis, else ``"ici"``; ``wire_factor`` scales any byte entry to the
+    wire codec's bytes (1.0 exact). A batched plan's entries scale by B.
+    A hierarchical slab plan has two entries, ``t2a`` (within nodes) and
+    ``t2b`` (across nodes). An operator plan (``lp.op``) has its forward
+    entries followed by their mirrors in reverse order (the return
+    legs)."""
+    if lp.world is None:
+        return []
+
+    def _done(entries: list[dict]) -> list[dict]:
+        if lp.op:
+            return entries + [dict(e) for e in reversed(entries)]
+        return entries
+
+    shape = tuple(int(s) for s in shape)
+    bsz = lp.batch or 1
+    pad = lambda n, k: k * (-(-n // k))  # noqa: E731
+    wf = wire_itemsize(itemsize, lp.wire_dtype) / itemsize
+    link = lambda ax: "dcn" if str(ax) == "dcn" else "ici"  # noqa: E731
+    world = lp.world
+    names = world.axis_names
+    out = []
+    if lp.decomposition == "slab":
+        p = world.size
+        a_in, a_out = lp.slab_axes if lp.slab_axes else (0, 1)
+        oth = 3 - a_in - a_out
+        n_in, n_out, n_oth = shape[a_in], shape[a_out], shape[oth]
+        if lp.algorithm == "hierarchical" and len(names) == 2:
+            # Two legs of one logical exchange, each a dense all-to-all
+            # over its own axis of the padded block.
+            dcn_name, ici_name = names
+            padded = pad(n_in, p) * pad(n_out, p) * n_oth
+            truev = n_in * n_out * n_oth
+            for stage, ax_name in (("t2a", ici_name), ("t2b", dcn_name)):
+                parts = world.axis_size(ax_name)
+                f = (parts - 1) / parts
+                dense = int(padded * f * itemsize * bsz)
+                out.append({
+                    "stage": stage, "mesh_axis": ax_name, "parts": parts,
+                    "link": link(ax_name), "wire_factor": wf,
+                    "true_bytes": int(truev * f * itemsize * bsz),
+                    "alltoall_bytes": dense,
+                    "alltoallv_bytes": dense,
+                })
+            return _done(out)
+        f = (p - 1) / p
+        out.append({
+            "stage": "t2", "mesh_axis": names[0], "parts": p,
+            "link": link(names[0]), "wire_factor": wf,
+            "true_bytes": int(n_in * n_out * n_oth * f * itemsize * bsz),
+            "alltoall_bytes": int(pad(n_in, p) * pad(n_out, p) * n_oth * f
+                                  * itemsize * bsz),
+            "alltoallv_bytes": int(pad(n_in, p) * n_out * n_oth * f
+                                   * itemsize * bsz),
+        })
+        return _done(out)
+    rows, cols = world.grid
+    a, b, c = lp.pencil_perm if lp.pencil_perm else (0, 1, 2)
+    order = lp.pencil_order or "col_first"
+    # (stage, mesh axis index, parts, split axis, padded extents of the
+    # two other axes at that stage)
+    pa, pb = pad(shape[a], rows), pad(shape[b], cols)
+    if order == "col_first":
+        pc = pad(shape[c], cols)
+        seq = [("t2a", 1, cols, c, pa * pb), ("t2b", 0, rows, b, pa * pc)]
+    else:
+        pc = pad(shape[c], rows)
+        seq = [("t2a", 0, rows, c, pa * pb), ("t2b", 1, cols, a, pc * pb)]
+    true_vol = shape[0] * shape[1] * shape[2]
+    for stage, ax_i, parts, split, bystander_padded in seq:
+        f = (parts - 1) / parts
+        out.append({
+            "stage": stage, "mesh_axis": names[ax_i], "parts": parts,
+            "link": link(names[ax_i]), "wire_factor": wf,
+            "true_bytes": int(true_vol * f * itemsize * bsz),
+            "alltoall_bytes": int(bystander_padded * pad(shape[split], parts)
+                                  * f * itemsize * bsz),
+            "alltoallv_bytes": int(bystander_padded * shape[split] * f
+                                   * itemsize * bsz),
+        })
+    return _done(out)

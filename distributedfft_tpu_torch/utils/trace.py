@@ -285,7 +285,10 @@ _MB = 1.0 / (1024 * 1024)
 
 def plan_info(plan) -> str:
     """A plan's routing, world and boxes as text (the reference's
-    ``outputPlanInfo``), one string for every rank."""
+    ``outputPlanInfo``), one string for every rank. A dd plan (no
+    ``executor``) names the complex128 engine its pairs run on."""
+    if not hasattr(plan, "executor"):
+        return _dd_plan_info(plan)
     real = plan.kind == "r2c"
     d = plan.describe()
     lines = [
@@ -340,13 +343,7 @@ def plan_info(plan) -> str:
                          f"{t * _MB:.2f} MB | wire {wb * _MB:.2f} MB ({ov})"
                          + tbl)
     world = plan.world
-    if world is not None:
-        axes = (world.axis_names if world.grid is not None
-                else world.axis_names[:1])
-        sizes = world.grid if world.grid is not None else (world.size,)
-        lines.append("world: " + " x ".join(
-            f"{a}={s}" for a, s in zip(axes, sizes))
-            + f" ({world.size} ranks, {world.backend})")
+    lines += _world_lines(world)
     itemsize = torch.empty((), dtype=plan.dtype).element_size()
     nranks = 1 if world is None else world.size
     in_b = math.prod(plan.in_shape) * torch.empty(
@@ -358,12 +355,50 @@ def plan_info(plan) -> str:
     lines.append(
         f"memory/rank (est): in {in_b / nranks * _MB:.1f} MB + out "
         f"{out_b / nranks * _MB:.1f} MB + work {work / nranks * _MB:.1f} MB")
-    if plan.spec is not None:
-        lines.append(f"padded extents: {plan.spec}")
+    return "\n".join(lines + _box_lines(plan))
+
+
+def _world_lines(world) -> list[str]:
+    if world is None:
+        return []
+    axes = world.axis_names if world.grid is not None else world.axis_names[:1]
+    sizes = world.grid if world.grid is not None else (world.size,)
+    return ["world: " + " x ".join(f"{a}={s}" for a, s in zip(axes, sizes))
+            + f" ({world.size} ranks, {world.backend})"]
+
+
+def _box_lines(plan) -> list[str]:
+    lines = [] if plan.spec is None else [f"padded extents: {plan.spec}"]
     for label, boxes in (("in", plan.in_boxes), ("out", plan.out_boxes)):
         for i, b in enumerate(boxes):
             order = ("" if tuple(b.order) == (0, 1, 2)
                      else f" order={tuple(b.order)}")
             lines.append(f"{label} box[{i}]: low={b.low} high={b.high} "
                          f"shape={b.shape}{order}")
-    return "\n".join(lines)
+    return lines
+
+
+def _dd_plan_info(plan) -> str:
+    """The dd tier's branch of :func:`plan_info`."""
+    real = plan.kind == "r2c"
+    lines = [
+        f"plan: {plan.in_shape} -> {plan.out_shape} "
+        f"({'forward' if plan.forward else 'backward'}"
+        f"{', r2c' if real and plan.forward else ''}"
+        f"{', c2r' if real and not plan.forward else ''}, dd tier)",
+        f"decomposition: {plan.decomposition}",
+        "executor: dd ((hi, lo) pairs joined into complex128 on the torch "
+        "engine: torch.fft, cuFFT Z2Z on the card)",
+        f"dtype: {plan.in_dtype} -> {plan.out_dtype} pairs",
+    ]
+    if plan.world is not None:
+        lines.append(f"algorithm: {plan.algorithm}")
+    if plan.overlap_chunks not in (None, 1):
+        lines.append(f"overlap: {plan.overlap_chunks} chunks")
+    if plan.batch is not None:
+        lines.append(f"batch: {plan.batch} coalesced transforms (one "
+                     f"shared exchange per t2 stage)")
+    if plan.r2c_axis != 2:
+        lines.append(f"r2c axis: {plan.r2c_axis} (the chain runs on the "
+                     f"view with axes {plan.r2c_axis} and 2 swapped)")
+    return "\n".join(lines + _world_lines(plan.world) + _box_lines(plan))

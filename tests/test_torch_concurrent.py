@@ -36,6 +36,15 @@ from distributedfft_tpu_torch.utils.trace import capture_events, stage_key
 CPU = dict(device="cpu")
 
 
+@pytest.fixture(autouse=True)
+def fresh_plans():
+    """Plans made afresh in each test: the tests hold plans and worlds by
+    identity, which the plan cache would share between tests."""
+    tdfft.clear_plan_cache()
+    yield
+    tdfft.clear_plan_cache()
+
+
 def _world_data(shape, seed=7, dtype=np.complex64):
     return torch.from_numpy(testing.make_world_data(shape, dtype, seed=seed))
 
@@ -204,8 +213,10 @@ def test_concurrent_program_memoized_and_validated(monkeypatch):
 def test_concurrent_memo_is_bounded_at_64(monkeypatch):
     monkeypatch.setattr(sg, "_CONCURRENT_CACHE", {})
     world = make_world(2)
-    plans = [tdfft.plan_dft_c2c_3d((8, 8, 8), world, **CPU)
-             for _ in range(9)]
+    plans = []
+    for _ in range(9):               # nine distinct plans, none cached
+        tdfft.clear_plan_cache()
+        plans.append(tdfft.plan_dft_c2c_3d((8, 8, 8), world, **CPU))
     keys = [(a, b) for a in range(9) for b in range(9)][:65]
     first = sg.schedule_concurrent([plans[a] for a in keys[0]])
     for a, b in keys[1:]:
