@@ -137,10 +137,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    complex64 exact plan (median of 10), the join and split alone, the
    memory each call needs over the data held, and one line of the
    metrics registry's counters after one planned pass (plan builds,
-   cache hits, executes, exchange bytes); prints one JSON line of the
-   five kernels and, last, the device line.
+   cache hits, executes, exchange bytes);
+16. drives measured planning at 512^3 (counts from 0; a wisdom store
+   and profile of the run's own, ``DFFT_TUNE_ITERS=3x2``):
+   ``calibrate()`` (printed with the card line; it fails on a null
+   field a card can measure), ``executor="auto"`` on the single and
+   4-rank slab C2C plans, ``tune="measure"`` on the slab C2C plan (each
+   candidate's model seconds and measured time, the winner within 5e-4
+   of torch.fft.fftn) and its ``tune="wisdom"`` replay (same label, no
+   timing execution, bit-identical output), ``tune="measure"`` under
+   ``max_roundtrip_err=1e-2`` on the slab R2C plan and the slab Poisson
+   op (the survivor cap the least that holds a ``cuda`` and a
+   ``cuda:fuse`` candidate; each winner within 10% of the unfused
+   ``cuda`` plan on its wire, 5e-4 when exact), and
+   ``tune_concurrent_width`` on two slab plans; it fails on a candidate
+   that did not build or has no finite time, or a kernel not launched;
+   prints one JSON line of the five kernels and, last, the device line.
 
-Each counted path (5, 6, 8, 9, 10, 11, 12, 13) also records the case of
+Each counted path (5, 6, 8, 9, 10, 11, 12, 13, 16) also records the case of
 every kernel call and fails on one that phases 2 and 3 did not hold
 against its plain version (the two-level stages as their unnormalized
 inverse where they run it).
@@ -591,7 +605,11 @@ FUSED_CASES = (
        ("fft_encode", "split", False, (512, 256, 256), 0, 2,
         "pencil bwd t0_fft_x"),
        ("decode_fft", "split", False, (256, 512, 256), 1, 2,
-        "pencil bwd t1_fft_y")])
+        "pencil bwd t1_fft_y")]
+    + [("decode_fft", "bf16", False, (128, 512, 512), 1, 4,
+        "bf16 op slab t3_ifft_y (tuned op tier)"),
+       ("fft_encode", "split", True, (512, 256), 0, 8,
+        "calibrate fuse_speedup")])
 
 
 def exact_dft(torch, x, axis, fwd):
@@ -2553,6 +2571,403 @@ def dd_metrics_line(torch, dfft, dev, pair, n=512):
                 "plan_build_seconds", {}).items()}}), flush=True)
 
 
+# ------------------------------------------------- measured planning
+
+#: The error budget of the phase's budgeted tournaments (compressed wire
+#: and reduced tiers admitted under it).
+TUNE_BUDGET = 1e-2
+#: The phase's tuner settings: each candidate timed 3 calls a batch, best
+#: of 2 batches; the width tournament armed the same way.
+TUNE_ENV = {"DFFT_TUNE_ITERS": "3x2", "DFFT_WIDTH_TOURNAMENT": "3x2"}
+
+
+def tune_cases(n, ranks=SLAB_RANKS):
+    """The kernel cases the measured-planning phase adds at n^3 beyond
+    the other paths' (the overlap cases at K = 2k come from
+    overlap_cases): the op's inverse t_mid chunk, the R2C t3 and C2R bwd
+    t3 chunks at the auto K and twice it (the half-spectrum axis cut
+    into chunks of two widths), and the unfused side of calibrate's
+    fuse_speedup."""
+    from distributedfft_tpu_torch.parallel.exchange import (
+        overlap_chunk_bounds)
+    from distributedfft_tpu_torch.plan_logic import auto_overlap_chunks
+
+    q, h = n // ranks, n // 2 + 1
+    auto = auto_overlap_chunks((n, n, n), ranks)
+    ks = (auto, 2 * auto)
+    out = [("fft_axis0", False, (1, n, q * n // k),
+            f"K={k} op t_mid inverse chunk") for k in ks]
+    widths = sorted({hi - lo for k in ks
+                     for lo, hi in overlap_chunk_bounds(h, k)})
+    out += [("fft_axis0", True, (1, n, q * c),
+             f"r2c t3 chunk of {c} columns (K={auto}, {2 * auto})")
+            for c in widths]
+    out += [("fft_axis0", False, (q, n, c),
+             f"c2r bwd t3 chunk of {c} columns (K={auto}, {2 * auto})")
+            for c in widths]
+    out += [("fft_axis0", True, (1, 512, 256),
+             "calibrate fuse_speedup, unfused")]
+    return out
+
+
+@contextlib.contextmanager
+def recording_tournaments(tuner):
+    """Yield a list that receives each tournament run inside the block:
+    its ``what``, candidate names, winner, built candidates and times
+    (``tuner.measured_select`` wrapped; ``executor="auto"``, the tuned
+    planners and the width tournament all call it)."""
+    seen = []
+    orig = tuner.measured_select
+
+    def record(names, build, measure, **kw):
+        out = orig(names, build, measure, **kw)
+        seen.append(dict(what=kw.get("what", "candidate"), names=list(names),
+                         winner=out[0], built=out[1], times=out[2]))
+        return out
+
+    tuner.measured_select = record
+    try:
+        yield seen
+    finally:
+        tuner.measured_select = orig
+
+
+def _executor_of(name: str) -> str:
+    """The executor of a tournament entry: a tuned candidate's label
+    (``slab/alltoall/cuda/ov1``) or an auto candidate's executor."""
+    return name.split("/")[2] if "/" in name else name
+
+
+def _families(names) -> set:
+    """Which of the ``cuda`` and ``cuda+fuse`` families the names hold."""
+    out = set()
+    for nm in names:
+        mods = _executor_of(nm).split(":")
+        if mods[0] == "cuda":
+            out.add("cuda+fuse" if "fuse" in mods[1:] else "cuda")
+    return out
+
+
+def check_tournament(t, label, need, card):
+    """Print a tournament's candidates (each one's time and, for a tuned
+    one, its model seconds) and winner; fail on a candidate that did not
+    build, a non-finite time, or a family of ``need`` missing from its
+    candidates."""
+    missing = [nm for nm in t["names"] if nm not in t["built"]]
+    if missing:
+        fail(f"{label}: candidates that did not build: {missing}")
+    bad = {nm: t["times"].get(nm) for nm in t["names"]
+           if not math.isfinite(t["times"].get(nm, math.inf))}
+    if bad:
+        fail(f"{label}: candidates without a finite time: {bad}")
+    lacking = set(need) - _families(t["names"])
+    if lacking:
+        fail(f"{label}: no {sorted(lacking)} candidate among "
+             f"{t['names']}")
+    for nm in t["names"]:
+        model = t.get("model", {}).get(nm)
+        print(f"  {label} candidate {nm}: measured_ms="
+              f"{t['times'][nm] * 1e3:.4f}"
+              + ("" if model is None else f" model_s={model:.6g}")
+              + (" (winner)" if nm == t["winner"] else ""), flush=True)
+    print(f"{label}: winner {t['winner']} of {len(t['names'])} [{card}]",
+          flush=True)
+
+
+def survivor_cap(tuner, shape, world, budget, wires, tiers, need, dev,
+                 real=False):
+    """The least survivor cap (DFFT_TUNE_MAX, from the default 8 up to
+    32) whose pruned set holds a candidate of each family in ``need``,
+    pruned as the tuned planner prunes now (the profile's corrections
+    included; ``real``: an R2C or C2R plan)."""
+    import torch
+
+    ndev, dims = tuner._mesh_context(world)
+    cands = tuner.enumerate_candidates(
+        shape, ndev, mesh_dims=dims,
+        executors=tuner._default_executors(dev), itemsize=8,
+        wire_dtypes=wires, mm_tiers=tiers, real=real)
+    for cap in range(tuner.DEFAULT_MAX_CANDIDATES, 33):
+        kept = tuner.prune_candidates(cands, shape, world, itemsize=8,
+                                      limit=cap, max_err=budget,
+                                      dtype=torch.complex64)
+        if set(need) <= _families(c.label for c in kept):
+            return cap
+    fail(f"no survivor cap up to 32 holds {need} for {shape}")
+
+
+def tuned_gate(label, err, twin, tier_err):
+    """The accuracy gate of PERF.md section 2 for a tuned winner, and its
+    bound: 5e-4 on an exact or split wire at an exact tier; else within
+    10% of ``twin`` (the error of the unfused ``cuda`` plan on the same
+    wire, transport and K), plus ``tier_err`` (the measured round-trip
+    error of a reduced matmul tier, which the budget admitted)."""
+    wire = label.split("+w")[1] if "+w" in label else None
+    if wire in (None, "split") and not tier_err:
+        return err <= TOL, TOL
+    bound = 1.1 * twin + tier_err + 1e-7
+    return err <= bound, bound
+
+
+def twin_error(torch, plan_fn, label, inp, ref, dev):
+    """The error against ``ref`` of the plan ``plan_fn`` builds with a
+    tuned winner's transport, K and wire on the unfused ``cuda``
+    executor."""
+    decomp, alg, _, k, wire = _cand_fields(label)
+    twin = plan_fn(executor="cuda", decomposition=decomp, algorithm=alg,
+                   overlap_chunks=k, wire_dtype=wire or "none", device=dev)
+    return rel_err(torch, twin(inp), ref)[0]
+
+
+def check_tuner(torch, dfft, cf, cfu, dev, card, n=512):
+    """Phase 16: measured planning at n^3 on one card, with a wisdom
+    store and profile of the run's own: calibrate() (every field a card
+    can give must be measured), after which the launch counts restart
+    from 0; executor="auto" on the single and 4-rank slab C2C plans;
+    tune="measure" on the slab C2C plan and its wisdom replay (same
+    winner, no timing execution, the same bits); tune="measure" with
+    max_roundtrip_err on the slab R2C and C2R plans and the slab Poisson
+    op, their survivor cap the least that holds a cuda and a cuda+fuse
+    candidate (the C2R tournament's fused candidates must launch the
+    encode kernel); tune_concurrent_width on two slab plans. Every
+    tournament fails on a candidate that did not build or has no finite
+    time. Returns the tournaments and calibrate()'s launches."""
+    import tempfile
+
+    import functools
+
+    from distributedfft_tpu_torch import calibrate, tuner
+    from distributedfft_tpu_torch import operators as dop
+    from distributedfft_tpu_torch.ops.executors import (
+        executor_roundtrip_error)
+    from distributedfft_tpu_torch.parallel.exchange import WIRE_DTYPES
+    from distributedfft_tpu_torch.utils import metrics
+
+    shape = (n, n, n)
+    world = dfft.make_world(SLAB_RANKS)
+    store = tempfile.mkdtemp(prefix="dfft_tune_")
+    saved = {k: os.environ.get(k) for k in
+             list(TUNE_ENV) + ["DFFT_WISDOM", "DFFT_HW_PROFILE",
+                               "DFFT_TUNE_MAX"]}
+    os.environ.update(TUNE_ENV, DFFT_WISDOM=os.path.join(store, "w.jsonl"),
+                      DFFT_HW_PROFILE=os.path.join(store, "hw.json"))
+    os.environ.pop("DFFT_TUNE_MAX", None)
+    metrics.metrics_reset()
+    metrics.enable_metrics()
+    out = {}
+    try:
+        prof = calibrate.calibrate(iters=10)
+        print(f"calibrated profile [{card}]:\n"
+              + calibrate.format_profile(prof), flush=True)
+        print("calibrated profile JSON: " + json.dumps(prof, sort_keys=True),
+              flush=True)
+        need = ("hbm_gbps", "peak_tflops", "launch_seconds", "fuse_speedup",
+                "mm_bf16_tflops", "mm_f32_tflops", "mm_highest_tflops")
+        nulls = [f for f in need if prof.get(f) is None]
+        if nulls:
+            fail(f"calibrate() left fields a card can measure null: {nulls}")
+        calibrate.write_profile(prof)
+        cal = {**cf.launches(), **cfu.launches()}
+        print(f"launches of calibrate(): {cal}", flush=True)
+        cf.reset_launches()
+        cfu.reset_launches()
+
+        def launched(label, before):
+            now = {**cf.launches(), **cfu.launches()}
+            diff = {k: v - before.get(k, 0) for k, v in now.items()
+                    if v != before.get(k, 0)}
+            print(f"{label}: the tournament launched {diff}", flush=True)
+            return diff
+
+        x = seeded(torch, shape, dev)
+        ref = torch.fft.fftn(x)
+        with recording_tournaments(tuner) as seen:
+            for label, w in (("single", None),
+                             (f"slab P={SLAB_RANKS}", world)):
+                plan = dfft.plan_dft_c2c_3d(shape, w, executor="auto",
+                                            device=dev)
+                err = rel_err(torch, plan(x), ref)[0]
+                check_tournament(seen[-1], f"auto {label} {n}^3",
+                                 ("cuda",), card)
+                print(f"auto {label} {n}^3: winner {plan.executor} forward "
+                      f"vs torch.fft.fftn max rel err={err:.3e}", flush=True)
+                if not err <= TOL:
+                    fail(f"auto {label}: error {err:.3e} over {TOL}")
+                out[f"auto {label}"] = seen[-1]
+
+            label = f"tune=measure slab P={SLAB_RANKS} c2c {n}^3"
+            plan = dfft.plan_dft_c2c_3d(shape, world, tune="measure",
+                                        device=dev)
+            t = with_model(seen[-1], tuner, shape, world)
+            check_tournament(t, label, ("cuda",), card)
+            y = plan(x)
+            err = rel_err(torch, y, ref)[0]
+            win = tuner.tuned_label(plan)
+            print(f"{label}: winner {win} forward vs torch.fft.fftn max rel "
+                  f"err={err:.3e}", flush=True)
+            if not err <= TOL:
+                fail(f"{label}: error {err:.3e} over {TOL}")
+            out["tune c2c"] = t
+            timed = metrics.counter_total("tune_timing_executions")
+            dfft.clear_plan_cache()
+            again = dfft.plan_dft_c2c_3d(shape, world, tune="wisdom",
+                                         device=dev)
+            same = torch.equal(again(x), y)
+            print(f"tune=wisdom replay: winner {tuner.tuned_label(again)}, "
+                  f"timing executions {timed:.0f} before and "
+                  f"{metrics.counter_total('tune_timing_executions'):.0f} "
+                  f"after, output bit-identical: {same}", flush=True)
+            if (tuner.tuned_label(again) != win or not same
+                    or metrics.counter_total("tune_timing_executions")
+                    != timed):
+                fail("the wisdom replay differs from the measured winner")
+            del y, ref
+
+            xr = seeded_real(torch, shape, dev)
+            cap = survivor_cap(tuner, shape, world, TUNE_BUDGET,
+                               tuple(WIRE_DTYPES), (None, "bf16", "f32"),
+                               ("cuda", "cuda+fuse"), dev, real=True)
+            os.environ["DFFT_TUNE_MAX"] = str(cap)
+            label = (f"tune=measure max_roundtrip_err={TUNE_BUDGET} slab "
+                     f"P={SLAB_RANKS} r2c {n}^3 (DFFT_TUNE_MAX={cap})")
+            before = {**cf.launches(), **cfu.launches()}
+            plan = dfft.plan_dft_r2c_3d(shape, world, tune="measure",
+                                        max_roundtrip_err=TUNE_BUDGET,
+                                        device=dev)
+            launched(label, before)
+            t = with_model(seen[-1], tuner, shape, world)
+            check_tournament(t, label, ("cuda", "cuda+fuse"), card)
+            win = tuner.tuned_label(plan)
+            spec = torch.fft.rfftn(xr)
+            err = rel_err(torch, plan(xr), spec)[0]
+            twin = twin_error(torch, functools.partial(
+                dfft.plan_dft_r2c_3d, shape, world), win, xr, spec, dev)
+            tier = executor_roundtrip_error(_executor_of(win),
+                                            torch.complex64)
+            ok, bound = tuned_gate(win, err, twin, tier)
+            print(f"{label}: winner {win} forward vs torch.fft.rfftn max rel "
+                  f"err={err:.3e} (gate {bound:.3e}: the unfused cuda plan "
+                  f"on its wire {twin:.3e}, its tier {tier:.3e})",
+                  flush=True)
+            if not ok:
+                fail(f"{label}: error {err:.3e} over {bound:.3e}")
+            out["tune r2c"] = t
+
+            cap = survivor_cap(tuner, shape, world, TUNE_BUDGET,
+                               tuple(WIRE_DTYPES), (None, "bf16", "f32"),
+                               ("cuda", "cuda+fuse"), dev, real=True)
+            os.environ["DFFT_TUNE_MAX"] = str(cap)
+            label = (f"tune=measure max_roundtrip_err={TUNE_BUDGET} slab "
+                     f"P={SLAB_RANKS} c2r {n}^3 (DFFT_TUNE_MAX={cap})")
+            before = {**cf.launches(), **cfu.launches()}
+            plan = dfft.plan_dft_c2r_3d(shape, world, tune="measure",
+                                        max_roundtrip_err=TUNE_BUDGET,
+                                        device=dev)
+            if launched(label, before).get("fft_encode", 0) <= 0:
+                fail(f"{label}: its cuda+fuse candidates launched no "
+                     f"encode kernel")
+            t = with_model(seen[-1], tuner, shape, world)
+            check_tournament(t, label, ("cuda", "cuda+fuse"), card)
+            win = tuner.tuned_label(plan)
+            back = torch.fft.irfftn(spec, s=shape)
+            err = rel_err(torch, plan(spec), back)[0]
+            twin = twin_error(torch, functools.partial(
+                dfft.plan_dft_c2r_3d, shape, world), win, spec, back, dev)
+            tier = executor_roundtrip_error(_executor_of(win),
+                                            torch.complex64)
+            ok, bound = tuned_gate(win, err, twin, tier)
+            print(f"{label}: winner {win} vs torch.fft.irfftn max rel "
+                  f"err={err:.3e} (gate {bound:.3e}: the unfused cuda plan "
+                  f"on its wire {twin:.3e}, its tier {tier:.3e})",
+                  flush=True)
+            if not ok:
+                fail(f"{label}: error {err:.3e} over {bound:.3e}")
+            out["tune c2r"] = t
+            del xr, spec, back
+
+            exact = dop.plan_spectral_op(shape, world, op=dop.poisson(),
+                                         device=dev)(x)
+            cap = survivor_cap(tuner, shape, world, TUNE_BUDGET,
+                               (None, "bf16"), (None,),
+                               ("cuda", "cuda+fuse"), dev)
+            os.environ["DFFT_TUNE_MAX"] = str(cap)
+            label = (f"tune=measure max_roundtrip_err={TUNE_BUDGET} "
+                     f"Poisson op slab P={SLAB_RANKS} {n}^3 "
+                     f"(DFFT_TUNE_MAX={cap})")
+            plan = dop.plan_spectral_op(shape, world, op=dop.poisson(),
+                                        tune="measure",
+                                        max_roundtrip_err=TUNE_BUDGET,
+                                        device=dev)
+            t = with_model(seen[-1], tuner, shape, world)
+            check_tournament(t, label, ("cuda", "cuda+fuse"), card)
+            win = tuner.tuned_label(plan)
+            err = rel_err(torch, plan(x), exact)[0]
+            twin = twin_error(torch, functools.partial(
+                dop.plan_spectral_op, shape, world, op=dop.poisson()), win,
+                x, exact, dev)
+            ok, bound = tuned_gate(win, err, twin, 0.0)
+            print(f"{label}: winner {win} vs the exact op plan max rel "
+                  f"err={err:.3e} (gate {bound:.3e}: the unfused cuda op "
+                  f"on its wire {twin:.3e})", flush=True)
+            if not ok or not err <= OP_WIRE_BOUND:
+                fail(f"{label}: error {err:.3e} over {bound:.3e} or "
+                     f"{OP_WIRE_BOUND}")
+            out["tune op"] = t
+            del exact
+            os.environ.pop("DFFT_TUNE_MAX", None)
+
+            pair = [dfft.plan_dft_c2c_3d(shape, world, device=dev)
+                    for _ in range(2)]
+            width = tuner.tune_concurrent_width(pair, [1, 1])
+            check_tournament(seen[-1], f"concurrent width slab+slab {n}^3",
+                             (), card)
+            print(f"tune_concurrent_width(two slab plans): width {width}",
+                  flush=True)
+            out["width"] = seen[-1]
+        snap = metrics.metrics_snapshot()
+        hist = snap["histograms"]
+        print("tuner metrics: " + json.dumps({
+            "tune_timing_executions": metrics.counter_total(
+                "tune_timing_executions"),
+            "tune_tournaments": snap["counters"].get("tune_tournaments"),
+            "tune_wisdom_hits": snap["counters"].get("tune_wisdom_hits"),
+            "tune_wisdom_misses": snap["counters"].get(
+                "tune_wisdom_misses"),
+            "tune_build_seconds_total": sum(
+                v["total"] for v in hist.get("tune_build_seconds",
+                                             {}).values()),
+            "tune_measure_seconds_total": sum(
+                v["total"] for v in hist.get("tune_measure_seconds",
+                                             {}).values()),
+            "tune_model_measured_ratio": snap["gauges"].get(
+                "tune_model_measured_ratio")}, sort_keys=True), flush=True)
+    finally:
+        metrics.enable_metrics(False)
+        metrics.metrics_reset()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        dfft.clear_plan_cache()
+        torch.cuda.empty_cache()
+    return out, cal
+
+
+def with_model(t, tuner, shape, world):
+    """A tuned tournament with each candidate's model seconds."""
+    t["model"] = {c: tuner.model_cost(tuner.Candidate(*_cand_fields(c)),
+                                      shape, world) for c in t["names"]}
+    return t
+
+
+def _cand_fields(label: str) -> tuple:
+    """A tuned candidate's label back into Candidate's fields."""
+    body, _, wire = label.partition("+w")
+    decomp, alg, ex, ov = body.split("/")
+    return decomp, alg, ex, int(ov.removeprefix("ov")), wire or None
+
+
 def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "distributedfft_tpu_torch")):
@@ -2588,12 +3003,15 @@ def main() -> None:
     from distributedfft_tpu_torch.plan_logic import resolve_overlap_chunks
 
     auto_k = resolve_overlap_chunks("auto", (512,) * 3, SLAB_RANKS)
-    KERNEL_CASES.extend(overlap_cases(512, (2, auto_k)))
+    KERNEL_CASES.extend(overlap_cases(512, (2, auto_k, 2 * auto_k)))
     KERNEL_CASES.extend(batch_cases(512))
     KERNEL_CASES.extend(op_cases(512))
     from distributedfft_tpu_torch.parallel.fft1d import choose_split_1d
 
     KERNEL_CASES.extend(long_cases(cf, choose_split_1d))
+    held = {case_key(c) for c in KERNEL_CASES}
+    KERNEL_CASES.extend(c for c in tune_cases(512)
+                        if case_key(c) not in held)
     records = check_kernels(torch, cf, radix, timing, rates)
     records.update(check_fused_kernels(torch, cf, cfu, wire_codec, timing,
                                        rates))
@@ -2906,6 +3324,33 @@ def main() -> None:
     del kept
     dfft.clear_plan_cache()
     torch.cuda.empty_cache()
+
+    # ---- measured planning: counts from 0 ----
+    cf.reset_launches()
+    cfu.reset_launches()
+    dfft.clear_plan_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(cf.FALLBACKS)      # the complex128 phase adds its own
+    t_tune = time.perf_counter()
+    with recording_cases(cf, cfu) as seen:
+        _, cal = check_tuner(torch, dfft, cf, cfu, dev, card)
+    path = {**cf.launches(), **cfu.launches()}
+    print(f"launches on the measured-planning path after calibrate(): "
+          f"{path}", flush=True)
+    check_routes(cf, "the measured-planning path", {}, dict(cf.ROUTES))
+    check_covered(seen, "the measured-planning path")
+    for k, v in path.items():
+        if v <= 0:
+            fail(f"kernel {k} was not launched on the measured-planning "
+                 f"path after calibrate()")
+        records[k]["launches"] += v + cal.get(k, 0)
+    if dict(cf.FALLBACKS) != before:
+        fail(f"the measured-planning path took a fallback: "
+             f"{dict(cf.FALLBACKS)} (before: {before})")
+    print(f"peak device memory of the measured-planning path: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"measured-planning phase: {time.perf_counter() - t_tune:.1f} s",
+          flush=True)
 
     print(json.dumps({"kernels": [
         {k: rec[k] for k in ("name", "route", "source", "replaces",

@@ -75,18 +75,30 @@ Quick start::
     outs = waves.dispatch([a, b], [x, x])                  # in flight
     waves.drain()                                          # retired
 
+Measured planning: ``tune="measure"`` / ``"wisdom"`` (:mod:`.tuner`, its
+winners kept in a wisdom store), ``executor="auto"`` and the calibrated
+hardware profile the tuner's model reads (:mod:`.calibrate`)::
+
+    tuned = dfft.plan_dft_c2c_3d((512, 512, 512), 4, tune="measure")
+    auto = dfft.plan_dft_c2c_3d((512, 512, 512), 4, executor="auto")
+    prof = dfft.calibrate.calibrate()
+    dfft.calibrate.write_profile(prof)
+
 Entry points run on the card; ``device="cpu"`` runs the kernels' plain
 PyTorch versions instead. This package imports neither JAX nor
 ``distributedfft_tpu``.
 """
 
-from . import operators  # noqa: F401
+__version__ = "0.1.0"
+
+from . import calibrate, operators, tuner  # noqa: F401
 from .api import (  # noqa: F401
     BACKWARD,
     FORWARD,
     DDPlan3D,
     OpPlan3D,
     Plan3D,
+    alloc_local,
     clear_plan_cache,
     execute,
     plan_brick_dft_c2c_3d,

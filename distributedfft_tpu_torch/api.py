@@ -23,8 +23,20 @@ chain's exchanges; ``fuse=True`` (the ``cuda:fuse`` executor label) asks
 the stage graph to fuse the codec into the stages beside each exchange
 (at K = 1). Every knob can come as one :class:`~.plan_logic.PlanOptions`
 (``options=``) instead. A single-device plan has no exchange and drops
-the codec, the transport's choice and K. The JAX package's
-``DFFT_FUSE`` / ``DFFT_WIRE_DTYPE`` environment defaults are not read.
+the codec, the transport's choice and K. ``wire_dtype=None`` and
+``fuse=None`` read ``DFFT_WIRE_DTYPE`` and ``DFFT_FUSE`` at plan time (a
+``DFFT_FUSE`` default is ignored by executors without a fused tier); the
+matmul tiers' ``DFFT_MM_PRECISION`` / ``DFFT_MM_COMPLEX`` defaults apply
+where no tier is named (:mod:`.ops.dft_matmul`).
+
+Measured planning: ``tune="measure"`` runs the tuner's pruned
+tournament over decomposition, transport, executor, K (and, under a
+``max_roundtrip_err`` budget, the wire codecs and matmul tiers) on a
+wisdom miss and records the winner; ``tune="wisdom"`` replays a stored
+winner and plans by the heuristics on a miss (:mod:`.tuner`; None reads
+``DFFT_TUNE``). ``executor="auto"`` plans each executor of
+:data:`_AUTO_CANDIDATES` (``DFFT_AUTO_EXECUTORS``), times each and keeps
+the fastest.
 
 Layouts and batches:
 
@@ -68,10 +80,10 @@ from typing import Any, Callable, Sequence
 import torch
 
 from . import geometry as geo
-from .ops.executors import (MM_EXECUTOR_BASES, Scale, apply_scale,
-                            fused_name, get_c2r, get_executor, get_r2c,
-                            run_donated, scale_factor, split_fuse,
-                            tiered_name)
+from .ops.executors import (FUSE_BASES, MM_EXECUTOR_BASES, Scale,
+                            apply_scale, fused_name, get_c2r, get_executor,
+                            get_r2c, run_donated, scale_factor,
+                            split_executor, split_fuse, tiered_name)
 from .parallel import bricks
 from .parallel.exchange import WIRE_BYTE_KEYS, wire_codec
 from .parallel.mesh import (Spec, World, make_world, spec_boxes, spec_entries,
@@ -82,7 +94,8 @@ from .parallel.reshape import make_reshape3d, spec_gather, spec_scatter
 from .parallel.slab import (SlabSpec, build_slab_fft3d, build_slab_rfft3d,
                             check_batch)
 from .plan_logic import (LogicPlan, PlanOptions, exchange_payloads, io_boxes,
-                         logic_plan3d)
+                         logic_plan3d, resolve_fuse, resolve_tune_mode,
+                         resolve_wire_dtype)
 from .stagegraph import (BrickEdgeGraph, StageGraph, compile_brick_io,
                          gather, plan_fusion, run_graph, scatter)
 from .utils import metrics as _metrics
@@ -257,16 +270,19 @@ def _resolve_options(options: PlanOptions | None, executor: str,
                      wire_dtype: str | None, fuse: bool | None,
                      decomposition: str | None, algorithm: str,
                      overlap_chunks, donate: bool = False, tune=None,
-                     max_roundtrip_err=None) -> PlanOptions:
+                     max_roundtrip_err=None, mm_precision=None,
+                     mm_complex=None) -> PlanOptions:
     """One :class:`PlanOptions` from ``options=`` or the keywords (not
-    both), its executor label canonical: the matmul tiers and the fuse
-    flag composed in (the port of ``_apply_mm_tiers`` / ``_apply_fuse``,
-    without the environment defaults)."""
+    both), its executor label canonical (:func:`_apply_mm_tiers`,
+    :func:`_apply_fuse`) and its wire resolved (``DFFT_WIRE_DTYPE`` for
+    None; ``"none"`` marks the exact wire, so a later resolution keeps
+    it exact)."""
     if options is not None:
         if (executor != "cuda" or wire_dtype is not None or fuse is not None
                 or decomposition is not None or algorithm != "alltoall"
                 or overlap_chunks is not None or donate
-                or tune is not None or max_roundtrip_err is not None):
+                or tune is not None or max_roundtrip_err is not None
+                or mm_precision is not None or mm_complex is not None):
             raise ValueError(
                 "pass either options= or individual plan keywords, not both")
         opts = options
@@ -277,19 +293,67 @@ def _resolve_options(options: PlanOptions | None, executor: str,
                            algorithm=algorithm, executor=executor,
                            overlap_chunks=overlap_chunks,
                            wire_dtype=wire_dtype, fuse=fuse, donate=donate,
-                           tune=tune, max_roundtrip_err=max_roundtrip_err)
+                           tune=tune, max_roundtrip_err=max_roundtrip_err,
+                           mm_precision=mm_precision, mm_complex=mm_complex)
+    opts = _apply_fuse(_apply_mm_tiers(opts))
+    if opts.executor != "auto":
+        get_executor(opts.executor)
+    return replace(opts, wire_dtype=resolve_wire_dtype(opts.wire_dtype)
+                   or "none")
+
+
+def _apply_mm_tiers(opts: PlanOptions) -> PlanOptions:
+    """The plan's matmul tier composed into its executor label
+    (``matmul`` + ``bf16`` -> ``matmul:bf16``), and a label's own
+    suffixes back-filled into ``mm_precision`` / ``mm_complex``: the
+    label and the fields are two views of one choice. A tier on an
+    executor that never reads it raises, unless the plan is tuned (then
+    it pins the tuner's tier axis)."""
     ex = opts.executor
-    if opts.mm_precision is not None or opts.mm_complex is not None:
-        if not ex.split(":", 1)[0].startswith(MM_EXECUTOR_BASES):
+    if opts.mm_precision is None and opts.mm_complex is None:
+        if ":" not in ex:
+            return opts
+        base, tier, cmode = split_executor(ex)
+        _, want_fuse = split_fuse(ex)
+        return replace(opts, mm_precision=tier, mm_complex=cmode,
+                       executor=fused_name(tiered_name(base, tier, cmode),
+                                           want_fuse or None))
+    if not ex.split(":", 1)[0].startswith(MM_EXECUTOR_BASES):
+        if resolve_tune_mode(opts.tune) != "off":
+            return opts
+        raise ValueError(
+            f"mm_precision/mm_complex scope the matmul-family executors "
+            f"{MM_EXECUTOR_BASES}; executor={ex!r} never consults them "
+            f"(use tune='measure'/'wisdom' to search the tiered "
+            f"candidate axis instead)")
+    name = tiered_name(ex, opts.mm_precision, opts.mm_complex)
+    _, tier, cmode = (split_executor(name) if ":" in name
+                      else (name, None, None))
+    return replace(opts, executor=name, mm_precision=tier, mm_complex=cmode)
+
+
+def _apply_fuse(opts: PlanOptions) -> PlanOptions:
+    """The fuse flag composed into the executor label (``cuda:fuse``),
+    ``fuse`` back-filled from it. ``fuse=True`` on an executor without a
+    fused tier raises; the ``DFFT_FUSE`` default is ignored there."""
+    ex = opts.executor
+    pinned = split_fuse(ex)[1] if ":" in ex else False
+    if opts.fuse is False and pinned:
+        raise ValueError(
+            f"executor {ex!r} already pins the fuse flag; fuse=False "
+            f"conflicts (drop one of the two spellings)")
+    if resolve_fuse(opts.fuse) and not pinned:
+        if ex.split(":", 1)[0] in FUSE_BASES:
+            ex = fused_name(ex, True)
+            pinned = True
+        elif opts.fuse is not None:
             raise ValueError(
-                f"mm_precision/mm_complex scope the matmul-family "
-                f"executors {MM_EXECUTOR_BASES}; executor={ex!r} never "
-                f"consults them")
-        ex = tiered_name(ex, opts.mm_precision, opts.mm_complex)
-    ex = fused_name(ex, opts.fuse)
-    get_executor(ex)
-    wd = None if opts.wire_dtype == "none" else opts.wire_dtype
-    return replace(opts, executor=ex, wire_dtype=wd)
+                f"fuse=True scopes the fused-tier executors {FUSE_BASES}; "
+                f"executor={ex!r} has no fusion tier (the DFFT_FUSE "
+                f"default is ignored there)")
+    if ex == opts.executor and bool(opts.fuse) == pinned:
+        return opts
+    return replace(opts, executor=ex, fuse=pinned)
 
 
 def _norm_batch(batch) -> int | None:
@@ -437,7 +501,7 @@ def _plan(shape, world, *, kind: str, direction: int, dtype: torch.dtype,
             "plans run the flat transports")
     device = resolve_device(device)
     forward = direction == FORWARD
-    executor, wire_dtype = opts.executor, opts.wire_dtype
+    executor = opts.executor
     # r2c/c2r buffers never alias (real world against half spectrum), so
     # donation is accepted and dropped there, as in the JAX package.
     donate = bool(opts.donate) and kind == "c2c"
@@ -452,6 +516,7 @@ def _plan(shape, world, *, kind: str, direction: int, dtype: torch.dtype,
     if not absorb:
         lp = replace(lp, in_absorbed=in_spec is None,
                      out_absorbed=out_spec is None)
+    wire_dtype = lp.wire_dtype
     graph = spec = None
     kw = dict(executor=executor, forward=forward, wire_dtype=wire_dtype,
               algorithm=lp.algorithm, overlap_chunks=lp.overlap_chunks,
@@ -512,6 +577,10 @@ def plan_dft_c2c_3d(
     in_spec: Spec | None = None,
     out_spec: Spec | None = None,
     batch: int | None = None,
+    tune: str | None = None,
+    max_roundtrip_err: float | None = None,
+    mm_precision: str | None = None,
+    mm_complex: str | None = None,
 ) -> Plan3D:
     """Create a 3D complex-to-complex FFT plan over ``world`` (a
     :class:`~.parallel.mesh.World`, an int for a loopback world of that
@@ -523,11 +592,28 @@ def plan_dft_c2c_3d(
     multiplies on top of that. ``wire_dtype``, ``fuse``,
     ``decomposition``, ``algorithm``, ``overlap_chunks``, ``options``,
     ``donate``, ``in_spec`` / ``out_spec`` and ``batch`` as in the
-    module docstring; a batched plan refuses layouts."""
+    module docstring; a batched plan refuses layouts. ``tune``,
+    ``max_roundtrip_err`` and ``executor="auto"``: measured planning (the
+    module docstring). ``mm_precision`` (``bf16``, ``f32``, ``highest``)
+    and ``mm_complex`` (``gauss``) scope the matmul-family executors'
+    tier to this plan (the label becomes ``matmul:bf16``...)."""
     batch = _norm_batch(batch)
     _refuse_batched_layouts(batch, in_spec, out_spec)
     opts = _resolve_options(options, executor, wire_dtype, fuse,
-                            decomposition, algorithm, overlap_chunks, donate)
+                            decomposition, algorithm, overlap_chunks, donate,
+                            tune, max_roundtrip_err, mm_precision, mm_complex)
+    if resolve_tune_mode(opts.tune) != "off":
+        from . import tuner
+
+        return tuner.tuned_plan(
+            "c2c", shape, world, opts,
+            dict(direction=direction, dtype=dtype, device=device,
+                 in_spec=in_spec, out_spec=out_spec, batch=batch))
+    if opts.executor == "auto":
+        return _auto_plan(
+            functools.partial(plan_dft_c2c_3d, shape, world), opts, world,
+            direction=direction, dtype=dtype, device=device,
+            in_spec=in_spec, out_spec=out_spec, batch=batch)
     return _plan(shape, world, kind="c2c", direction=direction, dtype=dtype,
                  device=device, opts=opts, in_spec=in_spec,
                  out_spec=out_spec, batch=batch)
@@ -552,6 +638,10 @@ def plan_dft_r2c_3d(
     out_spec: Spec | None = None,
     r2c_axis: int = 2,
     batch: int | None = None,
+    tune: str | None = None,
+    max_roundtrip_err: float | None = None,
+    mm_precision: str | None = None,
+    mm_complex: str | None = None,
 ) -> Plan3D:
     """Create a real-to-complex (forward) / complex-to-real (backward) 3D
     FFT plan. ``shape`` is the real-space world; the complex side is
@@ -562,7 +652,9 @@ def plan_dft_r2c_3d(
     ``r2c_axis`` 0 or 1 runs the canonical chain on a view with that axis
     and axis 2 swapped; a batched plan takes ``r2c_axis=2`` and no
     layouts. ``donate`` is accepted and has no effect (the real and
-    half-spectrum buffers never alias)."""
+    half-spectrum buffers never alias). ``tune``, ``max_roundtrip_err``,
+    ``executor="auto"`` and the matmul tiers as in
+    :func:`plan_dft_c2c_3d`."""
     batch = _norm_batch(batch)
     if r2c_axis != 2:
         if batch is not None:
@@ -574,10 +666,26 @@ def plan_dft_r2c_3d(
             dtype=dtype, device=device, wire_dtype=wire_dtype, fuse=fuse,
             decomposition=decomposition, algorithm=algorithm,
             overlap_chunks=overlap_chunks, options=options, donate=donate,
-            in_spec=in_spec, out_spec=out_spec)
+            in_spec=in_spec, out_spec=out_spec, tune=tune,
+            max_roundtrip_err=max_roundtrip_err, mm_precision=mm_precision,
+            mm_complex=mm_complex)
     _refuse_batched_layouts(batch, in_spec, out_spec)
     opts = _resolve_options(options, executor, wire_dtype, fuse,
-                            decomposition, algorithm, overlap_chunks, donate)
+                            decomposition, algorithm, overlap_chunks, donate,
+                            tune, max_roundtrip_err, mm_precision, mm_complex)
+    if resolve_tune_mode(opts.tune) != "off":
+        from . import tuner
+
+        return tuner.tuned_plan(
+            "r2c", shape, world, opts,
+            dict(direction=direction, dtype=dtype, device=device,
+                 in_spec=in_spec, out_spec=out_spec, batch=batch))
+    if opts.executor == "auto":
+        return _auto_plan(
+            functools.partial(plan_dft_r2c_3d, shape, world),
+            replace(opts, donate=False), world, direction=direction,
+            dtype=dtype, device=device, in_spec=in_spec, out_spec=out_spec,
+            batch=batch)
     return _plan(shape, world, kind="r2c", direction=direction, dtype=dtype,
                  device=device, opts=opts, in_spec=in_spec,
                  out_spec=out_spec, batch=batch)
@@ -645,6 +753,72 @@ def _r2c_axis_wrapped(shape, world, axis: int, *, in_spec, out_spec,
         in_shape=tuple(inner.in_shape[p] for p in perm),
         out_shape=tuple(inner.out_shape[p] for p in perm),
         in_spec=in_spec, out_spec=out_spec, runner=run)
+
+
+# -------------------------------------------------- executor="auto"
+
+#: Executors the ``executor="auto"`` tournament plans and times (the JAX
+#: package's ``xla``, ``xla_minor``, ``pallas``, ``matmul``);
+#: ``DFFT_AUTO_EXECUTORS`` (comma-separated) overrides.
+_AUTO_CANDIDATES = ("torch", "torch_minor", "cuda", "matmul")
+
+
+def _autotune(make_plan: Callable[[str], Plan3D],
+              group="local") -> Plan3D:
+    """Plan every candidate executor, time each, keep the fastest: the
+    reference's plan-and-pick (``setFFTPlans`` builds hipfft, rocfft and
+    templateFFT plans side by side, ``fft_mpi_3d_api.cpp:318-429``). A
+    candidate that fails to plan or run is skipped. Each is timed on a
+    zero-filled input (an FFT's cost does not depend on the data),
+    ``DFFT_TUNE_ITERS`` calls a batch, by
+    :func:`.tuner.measured_select` over ``group`` (the processes of a
+    process-group world decide together; ``"local"``: this process)."""
+    from .tuner import _amortized_measure, measured_select, tune_budget
+
+    names = [e.strip() for e in os.environ.get(
+        "DFFT_AUTO_EXECUTORS", ",".join(_AUTO_CANDIDATES)).split(",")
+        if e.strip() and e.strip() != "auto"]
+    best, plans, _ = measured_select(
+        names, make_plan, _amortized_measure(*tune_budget()),
+        what="auto executor candidate", group=group)
+    return plans[best]
+
+
+def _auto_plan(plan_fn: Callable, opts: PlanOptions, world=None,
+               **kw) -> Plan3D:
+    """``executor="auto"`` for every plan family (``plan_fn`` bound to
+    the shape and ``world``): the tournament without donation (a donated
+    input cannot be timed twice), then the winner rebuilt with the
+    caller's ``donate``."""
+    from .tuner import _mesh_group
+
+    def mk(ex: str, don: bool) -> Plan3D:
+        return plan_fn(options=replace(opts, executor=ex, donate=don), **kw)
+
+    best = _autotune(lambda ex: mk(ex, False), _mesh_group(world))
+    return mk(best.executor, opts.donate) if opts.donate else best
+
+
+def alloc_local(plan, fill=None) -> torch.Tensor:
+    """The input a plan's ``execute`` takes on this process, on its
+    device: zeros, or a copy of ``fill`` (``fft_mpi_alloc_local_memory``,
+    ``fft_mpi_3d_api.h:73``). A loopback world's is the global array
+    (``plan.in_shape``), a process-group world's this rank's box (a
+    batched plan's with the batch axis first)."""
+    world = plan.world
+    if world is None or world.loopback or plan.brick_edges is not None:
+        shape = tuple(plan.in_shape)
+    else:
+        bpfx = () if plan.batch is None else (plan.batch,)
+        shape = bpfx + tuple(plan.in_boxes[world.rank].shape)
+    if fill is None:
+        return torch.zeros(shape, dtype=plan.in_dtype, device=plan.device)
+    x = torch.as_tensor(fill).to(device=plan.device, dtype=plan.in_dtype,
+                                 copy=True)
+    if tuple(x.shape) != shape:
+        raise ValueError(f"fill has shape {tuple(x.shape)}; the plan's "
+                         f"input is {shape}")
+    return x
 
 
 # ----------------------------------------------------------- brick plans
@@ -1580,15 +1754,26 @@ def _plan_exchange_bytes(plan: Plan3D) -> tuple[int, int]:
 # ------------------------------------------------------------ plan cache
 # Plans are immutable once built and cost host time to build, so the
 # public planners memoize on their whole argument set: kind, shape,
-# world, the keywords, the resolved device and DFFT_OVERLAP (the one
-# environment variable planning reads, for overlap_chunks=None).
-# Unhashable arguments, and
+# world, the keywords, the resolved device and every environment
+# variable planning reads (_PLAN_ENV_KNOBS). Unhashable arguments, and
 # worlds over a process group (whose group may be destroyed and another
 # made with equal fields), bypass the cache. It holds _PLAN_CACHE_MAX
 # plans, the oldest evicted first.
 
 _PLAN_CACHE: dict = {}
 _PLAN_CACHE_MAX = 128
+_PLAN_ENV_KNOBS = (
+    # overlap_chunks=None
+    "DFFT_OVERLAP",
+    # the defaults of wire_dtype, fuse and the matmul tiers
+    "DFFT_WIRE_DTYPE", "DFFT_FUSE", "DFFT_MM_PRECISION", "DFFT_MM_COMPLEX",
+    # executor="auto" and the tuner's executor axis
+    "DFFT_AUTO_EXECUTORS",
+    # tuned planning: mode, wisdom store (and its default home), budget,
+    # survivor cap, profile and its corrections
+    "DFFT_TUNE", "DFFT_WISDOM", "DFFT_COMPILE_CACHE", "DFFT_TUNE_ITERS",
+    "DFFT_TUNE_MAX", "DFFT_HW_PROFILE", "DFFT_TUNE_CORRECTION",
+)
 
 
 def clear_plan_cache() -> None:
@@ -1605,7 +1790,7 @@ def _plan_cache_key(kind: str, shape, world, kw: dict):
     # each value with its type: batch=True must not find the batch=1 plan
     args = tuple(sorted((k, type(v), v) for k, v in kw.items()))
     key = (kind, shape, type(world), world, args, device,
-           os.environ.get("DFFT_OVERLAP", ""))
+           tuple(os.environ.get(v, "") for v in _PLAN_ENV_KNOBS))
     try:
         hash(key)
     except TypeError:

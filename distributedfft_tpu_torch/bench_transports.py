@@ -20,11 +20,22 @@ that :func:`.stagegraph.schedule_concurrent`'s outputs equal the plans
 called one after another, bit for bit on every rank, times the schedule
 against the two calls (as above), then a
 :class:`.stagegraph.WaveSchedule` of 4 waves of the pair (``depth`` 2),
-and prints one JSON line per pair. Run from the root of a checkout::
+and prints one JSON line per pair.
+
+With ``--tune`` every rank first runs :func:`.calibrate.calibrate` (its
+wire figure a ring shift over the ranks: NVLink between the cards of one
+node), then plans one n^3 slab C2C plan over the 1D world of all ranks
+with ``tune="measure"`` (a wisdom store and profile of the run's own,
+under ``--out``), prints its winner, and the run fails unless every
+rank's winner is the same; the profile, each rank's winner and rank 0's
+candidate times are printed as JSON lines. Run from the root of a
+checkout::
 
     python -m distributedfft_tpu_torch.bench_transports --ranks 4 --n 512
     python -m distributedfft_tpu_torch.bench_transports --ranks 4 --n 512 \
         --concurrent
+    python -m distributedfft_tpu_torch.bench_transports --ranks 4 --n 512 \
+        --tune
 """
 
 from __future__ import annotations
@@ -49,8 +60,11 @@ from .stagegraph import WaveSchedule, schedule_concurrent
 from .utils.timing import cuda_time_ms, time_staged
 
 #: Each mode's result file and the key that says its check held.
-RESULTS = {False: ("bench_transports.json", "bit_identical_to_alltoall_k1"),
-           True: ("bench_concurrent.json", "bit_identical_to_sequential")}
+RESULTS = {"transports": ("bench_transports.json",
+                          "bit_identical_to_alltoall_k1"),
+           "concurrent": ("bench_concurrent.json",
+                          "bit_identical_to_sequential"),
+           "tune": ("bench_tune.json", "winners_agree")}
 
 
 def _max(v: float, device) -> float:
@@ -143,7 +157,39 @@ def _concurrent_rows(rank: int, size: int, n: int, cpu: bool,
     return rows
 
 
-def _rank(rank: int, size: int, n: int, cpu: bool, concurrent: bool,
+def _tune_rows(rank: int, size: int, n: int, cpu: bool, device,
+               store: str) -> list:
+    """Calibrate on every rank, then one tuned slab plan over the world
+    of all ranks (wisdom and profile under ``store``); one row with the
+    profile, every rank's winner and whether they agree."""
+    from . import calibrate, tuner
+    from .utils import metrics
+
+    os.environ["DFFT_WISDOM"] = os.path.join(store, "wisdom.jsonl")
+    os.environ["DFFT_HW_PROFILE"] = os.path.join(store, "hwprofile.json")
+    prof = calibrate.calibrate(iters=10)
+    if rank == 0:
+        calibrate.write_profile(prof)
+    dist.barrier()
+    world = process_group_world()
+    metrics.enable_metrics()
+    start = time.perf_counter()
+    plan = plan_dft_c2c_3d((n, n, n), world, device=device, tune="measure")
+    tune_s = time.perf_counter() - start
+    label = tuner.tuned_label(plan)
+    print(f"rank {rank}: tuned winner {label} ({tune_s:.1f} s)", flush=True)
+    labels = [None] * size
+    dist.all_gather_object(labels, label)
+    entries, _ = tuner.load_wisdom(os.environ["DFFT_WISDOM"])
+    times = next(iter(entries.values()), {}).get("times", {})
+    return [dict(n=n, ranks=size, profile=prof, winners=labels,
+                 winners_agree=len(set(labels)) == 1,
+                 candidate_s=times, tune_s=_max(tune_s, device),
+                 timing_executions=metrics.counter_total(
+                     "tune_timing_executions"))]
+
+
+def _rank(rank: int, size: int, n: int, cpu: bool, mode: str,
           init: str, out: str) -> None:
     device = torch.device("cpu")
     if not cpu:
@@ -152,10 +198,14 @@ def _rank(rank: int, size: int, n: int, cpu: bool, concurrent: bool,
     dist.init_process_group("gloo" if cpu else "nccl", init_method=init,
                             rank=rank, world_size=size)
     try:
-        rows = (_concurrent_rows if concurrent else _transport_rows)(
-            rank, size, n, cpu, device)
+        if mode == "tune":
+            rows = _tune_rows(rank, size, n, cpu, device,
+                              os.path.dirname(init.removeprefix("file://")))
+        else:
+            rows = (_concurrent_rows if mode == "concurrent"
+                    else _transport_rows)(rank, size, n, cpu, device)
         if rank == 0:
-            with open(os.path.join(out, RESULTS[concurrent][0]), "w") as f:
+            with open(os.path.join(out, RESULTS[mode][0]), "w") as f:
                 json.dump(rows, f)
     finally:
         dist.destroy_process_group()
@@ -169,6 +219,8 @@ def main(argv=None) -> int:
                     help="gloo on the CPU (a rehearsal: no times)")
     ap.add_argument("--concurrent", action="store_true",
                     help="time two plans as one concurrent schedule")
+    ap.add_argument("--tune", action="store_true",
+                    help="calibrate, then one tuned slab plan per rank")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args(argv)
     if not args.cpu:
@@ -183,14 +235,16 @@ def main(argv=None) -> int:
     if args.ranks < 2 or args.ranks % 2:
         print("--ranks must be even and at least 2", file=sys.stderr)
         return 1
+    mode = ("tune" if args.tune else "concurrent" if args.concurrent
+            else "transports")
     os.makedirs(args.out, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=args.out) as tmp:
         mp.start_processes(
-            _rank, args=(args.ranks, args.n, args.cpu, args.concurrent,
+            _rank, args=(args.ranks, args.n, args.cpu, mode,
                          f"file://{os.path.join(os.path.abspath(tmp), 's')}",
                          args.out),
             nprocs=args.ranks, join=True, start_method="spawn")
-    name, ok = RESULTS[args.concurrent]
+    name, ok = RESULTS[mode]
     rows = json.load(open(os.path.join(args.out, name)))
     for r in rows:
         print(json.dumps(r), flush=True)

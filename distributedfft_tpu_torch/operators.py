@@ -35,6 +35,7 @@ op's generator takes and returns torch tensors.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import math
 from dataclasses import dataclass, field, replace
@@ -49,7 +50,8 @@ from .api import (FORWARD, REAL_DTYPE, OpPlan3D, _check_shape, _norm_batch,
 from .ops.executors import get_executor, run_donated
 from .parallel.pencil import build_pencil_spectral_op
 from .parallel.slab import build_slab_spectral_op
-from .plan_logic import PlanOptions, io_boxes, logic_plan3d
+from .plan_logic import (PlanOptions, io_boxes, logic_plan3d,
+                         resolve_tune_mode)
 from .stagegraph import apply_midpoint, plan_fusion
 
 __all__ = [
@@ -405,9 +407,12 @@ def plan_spectral_op(
     a sequence of them (their :func:`chain`). ``world``, ``executor``,
     ``dtype``, ``device``, ``algorithm``, ``overlap_chunks``,
     ``wire_dtype``, ``fuse``, ``decomposition``, ``options``, ``donate``
-    and ``batch`` as in :func:`.api.plan_dft_c2c_3d`. ``tune`` other than
-    off and a ``max_roundtrip_err`` budget raise ``NotImplementedError``
-    (the tuner, ROADMAP.md Queue 1 item 9)."""
+    and ``batch`` as in :func:`.api.plan_dft_c2c_3d`. ``tune="wisdom"`` /
+    ``"measure"`` (None: ``DFFT_TUNE``) runs the measured planner under
+    the operator's own wisdom kind ``op:<name>`` (transform winners and
+    operator winners never replay into each other), its compressed
+    candidates admitted under ``max_roundtrip_err``;
+    ``executor="auto"`` times each executor."""
     shape = tuple(int(s) for s in shape)
     if len(shape) != 3:
         raise ValueError("3D plans require a 3D shape")
@@ -421,13 +426,28 @@ def plan_spectral_op(
     opts = _resolve_options(options, executor, wire_dtype, fuse,
                             decomposition, algorithm, overlap_chunks, donate,
                             tune, max_roundtrip_err)
+    if resolve_tune_mode(opts.tune) != "off":
+        from . import tuner
+
+        # an operator's two exchange legs and its midpoint move the
+        # transport and K crossovers, so its winners are its own; under a
+        # budget its wire axis is exact and bf16, as in the JAX op tier
+        return tuner.tuned_plan(
+            f"op:{op.name}", shape, world, opts,
+            dict(dtype=_cdtype(dtype), device=device, batch=batch),
+            plan_fn=functools.partial(plan_spectral_op, op=op),
+            reduced=((None, "bf16"), (None,)))
+    if opts.executor == "auto":
+        return _api._auto_plan(
+            functools.partial(plan_spectral_op, shape, world), opts, world,
+            op=op, dtype=dtype, device=device, batch=batch)
     cdtype = _cdtype(dtype)
     device = resolve_device(device)
     lp = logic_plan3d(shape, world, opts, forward=True, batch=batch)
     lp = replace(lp, op=op.name)
     mult = _multiplier_fn(op, shape, cdtype, device)
     graph = spec = None
-    wire = opts.wire_dtype
+    wire = lp.wire_dtype
     kw = dict(executor=opts.executor, wire_dtype=wire,
               algorithm=lp.algorithm, overlap_chunks=lp.overlap_chunks,
               batch=batch)

@@ -20,7 +20,8 @@ unnormalized and the inverse scaled 1/n (numpy convention).
 The products are ``torch.einsum`` over real operands: each complex
 product is four real ones (``native``) or three (``gauss``), so the
 precision tier governs every product. Tiers (set by :func:`mm_scope`,
-which the tiered executor labels enter; ``highest`` outside any scope),
+which the tiered executor labels enter; outside any scope
+``DFFT_MM_PRECISION``, unset ``highest``),
 on float32 operands on the card:
 ``highest`` full fp32 with TF32 off, ``high`` (the ``f32`` executor tier)
 TF32, ``default`` (``bf16``) operands rounded to bfloat16 and the
@@ -154,11 +155,15 @@ def mm_scope(precision: str | None = None, complex_mode: str | None = None):
 
 
 def mm_precision() -> str:
-    """The precision of every product: the scope's, else ``highest``."""
-    s = _PRECISION_OVERRIDE.get() or "highest"
+    """The precision of every product: the scope's, else
+    ``DFFT_MM_PRECISION`` (``default``, ``high`` or ``highest``; unset:
+    ``highest``). Read at call time."""
+    s = _PRECISION_OVERRIDE.get()
+    if s is None:
+        s = os.environ.get("DFFT_MM_PRECISION", "highest").strip().lower()
     if s not in PRECISIONS:
-        raise ValueError(f"{s!r} is not a precision tier; use one of "
-                         f"{sorted(PRECISIONS)}")
+        raise ValueError(f"DFFT_MM_PRECISION={s!r} is not a precision "
+                         f"tier; use one of {sorted(PRECISIONS)}")
     return s
 
 
@@ -166,11 +171,13 @@ def complex_mode() -> str:
     """How a complex product is computed: ``native`` (four real
     products) or ``gauss`` (three: m1 = (xr+xi) Wr, m2 = xr (Wi-Wr),
     m3 = xi (Wi+Wr), y = (m1-m3) + i (m1+m2)). The scope's, else
-    ``native``."""
-    m = _COMPLEX_OVERRIDE.get() or "native"
+    ``DFFT_MM_COMPLEX`` (unset: ``native``)."""
+    m = _COMPLEX_OVERRIDE.get()
+    if m is None:
+        m = os.environ.get("DFFT_MM_COMPLEX", "native").strip().lower()
     if m not in ("native", "gauss"):
-        raise ValueError(f"{m!r} is not a complex-product mode; use "
-                         f"'native' or 'gauss'")
+        raise ValueError(f"DFFT_MM_COMPLEX={m!r} is not a complex-product "
+                         f"mode; use 'native' or 'gauss'")
     return m
 
 

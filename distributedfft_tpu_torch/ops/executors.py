@@ -10,7 +10,10 @@ The port of the registry, label algebra and scaling of
   :func:`.cuda_fft.fft_along_axis`, which falls back to
   :mod:`.dft_matmul` by the JAX package's routing rules;
 - ``"matmul"``: the DFT by matmuls of :mod:`.dft_matmul`;
-- ``"torch"`` (the JAX package's ``xla``): ``torch.fft``.
+- ``"torch"`` (the JAX package's ``xla``): ``torch.fft``;
+- ``"torch_minor"`` (the JAX package's ``xla_minor``): ``torch.fft`` one
+  axis at a time, each moved to the last axis first (a layout
+  candidate of the ``executor="auto"`` tournament; the same values).
 
 Axes the call does not name ride in each kernel's own batch axis (the
 plane kernel's planes, the strided kernel's ``lead``, the row kernel's
@@ -60,6 +63,11 @@ MM_EXECUTOR_BASES = ("matmul", "cuda")
 
 #: Complex-product modes accepted as a suffix (``native`` is the default).
 MM_COMPLEX_MODES = ("native", "gauss")
+
+#: Tiers below the exact default: the ones that cost accuracy and are
+#: admitted against a plan's ``max_roundtrip_err`` budget (``highest`` is
+#: the bare label's tier).
+REDUCED_TIERS = ("bf16", "f32")
 
 
 class Scale(enum.Enum):
@@ -262,6 +270,59 @@ def get_c2r(name: str) -> Callable:
     return _C2R_REGISTRY.get(name, _torch_c2r)
 
 
+_EXEC_ERR_CACHE: dict = {}
+
+
+def executor_roundtrip_error(name: str, dtype, n: int = 256, *,
+                             sample=None, device=None) -> float:
+    """Relative round-trip error of one forward + inverse pass of a
+    reduced-precision tiered executor (``max |ifft(fft(x)) - x| / max
+    |x|`` over a seeded standard-normal ``(8, n)`` block, the seed and
+    block of the JAX package's), the number the tuner admits a
+    ``matmul:bf16`` candidate against. 0.0 for bare labels and exact
+    tiers. Measured on ``device`` (the card when there is one, else the
+    CPU, where every tier is the full-precision product, as on JAX's CPU
+    backend) and cached per (label, dtype, n, device). ``sample`` (an
+    ``(8, n)``-reshapeable block) measures on the caller's data instead,
+    cached by its digest. ``dtype`` is a numpy or torch complex dtype or
+    its name."""
+    if ":" not in name:
+        return 0.0
+    _, tier, _ = split_executor(name)
+    if tier not in REDUCED_TIERS:
+        return 0.0
+    import hashlib
+
+    import numpy as np
+
+    from ..parallel.exchange import np_dtype
+
+    ndt = np_dtype(dtype)
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    if sample is not None:
+        x = np.asarray(sample, dtype=ndt).reshape(8, -1)
+        digest = hashlib.sha256(x.tobytes()).hexdigest()[:16]
+        key = (name, str(ndt), x.shape[1], device.type, digest)
+    else:
+        x = None
+        key = (name, str(ndt), int(n), device.type)
+    hit = _EXEC_ERR_CACHE.get(key)
+    if hit is not None:
+        return hit
+    if x is None:
+        rng = np.random.default_rng(0)
+        x = (rng.standard_normal((8, n))
+             + 1j * rng.standard_normal((8, n))).astype(ndt)
+    fn = get_executor(name)
+    t = torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    y = fn(fn(t, (1,), True), (1,), False).cpu().numpy()
+    err = float(np.max(np.abs(y - x)) / np.max(np.abs(x)))
+    _EXEC_ERR_CACHE[key] = err
+    return err
+
+
 # ------------------------------------------------------------- torch
 
 def _torch_executor(x: torch.Tensor, axes: Sequence[int],
@@ -281,6 +342,25 @@ def _torch_c2r(y: torch.Tensor, n: int, axis: int) -> torch.Tensor:
 
 register_executor("torch", _torch_executor)
 register_real_executor("torch", _torch_r2c, _torch_c2r)
+
+
+def _torch_minor_executor(x: torch.Tensor, axes: Sequence[int],
+                          forward: bool = True) -> torch.Tensor:
+    """``torch.fft`` one axis at a time, each moved to the last axis
+    first and back after (the JAX package's ``xla_minor``): the same
+    transform as ``torch`` with the transposes placed by hand, for the
+    tournament to measure."""
+    fft = torch.fft.fft if forward else torch.fft.ifft
+    last = x.ndim - 1
+    for ax in tuple(a % x.ndim for a in axes):
+        if ax == last:
+            x = fft(x, dim=-1)
+        else:
+            x = fft(x.movedim(ax, -1).contiguous(), dim=-1).movedim(-1, ax)
+    return x
+
+
+register_executor("torch_minor", _torch_minor_executor)
 
 
 # ------------------------------------------------------------ matmul

@@ -96,6 +96,36 @@ def transport_steps(algorithm: str, parts: int) -> int:
     return 1
 
 
+def exchange_model_seconds(
+    wire_bytes_per_dev: float,
+    parts: int,
+    algorithm: str,
+    *,
+    wire_gbps: float,
+    launch_seconds: float,
+    overlap_chunks: int = 1,
+    hide_seconds: float = 0.0,
+    batch: int = 1,
+) -> dict:
+    """The analytical time of one exchange under one transport (the
+    tuner's pruning model). ``seconds`` is the wire transfer at
+    ``wire_gbps`` plus :func:`transport_steps` launch latencies;
+    ``exposed_seconds`` what stays on the critical path at
+    ``overlap_chunks`` = K with ``hide_seconds`` of downstream compute to
+    hide under: ``t/K + max(0, t - hide)(K-1)/K`` plus the K-1 extra
+    launches of each step. ``batch`` scales the transfer (B transforms
+    share one collective, the launches paid once); callers passing bytes
+    already scaled by B keep 1."""
+    steps = transport_steps(algorithm, parts)
+    t_ex = (max(1, int(batch)) * wire_bytes_per_dev / (wire_gbps * 1e9)
+            + steps * launch_seconds)
+    k = max(1, int(overlap_chunks))
+    exposed = (t_ex / k
+               + max(0.0, t_ex - hide_seconds) * (k - 1) / k
+               + (k - 1) * steps * launch_seconds)
+    return {"seconds": t_ex, "exposed_seconds": exposed, "steps": steps}
+
+
 def _axis_label(mesh_axis) -> str:
     """Span label of a mesh-axis spec: the name, or ``a+b`` for a
     combined axis."""
@@ -307,6 +337,13 @@ def wire_itemsize(itemsize: int, wire_dtype: str | None) -> int:
         ) from None
 
 
+def np_dtype(dtype) -> np.dtype:
+    """A torch dtype, numpy dtype or dtype name as a numpy dtype."""
+    if isinstance(dtype, torch.dtype):
+        return np.dtype(str(dtype).removeprefix("torch."))
+    return np.dtype(dtype)
+
+
 _WIRE_ERR_CACHE: dict = {}
 
 
@@ -318,7 +355,7 @@ def wire_roundtrip_error(dtype, wire_dtype: str | None = "bf16",
     if wire_dtype is None:
         return 0.0
     codec = wire_codec(wire_dtype)
-    npdt = np.dtype(np.complex128 if dtype == torch.complex128
+    npdt = np.dtype(np.complex128 if np_dtype(dtype) == np.complex128
                     else np.complex64)
     key = (str(npdt), wire_dtype, int(n))
     hit = _WIRE_ERR_CACHE.get(key)

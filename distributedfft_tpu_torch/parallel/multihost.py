@@ -101,6 +101,14 @@ def is_hybrid_world(world) -> bool:
     return isinstance(world, World) and world.hybrid
 
 
+def is_hybrid_mesh(world) -> bool:
+    """The JAX package's name for :func:`is_hybrid_world` (its mesh is
+    the port's :class:`~.mesh.World`): a 2D world whose axis 0 is
+    ``"dcn"``, the shape the hierarchical transport and the tuner's
+    hierarchical candidates take."""
+    return is_hybrid_world(world)
+
+
 def fft_world_for(ndev_total: int | None = None) -> World:
     """The default world of this job: hybrid when several processes run,
     else a loopback 1D world of ``ndev_total`` ranks (the cards here when

@@ -37,13 +37,8 @@ from .parallel.slab import check_batch, slab_axes
 
 DECOMPOSITIONS = ("single", "slab", "pencil")
 
-#: Valid ``PlanOptions.tune`` values (None: off).
+#: Valid ``PlanOptions.tune`` values (None: the ``DFFT_TUNE`` default).
 TUNE_MODES = (None, "off", "wisdom", "measure")
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
 
 
 @dataclass(frozen=True)
@@ -67,10 +62,17 @@ class PlanOptions:
     ``donate``: the plan may use its input's storage as workspace (its
     contents afterwards unspecified; the result is the same).
 
-    Differences from the JAX package: ``wire_dtype=None`` and
-    ``fuse=None`` read no environment default (``DFFT_WIRE_DTYPE``,
-    ``DFFT_FUSE``); ``tune`` other than off and a ``max_roundtrip_err``
-    budget raise ``NotImplementedError``: their machinery is not ported.
+    ``tune``: measured planning (:mod:`.tuner`): ``"off"`` plans by the
+    static heuristics, ``"wisdom"`` replays a stored winner and falls back
+    to the heuristics on a miss, ``"measure"`` runs the pruned tournament
+    on a miss and records its winner; None reads ``DFFT_TUNE`` (unset:
+    off). ``max_roundtrip_err``: the plan's round-trip error budget, under
+    which the tuner admits compressed-wire and reduced-precision
+    candidates (their errors summed against the one budget).
+
+    ``wire_dtype=None`` reads ``DFFT_WIRE_DTYPE`` and ``fuse=None``
+    ``DFFT_FUSE`` at plan time (:func:`resolve_wire_dtype`,
+    :func:`resolve_fuse`; unset: exact, unfused).
     """
 
     decomposition: str = "auto"
@@ -166,11 +168,6 @@ class PlanOptions:
                 f"fuse must be a bool or None, got {self.fuse!r}")
         if not isinstance(self.donate, bool):
             raise ValueError(f"donate must be a bool, got {self.donate!r}")
-        if self.tune not in (None, "off"):
-            raise _unported(f"tune={self.tune!r} (the tuner)", "9")
-        if mre is not None:
-            raise _unported("max_roundtrip_err (the tuner's error budget)",
-                            "9")
 
 
 DEFAULT_OPTIONS = PlanOptions()
@@ -222,6 +219,60 @@ def resolve_overlap_chunks(value: int | str | None,
     if value < 1:
         raise ValueError(f"overlap_chunks must be >= 1, got {value}")
     return int(value)
+
+
+def resolve_wire_dtype(value: str | None) -> str | None:
+    """A ``PlanOptions.wire_dtype`` value as a concrete wire mode: None
+    (exact) or a registered codec name. None reads ``DFFT_WIRE_DTYPE``
+    (unset: exact); ``"none"`` pins the exact wire whatever the
+    environment says."""
+    if value is None:
+        value = os.environ.get("DFFT_WIRE_DTYPE", "").strip() or "none"
+    v = value.strip().lower() if isinstance(value, str) else value
+    if v in (None, "", "none", "0"):
+        return None
+    if v in WIRE_DTYPES:
+        return v
+    raise ValueError(
+        f"wire_dtype must be one of {tuple(w for w in WIRE_DTYPES if w)} "
+        f"or 'none', got {value!r} (check DFFT_WIRE_DTYPE)")
+
+
+def resolve_fuse(value: bool | None) -> bool:
+    """A ``PlanOptions.fuse`` value as a bool: None reads ``DFFT_FUSE``
+    (unset: False); explicit bools pass through."""
+    if value is None:
+        raw = os.environ.get("DFFT_FUSE", "").strip().lower()
+        if raw in ("", "0", "false", "off", "none"):
+            return False
+        if raw in ("1", "true", "on", "fuse"):
+            return True
+        raise ValueError(
+            f"DFFT_FUSE must be 0/1/on/off, got {raw!r}")
+    return bool(value)
+
+
+def resolve_tune_mode(value: str | None) -> str:
+    """A ``PlanOptions.tune`` value as a concrete mode: None reads
+    ``DFFT_TUNE`` (unset: ``"off"``); strings pass validated."""
+    if value is None:
+        value = os.environ.get("DFFT_TUNE", "").strip() or "off"
+    if value not in TUNE_MODES or value is None:
+        raise ValueError(
+            f"tune mode must be one of {tuple(m for m in TUNE_MODES if m)}, "
+            f"got {value!r} (check DFFT_TUNE)")
+    return value
+
+
+def mm_dft_flops(shape: Sequence[int], axes: Sequence[int] | None = None,
+                 ) -> float:
+    """Real flops of one dense matmul-DFT transform over ``axes`` (all
+    three by default): each axis is one complex contraction of the block
+    against an n x n DFT matrix, ``8 * N * n`` real flops. A ranking
+    quantity of the tuner's precision-tier model, not a prediction."""
+    shape = tuple(int(s) for s in shape)
+    n_total = math.prod(shape)
+    return sum(8.0 * n_total * shape[a] for a in (axes or range(3)))
 
 
 @dataclass(frozen=True)
@@ -472,7 +523,7 @@ def logic_plan3d(shape, world: World | int | Sequence[int] | None,
     overlap = resolve_overlap_chunks(options.overlap_chunks, shape=shape,
                                      ndev=world.size,
                                      itemsize=8 * (batch or 1))
-    wire = None if options.wire_dtype == "none" else options.wire_dtype
+    wire = resolve_wire_dtype(options.wire_dtype)
     return LogicPlan(shape, decomp, world, axes.get("slab_axes"),
                      axes.get("perm"), axes.get("order"), negotiated,
                      options.algorithm, overlap, in_absorbed, out_absorbed,

@@ -1,9 +1,11 @@
 """Timing: per-stage t0..t3 breakdowns and kernel times on the card.
 
 The port of ``distributedfft_tpu/utils/timing.py``. On a CUDA device
-every time comes from CUDA events (``torch.cuda.Event``), which measure
-the device's work rather than the host's enqueue; GFlop/s follows the
-reference's 5 N log2 N / t model.
+the stage and kernel times come from CUDA events (``torch.cuda.Event``),
+which measure the device's work rather than the host's enqueue; the
+tuner's :func:`time_fn_amortized` reads the host clock around
+``iters`` calls and one synchronisation, as the JAX package's does.
+GFlop/s follows the reference's 5 N log2 N / t model.
 """
 
 from __future__ import annotations
@@ -16,6 +18,48 @@ from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
+
+
+def _last_tensor(x):
+    """The last tensor of ``x`` (a tensor, or nested lists and tuples of
+    them), or None."""
+    if isinstance(x, torch.Tensor):
+        return x
+    if isinstance(x, (list, tuple)):
+        for v in reversed(x):
+            t = _last_tensor(v)
+            if t is not None:
+                return t
+    return None
+
+
+def sync(x) -> None:
+    """Wait for the work that produces ``x``: on a CUDA tensor its
+    device's current stream is synchronised; on the CPU the work is
+    done when the call returns."""
+    t = _last_tensor(x)
+    if t is not None and t.device.type == "cuda":
+        torch.cuda.current_stream(t.device).synchronize()
+
+
+def time_fn_amortized(fn: Callable, *args, iters: int = 10,
+                      repeats: int = 3) -> tuple[float, object]:
+    """Per-call seconds with the synchronisation's latency amortised
+    out: one warm call, then ``repeats`` batches of ``iters`` calls
+    dispatched back to back and synchronised once (:func:`sync`); the
+    best batch's seconds over ``iters``. The reference times ``nt``
+    executes inside one ``MPI_Wtime`` pair (``fftSpeed3d_c2c.cpp:94-98``)
+    for the same reason. Returns (seconds, the last output)."""
+    out = fn(*args)
+    sync(out)
+    best = math.inf
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = fn(*args)
+        sync(out)
+        best = min(best, (time.perf_counter() - t0) / iters)
+    return best, out
 
 
 def gflops(shape, seconds: float) -> float:

@@ -232,4 +232,5 @@ def test_unregistered_real_pair_falls_back_to_torch():
     assert tex.get_c2r("nope") is tex.get_c2r("torch")
     with pytest.raises(ValueError, match="unknown executor"):
         tex.get_executor("nope")
-    assert tex.available_executors() == ["cuda", "matmul", "torch"]
+    assert tex.available_executors() == ["cuda", "matmul", "torch",
+                                        "torch_minor"]

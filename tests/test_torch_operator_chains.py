@@ -409,12 +409,92 @@ def test_refusals_raise_jax_classes():
         top.plan_spectral_op(SHAPE, (2, 2), op=top.poisson(), device="cpu",
                              decomposition="pencil",
                              algorithm="hierarchical")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        top.plan_spectral_op(SHAPE, 4, op=top.poisson(), device="cpu",
-                             tune="measure")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        top.plan_spectral_op(SHAPE, 4, op=top.poisson(), device="cpu",
-                             max_roundtrip_err=1e-3)
+
+
+@pytest.mark.parametrize("kw", [dict(tune="measure"),
+                                dict(tune="measure", max_roundtrip_err=1e-3)])
+def test_tuned_poisson_op_matches_jax(kw, tmp_path, monkeypatch):
+    """The tuned op tier (once refused) on the CPU: a measured Poisson
+    op plan on 4 loopback ranks agrees with the JAX package's Poisson
+    op on its 4-device mesh within the complex64 tier, records one
+    ``op:poisson`` wisdom entry, and replays it with no timing."""
+    import distributedfft_tpu as jdfft
+    from distributedfft_tpu import operators as jop
+    from distributedfft_tpu_torch import tuner
+    from distributedfft_tpu_torch.utils import metrics
+
+    monkeypatch.setenv("DFFT_WISDOM", str(tmp_path / "wisdom.jsonl"))
+    monkeypatch.setenv("DFFT_TUNE_ITERS", "1x1")
+    monkeypatch.setenv("DFFT_TUNE_MAX", "3")
+    tdfft.clear_plan_cache()
+    metrics.metrics_reset()
+    metrics.enable_metrics()
+    try:
+        plan = top.plan_spectral_op(SHAPE, 4, op=top.poisson(),
+                                    device="cpu", **kw)
+        assert metrics.counter_total("tune_tournaments") == 1
+        rng = np.random.default_rng(11)
+        x = (rng.standard_normal(SHAPE)
+             + 1j * rng.standard_normal(SHAPE)).astype(np.complex64)
+        want = np.asarray(jop.plan_spectral_op(
+            SHAPE, jdfft.make_mesh(4), op=jop.poisson(), executor="xla",
+            dtype=np.complex64)(x))
+        got = plan(torch.from_numpy(x)).numpy()
+        assert np.max(np.abs(got - want)) / np.max(np.abs(want)) <= 5e-4
+        entries, dropped = tuner.load_wisdom(str(tmp_path / "wisdom.jsonl"))
+        assert dropped == 0 and [e["key"]["kind"] for e in
+                                 entries.values()] == ["op:poisson"]
+        tdfft.clear_plan_cache()
+        metrics.metrics_reset()
+        again = top.plan_spectral_op(SHAPE, 4, op=top.poisson(),
+                                     device="cpu", **kw)
+        assert metrics.counter_total("tune_timing_executions") == 0
+        assert tuner.tuned_label(again) == tuner.tuned_label(plan)
+    finally:
+        metrics.enable_metrics(False)
+        metrics.metrics_reset()
+        tdfft.clear_plan_cache()
+
+
+@pytest.mark.parametrize("budget", [None, 1e-2])
+def test_tuned_op_tier_runs_the_transform_tournament(budget, tmp_path,
+                                                     monkeypatch):
+    """The op tier is :func:`tuner.tuned_plan` under the wisdom kind
+    ``op:poisson``: one tournament whose candidates carry the exact wire
+    and, under a budget, ``bf16`` (the JAX op tier's wire axis) and no
+    reduced matmul tier; its winner is the candidate the stubbed
+    measurement ranks first."""
+    from distributedfft_tpu_torch import tuner
+
+    monkeypatch.setenv("DFFT_WISDOM", str(tmp_path / "wisdom.jsonl"))
+    monkeypatch.setenv("DFFT_TUNE_ITERS", "1x1")
+    monkeypatch.setenv("DFFT_AUTO_EXECUTORS", "torch,matmul")
+    seen = []
+    orig = tuner.measured_select
+
+    def record(names, build, measure, **kw):
+        seen.append((list(names), kw["what"]))
+        last = names[-1]
+        return orig(names, build, lambda plan: 0.0 if tuner.tuned_label(
+            plan) == last else 1.0, **kw)
+
+    monkeypatch.setattr(tuner, "measured_select", record)
+    tdfft.clear_plan_cache()
+    try:
+        plan = top.plan_spectral_op(SHAPE, 4, op=top.poisson(),
+                                    device="cpu", tune="measure",
+                                    max_roundtrip_err=budget)
+    finally:
+        tdfft.clear_plan_cache()
+    (names, what), = seen
+    assert what == "op:poisson tune candidate"
+    assert tuner.tuned_label(plan) == names[-1]
+    wires = {n.partition("+w")[2] or None for n in names}
+    assert wires <= ({None, "bf16"} if budget else {None})
+    assert not any(":bf16" in n.split("/")[2] or ":f32" in n.split("/")[2]
+                   for n in names)
+    entries, _ = tuner.load_wisdom(str(tmp_path / "wisdom.jsonl"))
+    assert [e["key"]["kind"] for e in entries.values()] == ["op:poisson"]
 
 
 def test_midpoint_hooks():
