@@ -152,11 +152,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``cuda`` plan on its wire, 5e-4 when exact), and
    ``tune_concurrent_width`` on two slab plans; it fails on a candidate
    that did not build or has no finite time, or a kernel not launched;
+17. explains eight plans at 512^3 (counts from 0; ``dfft.explain`` with
+   ``iters=5`` and ``device_timing=True``, under phase 16's calibrated
+   profile): the single plan, the 4-rank slab C2C forward (with its
+   two-transform concurrent overlap) and backward, the slab R2C, the 2x2
+   pencil, the slab Poisson op, the slab C2C at K = 2 (its chunk
+   overlap) and the split fused 2x2 pencil (its fusion verdict; kernels
+   4 and 5 through its whole-plan memory view); per stage the model,
+   host-bracket and device ms, their ratio and the divergence verdict,
+   each plan's peak memory, its overlap and fusion blocks, and the slab
+   forward's table. It fails when a record's stages are not read from
+   the device timeline, a pass of a stage has no device time, the device
+   medians sum past 1.05x the host brackets', an overlap block is
+   missing, a memory view has no peak, the fused plan's fusion is not
+   active, or a kernel is not launched; the records go to
+   ``chiprun_out/explain_records.jsonl``;
    prints one JSON line of the five kernels and, last, the device line.
 
-Each counted path (5, 6, 8, 9, 10, 11, 12, 13, 16) also records the case of
-every kernel call and fails on one that phases 2 and 3 did not hold
-against its plain version (the two-level stages as their unnormalized
+Each counted path (5, 6, 8, 9, 10, 11, 12, 13, 16, 17) also records the
+case of every kernel call and fails on one that phases 2 and 3 did not
+hold against its plain version (the two-level stages as their unnormalized
 inverse where they run it).
 
 Any failed check exits nonzero before the last line. Without a CUDA
@@ -1352,34 +1367,30 @@ def trace_breakdown(path):
     """Device time under each span of a torch.profiler chrome trace: each
     kernel, copy or fill is charged to the innermost ``t0..t3`` span (by
     :func:`stage_key`) whose host range holds its launch, found by the
-    launch's correlation id; and the device's idle share over the window
-    from the start of the ``execute_*`` span to the end of the last
-    device activity it launched. Returns (per span, per key, idle share,
-    window us, busy us, device ops)."""
+    launch's correlation id (:func:`explain.join_device_ops`, the join
+    ``dfft.explain`` reads its device samples with); and the device's
+    idle share over the window from the start of the ``execute_*`` span
+    to the end of the last device activity it launched. Returns (per
+    span, per key, idle share, window us, busy us, device ops)."""
+    from distributedfft_tpu_torch.explain import join_device_ops
     from distributedfft_tpu_torch.utils.trace import stage_key
 
-    events = json.load(open(path))["traceEvents"]
-    spans = [e for e in events if e.get("cat") == "user_annotation"]
-    launch = {e["args"]["correlation"]: e["ts"] for e in events
-              if e.get("cat") in ("cuda_runtime", "cuda_driver")
-              and "correlation" in e.get("args", {})}
-    ops = [e for e in events
-           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    execute = [e for e in spans if e["name"].startswith("execute_")]
+    doc = json.load(open(path))
+    ops, _ = join_device_ops(doc)
+    execute = [e for e in doc["traceEvents"]
+               if e.get("cat") == "user_annotation"
+               and e["name"].startswith("execute_")]
     if not execute or not ops:
         fail(f"traced run: {len(execute)} execute spans, {len(ops)} device "
              f"operations in the trace")
     lo = execute[0]["ts"]
     hi_host = lo + execute[0]["dur"]
     per_span, per_key, busy_iv = {}, {}, []
-    for op in ops:
-        t = launch.get(op.get("args", {}).get("correlation"))
+    for op, t, span in ops:
         if t is None or not lo <= t <= hi_host:
             continue
-        inner = [s for s in spans if stage_key(s["name"])
-                 and s["ts"] <= t <= s["ts"] + s["dur"]]
-        if inner:
-            name = min(inner, key=lambda s: s["dur"])["name"]
+        if span is not None:
+            name = span["name"]
             per_span[name] = per_span.get(name, 0.0) + op["dur"]
             key = stage_key(name)
             per_key[key] = per_key.get(key, 0.0) + op["dur"]
@@ -1898,22 +1909,14 @@ def check_operators(torch, dfft, dev, card, n=512, c=256):
 
 def span_device_us(path, name):
     """(device us, spans): the device time of every operation launched
-    inside a span called ``name`` of a torch.profiler chrome trace."""
-    events = json.load(open(path))["traceEvents"]
-    spans = [e for e in events if e.get("cat") == "user_annotation"
-             and e["name"] == name]
-    launch = {e["args"]["correlation"]: e["ts"] for e in events
-              if e.get("cat") in ("cuda_runtime", "cuda_driver")
-              and "correlation" in e.get("args", {})}
-    total = 0.0
-    for op in events:
-        if op.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
-            continue
-        t = launch.get(op.get("args", {}).get("correlation"))
-        if t is not None and any(s["ts"] <= t <= s["ts"] + s["dur"]
-                                 for s in spans):
-            total += op["dur"]
-    return total, len(spans)
+    inside a span called ``name`` of a torch.profiler chrome trace (the
+    join of :func:`explain.join_device_ops`)."""
+    from distributedfft_tpu_torch.explain import join_device_ops
+
+    ops, spans = join_device_ops(json.load(open(path)),
+                                 span_key=lambda n: n if n == name else None)
+    return (sum(op["dur"] for op, _, span in ops if span is not None),
+            len(spans))
 
 
 def check_op_staged_and_traced(torch, dfft, timing, dev, here, card, plans,
@@ -2731,7 +2734,8 @@ def check_tuner(torch, dfft, cf, cfu, dev, card, n=512):
     candidate (the C2R tournament's fused candidates must launch the
     encode kernel); tune_concurrent_width on two slab plans. Every
     tournament fails on a candidate that did not build or has no finite
-    time. Returns the tournaments and calibrate()'s launches."""
+    time. Returns the tournaments, calibrate()'s launches and the path of
+    the calibrated profile (the explain phase reads it)."""
     import tempfile
 
     import functools
@@ -2951,7 +2955,7 @@ def check_tuner(torch, dfft, cf, cfu, dev, card, n=512):
                 os.environ[k] = v
         dfft.clear_plan_cache()
         torch.cuda.empty_cache()
-    return out, cal
+    return out, cal, os.path.join(store, "hw.json")
 
 
 def with_model(t, tuner, shape, world):
@@ -2966,6 +2970,156 @@ def _cand_fields(label: str) -> tuple:
     body, _, wire = label.partition("+w")
     decomp, alg, ex, ov = body.split("/")
     return decomp, alg, ex, int(ov.removeprefix("ov")), wire or None
+
+
+# ------------------------------------------------- explain and attribution
+
+#: Measured passes of each explain record (its device samples per stage).
+EXPLAIN_ITERS = 5
+#: Device stage medians may exceed the host brackets' by this factor at
+#: most: a synchronised stage's device time lies inside its bracket.
+DEVICE_OVER_HOST = 1.05
+
+
+def explain_rows(rec) -> list[str]:
+    """One line per stage of an explain record: model, host-bracket and
+    device ms, device / model and the divergence verdict."""
+    host = rec["timing"].get("host_stage_seconds") or {}
+    rows = []
+    for key, st in rec["stages"].items():
+        m = st["model"].get("seconds", 0.0)
+        dev_s = st["measured"]["seconds"]
+        h = host.get(key)
+        ratio = dev_s / m if dev_s and m else None
+        rows.append(
+            f"  {key:<5} model {m * 1e3:.4f} ms | host "
+            + ("-" if h is None else f"{h * 1e3:.4f}") + " ms | device "
+            + ("-" if dev_s is None else f"{dev_s * 1e3:.4f}") + " ms | "
+            + ("-" if ratio is None else f"x{ratio:.2f}")
+            + f" | diverged {st['divergence'].get('diverged')}")
+    return rows
+
+
+def check_explain_record(label, rec, need, secs, card, n=512):
+    """Print one explain record (per-stage rows, memory view, overlap and
+    fusion blocks) and fail unless its stages come from the device
+    timeline, each stage in ``need`` has device time in every pass, the
+    device medians sum to at most 1.05x the host brackets' and the
+    memory view has a peak."""
+    timing, comp = rec["timing"], rec["compiled"] or {}
+    tot = rec["totals"]
+    print(f"explain {label} {n}^3 ({secs:.1f} s; timing {timing['source']}"
+          f"; peak_hbm_bytes {comp.get('peak_hbm_bytes')}, argument "
+          f"{comp.get('argument_bytes')}, output {comp.get('output_bytes')}"
+          f", temp {comp.get('temp_bytes')}; model total "
+          f"{tot['model_seconds'] * 1e3:.4f} ms, device stages "
+          f"{(tot['measured_stage_seconds'] or 0.0) * 1e3:.4f} ms; diverged "
+          f"{rec['divergence']['stages']}) [{card}]:\n"
+          + "\n".join(explain_rows(rec)), flush=True)
+    for key in ("overlap", "fusion"):
+        if rec.get(key) is not None:
+            print(f"  {key}: {json.dumps(rec[key], sort_keys=True)}",
+                  flush=True)
+    if timing["source"] != "device":
+        fail(f"explain {label}: timing from {timing['source']} "
+             f"({timing.get('fallback_reason')})")
+    # a pass with no device time under a stage is a pass the trace lost
+    missing = [k for k in need
+               if not rec["stages"][k]["measured"]["samples"]
+               or min(rec["stages"][k]["measured"]["samples"]) <= 0.0]
+    if missing:
+        fail(f"explain {label}: a pass without device samples for "
+             f"{missing}")
+    host = timing.get("host_stage_seconds") or {}
+    dev_sum = sum(st["measured"]["seconds"] or 0.0
+                  for st in rec["stages"].values())
+    host_sum = sum(v for v in host.values() if v)
+    if not dev_sum <= DEVICE_OVER_HOST * host_sum:
+        fail(f"explain {label}: device stage medians {dev_sum * 1e3:.4f} ms "
+             f"over {DEVICE_OVER_HOST}x the host brackets' "
+             f"{host_sum * 1e3:.4f} ms")
+    if comp.get("peak_hbm_bytes") is None:
+        fail(f"explain {label}: no peak_hbm_bytes")
+
+
+def check_explain(torch, dfft, dev, here, card, hw_path, n=512):
+    """Phase 17: ``dfft.explain`` at n^3 (``iters=5``,
+    ``device_timing=True``) on the single plan, the slab C2C forward (with
+    ``concurrent=2``) and backward on 4 loopback ranks, the slab R2C, the
+    2x2 pencil, the slab Poisson op, the slab C2C at K = 2 and the split
+    fused 2x2 pencil, under the measured-planning phase's calibrated
+    profile (``hw_path``); each record checked by
+    :func:`check_explain_record`, the slab forward's table printed. Fails
+    unless the profile is the card's calibrated one, the two overlap
+    blocks are there and the fused plan's fusion is active. The records
+    go to chiprun_out/explain_records.jsonl."""
+    from distributedfft_tpu_torch import operators as dop
+    from distributedfft_tpu_torch.explain import device_profile, format_explain
+
+    shape = (n, n, n)
+    world = dfft.make_world(SLAB_RANKS)
+    slab, pencil = ("t0", "t2", "t3"), ("t0", "t1", "t2", "t3")
+    slab_fwd = f"slab fwd P={SLAB_RANKS}"
+    slab_k2 = f"slab fwd K=2 P={SLAB_RANKS}"
+    cases = [
+        ("single", dfft.plan_dft_c2c_3d(shape, None, device=dev), {},
+         ("t0", "t3")),
+        (slab_fwd, dfft.plan_dft_c2c_3d(shape, world, device=dev),
+         {"concurrent": 2}, slab),
+        (f"slab bwd P={SLAB_RANKS}",
+         dfft.plan_dft_c2c_3d(shape, world, direction=dfft.BACKWARD,
+                              device=dev), {}, slab),
+        (f"slab r2c P={SLAB_RANKS}",
+         dfft.plan_dft_r2c_3d(shape, world, device=dev), {}, slab),
+        ("pencil 2x2", dfft.plan_dft_c2c_3d(shape, PENCIL_GRID, device=dev),
+         {}, pencil),
+        (f"poisson op slab P={SLAB_RANKS}",
+         dop.plan_spectral_op(shape, world, op=dop.poisson(), device=dev),
+         {}, slab + ("t_mid",)),
+        (slab_k2, dfft.plan_dft_c2c_3d(shape, world, overlap_chunks=2,
+                                       device=dev), {}, slab),
+        ("pencil 2x2 split fused",
+         dfft.plan_dft_c2c_3d(shape, PENCIL_GRID, wire_dtype="split",
+                              fuse=True, device=dev), {}, pencil),
+    ]
+    saved = os.environ.get("DFFT_HW_PROFILE")
+    os.environ["DFFT_HW_PROFILE"] = hw_path
+    out_dir = os.path.join(here, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    records = {}
+    try:
+        hw = device_profile()
+        print(f"explain hw profile: {json.dumps(hw, sort_keys=True)} "
+              f"[{card}]", flush=True)
+        if (hw["source"], hw["device_kind"]) != (
+                "calibrated", torch.cuda.get_device_name(0)):
+            fail(f"explain: the profile is {hw['source']} for "
+                 f"{hw['device_kind']!r}, not the calibrated card's")
+        with open(os.path.join(out_dir, "explain_records.jsonl"), "w") as f:
+            for label, plan, kw, need in cases:
+                t = time.perf_counter()
+                rec = dfft.explain(plan, iters=EXPLAIN_ITERS,
+                                   device_timing=True, **kw)
+                secs = time.perf_counter() - t
+                f.write(json.dumps(dict(rec, label=label)) + "\n")
+                records[label] = rec
+                check_explain_record(label, rec, need, secs, card, n)
+    finally:
+        if saved is None:
+            os.environ.pop("DFFT_HW_PROFILE", None)
+        else:
+            os.environ["DFFT_HW_PROFILE"] = saved
+    for label, kind in ((slab_fwd, "concurrent"), (slab_k2, "overlap_k")):
+        ov = records[label]["overlap"]
+        if ov is None or ov["kind"] != kind:
+            fail(f"explain {label}: no {kind} overlap block ({ov})")
+    fu = records["pencil 2x2 split fused"]["fusion"]
+    if not (fu and fu["active"] and fu["sites"]):
+        fail(f"explain pencil split fused: fusion block {fu}")
+    print(format_explain(records[slab_fwd]), flush=True)
+    dfft.clear_plan_cache()
+    torch.cuda.empty_cache()
+    return records
 
 
 def main() -> None:
@@ -3333,7 +3487,7 @@ def main() -> None:
     before = dict(cf.FALLBACKS)      # the complex128 phase adds its own
     t_tune = time.perf_counter()
     with recording_cases(cf, cfu) as seen:
-        _, cal = check_tuner(torch, dfft, cf, cfu, dev, card)
+        _, cal, hw_path = check_tuner(torch, dfft, cf, cfu, dev, card)
     path = {**cf.launches(), **cfu.launches()}
     print(f"launches on the measured-planning path after calibrate(): "
           f"{path}", flush=True)
@@ -3350,6 +3504,29 @@ def main() -> None:
     print(f"peak device memory of the measured-planning path: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(f"measured-planning phase: {time.perf_counter() - t_tune:.1f} s",
+          flush=True)
+
+    # ---- explain and attribution: counts from 0 ----
+    cf.reset_launches()
+    cfu.reset_launches()
+    dfft.clear_plan_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(cf.FALLBACKS)
+    t_explain = time.perf_counter()
+    with recording_cases(cf, cfu) as seen:
+        check_explain(torch, dfft, dev, here, card, hw_path)
+    path = {**cf.launches(), **cfu.launches()}
+    print(f"launches on the explain path: {path}", flush=True)
+    check_routes(cf, "the explain path", {}, dict(cf.ROUTES))
+    check_covered(seen, "the explain path")
+    for k, v in path.items():
+        if v <= 0:
+            fail(f"kernel {k} was not launched on the explain path")
+        records[k]["launches"] += v
+    if dict(cf.FALLBACKS) != before:
+        fail(f"the explain path took a fallback: {dict(cf.FALLBACKS)} "
+             f"(before: {before})")
+    print(f"explain phase: {time.perf_counter() - t_explain:.1f} s",
           flush=True)
 
     print(json.dumps({"kernels": [

@@ -84,6 +84,14 @@ hardware profile the tuner's model reads (:mod:`.calibrate`)::
     prof = dfft.calibrate.calibrate()
     dfft.calibrate.write_profile(prof)
 
+Explain and attribution (:mod:`.explain`): per stage the model, the
+memory one call holds and the measured time (host brackets, or the
+card's ``torch.profiler`` timeline with ``device_timing=True``), with a
+divergence flag where the model misses::
+
+    rec = dfft.explain(plan, iters=5, device_timing=True)
+    print(dfft.explain_mod.format_explain(rec))
+
 Entry points run on the card; ``device="cpu"`` runs the kernels' plain
 PyTorch versions instead. This package imports neither JAX nor
 ``distributedfft_tpu``.
@@ -91,6 +99,12 @@ PyTorch versions instead. This package imports neither JAX nor
 
 __version__ = "0.1.0"
 
+# Name rule (the JAX package's): ``dfft.explain`` is the function of
+# ``api``, ``dfft.explain_mod`` the module. The module is imported here,
+# before ``api``'s import below binds ``explain`` to the function, so a
+# later ``import distributedfft_tpu_torch.explain`` cannot replace the
+# function with the module.
+from . import explain as explain_mod  # noqa: F401
 from . import calibrate, operators, tuner  # noqa: F401
 from .api import (  # noqa: F401
     BACKWARD,
@@ -101,6 +115,7 @@ from .api import (  # noqa: F401
     alloc_local,
     clear_plan_cache,
     execute,
+    explain,
     plan_brick_dft_c2c_3d,
     plan_brick_dft_c2r_3d,
     plan_brick_dft_r2c_3d,

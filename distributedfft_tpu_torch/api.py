@@ -799,6 +799,20 @@ def _auto_plan(plan_fn: Callable, opts: PlanOptions, world=None,
     return mk(best.executor, opts.donate) if opts.donate else best
 
 
+def explain(plan: Plan3D, **kw) -> dict:
+    """The plan's attribution record: per t0..t3 stage the model, the
+    memory view and the measured samples with MFU, link utilisation and
+    divergence flags, the whole plan's memory view (:mod:`.explain`).
+    ``iters`` sets the measured passes, ``measure=False`` runs nothing,
+    ``device_timing=True`` reads the stages from the card's
+    ``torch.profiler`` timeline (host brackets where there is none),
+    ``allgather=True`` merges every process's stage medians (collective).
+    Render with :func:`.explain.format_explain`."""
+    from .explain import explain as _explain_impl
+
+    return _explain_impl(plan, **kw)
+
+
 def alloc_local(plan, fill=None) -> torch.Tensor:
     """The input a plan's ``execute`` takes on this process, on its
     device: zeros, or a copy of ``fill`` (``fft_mpi_alloc_local_memory``,

@@ -676,3 +676,275 @@ def exchange_payloads(lp: LogicPlan, shape, itemsize: int) -> list[dict]:
                                    * itemsize * bsz),
         })
     return _done(out)
+
+
+# ------------------------------------------------------------ stage model
+
+def fused_model_stages(lp: LogicPlan, shape=None, itemsize: int = 8, *,
+                       executor: str | None = None) -> tuple:
+    """Stage keys whose codec pass the fusion tier folds into the stage
+    kernel for the chain ``lp`` run by ``executor`` (the port of
+    ``plan_logic.fused_model_stages``): the ``fused=`` argument of
+    :func:`model_stage_seconds`. The port's :class:`LogicPlan` carries no
+    executor, so the caller passes the plan's (``plan.executor``).
+
+    Empty unless the fusion gate of :func:`..stagegraph.plan_fusion`
+    holds (a ``:fuse`` executor, a wire codec, K == 1, an exchange); then
+    ``("t0", "t1", "t3")`` for a pencil chain (sender and every
+    receiver), ``("t3",)`` for a slab transform (its receiver), and
+    nothing for an operator chain on the slab (its sender and inverse
+    pass run the plain codec, whose streams match the unfused chain's).
+    ``shape`` and ``itemsize`` resolve a K that is not yet an int."""
+    from .ops.executors import split_fuse
+
+    if not isinstance(executor, str):
+        return ()
+    try:
+        if not split_fuse(executor)[1]:
+            return ()
+    except ValueError:
+        return ()
+    if lp.wire_dtype is None:
+        return ()
+    k = lp.overlap_chunks
+    if not isinstance(k, int):
+        ndev = 1 if lp.world is None else lp.world.size
+        k = resolve_overlap_chunks(k, shape, ndev, itemsize)
+    if k != 1:
+        return ()
+    if lp.world is None or lp.decomposition == "single":
+        return ()
+    if lp.decomposition == "pencil":
+        return ("t0", "t1", "t3")
+    if lp.op:
+        return ()
+    return ("t3",)
+
+
+def model_stage_seconds(
+    lp: LogicPlan,
+    shape: Sequence[int],
+    itemsize: int,
+    *,
+    hbm_gbps: float,
+    wire_gbps: float,
+    launch_seconds: float,
+    algorithm: str | None = None,
+    overlap_chunks: int | None = None,
+    exchange_correction: float = 1.0,
+    dcn_gbps: float | None = None,
+    mm_tflops: float | None = None,
+    concurrent_hide_seconds: float = 0.0,
+    hide_correction: float = 1.0,
+    fused: Sequence[str] = (),
+) -> dict:
+    """Per-stage analytic time of one execution, keyed ``t0..t3`` (and
+    ``t_mid`` for an operator chain): the port of
+    ``plan_logic.model_stage_seconds``, the model side of the explain
+    join, with its arguments, arithmetic and entries.
+
+    FFT stages are the HBM roofline (each axis pass reads and writes the
+    rank's block once); ``t2`` is every exchange's exposed time under the
+    plan's transport (:func:`exchange_payloads` and
+    :func:`..parallel.exchange.exchange_model_seconds`) with the K-chunk
+    crossover, each exchange hiding under the FFT stage that consumes its
+    output. ``t0`` is the input-side pass (two axes on the slab, one on
+    the pencil), ``t1`` the pencil's middle pass (0 elsewhere), ``t3``
+    the output-side pass; an operator chain's ``t_mid`` is the forward
+    and inverse pass of the mid axis plus the pointwise multiply, and
+    its exchanges count both legs. Every entry has ``seconds``,
+    ``flops``, ``hbm_bytes`` and ``wire_bytes``; ``t2`` also ``legs``,
+    ``raw_seconds`` and ``steps``.
+
+    ``lp.batch`` = B scales each stage's bytes and flops B-fold.
+    ``mm_tflops`` prices FFT stages as dense matmul-DFTs at that rate
+    (the HBM stream stays the floor). ``exchange_correction`` scales
+    exchange seconds, ``hide_correction`` every hide budget,
+    ``concurrent_hide_seconds`` adds co-scheduled transforms' compute to
+    it. ``fused`` names stages whose codec pass is fused
+    (:func:`fused_model_stages`): each read+write pair of such a stage
+    moves ``(1 + wire_factor) * block`` instead of ``2 * block``. The
+    defaults leave the plain model unchanged."""
+    from .parallel.exchange import WIRE_BYTE_KEYS, exchange_model_seconds
+
+    shape = tuple(int(s) for s in shape)
+    ndev = 1 if lp.world is None else lp.world.size
+    bsz = lp.batch or 1
+    n_total = math.prod(shape) * bsz
+    block_bytes = itemsize * n_total / ndev
+    alg = algorithm or lp.algorithm
+    k = overlap_chunks
+    if k is None:
+        k = lp.overlap_chunks if isinstance(lp.overlap_chunks, int) else 1
+
+    def fft_stage(axes) -> dict:
+        hbm = 2.0 * block_bytes * len(axes)  # read + write per axis pass
+        flops = sum(5.0 * n_total * math.log2(max(2, shape[a]))
+                    for a in axes) / ndev
+        out = {"seconds": hbm / (hbm_gbps * 1e9), "flops": flops,
+               "hbm_bytes": hbm, "wire_bytes": 0.0}
+        if mm_tflops:
+            mm = mm_dft_flops(shape, axes) * bsz / ndev
+            out["mm_flops"] = mm
+            out["seconds"] = max(out["seconds"], mm / (mm_tflops * 1e12))
+        return out
+
+    zero = {"seconds": 0.0, "flops": 0.0, "hbm_bytes": 0.0,
+            "wire_bytes": 0.0}
+    op_chain = bool(lp.op)
+    if op_chain:
+        mid = fft_stage((0, 0))  # forward + inverse pass of the mid axis
+        pw = 2.0 * block_bytes   # pointwise multiply: read + write once
+        mid["hbm_bytes"] += pw
+        mid["seconds"] += pw / (hbm_gbps * 1e9)
+        mid["flops"] += 6.0 * n_total / ndev  # one complex multiply/elem
+        if lp.decomposition == "pencil" and lp.world is not None:
+            out = {"t0": fft_stage((2,)), "t1": fft_stage((1,)),
+                   "t2": dict(zero), "t_mid": mid,
+                   "t3": fft_stage((1, 2))}
+        else:
+            out = {"t0": fft_stage((1, 2)), "t1": dict(zero),
+                   "t2": dict(zero), "t_mid": mid,
+                   "t3": fft_stage((1, 2))}
+    elif lp.decomposition == "single" or lp.world is None:
+        # the staged single pipeline: t0 the YZ planes, t3 the X lines
+        out = {"t0": fft_stage((1, 2)), "t1": dict(zero),
+               "t2": dict(zero), "t3": fft_stage((0,))}
+    else:
+        axes = [s[0] for s in stage_layouts(lp, geo.world_box(lp.shape))]
+        if lp.decomposition == "slab":
+            out = {"t0": fft_stage(axes[0]), "t1": dict(zero),
+                   "t2": dict(zero), "t3": fft_stage(axes[1])}
+        else:
+            out = {"t0": fft_stage(axes[0]), "t1": fft_stage(axes[1]),
+                   "t2": dict(zero), "t3": fft_stage(axes[2])}
+
+    if fused:
+        wf = wire_itemsize(itemsize, lp.wire_dtype) / float(itemsize)
+        for st in fused:
+            e = out.get(st)
+            if not e or e["hbm_bytes"] <= 0.0 or wf >= 1.0:
+                continue
+            e["hbm_bytes"] *= (1.0 + wf) / 2.0
+            e["seconds"] = e["hbm_bytes"] / (hbm_gbps * 1e9)
+            if mm_tflops and e.get("mm_flops"):
+                e["seconds"] = max(e["seconds"],
+                                   e["mm_flops"] / (mm_tflops * 1e12))
+            e["fused"] = True
+
+    # each exchange hides under the stage that consumes its output: slab
+    # t2 -> t3 (both hierarchical legs too); pencil t2a -> t1, t2b -> t3;
+    # an operator chain's legs under half of t_mid + t3 each
+    payloads = exchange_payloads(lp, shape, itemsize)
+    hide = {"t2": out["t3"]["seconds"], "t2a": out["t1"]["seconds"],
+            "t2b": out["t3"]["seconds"]}
+    if lp.decomposition == "slab":
+        hide["t2a"] = hide["t2b"] = out["t3"]["seconds"]
+    if op_chain:
+        half = 0.5 * (out["t_mid"]["seconds"] + out["t3"]["seconds"])
+        hide = {"t2": half, "t2a": half, "t2b": half}
+    if concurrent_hide_seconds:
+        hide = {key: v + float(concurrent_hide_seconds)
+                for key, v in hide.items()}
+    t2 = out["t2"]
+    # the hierarchical leg pipeline at K > 1 hides the ICI leg under the
+    # DCN leg's raw transfer too
+    leg_pipelined = alg == "hierarchical" and k > 1
+    dcn_raw = 0.0
+    if leg_pipelined:
+        for e in payloads:
+            if e["stage"] == "t2b":
+                gb = (dcn_gbps if e.get("link") == "dcn" and dcn_gbps
+                      else wire_gbps)
+                wb = (e[WIRE_BYTE_KEYS[alg]] * e.get("wire_factor", 1.0)
+                      / ndev)
+                dcn_raw = exchange_model_seconds(
+                    wb, e["parts"], alg, wire_gbps=gb,
+                    launch_seconds=launch_seconds)["seconds"]
+                break
+    for e in payloads:
+        gbps = (dcn_gbps if e.get("link") == "dcn" and dcn_gbps
+                else wire_gbps)
+        wire = e[WIRE_BYTE_KEYS[alg]] * e.get("wire_factor", 1.0) / ndev
+        hide_s = hide.get(e["stage"], 0.0)
+        pipelined = leg_pipelined and e["stage"] == "t2a"
+        if pipelined:
+            hide_s += dcn_raw
+        hide_s *= hide_correction
+        m = exchange_model_seconds(
+            wire, e["parts"], alg, wire_gbps=gbps,
+            launch_seconds=launch_seconds, overlap_chunks=k,
+            hide_seconds=hide_s)
+        t2["seconds"] += m["exposed_seconds"] * exchange_correction
+        t2["wire_bytes"] += wire
+        t2.setdefault("raw_seconds", 0.0)
+        t2["raw_seconds"] += m["seconds"] * exchange_correction
+        t2.setdefault("steps", 0)
+        t2["steps"] += m["steps"]
+        t2.setdefault("legs", []).append({
+            "stage": e["stage"], "mesh_axis": str(e["mesh_axis"]),
+            "link": e.get("link", "ici"), "parts": e["parts"],
+            "wire_bytes": wire, "wire_gbps": gbps,
+            "seconds": m["exposed_seconds"] * exchange_correction,
+            "raw_seconds": m["seconds"] * exchange_correction,
+            "hide_seconds": hide_s, "leg_pipelined": pipelined,
+        })
+    return out
+
+
+def model_concurrent_seconds(
+    transforms: Sequence[tuple],
+    *,
+    hbm_gbps: float,
+    wire_gbps: float,
+    launch_seconds: float,
+    dcn_gbps: float | None = None,
+    **model_kw,
+) -> dict:
+    """The modelled price of a :func:`..stagegraph.schedule_concurrent`
+    program over N transforms (the port of
+    ``plan_logic.model_concurrent_seconds``): each transform's exchanges
+    re-priced with the other transforms' FFT compute as extra hide
+    budget (``concurrent_hide_seconds``).
+
+    ``transforms`` holds ``(lp, shape, itemsize)`` triples, or
+    ``(lp, shape, itemsize, executor)`` where the executor decides the
+    fused stages (:func:`fused_model_stages`; a triple prices the chain
+    unfused). Returns ``{"sequential_seconds", "concurrent_seconds",
+    "hidden_seconds", "speedup", "per_transform"}``; the concurrent price
+    never exceeds the sequential one, and equals it for one
+    transform."""
+    transforms = [tuple(t) + (None,) * (4 - len(t)) for t in transforms]
+    kw = dict(hbm_gbps=hbm_gbps, wire_gbps=wire_gbps,
+              launch_seconds=launch_seconds, dcn_gbps=dcn_gbps,
+              **model_kw)
+
+    def compute_s(m: dict) -> float:
+        return sum(m[key]["seconds"] for key in m if key != "t2")
+
+    def fused_of(lp, shape, itemsize, ex) -> tuple:
+        return fused_model_stages(lp, shape, itemsize, executor=ex)
+
+    solo = [model_stage_seconds(lp, shape, itemsize,
+                                fused=fused_of(lp, shape, itemsize, ex), **kw)
+            for lp, shape, itemsize, ex in transforms]
+    comp = [compute_s(m) for m in solo]
+    total_comp = sum(comp)
+    priced = [
+        model_stage_seconds(
+            lp, shape, itemsize,
+            concurrent_hide_seconds=total_comp - comp[i],
+            fused=fused_of(lp, shape, itemsize, ex), **kw)
+        for i, (lp, shape, itemsize, ex) in enumerate(transforms)
+    ]
+    sequential = sum(comp[i] + solo[i]["t2"]["seconds"]
+                     for i in range(len(solo)))
+    concurrent = min(sequential,
+                     total_comp + sum(m["t2"]["seconds"] for m in priced))
+    return {
+        "sequential_seconds": sequential,
+        "concurrent_seconds": concurrent,
+        "hidden_seconds": sequential - concurrent,
+        "speedup": (sequential / concurrent) if concurrent > 0 else 1.0,
+        "per_transform": priced,
+    }
