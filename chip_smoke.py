@@ -167,9 +167,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    missing, a memory view has no peak, the fused plan's fusion is not
    active, or a kernel is not launched; the records go to
    ``chiprun_out/explain_records.jsonl``;
+18. serves requests at full width through ``CoalescingQueue`` (counts
+   from 0, metrics on): (a) a C2C queue with max_batch=2 on the 4-rank
+   slab world at 512^3, 4 forward then 4 backward requests in two
+   batched flushes each, every result against the unbatched plan (bit
+   equality printed, 5e-4 enforced) and torch.fft, then 8 requests
+   through the queue against 8 direct plan calls (median of 5); (b) an
+   R2C queue, two requests against torch.fft.rfftn; (c) the streaming
+   drain loop at 256^3 (max_batch=8, concurrent_groups="auto" on the
+   calibrated profile, a realtime and a batch tenant): two threads
+   submit 32 mixed-direction requests, in a cold and then a warm round,
+   each result within 5e-4 of torch.fft, stop() within 10 s, the same
+   transforms as direct calls, the width, wave occupancy, wait
+   quantiles and SLO report printed; (d) the recovery chain at 256^3: a
+   transient fault retried once, a deterministic fault on every cuda
+   execution recovered by one degraded rebuild on matmul, one NaN input
+   in a batch delivered as it is while its cohort completes; (e) the
+   shadow audit at 512^3 on split fused 2x2 pencil plans, every request
+   audited against the exact cuda plan and held to the plane's drift
+   rule. It fails on a timed-out result, on recovery outside (d), on a
+   kernel or fusion fallback in (a), (b), (c) or (e), unless kernels
+   1-3 ran at their batch = 2 cases and kernels 4 and 5 at the fused
+   queue's, or past 90 s;
    prints one JSON line of the five kernels and, last, the device line.
 
-Each counted path (5, 6, 8, 9, 10, 11, 12, 13, 16, 17) also records the
+Each counted path (5, 6, 8, 9, 10, 11, 12, 13, 16, 17, 18) also records the
 case of every kernel call and fails on one that phases 2 and 3 did not
 hold against its plain version (the two-level stages as their unnormalized
 inverse where they run it).
@@ -3122,6 +3144,595 @@ def check_explain(torch, dfft, dev, here, card, hw_path, n=512):
     return records
 
 
+#: Phase 18's sizes: the batched C2C, R2C and shadow-audit queues at
+#: SERVE_N^3, the streaming and robustness queues at STREAM_N^3.
+SERVE_N = 512
+STREAM_N = 256
+#: The streaming queue's batch quantum and the phase's time limit (s).
+STREAM_BATCH = 8
+SERVE_PHASE_LIMIT_S = 90.0
+#: The streaming queue's two tenants (a DFFT_QOS spec).
+STREAM_QOS = "rt:class=realtime,weight=1,slo=5;bulk:class=batch,weight=1"
+
+
+def serving_cases(m, max_b=STREAM_BATCH, ranks=SLAB_RANKS):
+    """The kernel cases the streaming and robustness queues launch at
+    m^3 on ``ranks`` ranks: the slab C2C forward and backward at every
+    batch 1..max_b a wave can take (the streaming loop takes whatever a
+    group holds when it wakes)."""
+    q = m // ranks
+    out = []
+    for b in range(1, max_b + 1):
+        out += [("fft2_last", True, (b * q, m, m), f"serve b={b} slab fwd t0"),
+                ("fft_axis0", True, (b, m, q * m), f"serve b={b} slab fwd t3"),
+                ("fft_axis0", False, (b, m, q * m),
+                 f"serve b={b} slab bwd t0"),
+                ("fft_last", False, (b * q * m, m),
+                 f"serve b={b} slab bwd t0 rows"),
+                ("fft_axis0", False, (b * q, m, m),
+                 f"serve b={b} slab bwd t3")]
+    return out
+
+
+def serving_fused_cases(n, b=2, grid=PENCIL_GRID):
+    """The fused-kernel cases the shadow-audited queue adds: the split
+    fused 2x2 pencil C2C at batch b (the batch a leading axis of each
+    fused stage's block)."""
+    m = n // grid[0]
+    return [
+        ("fft_encode", "split", True, (b, m, m, n), 3, 2,
+         f"serve b={b} pencil fwd t0_fft_z, cols=1"),
+        ("decode_fft", "split", True, (b, m, n, m), 2, 2,
+         f"serve b={b} pencil fwd t1_fft_y"),
+        ("decode_fft", "split", True, (b, n, m, m), 1, 2,
+         f"serve b={b} pencil fwd t3_fft_x"),
+        ("fft_encode", "split", False, (b, n, m, m), 1, 2,
+         f"serve b={b} pencil bwd t0_fft_x"),
+        ("decode_fft", "split", False, (b, m, n, m), 2, 2,
+         f"serve b={b} pencil bwd t1_fft_y"),
+        ("decode_fft", "split", False, (b, m, m, n), 3, 2,
+         f"serve b={b} pencil bwd t3_fft_z, cols=1"),
+    ]
+
+
+def _counter(snap, name, **labels) -> float:
+    """The metrics snapshot's counter ``name`` summed over the label sets
+    that hold every ``labels`` pair."""
+    want = [f"{k}={v}" for k, v in labels.items()]
+    return sum(v for lbl, v in snap["counters"].get(name, {}).items()
+               if all(w in lbl.split(",") for w in want))
+
+
+def _hist(snap, name) -> dict:
+    return snap["histograms"].get(name, {}).get("kind=c2c", {})
+
+
+RECOVERY = ("serving_retries", "serving_degraded",
+            "serving_isolated_failures")
+
+
+def _result(h, what):
+    """``h.result(timeout=60)``, failing the phase on a timeout."""
+    try:
+        return h.result(timeout=60)
+    except TimeoutError:
+        fail(f"serving {what}: result() timed out")
+
+
+def _within_tier(torch, got, want, what, tol=TOL):
+    err, l2, _ = rel_err(torch, got, want)
+    if not max(err, l2) <= tol:
+        fail(f"serving {what}: rel err max {err:.3e} l2 {l2:.3e} > {tol}")
+    return err, l2
+
+
+def _fallbacks(metrics):
+    return (metrics.counter_total("pallas_fallback"),
+            metrics.counter_total("fusion_fallback"))
+
+
+def _guard_clean(metrics, what, fallbacks0=None):
+    """Fail when ``what`` counted a retry, a degraded rebuild, an
+    isolated failure, or (``fallbacks0``: the counts before it) a kernel
+    or fusion fallback."""
+    snap = metrics.metrics_snapshot()
+    moved = {k: _counter(snap, k) for k in RECOVERY if _counter(snap, k)}
+    if moved:
+        fail(f"serving {what}: recovery ran outside the robustness case: "
+             f"{moved}")
+    if fallbacks0 is not None:
+        now = _fallbacks(metrics)
+        if now != fallbacks0:
+            fail(f"serving {what}: pallas_fallback/fusion_fallback moved "
+                 f"{fallbacks0} -> {now}")
+
+
+def serve_c2c(torch, dfft, metrics, dev, card, n=SERVE_N):
+    """Phase 18a: a C2C queue (cuda, max_batch=2) on the slab world at
+    n^3: 4 forward then 4 backward requests, two batched flushes of each
+    direction, each result against the unbatched plan (bit equality
+    printed, 5e-4 enforced) and torch.fft; then 8 requests through the
+    queue against 8 direct plan calls (median of 5)."""
+    shape = (n, n, n)
+    world = dfft.make_world(SLAB_RANKS)
+    fb0 = _fallbacks(metrics)
+    q = dfft.CoalescingQueue(world, max_batch=2, device=dev)
+    fwd = dfft.plan_dft_c2c_3d(shape, world, device=dev)
+    bwd = dfft.plan_dft_c2c_3d(shape, world, direction=dfft.BACKWARD,
+                               device=dev)
+    xs = [seeded(torch, shape, dev, SEED + 180 + i) for i in range(4)]
+    hf = [q.submit(x) for x in xs]
+    mid = _hist(metrics.metrics_snapshot(), "serving_batch_size")
+    hb = [q.submit(x, direction=dfft.BACKWARD) for x in xs]
+    q.flush()
+    snap = metrics.metrics_snapshot()
+    bs = _hist(snap, "serving_batch_size")
+    if (mid.get("count"), bs.get("count"), bs.get("min"), bs.get("max")) \
+            != (2, 4, 2.0, 2.0):
+        fail(f"serving c2c: expected two batch-2 flushes per direction, "
+             f"serving_batch_size after the forward {mid}, after all {bs}")
+    bits = []
+    for label, hs, plan, lib in (("fwd", hf, fwd, torch.fft.fftn),
+                                 ("bwd", hb, bwd, torch.fft.ifftn)):
+        for i, (x, h) in enumerate(zip(xs, hs)):
+            y = _result(h, f"c2c {label} #{i}")
+            ref = plan(x)
+            bits.append(torch.equal(y, ref))
+            e_plan = _within_tier(torch, y, ref,
+                                  f"c2c {label} #{i} vs unbatched plan")
+            e_lib = _within_tier(torch, y, lib(x),
+                                 f"c2c {label} #{i} vs torch.fft")
+            print(f"serving c2c {n}^3 P={SLAB_RANKS} {label} #{i}: "
+                  f"bit-equal to the unbatched plan: {bits[-1]}; vs plan "
+                  f"max/l2 {e_plan[0]:.3e}/{e_plan[1]:.3e}; vs torch.fft "
+                  f"max/l2 {e_lib[0]:.3e}/{e_lib[1]:.3e}", flush=True)
+            del y, ref
+    del hf, hb
+    _guard_clean(metrics, "c2c", fb0)
+    # 8 requests through the queue against 8 direct calls
+    x0 = xs[0]
+    del xs
+    torch.cuda.empty_cache()
+
+    def through_queue():
+        hs = [q.submit(x0) for _ in range(8)]
+        return [_result(h, "c2c timing") for h in hs]
+
+    def direct():
+        ys = [fwd(x0) for _ in range(8)]
+        torch.cuda.synchronize()
+        return ys
+
+    times = {}
+    metrics.metrics_reset()
+    for label, fn in (("queue", through_queue), ("direct", direct)):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(5):
+            t = time.perf_counter()
+            ys = fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t)
+            del ys
+        times[label] = sorted(ts)[2]
+    ratio = times["queue"] / times["direct"]
+    wait = _hist(metrics.metrics_snapshot(), "serving_wait_seconds")
+    print(f"serving c2c {n}^3 P={SLAB_RANKS} 8 requests (max_batch=2, 4 "
+          f"flushes): queue_ms={times['queue'] * 1e3:.3f} "
+          f"({8 / times['queue']:.2f} transforms/s) direct_ms="
+          f"{times['direct'] * 1e3:.3f} ({8 / times['direct']:.2f} "
+          f"transforms/s) queue/direct={ratio:.4f} (median of 5); "
+          f"serving_wait_seconds over the 48 timed requests p50="
+          f"{wait['p50'] * 1e3:.3f} ms p99={wait['p99'] * 1e3:.3f} ms "
+          f"[{card}]", flush=True)
+    _guard_clean(metrics, "c2c timing", fb0)
+    q.close()
+    return dict(bit_equal=all(bits), queue_s=times["queue"],
+                direct_s=times["direct"])
+
+
+def serve_r2c(torch, dfft, metrics, dev, n=SERVE_N):
+    """Phase 18b: an R2C queue (max_batch=2) on the slab world at n^3:
+    two forward requests against torch.fft.rfftn."""
+    world = dfft.make_world(SLAB_RANKS)
+    fb0 = _fallbacks(metrics)
+    q = dfft.CoalescingQueue(world, kind="r2c", max_batch=2, device=dev)
+    xs = [seeded_real(torch, (n, n, n), dev, SEED + 190 + i)
+          for i in range(2)]
+    hs = [q.submit(x) for x in xs]
+    for i, (x, h) in enumerate(zip(xs, hs)):
+        y = _result(h, f"r2c #{i}")
+        err = _within_tier(torch, y, torch.fft.rfftn(x),
+                           f"r2c #{i} vs torch.fft.rfftn")
+        print(f"serving r2c {n}^3 P={SLAB_RANKS} #{i}: shape "
+              f"{list(y.shape)} vs torch.fft.rfftn max/l2 "
+              f"{err[0]:.3e}/{err[1]:.3e}", flush=True)
+        del y
+    _guard_clean(metrics, "r2c", fb0)
+    q.close()
+
+
+def serve_streaming(torch, dfft, metrics, dev, card, hw_path, m=STREAM_N):
+    """Phase 18c: the streaming drain loop at m^3 on the slab world
+    (max_batch=8, concurrent_groups="auto" priced by the calibrated
+    profile, a realtime and a batch tenant): two threads submit 32
+    requests, forward and backward mixed, twice (a cold round that
+    builds each batch size's plan, then a warm one); every result within
+    the tier of torch.fft, stop() within 10 s; then a round at a fixed
+    width of 2 (:func:`serve_width2`); the same 32 transforms as direct
+    calls of the unbatched plans for the ratio."""
+    import threading
+
+    world = dfft.make_world(SLAB_RANKS)
+    saved = {k: os.environ.get(k) for k in ("DFFT_HW_PROFILE",
+                                            "DFFT_WIDTH_TOURNAMENT")}
+    os.environ.pop("DFFT_WIDTH_TOURNAMENT", None)
+    if hw_path:
+        os.environ["DFFT_HW_PROFILE"] = hw_path
+    try:
+        pol = dfft.QosPolicy.from_spec(STREAM_QOS)
+        q = dfft.CoalescingQueue(world, max_batch=STREAM_BATCH,
+                                 concurrent_groups="auto", policy=pol,
+                                 device=dev)
+        xs = [seeded(torch, (m, m, m), dev, SEED + 200 + i)
+              for i in range(4)]
+        refs = {(i, d): (torch.fft.fftn if d == dfft.FORWARD
+                         else torch.fft.ifftn)(x)
+                for i, x in enumerate(xs)
+                for d in (dfft.FORWARD, dfft.BACKWARD)}
+        reqs = [((k + j) % 4, dfft.FORWARD if j % 2 == 0 else dfft.BACKWARD)
+                for k in range(2) for j in range(16)]
+        torch.cuda.synchronize()
+
+        def client(tenant, seed, got):
+            for j in range(16):
+                i, d = reqs[16 * seed + j]
+                got.append((i, d, q.submit(xs[i], direction=d,
+                                           tenant=tenant)))
+
+        q.serve()
+        rounds = {}
+        for label in ("cold", "warm"):
+            metrics.metrics_reset()
+            got = {"rt": [], "bulk": []}
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(t, k, got[t]))
+                       for k, t in enumerate(("rt", "bulk"))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(10)
+                if t.is_alive():
+                    fail("serving streaming: a client thread did not "
+                         "finish its submits within 10 s")
+            worst = 0.0
+            for tenant, hs in got.items():
+                for i, d, h in hs:
+                    y = _result(h, f"streaming {tenant}")
+                    worst = max(worst, *_within_tier(
+                        torch, y, refs[(i, d)], f"streaming {tenant} #{i}"))
+            secs = time.perf_counter() - t0
+            snap = metrics.metrics_snapshot()
+            _guard_clean(metrics, f"streaming {label}", (0.0, 0.0))
+            rounds[label] = (secs, worst, _hist(snap, "serving_wait_seconds"),
+                             _counter(snap, "serving_flushes"))
+        t_stop = time.perf_counter()
+        q.stop(timeout=10)
+        stop_s = time.perf_counter() - t_stop
+        if stop_s > 10 or q._serve_thread is not None:
+            fail(f"serving streaming: stop() took {stop_s:.1f} s")
+        plans = {d: dfft.plan_dft_c2c_3d((m, m, m), world, direction=d,
+                                         device=dev)
+                 for d in (dfft.FORWARD, dfft.BACKWARD)}
+        for _ in range(2):             # the second pass is warm
+            t = time.perf_counter()
+            for i, d in reqs:
+                plans[d](xs[i])
+            torch.cuda.synchronize()
+            direct_s = time.perf_counter() - t
+        for label, (secs, worst, wait, flushes) in rounds.items():
+            print(f"serving streaming {m}^3 P={SLAB_RANKS} {label} round (2 "
+                  f"threads, 32 requests, max_batch={STREAM_BATCH}): "
+                  f"{32 / secs:.2f} transforms/s ({secs * 1e3:.1f} ms, "
+                  f"submit to the last result; the same 32 as direct calls "
+                  f"{direct_s * 1e3:.1f} ms, ratio {secs / direct_s:.4f}), "
+                  f"flushes {flushes:.0f}, serving_wait_seconds p50="
+                  f"{wait['p50'] * 1e3:.3f} ms p99={wait['p99'] * 1e3:.3f} "
+                  f"ms, worst rel err vs torch.fft {worst:.3e} [{card}]",
+                  flush=True)
+        widths = sorted(set(q._auto_widths.values()))
+        print(f"serving streaming: widths chosen {widths}, stop() "
+              f"{stop_s:.3f} s; waves of both rounds: "
+              f"{json.dumps(q._wave_stats.snapshot(), sort_keys=True)}",
+              flush=True)
+        print(f"serving streaming slo_report: "
+              f"{json.dumps(pol.slo_report(), sort_keys=True)}", flush=True)
+        q.close()
+        serve_width2(torch, dfft, metrics, world, xs, refs, dev, card, m)
+        return dict(rates={k: 32 / v[0] for k, v in rounds.items()},
+                    widths=widths)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def serve_width2(torch, dfft, metrics, world, xs, refs, dev, card, m):
+    """Phase 18c's fixed-width round: a queue with ``concurrent_groups=2``
+    and the same two tenants holds four groups (each tenant's forward
+    and backward pair) before its loop starts, so the loop runs two
+    waves of two groups, each through the concurrent schedule, the
+    second launched before the first's events are awaited. The results
+    are read once the loop has taken every group. Every result within
+    the tier of torch.fft; two waves of width 2 and two concurrent
+    dispatches (no sequential fallback) are checked."""
+    metrics.metrics_reset()
+    q = dfft.CoalescingQueue(world, max_batch=STREAM_BATCH,
+                             concurrent_groups=2,
+                             policy=dfft.QosPolicy.from_spec(STREAM_QOS),
+                             device=dev)
+    got = [(i, d, q.submit(xs[i], direction=d, tenant=t))
+           for t in ("rt", "bulk") for d in (dfft.FORWARD, dfft.BACKWARD)
+           for i in (0, 1)]
+    t0 = time.perf_counter()
+    q.serve()
+    # result() on a handle still queued would flush its group from this
+    # thread: let the loop take every group first
+    while q.pending() and time.perf_counter() - t0 < 10:
+        time.sleep(0.01)
+    worst = 0.0
+    for i, d, h in got:
+        y = _result(h, "streaming width 2")
+        worst = max(worst, *_within_tier(torch, y, refs[(i, d)],
+                                         f"streaming width 2 #{i}"))
+    secs = time.perf_counter() - t0
+    q.stop(timeout=10)
+    if q._serve_thread is not None:
+        fail("serving streaming width 2: stop() did not end the loop")
+    waves = q._wave_stats.snapshot()
+    conc = _counter(metrics.metrics_snapshot(),
+                    "serving_concurrent_dispatches")
+    if (waves["waves"], waves["width_max"], waves["width_mean"], conc) \
+            != (2, 2.0, 2.0, 2.0):
+        fail(f"serving streaming width 2: expected two waves of two groups "
+             f"through the concurrent schedule, waves {waves}, "
+             f"serving_concurrent_dispatches {conc}")
+    _guard_clean(metrics, "streaming width 2", (0.0, 0.0))
+    print(f"serving streaming {m}^3 P={SLAB_RANKS} width 2 (4 groups of 2, "
+          f"queued before serve()): {len(got)} results in "
+          f"{secs * 1e3:.1f} ms, worst rel err vs torch.fft {worst:.3e}; "
+          f"waves {json.dumps(waves, sort_keys=True)} [{card}]", flush=True)
+    q.close()
+
+
+def serve_robustness(torch, dfft, metrics, faults, dev, m=STREAM_N):
+    """Phase 18d: the recovery chain at m^3 (max_batch=4, retry_max=2):
+    a transient ``execute:once`` fault retried once; a deterministic
+    fault on every ``cuda`` execution, recovered by one degraded rebuild
+    of the group on ``matmul``; a batch with one NaN input, delivered as
+    it is while the cohort completes. Faults disarmed afterwards."""
+    world = dfft.make_world(SLAB_RANKS)
+    shape = (m, m, m)
+    xs = [seeded(torch, shape, dev, SEED + 210 + i) for i in range(4)]
+    refs = [torch.fft.fftn(x) for x in xs]
+    saved = {k: os.environ.get(k) for k in ("DFFT_FAULT_INJECT",
+                                            "DFFT_SHADOW_RATE")}
+
+    def flush_group(q, inputs):
+        hs = [q.submit(x) for x in inputs]
+        q.flush()
+        return hs
+
+    try:
+        for spec, label in (
+                ("execute:once", "transient"),
+                ("execute:every=1,kind=deterministic,match=cuda",
+                 "deterministic")):
+            metrics.metrics_reset()
+            os.environ["DFFT_FAULT_INJECT"] = spec
+            faults.reset()
+            q = dfft.CoalescingQueue(world, max_batch=4, retry_max=2,
+                                     device=dev)
+            hs = flush_group(q, xs)
+            ys = [_result(h, f"robustness {label}") for h in hs]
+            snap = metrics.metrics_snapshot()
+            counts = {k: _counter(snap, k) for k in RECOVERY}
+            counts["fault_injected"] = _counter(snap, "fault_injected")
+            degraded = [h.degraded for h in hs]
+            for i, (y, ref) in enumerate(zip(ys, refs)):
+                _within_tier(torch, y, ref, f"robustness {label} #{i}")
+            want = ({"serving_retries": 1.0, "serving_degraded": 0.0,
+                     "serving_isolated_failures": 0.0}
+                    if label == "transient" else
+                    {"serving_retries": 0.0, "serving_degraded": 4.0,
+                     "serving_isolated_failures": 0.0})
+            if ({k: counts[k] for k in want} != want
+                    or any(degraded) != (label != "transient")):
+                fail(f"serving robustness {label}: counters {counts}, "
+                     f"handles degraded {degraded}")
+            print(f"serving robustness {m}^3 {spec!r}: {counts}, "
+                  f"degraded rebuilds "
+                  f"{counts['serving_degraded'] / len(xs):.0f} (of the "
+                  f"group of {len(xs)}; serving_degraded counts its "
+                  f"transforms), handles degraded {degraded}, every "
+                  f"result within {TOL} of torch.fft", flush=True)
+            del ys
+            q.close()
+        os.environ.pop("DFFT_FAULT_INJECT", None)
+        faults.reset()
+        metrics.metrics_reset()
+        os.environ["DFFT_SHADOW_RATE"] = "0"   # the sentinels alone
+        q = dfft.CoalescingQueue(world, max_batch=4, retry_max=2,
+                                 device=dev)
+        bad = xs[1].clone()
+        bad.view(-1)[12345] = complex(float("nan"), 0.0)
+        hs = flush_group(q, [xs[0], bad, xs[2], xs[3]])
+        ys = [_result(h, "robustness nan") for h in hs]
+        snap = metrics.metrics_snapshot()
+        nan_in = _counter(snap, "numerics_nonfinite", site="input")
+        nan_out = _counter(snap, "numerics_nonfinite", site="output")
+        if nan_in != 1 or nan_out != 0 or bool(torch.isfinite(ys[1]).all()):
+            fail(f"serving robustness nan: numerics_nonfinite input "
+                 f"{nan_in} output {nan_out}, poisoned output finite: "
+                 f"{bool(torch.isfinite(ys[1]).all())}")
+        for i in (0, 2, 3):
+            if not bool(torch.isfinite(ys[i]).all()):
+                fail(f"serving robustness nan: cohort member #{i} is not "
+                     f"finite")
+            _within_tier(torch, ys[i], refs[i], f"robustness nan #{i}")
+        _guard_clean(metrics, "nan")
+        print(f"serving robustness {m}^3 one NaN input in a batch of 4: "
+              f"numerics_nonfinite{{site=input}} {nan_in:.0f}, output "
+              f"{nan_out:.0f}; the poisoned output delivered as it is, the "
+              f"cohort finite and within {TOL} of torch.fft", flush=True)
+        q.close()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        faults.reset()
+    metrics.metrics_reset()
+
+
+def _with_shadow_rate(rate, build):
+    """``build()`` with ``DFFT_SHADOW_RATE`` set to ``rate`` (read when a
+    queue is made), the variable restored after."""
+    saved = os.environ.get("DFFT_SHADOW_RATE")
+    os.environ["DFFT_SHADOW_RATE"] = rate
+    try:
+        return build()
+    finally:
+        if saved is None:
+            os.environ.pop("DFFT_SHADOW_RATE", None)
+        else:
+            os.environ["DFFT_SHADOW_RATE"] = saved
+
+
+def serve_audit(torch, dfft, metrics, numerics, dev, card, n=SERVE_N):
+    """Phase 18e: the shadow audit at n^3 (``DFFT_SHADOW_RATE=1,0``,
+    max_batch=2) on a queue of split fused plans (``cuda:fuse``) over the
+    2x2 pencil world, whose sites run the fused encode and decode (the
+    slab C2C's sender is a two-axis stage, so its encode is unfused):
+    every request audited against the exact cuda plan, no bucket
+    drifting, and each realized error held to the plane's own drift rule
+    one audit at a time: at most DEFAULT_SLACK times the admitted budget
+    (or the drift floor). The admitted figure is one wire cast's max
+    error on a seeded block; the realized one is the L2 error of a whole
+    plan with two exchanges, several times larger (the JAX package's
+    plans give the same realized errors). The audit's cost is the
+    difference of the median batch-2 flush (submit to the last result)
+    of this queue and of the same queue with the sentinels alone
+    (``DFFT_SHADOW_RATE=0``); returned in seconds."""
+    fb0 = _fallbacks(metrics)
+    numerics.reset_numerics()
+
+    def make():
+        return dfft.CoalescingQueue(PENCIL_GRID, max_batch=2,
+                                    executor="cuda:fuse", wire_dtype="split",
+                                    device=dev)
+
+    q = _with_shadow_rate("1,0", make)
+    q0 = _with_shadow_rate("0", make)
+    shape = (n, n, n)
+    xs = [seeded(torch, shape, dev, SEED + 220 + i) for i in range(2)]
+    for d in (dfft.FORWARD, dfft.BACKWARD):
+        hs = [q.submit(x, direction=d) for x in xs]
+        for h in hs:
+            _result(h, "audit")
+        del hs
+    snap = numerics.numerics_snapshot()
+    plan = q._plan(((n, n, n), "complex64", dfft.FORWARD), 2, False)
+    admitted = q._admitted_err(plan)
+    floor = numerics.drift_floor(torch.complex64)
+    limit = numerics.DEFAULT_SLACK * max(admitted, floor)
+    rows = list(snap["plans"].values())
+    if snap["audited"] != 4 or snap["audit_failures"] or len(rows) != 2:
+        fail(f"serving audit: {snap['audited']} audits, "
+             f"{snap['audit_failures']} failures, buckets {len(rows)}")
+    for row in rows:
+        worst = max(row["errors"])
+        if row["drifting"] or worst > limit:
+            fail(f"serving audit: bucket {row['plan']} realized "
+                 f"{row['errors']} against {numerics.DEFAULT_SLACK} x "
+                 f"admitted {admitted:.3e} = {limit:.3e}; drifting "
+                 f"{row['drifting']}")
+        print(f"serving audit {n}^3 {PENCIL_GRID[0]}x{PENCIL_GRID[1]} "
+              f"{row['plan']}: n={row['n']} realized "
+              f"{[f'{e:.3e}' for e in row['errors']]} admitted "
+              f"{admitted:.3e} floor {floor:.3e} realized/(admitted+floor)"
+              f"={worst / (admitted + floor):.3f} drift_ratio "
+              f"{row['drift_ratio']:.3f} (slack "
+              f"{numerics.DEFAULT_SLACK}) drifting {row['drifting']}",
+              flush=True)
+
+    def flush_s(queue):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for h in [queue.submit(x) for x in xs]:
+            _result(h, "audit timing")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    flush_s(q0)                        # q's plans and reference are warm
+    ts = {"audited": [], "sentinels": []}
+    for _ in range(5):
+        ts["audited"].append(flush_s(q))
+        ts["sentinels"].append(flush_s(q0))
+    med = {k: sorted(v)[2] for k, v in ts.items()}
+    audit_s = med["audited"] - med["sentinels"]
+    print(f"serving audit: a batch-2 flush {med['audited'] * 1e3:.3f} ms "
+          f"audited (2 exact reference calls and the two norms) against "
+          f"{med['sentinels'] * 1e3:.3f} ms with the sentinels alone "
+          f"(median of 5 each, interleaved): the audit "
+          f"{audit_s * 1e3:.3f} ms a flush [{card}]", flush=True)
+    _guard_clean(metrics, "audit", fb0)
+    q.close()
+    q0.close()
+    return audit_s
+
+
+def check_serving(torch, dfft, dev, card, hw_path, n=SERVE_N, m=STREAM_N):
+    """Phase 18: the serving tier on the card (metrics on, counts from 0
+    in the caller): the batched C2C queue (a) and its timing, the R2C
+    queue (b), the streaming loop (c), the recovery chain (d) and the
+    shadow audit (e). Fails past SERVE_PHASE_LIMIT_S. Returns the
+    measured figures."""
+    from distributedfft_tpu_torch import faults, numerics
+    from distributedfft_tpu_torch.utils import metrics
+
+    t_phase = time.perf_counter()
+    metrics.enable_metrics()
+    metrics.metrics_reset()
+    out = {"c2c": serve_c2c(torch, dfft, metrics, dev, card, n)}
+    dfft.clear_plan_cache()
+    torch.cuda.empty_cache()
+    serve_r2c(torch, dfft, metrics, dev, n)
+    dfft.clear_plan_cache()
+    torch.cuda.empty_cache()
+    metrics.metrics_reset()
+    out["streaming"] = serve_streaming(torch, dfft, metrics, dev, card,
+                                       hw_path, m)
+    dfft.clear_plan_cache()
+    torch.cuda.empty_cache()
+    serve_robustness(torch, dfft, metrics, faults, dev, m)
+    dfft.clear_plan_cache()
+    torch.cuda.empty_cache()
+    out["audit"] = serve_audit(torch, dfft, metrics, numerics, dev, card, n)
+    dfft.clear_plan_cache()
+    torch.cuda.empty_cache()
+    metrics.enable_metrics(False)
+    secs = time.perf_counter() - t_phase
+    print(f"serving phase: {secs:.1f} s", flush=True)
+    if secs > SERVE_PHASE_LIMIT_S:
+        fail(f"the serving phase took {secs:.1f} s > {SERVE_PHASE_LIMIT_S}")
+    return out
+
+
 def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "distributedfft_tpu_torch")):
@@ -3166,6 +3777,10 @@ def main() -> None:
     held = {case_key(c) for c in KERNEL_CASES}
     KERNEL_CASES.extend(c for c in tune_cases(512)
                         if case_key(c) not in held)
+    held = {case_key(c) for c in KERNEL_CASES}
+    KERNEL_CASES.extend(c for c in serving_cases(STREAM_N)
+                        if case_key(c) not in held)
+    FUSED_CASES.extend(serving_fused_cases(SERVE_N))
     records = check_kernels(torch, cf, radix, timing, rates)
     records.update(check_fused_kernels(torch, cf, cfu, wire_codec, timing,
                                        rates))
@@ -3528,6 +4143,39 @@ def main() -> None:
              f"(before: {before})")
     print(f"explain phase: {time.perf_counter() - t_explain:.1f} s",
           flush=True)
+
+    # ---- the serving tier: counts from 0 ----
+    cf.reset_launches()
+    cfu.reset_launches()
+    dfft.clear_plan_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(cf.FALLBACKS)
+    with recording_cases(cf, cfu) as seen:
+        check_serving(torch, dfft, dev, card, hw_path)
+    path = {**cf.launches(), **cfu.launches()}
+    print(f"launches on the serving path: {path}", flush=True)
+    check_routes(cf, "the serving path", {}, dict(cf.ROUTES))
+    check_covered(seen, "the serving path")
+    q, n = SERVE_N // SLAB_RANKS, SERVE_N
+    batched = [("fft2_last", True, (2 * q, n, n)),
+               ("fft_axis0", True, (2, n, q * n)),
+               ("fft_axis0", False, (2, n, q * n)),
+               ("fft_last", False, (2 * q * n, n))]
+    fused = [c[:6] for c in serving_fused_cases(SERVE_N)]
+    print("launches on the serving path at the batch = 2 cases: " + "; ".join(
+        f"{k}: {seen[k]}" for k in batched + fused), flush=True)
+    for k in batched + fused:
+        if seen[k] <= 0:
+            fail(f"the serving path did not launch {k}")
+    for k, v in path.items():
+        if v <= 0:
+            fail(f"kernel {k} was not launched on the serving path")
+        records[k]["launches"] += v
+    if dict(cf.FALLBACKS) != before:
+        fail(f"the serving path took a fallback: {dict(cf.FALLBACKS)} "
+             f"(before: {before})")
+    print(f"peak device memory of the serving path: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
     print(json.dumps({"kernels": [
         {k: rec[k] for k in ("name", "route", "source", "replaces",

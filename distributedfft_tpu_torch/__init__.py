@@ -92,6 +92,16 @@ divergence flag where the model misses::
     rec = dfft.explain(plan, iters=5, device_timing=True)
     print(dfft.explain_mod.format_explain(rec))
 
+Serving (:mod:`.serving`): requests coalesced into batched plan calls,
+with QoS (:mod:`.qos`), fault injection and recovery (:mod:`.faults`)
+and the numerics plane (:mod:`.numerics`)::
+
+    q = dfft.CoalescingQueue(4, max_batch=8, retry_max=2)
+    hs = [q.submit(x) for _ in range(8)]                    # one flush
+    ys = [h.result() for h in hs]
+    q.serve()                                               # drain loop
+    q.close()
+
 Entry points run on the card; ``device="cpu"`` runs the kernels' plain
 PyTorch versions instead. This package imports neither JAX nor
 ``distributedfft_tpu``.
@@ -150,3 +160,12 @@ from .stagegraph import (ConcurrentPlan, WaveSchedule,  # noqa: F401
 from .utils.metrics import (enable_metrics, metrics_enabled,  # noqa: F401
                             metrics_reset, metrics_snapshot)
 from .utils.trace import plan_info  # noqa: F401
+from .serving import (CoalescingQueue, DeadlineExceeded,  # noqa: F401
+                      Handle, QueueFull, submit, warm_pool)
+# The serving tier's modules are their API surface (dfft.qos.parse_qos,
+# dfft.faults.inject, dfft.numerics.numerics_snapshot); the policy and
+# tenant types and the errors a handle can carry are lifted beside them.
+from . import faults, numerics, qos  # noqa: F401,E402
+from .faults import InjectedFault  # noqa: F401,E402
+from .numerics import NonFiniteResult  # noqa: F401,E402
+from .qos import QosPolicy, QuotaExceeded, Tenant  # noqa: F401,E402

@@ -59,6 +59,11 @@ Layouts and batches:
 forward chain, the ``t_mid`` multiplier and the inverse chain as one
 call, its I/O the chain's input layout on both sides.
 
+Fault points (:mod:`.faults`, ``DFFT_FAULT_INJECT``): ``plan`` at each
+cache-miss build, ``compile`` at a plan's first execution and in
+:meth:`Plan3D.compile`, ``exchange`` at each execution of a plan with a
+world, ``execute`` at each execution.
+
 I/O of a distributed plan: on a loopback world ``execute`` takes and
 returns the global array (``[B, *shape]`` batched), a brick plan the
 ``[P, *pad]`` stack of :func:`~.parallel.bricks.scatter_bricks` (zero
@@ -79,6 +84,7 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from . import faults as _faults
 from . import geometry as geo
 from .ops.executors import (FUSE_BASES, MM_EXECUTOR_BASES, Scale,
                             apply_scale, fused_name, get_c2r, get_executor,
@@ -235,6 +241,24 @@ class Plan3D:
     def __call__(self, x: torch.Tensor, *, scale: Scale = Scale.NONE,
                  timer=None) -> torch.Tensor:
         return execute(self, x, scale=scale, timer=timer)
+
+    def compile(self) -> "Plan3D":
+        """Warm everything this plan's transform builds on first use (the
+        kernel library, twiddle tables, the caching allocator's blocks),
+        so later executions only replay: one throwaway execution on zeros
+        of the plan's input (:func:`alloc_local`), synchronised. Runs the
+        ``compile`` fault point first; returns ``self``."""
+        from .utils.timing import sync
+
+        _faults.check("compile", self.executor)
+        t0 = time.perf_counter()
+        sync(_run_plan(self, alloc_local(self), None))
+        self._warm = True  # the compile fault point fired (or passed)
+        if _metrics._enabled:
+            _metrics.observe(
+                "compile_seconds", time.perf_counter() - t0,
+                decomposition=self.decomposition, executor=self.executor)
+        return self
 
 
 @dataclass
@@ -1663,18 +1687,32 @@ def execute(plan: Plan3D, x: torch.Tensor, *, scale: Scale = Scale.NONE,
             _metrics.inc("exchange_true_bytes", float(true_b))
             _metrics.inc("exchange_wire_bytes", float(wire_b))
     with add_trace(f"execute_{_kind_label(plan)}_{plan.decomposition}"):
-        if plan.runner is not None:
-            y = plan.runner(x, timer)
-        elif plan.decomposition == "single":
-            _check_shape(x, plan.in_shape, "plan input shape")
-            if timer is not None:
-                with timer.stage("t0"):
-                    y = _execute_single(plan, x.contiguous())
-            else:
-                y = _execute_single(plan, x.contiguous())
-        else:
-            y = _execute_chain(plan, x, timer)
+        # Fault points (:mod:`.faults`): "compile" on a plan's first
+        # execution, "exchange" for a plan that owns an exchange (raised
+        # on the host: a fault inside a collective cannot be injected),
+        # "execute" on every call. Disarmed, each is one env lookup.
+        if not getattr(plan, "_warm", False):
+            _faults.check("compile", plan.executor)
+        if plan.world is not None:
+            _faults.check("exchange", plan.algorithm)
+        _faults.check("execute", plan.executor)
+        y = _run_plan(plan, x, timer)
+        plan._warm = True
         return apply_scale(y, scale, plan.world_size)
+
+
+def _run_plan(plan: Plan3D, x: torch.Tensor, timer) -> torch.Tensor:
+    """The plan's transform of ``x`` (checked by :func:`execute`), with
+    no fault point, metric or scale."""
+    if plan.runner is not None:
+        return plan.runner(x, timer)
+    if plan.decomposition == "single":
+        _check_shape(x, plan.in_shape, "plan input shape")
+        if timer is not None:
+            with timer.stage("t0"):
+                return _execute_single(plan, x.contiguous())
+        return _execute_single(plan, x.contiguous())
+    return _execute_chain(plan, x, timer)
 
 
 def _check_input(plan: Plan3D, x) -> None:
@@ -1813,6 +1851,9 @@ def _plan_cache_key(kind: str, shape, world, kw: dict):
 
 
 def _timed_build(kind: str, build: Callable, shape, world, kw: dict):
+    # Fault point "plan": a cache miss is about to build a plan (a hit
+    # replays a built one); the label lets match= pick an executor.
+    _faults.check("plan", str(kw.get("executor") or ""))
     t0 = time.perf_counter()
     plan = build(shape, world, **kw)
     if _metrics._enabled:

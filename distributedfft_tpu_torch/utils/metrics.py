@@ -25,10 +25,20 @@ Series wired in the port:
 - ``fusion_fallback`` (counter; site/reason): each fusion site that runs
   unfused (``cuda_fuse.FUSION_FALLBACKS``).
 
-The JAX package's tuner, serving, fault and monitor series keep their
-names for the modules still to be ported; nothing in the port writes
-them yet. :data:`RESERVOIR_SERIES` keep a bounded sample (Algorithm R,
-seeded) so their snapshots carry p50/p99.
+- ``compile_seconds`` (histogram; decomposition/executor): each
+  ``Plan3D.compile()``.
+- ``fault_injected`` (counter; point/kind): each fault
+  :mod:`..faults` fires.
+- ``numerics_shadow_sampled`` / ``numerics_shadow_audits`` (counter) and
+  ``numerics_nonfinite`` (counter; site/kind): :mod:`..numerics`.
+- ``serving_*`` (:mod:`..serving`, JAX's names and labels): submits,
+  flushes, transforms, flush reasons, batch size, queue depth, wait,
+  retries, degraded rebuilds, isolated failures, expiries, rejections,
+  the tenant series, the concurrent and wave series, the warm pool's.
+
+The tuner's series are JAX's too (:mod:`..tuner`); the monitor's wait
+for its port. :data:`RESERVOIR_SERIES` keep a bounded sample (Algorithm
+R, seeded) so their snapshots carry p50/p99.
 
 Off by default: every hook is one flag check and a return until
 :func:`enable_metrics`. Unlike the JAX package, the port reads no
