@@ -185,15 +185,50 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    in a batch delivered as it is while its cohort completes; (e) the
    shadow audit at 512^3 on split fused 2x2 pencil plans, every request
    audited against the exact cuda plan and held to the plane's drift
-   rule. It fails on a timed-out result, on recovery outside (d), on a
-   kernel or fusion fallback in (a), (b), (c) or (e), unless kernels
-   1-3 ran at their batch = 2 cases and kernels 4 and 5 at the fused
-   queue's, or past 90 s;
+   rule; (f) right after (c)'s warm round, the same round (two tenants,
+   two threads, 32 requests at 256^3; cold, then warm) on a queue armed
+   by ``DFFT_MONITOR=0.05,chiprun_out/monitor.jsonl``, then ten pairs of
+   blocks of at least 1 s of such rounds on that queue, the sampler
+   thread on then off and off then on in turn: every result equal bit for bit to the
+   unmonitored warm round's for the same request, at least on_s / 0.05
+   / 2 samples taken by the sampler thread itself (on_s: the time it
+   ran) and none failed, every sample of schema 4 with a ``waves``
+   block that ``load_series`` reads back, no health alert,
+   ``serving_stalls`` 0, kernels 1-3 launched with no fallback; the
+   monitored warm round's transforms/s is printed beside the
+   unmonitored one's, and the blocks with the sampler on and off, their
+   medians and the on/off ratio within each pair (its host cost;
+   printed, not gated). It fails on a
+   timed-out result, on recovery outside (d), on
+   a kernel or fusion fallback in (a), (b), (c), (e) or (f), unless
+   kernels 1-3 ran at their batch = 2 cases and kernels 4 and 5 at the
+   fused queue's, or past 90 s;
+19. runs the fleet on the card (counts from 0): ``python -m
+   distributedfft_tpu_torch.loadgen`` twice, two worker processes each
+   with its own CUDA context on the card, single-device queues at
+   256x256x256 and 256x256x128, 100 arrivals/s each for 5 s: (a) the
+   streaming run gates 0 with two streams, no alert, ``executes`` in
+   both and no kernel or fusion fallback; (b) the flush-mode run with
+   ``DFFT_FAULT_INJECT=execute:every=1,kind=deterministic`` on rank 0
+   gates 1 with worker 0 wedged, a stall on rank 0's stream and none on
+   rank 1's; then (c) ``ramp_roundtrip_check`` of the 4-rank slab and
+   the 2x2 pencil at 256^3 complex64 (5e-4) and ``check_layout`` of the
+   slab forward's output at 512^3 complex128 against its ``out_boxes``,
+   with ``decode_ramp`` of elements of each block of the round trip
+   inside that block's box. The workers' kernel cases
+   (``fleet_cases``) are held in phase 2; being other processes, their
+   launches are counted by their own wrappers, and each stats line
+   carries them by case (``cuda_fft.CASES``), which must add up to its
+   launches and be cases phase 2 held. It prints each worker's stats line, the
+   verdicts and the loadgen wall times beside the card line, and fails
+   past 120 s;
    prints one JSON line of the five kernels and, last, the device line.
 
-Each counted path (5, 6, 8, 9, 10, 11, 12, 13, 16, 17, 18) also records the
-case of every kernel call and fails on one that phases 2 and 3 did not
-hold against its plain version (the two-level stages as their unnormalized
+Each counted path (5, 6, 8, 9, 10, 11, 12, 13, 16, 17, 18, 19) also records the
+case of every kernel call (the calls this thread makes, and
+``cuda_fft.CASES``, which every launch of the process counts from any
+thread, such as a serving queue's drain loop) and fails on one that
+phases 2 and 3 did not hold against its plain version (the two-level stages as their unnormalized
 inverse where they run it).
 
 Any failed check exits nonzero before the last line. Without a CUDA
@@ -207,6 +242,7 @@ import json
 from collections import Counter
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -510,13 +546,19 @@ def recording_cases(cf, cfu):
         sys.setprofile(None)
 
 
-def check_covered(seen, path):
+def check_covered(seen, path, extra=()):
     """Fail unless every kernel call of ``path`` (keys of
-    :func:`recording_cases`) is a case the kernel phases held against its
-    plain version."""
+    :func:`recording_cases`, which sees this thread's calls, and of
+    ``cuda_fft.CASES``, which counts every launch of this process since
+    the path's reset, from any thread) and every case in ``extra`` (what
+    other processes reported) is a case the kernel phases held against
+    its plain version."""
+    from distributedfft_tpu_torch.ops import cuda_fft
+
+    seen = set(seen) | set(cuda_fft.CASES) | set(extra)
     held = ({case_key(c) for c in KERNEL_CASES}
             | {c[:6] for c in FUSED_CASES})
-    missing = sorted(set(seen) - held, key=str)
+    missing = sorted(seen - held, key=str)
     if missing:
         fail(f"{path} launches kernels at cases no kernel phase checked: "
              f"{missing}")
@@ -1080,8 +1122,6 @@ def check_pencil(torch, dfft, dev, n=512):
 
 def stage_medians(torch, timing, plan, x, label, reps=10):
     """Median over ``reps`` runs of each stage's CUDA-event time."""
-    import statistics
-
     plan(x)  # warm
     runs = []
     for _ in range(reps):
@@ -2782,7 +2822,7 @@ def check_tuner(torch, dfft, cf, cfu, dev, card, n=512):
     metrics.enable_metrics()
     out = {}
     try:
-        prof = calibrate.calibrate(iters=10)
+        prof = calibrate.calibrate(iters=10, device=dev)
         print(f"calibrated profile [{card}]:\n"
               + calibrate.format_profile(prof), flush=True)
         print("calibrated profile JSON: " + json.dumps(prof, sort_keys=True),
@@ -3360,10 +3400,9 @@ def serve_streaming(torch, dfft, metrics, dev, card, hw_path, m=STREAM_N):
     requests, forward and backward mixed, twice (a cold round that
     builds each batch size's plan, then a warm one); every result within
     the tier of torch.fft, stop() within 10 s; then a round at a fixed
-    width of 2 (:func:`serve_width2`); the same 32 transforms as direct
-    calls of the unbatched plans for the ratio."""
-    import threading
-
+    width of 2 (:func:`serve_width2`), after the monitored round
+    (:func:`serve_monitored`); the same 32 transforms as direct calls of
+    the unbatched plans for the ratio."""
     world = dfft.make_world(SLAB_RANKS)
     saved = {k: os.environ.get(k) for k in ("DFFT_HW_PROFILE",
                                             "DFFT_WIDTH_TOURNAMENT")}
@@ -3385,33 +3424,21 @@ def serve_streaming(torch, dfft, metrics, dev, card, hw_path, m=STREAM_N):
                 for k in range(2) for j in range(16)]
         torch.cuda.synchronize()
 
-        def client(tenant, seed, got):
-            for j in range(16):
-                i, d = reqs[16 * seed + j]
-                got.append((i, d, q.submit(xs[i], direction=d,
-                                           tenant=tenant)))
-
         q.serve()
         rounds = {}
+        warm = {}
         for label in ("cold", "warm"):
             metrics.metrics_reset()
-            got = {"rt": [], "bulk": []}
             t0 = time.perf_counter()
-            threads = [threading.Thread(target=client, args=(t, k, got[t]))
-                       for k, t in enumerate(("rt", "bulk"))]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(10)
-                if t.is_alive():
-                    fail("serving streaming: a client thread did not "
-                         "finish its submits within 10 s")
+            got = stream_round(q, xs, reqs, "streaming")
             worst = 0.0
             for tenant, hs in got.items():
-                for i, d, h in hs:
+                for j, (i, d, h) in enumerate(hs):
                     y = _result(h, f"streaming {tenant}")
                     worst = max(worst, *_within_tier(
                         torch, y, refs[(i, d)], f"streaming {tenant} #{i}"))
+                    if label == "warm":
+                        warm[(tenant, j)] = y
             secs = time.perf_counter() - t0
             snap = metrics.metrics_snapshot()
             _guard_clean(metrics, f"streaming {label}", (0.0, 0.0))
@@ -3449,15 +3476,235 @@ def serve_streaming(torch, dfft, metrics, dev, card, hw_path, m=STREAM_N):
         print(f"serving streaming slo_report: "
               f"{json.dumps(pol.slo_report(), sort_keys=True)}", flush=True)
         q.close()
+        monitored = serve_monitored(torch, dfft, metrics, world, xs, reqs,
+                                    warm, 32 / rounds["warm"][0], dev, card,
+                                    m)
+        del warm
         serve_width2(torch, dfft, metrics, world, xs, refs, dev, card, m)
         return dict(rates={k: 32 / v[0] for k, v in rounds.items()},
-                    widths=widths)
+                    widths=widths, monitored=monitored)
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def stream_round(q, xs, reqs, what):
+    """One streaming round: two client threads (tenants ``rt`` and
+    ``bulk``) each submit their 16 requests of ``reqs`` to ``q``;
+    returns ``{tenant: [(i, direction, handle), ...]}`` in submit
+    order."""
+    import threading
+
+    got = {"rt": [], "bulk": []}
+
+    def client(tenant, seed):
+        for j in range(16):
+            i, d = reqs[16 * seed + j]
+            got[tenant].append((i, d, q.submit(xs[i], direction=d,
+                                               tenant=tenant)))
+
+    threads = [threading.Thread(target=client, args=(t, k))
+               for k, t in enumerate(("rt", "bulk"))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(10)
+        if t.is_alive():
+            fail(f"serving {what}: a client thread did not finish its "
+                 f"submits within 10 s")
+    return got
+
+
+#: Phase 18f's sampling interval (s) and series file (under the
+#: checkout's chiprun_out/).
+MONITOR_INTERVAL_S = 0.05
+MONITOR_SERIES = os.path.join("chiprun_out", "monitor.jsonl")
+#: Phase 18f's sampler-cost blocks on one queue: MONITOR_PAIRS pairs of
+#: blocks, the sampler on then off and off then on in turn, each block
+#: at least MONITOR_BLOCK_S of back-to-back rounds. The rate drifts from
+#: block to block (it fell by a third over six blocks on the H100, in
+#: both states), so the cost is read within each pair.
+MONITOR_PAIRS = 10
+MONITOR_BLOCKS = tuple(st for p in range(MONITOR_PAIRS)
+                       for st in (("on", "off") if p % 2 == 0
+                                  else ("off", "on")))
+MONITOR_BLOCK_S = 1.0
+
+
+def _monitored_block(torch, q, xs, reqs, warm, min_s):
+    """Streaming rounds on ``q`` back to back, one at least, until their
+    summed time (each from the first submit to its last result) reaches
+    ``min_s``;
+    each result is compared with the unmonitored warm round's for the
+    same request after its round's clock stopped. Returns (rounds,
+    seconds, results not bit-equal)."""
+    rounds, secs, unequal = 0, 0.0, 0
+    while rounds == 0 or secs < min_s:
+        t0 = time.perf_counter()
+        got = stream_round(q, xs, reqs, "monitored")
+        ys = {(tenant, j): _result(h, f"monitored {tenant}")
+              for tenant, hs in got.items()
+              for j, (_i, _d, h) in enumerate(hs)}
+        secs += time.perf_counter() - t0
+        rounds += 1
+        unequal += sum(not torch.equal(y, warm[k]) for k, y in ys.items())
+        del got, ys
+    return rounds, secs, unequal
+
+
+def serve_monitored(torch, dfft, metrics, world, xs, reqs, warm, warm_rate,
+                    dev, card, m):
+    """Phase 18f: (c)'s rounds again on a queue made under
+    ``DFFT_MONITOR=0.05,chiprun_out/monitor.jsonl`` (same tenants, width
+    rule, threads and requests): a cold and a warm round, then the
+    sampler's cost as MONITOR_BLOCKS, blocks of rounds with the sampler
+    thread started or stopped on this one queue. Every result equal to
+    the unmonitored warm round's for the same request bit for bit; the
+    sampler thread itself (not ``stop()``'s final samples) took at least
+    on_s / 0.05 / 2 samples (on_s: the time it ran) and failed none
+    (``Monitor.errors`` 0); the series holds every sample of schema 4
+    with a ``waves`` block and ``load_series`` reads it back;
+    ``health_from_samples`` fires no alert; ``serving_stalls`` is 0;
+    kernels 1-3 launched, no fallback and no recovery. Prints the warm
+    round's transforms/s beside the unmonitored warm round's, and the
+    medians of the blocks with the sampler on and off, the on/off
+    ratio within each pair and the host time of one ``sample()`` (the
+    sampler's host cost; printed, not gated). Returns the figures."""
+    from distributedfft_tpu_torch import monitor
+    from distributedfft_tpu_torch.ops import cuda_fft as cf
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        MONITOR_SERIES)
+    if os.path.exists(path):
+        os.remove(path)
+    metrics.metrics_reset()
+    before, fb0 = cf.launches(), dict(cf.FALLBACKS)
+    saved = os.environ.get("DFFT_MONITOR")
+    os.environ["DFFT_MONITOR"] = f"{MONITOR_INTERVAL_S:g},{path}"
+    try:
+        q = dfft.CoalescingQueue(world, max_batch=STREAM_BATCH,
+                                 concurrent_groups="auto",
+                                 policy=dfft.QosPolicy.from_spec(STREAM_QOS),
+                                 device=dev)
+    finally:
+        if saved is None:
+            os.environ.pop("DFFT_MONITOR", None)
+        else:
+            os.environ["DFFT_MONITOR"] = saved
+    t_on, seq_on = time.perf_counter(), 0
+    mon = q._monitor
+    if mon is None or q._wave_stats is None or mon._thread is None:
+        fail(f"serving monitored: DFFT_MONITOR armed no running monitor "
+             f"({mon}) or no wave stats ({q._wave_stats})")
+    on_s, by_thread, stops = 0.0, 0, 0
+
+    def sampler_off():
+        nonlocal on_s, by_thread, stops
+        by_thread += mon._seq - seq_on
+        on_s += time.perf_counter() - t_on
+        mon.stop()                     # takes one final sample
+        stops += 1
+
+    q.serve()
+    secs, unequal = {}, 0
+    for label in ("cold", "warm"):
+        _, secs[label], bad = _monitored_block(torch, q, xs, reqs, warm, 0.0)
+        unequal += bad
+    blocks = []
+    for state in MONITOR_BLOCKS:
+        if state == "on" and mon._thread is None:
+            mon.start()
+            t_on, seq_on = time.perf_counter(), mon._seq
+        elif state == "off" and mon._thread is not None:
+            sampler_off()
+        rounds, block_s, bad = _monitored_block(torch, q, xs, reqs, warm,
+                                                MONITOR_BLOCK_S)
+        unequal += bad
+        blocks.append((state, rounds, block_s, 32 * rounds / block_s))
+    if mon._thread is not None:
+        sampler_off()
+    sample_s = []
+    for _ in range(20):                # on the idle queue, sampler off
+        t0 = time.perf_counter()
+        mon.sample()
+        sample_s.append(time.perf_counter() - t0)
+    q.stop(timeout=10)
+    if q._serve_thread is not None:
+        fail("serving monitored: stop() did not end the loop")
+    q.close()
+    if mon._thread is not None:
+        fail("serving monitored: close() left the sampler running")
+    n_results = 32 * (2 + sum(b[1] for b in blocks))
+    if unequal:
+        fail(f"serving monitored: {unequal} of {n_results} results differ "
+             f"from the unmonitored warm round's")
+    samples = monitor.load_series(path)
+    need = on_s / MONITOR_INTERVAL_S / 2
+    bad = [s.get("seq") for s in samples
+           if s.get("schema") != monitor.MONITOR_SCHEMA
+           or not isinstance((s.get("queue") or {}).get("waves"), dict)]
+    if by_thread < need or mon.errors or len(samples) < by_thread or bad:
+        fail(f"serving monitored: the sampler thread took {by_thread} "
+             f"samples in {on_s:.3f} s (need >= {need:.1f}) and failed "
+             f"{mon.errors}; the series holds {len(samples)}; samples "
+             f"without schema {monitor.MONITOR_SCHEMA} or a waves block: "
+             f"{bad}")
+    verdict = monitor.health_from_samples(samples)
+    stalls = metrics.counter_total("serving_stalls")
+    if verdict["status"] == "alert" or stalls \
+            or samples[-1]["queue"]["stalls_total"]:
+        fail(f"serving monitored: health {verdict['status']} "
+             f"{verdict['alerts']}, serving_stalls {stalls}")
+    _guard_clean(metrics, "monitored", (0.0, 0.0))
+    if dict(cf.FALLBACKS) != fb0:
+        fail(f"serving monitored: a kernel fallback {dict(cf.FALLBACKS)}")
+    launched = {k: v - before[k] for k, v in cf.launches().items()}
+    for k in ("fft2_last", "fft_axis0", "fft_last"):
+        if launched[k] <= 0:
+            fail(f"serving monitored: kernel {k} was not launched")
+    rate = 32 / secs["warm"]
+    on = statistics.median(b[3] for b in blocks if b[0] == "on")
+    off = statistics.median(b[3] for b in blocks if b[0] == "off")
+    pairs = [{st: v for st, _r, _t, v in blocks[i:i + 2]}
+             for i in range(0, len(blocks), 2)]
+    ratios = [p["on"] / p["off"] for p in pairs]
+    slower = sum(r < 1 for r in ratios)
+    q1, _, q3 = statistics.quantiles(
+        [b[3] for b in blocks if b[0] == "off"], n=4)
+    print(f"serving monitored {m}^3 P={SLAB_RANKS} rounds (DFFT_MONITOR="
+          f"{MONITOR_INTERVAL_S:g}, 2 threads, 32 requests each, max_batch="
+          f"{STREAM_BATCH}): warm {rate:.2f} transforms/s "
+          f"({secs['warm'] * 1e3:.1f} ms) against the unmonitored warm "
+          f"round's {warm_rate:.2f} (monitored/unmonitored "
+          f"{rate / warm_rate:.4f}), cold {32 / secs['cold']:.2f} "
+          f"({secs['cold'] * 1e3:.1f} ms); all {n_results} results "
+          f"bit-equal to the unmonitored warm round's; {by_thread} samples "
+          f"taken by the sampler thread in {on_s:.3f} s (need >= "
+          f"{need:.1f}), {stops} at stop(), {len(samples)} in the series, "
+          f"schema {monitor.MONITOR_SCHEMA}, sampler errors {mon.errors}; "
+          f"health {verdict['status']} {verdict['alerts']}; serving_stalls "
+          f"{stalls:.0f}; kernel launches {launched}; last sample's waves "
+          f"{json.dumps(samples[-1]['queue']['waves'], sort_keys=True)} "
+          f"[{card}]", flush=True)
+    print(f"serving monitored: the sampler's host cost on one queue, "
+          f"blocks of >= {MONITOR_BLOCK_S:g} s of rounds (state, rounds, "
+          f"seconds, transforms/s): "
+          + "; ".join(f"{st} {r} {t:.3f} {v:.2f}" for st, r, t, v in blocks)
+          + f"; median on {on:.2f}, off {off:.2f} (off quartiles {q1:.2f} "
+          f"- {q3:.2f}); on/off within each pair "
+          + " ".join(f"{r:.4f}" for r in ratios)
+          + f", median {statistics.median(ratios):.4f}, on slower in "
+          f"{slower} of {len(ratios)} pairs; one sample() on the idle "
+          f"queue {statistics.median(sample_s) * 1e3:.3f} ms of host time "
+          f"(median of 20) [{card}]", flush=True)
+    return dict(rate=rate, cold_rate=32 / secs["cold"], warm_rate=warm_rate,
+                samples=len(samples), by_thread=by_thread, on_s=on_s,
+                blocks=blocks, median_on=on, median_off=off,
+                pair_ratios=ratios, sample_s=statistics.median(sample_s),
+                launches=launched)
 
 
 def serve_width2(torch, dfft, metrics, world, xs, refs, dev, card, m):
@@ -3733,6 +3980,256 @@ def check_serving(torch, dfft, dev, card, hw_path, n=SERVE_N, m=STREAM_N):
     return out
 
 
+#: Phase 19: the load generator's fleet (two workers on the card, their
+#: single-device queues at FLEET_SHAPES), the ramp checks at RAMP_N^3
+#: (complex64) and the layout check at LAYOUT_N^3 (complex128).
+FLEET_SHAPES = ((256, 256, 256), (256, 256, 128))
+FLEET_ARGS = ("--procs", "2", "--device", "cuda",
+              "--shapes", ",".join("x".join(map(str, s)) for s in FLEET_SHAPES),
+              "--dtypes", "complex64", "--ops", "fft,ifft", "--rate", "100",
+              "--duration", "5", "--max-batch", "8", "--json", "--gate")
+FLEET_FAULT = "execute:every=1,kind=deterministic"
+RAMP_N = 256
+LAYOUT_N = 512
+FLEET_PHASE_LIMIT_S = 120.0
+
+
+def fleet_cases(shapes=FLEET_SHAPES, max_b=STREAM_BATCH):
+    """The kernel cases a load-generator worker launches: a single-device
+    C2C plan of each shape at every batch 1..max_b, forward and backward
+    (the plane over the last two axes, then axis 0 over the flattened
+    rest)."""
+    out = []
+    for n0, n1, n2 in shapes:
+        for b in range(1, max_b + 1):
+            for fwd in (True, False):
+                d = "fwd" if fwd else "bwd"
+                out += [("fft2_last", fwd, (b * n0, n1, n2),
+                         f"fleet b={b} {n0}x{n1}x{n2} {d} yz"),
+                        ("fft_axis0", fwd, (b, n0, n1 * n2),
+                         f"fleet b={b} {n0}x{n1}x{n2} {d} x")]
+    return out
+
+
+def ramp_cases(n=RAMP_N, ranks=SLAB_RANKS, grid=PENCIL_GRID):
+    """The kernel cases of phase 19's ramp round trips at n^3: the slab
+    on ``ranks`` ranks and the pencil on ``grid``, forward and
+    backward."""
+    q, m = n // ranks, n // grid[0]
+    return [("fft2_last", True, (q, n, n), "ramp slab fwd t0"),
+            ("fft_axis0", True, (1, n, q * n), "ramp slab/pencil fwd t3"),
+            ("fft_axis0", False, (1, n, q * n), "ramp slab/pencil bwd t0"),
+            ("fft_axis0", False, (q, n, n), "ramp slab bwd t3"),
+            ("fft_last", False, (q * n, n), "ramp slab bwd rows, pencil t3"),
+            ("fft_last", True, (m * m, n), "ramp pencil fwd t0"),
+            ("fft_axis0", True, (m, n, m), "ramp pencil fwd t1"),
+            ("fft_axis0", False, (m, n, m), "ramp pencil bwd t1")]
+
+
+def run_loadgen(here, label, extra, env_extra, limit_s=90.0):
+    """``python -m distributedfft_tpu_torch.loadgen`` with FLEET_ARGS plus
+    ``extra``, into ``chiprun_out/fleet/<label>``; returns (exit code, the
+    verdict document, wall seconds)."""
+    import shutil
+
+    dir_ = os.path.join(here, "chiprun_out", "fleet", label)
+    shutil.rmtree(dir_, ignore_errors=True)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DFFT_FAULT_INJECT", "DFFT_MONITOR",
+                        "DFFT_MONITOR_DIR", "DFFT_QOS", "PYTHONPATH")}
+    env["PYTHONPATH"] = here
+    env.update(env_extra)
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(
+            [sys.executable, "-m", "distributedfft_tpu_torch.loadgen",
+             *FLEET_ARGS, *extra, "--dir", dir_], cwd=here, env=env,
+            capture_output=True, text=True, timeout=limit_s)
+    except subprocess.TimeoutExpired:
+        fail(f"fleet {label}: loadgen ran past {limit_s} s")
+    wall = time.perf_counter() - t0
+    try:
+        doc = json.loads(r.stdout)
+    except ValueError:
+        fail(f"fleet {label}: loadgen exited {r.returncode} without a "
+             f"verdict; stdout {r.stdout[-2000:]!r} stderr "
+             f"{r.stderr[-2000:]!r}")
+    for w in doc.get("workers", []):
+        print(f"fleet {label} worker: {json.dumps(w, sort_keys=True)}",
+              flush=True)
+    rcs = doc.get("worker_rcs")
+    if rcs != [0, 0] or len(doc.get("workers", [])) != 2:
+        fail(f"fleet {label}: worker exit codes {rcs}, stats lines "
+             f"{doc.get('workers')}; loadgen stderr {r.stderr[-2000:]!r}")
+    return r.returncode, doc, wall
+
+
+def _worker_cases(label, w):
+    """The kernel cases a loadgen worker's stats line reports (its
+    ``cuda_fft.CASES``), as the keys of :func:`recording_cases`; fails
+    unless their counts add up to the worker's launches of each
+    kernel."""
+    cases = Counter()
+    for *key, v in w["cases"]:
+        cases[tuple(tuple(e) if isinstance(e, list) else e
+                    for e in key)] += v
+    by_kernel = Counter()
+    for key, v in cases.items():
+        by_kernel[key[0]] += v
+    launched = {k: v for k, v in w["launches"].items() if v}
+    if dict(by_kernel) != launched:
+        fail(f"fleet {label}: worker {w['rank']} reports cases adding up to "
+             f"{dict(by_kernel)} launches, its counts say {launched}")
+    return cases
+
+
+def _stream_of(doc, rank):
+    """The stream id of worker ``rank`` in a loadgen verdict (by pid)."""
+    pid = next(w["pid"] for w in doc["workers"] if w["rank"] == rank)
+    return next(s for s in doc["procs"]
+                if s.split(":")[1].split("#")[0] == str(pid))
+
+
+def check_fleet(torch, dfft, dev, here, card):
+    """Phase 19: the fleet on the card. (a) The healthy streaming fleet
+    (FLEET_ARGS and ``--streaming``) exits 0 with status ok or warn, two
+    streams, no alert, ``executes`` in both streams' newest metrics and
+    no ``pallas_fallback`` / ``fusion_fallback``. (b) The fault drill in
+    flush mode (``--flush-every 0.25``, FLEET_FAULT forwarded to rank 0
+    only) exits 1 with status alert, worker 0 wedged, a stall or
+    fleet_stall on rank 0's stream and no alert of rank 1's own. (c) The
+    ramp round trips of the slab and the pencil at RAMP_N^3 within TOL,
+    and the slab forward's output at LAYOUT_N^3 complex128 checked
+    against its out_boxes, with elements of each block of the round trip
+    decoding into that block's box. Returns the workers' summed kernel
+    launches, the cases they reported launching (``cases``: their
+    ``cuda_fft.CASES``, each worker's adding up to its launches) and the
+    figures."""
+    from distributedfft_tpu_torch import fleet
+    from distributedfft_tpu_torch.utils import debug
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    launches, cases = Counter(), Counter()
+    out = {}
+
+    rc, doc, wall = run_loadgen(here, "healthy", ("--streaming",), {})
+    alerts = [a for a in doc["alerts"] if a["severity"] == "alert"]
+    if rc != 0 or doc["status"] not in ("ok", "warn") or alerts \
+            or len(doc["procs"]) != 2:
+        fail(f"fleet healthy: exit {rc}, status {doc['status']}, "
+             f"{len(doc['procs'])} streams, alerts {doc['alerts']}")
+    streams = fleet.load_fleet(doc["dir"])
+    for sid, samples in streams.items():
+        counters = samples[-1]["metrics"]["counters"]
+        ex = sum(counters.get("executes", {}).values())
+        fb = {k: sum(counters.get(k, {}).values())
+              for k in ("pallas_fallback", "fusion_fallback")}
+        if ex <= 0 or any(fb.values()):
+            fail(f"fleet healthy: stream {sid} executes {ex}, fallbacks "
+                 f"{fb}")
+        print(f"fleet healthy stream {sid}: {len(samples)} samples, "
+              f"executes {ex:.0f}, fallbacks {fb}", flush=True)
+    for w in doc["workers"]:
+        launches.update(w["launches"])
+        cases.update(_worker_cases("healthy", w))
+        for k in ("fft2_last", "fft_axis0"):
+            if w["launches"].get(k, 0) <= 0:
+                fail(f"fleet healthy: worker {w['rank']} launched no {k}")
+    print(fleet.format_fleet(doc), flush=True)
+    submitted = sum(w["submitted"] for w in doc["workers"])
+    print(f"fleet healthy (streaming, 2 workers x 100 arrivals/s x 5 s at "
+          f"{FLEET_SHAPES}): gate {rc}, status {doc['status']}, "
+          f"{submitted} submitted, loadgen wall {wall:.1f} s [{card}]",
+          flush=True)
+    out["healthy"] = dict(status=doc["status"], wall_s=wall,
+                          submitted=submitted)
+
+    rc, doc, wall = run_loadgen(here, "fault", ("--flush-every", "0.25"),
+                                {"DFFT_FAULT_INJECT": FLEET_FAULT})
+    by_rank = {w["rank"]: w for w in doc["workers"]}
+    s0, s1 = _stream_of(doc, 0), _stream_of(doc, 1)
+    on0 = [a for a in doc["alerts"]
+           if a["name"] in ("stall", "fleet_stall")
+           and (a.get("proc") in (None, s0))]
+    crossed = [a for a in doc["alerts"] if a.get("proc") == s1]
+    own0 = [a["name"] for a in doc["procs"][s0]["alerts"]]
+    if rc != 1 or doc["status"] != "alert" or not by_rank[0]["wedged"] \
+            or by_rank[1]["wedged"] or not on0 or "stall" not in own0 \
+            or crossed or doc["procs"][s1]["alerts"]:
+        fail(f"fleet fault drill: exit {rc}, status {doc['status']}, wedged "
+             f"{[by_rank[r]['wedged'] for r in (0, 1)]}, alerts "
+             f"{doc['alerts']}, rank 0's own {own0}, rank 1's own "
+             f"{doc['procs'][s1]['alerts']}")
+    for w in doc["workers"]:
+        launches.update(w["launches"])
+        cases.update(_worker_cases("fault drill", w))
+    print(fleet.format_fleet(doc), flush=True)
+    print(f"fleet fault drill (flush every 0.25 s, {FLEET_FAULT} on rank "
+          f"0): gate {rc}, status {doc['status']}, worker 0 wedged, alerts "
+          f"{[(a['name'], a.get('proc')) for a in doc['alerts']]}, loadgen "
+          f"wall {wall:.1f} s [{card}]", flush=True)
+    out["fault"] = dict(status=doc["status"], wall_s=wall,
+                        alerts=[a["name"] for a in doc["alerts"]])
+
+    n = RAMP_N
+    for label, world in (("slab", SLAB_RANKS), ("pencil", PENCIL_GRID)):
+        f = dfft.plan_dft_c2c_3d((n,) * 3, world, device=dev)
+        b = dfft.plan_dft_c2c_3d((n,) * 3, world, direction=dfft.BACKWARD,
+                                 device=dev)
+        err = debug.ramp_roundtrip_check(f, b)
+        if not err <= TOL:
+            fail(f"ramp roundtrip {label} {n}^3: {err:.3e} > {TOL}")
+        print(f"ramp roundtrip {label} {n}^3 complex64: rel err {err:.3e} "
+              f"(<= {TOL})", flush=True)
+        out[f"ramp_{label}"] = err
+    dfft.clear_plan_cache()
+    torch.cuda.empty_cache()
+
+    n = LAYOUT_N
+    kw = dict(dtype=torch.complex128, device=dev)
+    f = dfft.plan_dft_c2c_3d((n,) * 3, SLAB_RANKS, **kw)
+    b = dfft.plan_dft_c2c_3d((n,) * 3, SLAB_RANKS, direction=dfft.BACKWARD,
+                             **kw)
+    x = torch.from_numpy(debug.ramp_world((n,) * 3)).to(dev)
+    debug.check_layout(x, f.in_boxes, f.world)
+    y = f(x)
+    debug.check_layout(y, f.out_boxes, f.world)
+    if not bool(torch.isfinite(torch.view_as_real(y)).all()):
+        fail(f"layout {n}^3: the slab forward's output is not finite")
+    r = b(y)
+    del y
+    decoded = 0
+    for rank, box in enumerate(f.in_boxes):
+        lo, hi = box.low, box.high
+        picks = [tuple(lo), tuple(h - 1 for h in hi),
+                 tuple((a + c) // 2 for a, c in zip(lo, hi))]
+        for p in picks:
+            got = debug.decode_ramp(float(r[p].real), (n,) * 3)
+            if not all(a <= g < c for a, g, c in zip(lo, got, hi)) \
+                    or got != p:
+                fail(f"layout {n}^3: rank {rank}'s element {p} decodes to "
+                     f"{got}, outside its box {box}")
+            decoded += 1
+    del x, r
+    print(f"layout {n}^3 complex128 slab P={SLAB_RANKS}: check_layout of "
+          f"the input against in_boxes and of the forward's output against "
+          f"out_boxes passed; {decoded} elements of the round trip (low, "
+          f"high and middle corner of each rank's box) decode into their "
+          f"box", flush=True)
+    dfft.clear_plan_cache()
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    print(f"fleet phase: {secs:.1f} s [{card}]", flush=True)
+    if secs > FLEET_PHASE_LIMIT_S:
+        fail(f"the fleet phase took {secs:.1f} s > {FLEET_PHASE_LIMIT_S}")
+    out["launches"] = dict(launches)
+    out["cases"] = cases
+    out["seconds"] = secs
+    return out
+
+
 def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "distributedfft_tpu_torch")):
@@ -3780,6 +4277,10 @@ def main() -> None:
     held = {case_key(c) for c in KERNEL_CASES}
     KERNEL_CASES.extend(c for c in serving_cases(STREAM_N)
                         if case_key(c) not in held)
+    for c in fleet_cases() + ramp_cases():
+        if case_key(c) not in held:
+            held.add(case_key(c))
+            KERNEL_CASES.append(c)
     FUSED_CASES.extend(serving_fused_cases(SERVE_N))
     records = check_kernels(torch, cf, radix, timing, rates)
     records.update(check_fused_kernels(torch, cf, cfu, wire_codec, timing,
@@ -4176,6 +4677,26 @@ def main() -> None:
              f"(before: {before})")
     print(f"peak device memory of the serving path: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    # ---- the fleet: counts from 0 (this process), plus the workers' ----
+    cf.reset_launches()
+    cfu.reset_launches()
+    dfft.clear_plan_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with recording_cases(cf, cfu) as seen:
+        fleet = check_fleet(torch, dfft, dev, here, card)
+    path = {**cf.launches(), **cfu.launches()}
+    print(f"launches on the fleet path: this process {path}; the workers "
+          f"(other processes, counted by their own wrappers) "
+          f"{fleet['launches']} at {len(fleet['cases'])} cases", flush=True)
+    check_routes(cf, "the fleet path", {}, dict(cf.ROUTES))
+    check_covered(seen, "the fleet path (this process and the workers)",
+                  fleet["cases"])
+    for k in ("fft2_last", "fft_axis0", "fft_last"):
+        if path[k] <= 0:
+            fail(f"kernel {k} was not launched on the fleet path")
+    for k, v in path.items():
+        records[k]["launches"] += v + fleet["launches"].get(k, 0)
 
     print(json.dumps({"kernels": [
         {k: rec[k] for k in ("name", "route", "source", "replaces",

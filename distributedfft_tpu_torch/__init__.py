@@ -93,14 +93,19 @@ divergence flag where the model misses::
     print(dfft.explain_mod.format_explain(rec))
 
 Serving (:mod:`.serving`): requests coalesced into batched plan calls,
-with QoS (:mod:`.qos`), fault injection and recovery (:mod:`.faults`)
-and the numerics plane (:mod:`.numerics`)::
+with QoS (:mod:`.qos`), fault injection and recovery (:mod:`.faults`),
+the numerics plane (:mod:`.numerics`) and a live monitor
+(:mod:`.monitor`, armed by ``DFFT_MONITOR`` / ``DFFT_MONITOR_DIR``)
+whose per-process series the fleet view (:mod:`.fleet`) merges and
+judges; ``python -m distributedfft_tpu_torch.loadgen`` drives a fleet
+of monitored queues with seeded traffic::
 
     q = dfft.CoalescingQueue(4, max_batch=8, retry_max=2)
     hs = [q.submit(x) for _ in range(8)]                    # one flush
     ys = [h.result() for h in hs]
     q.serve()                                               # drain loop
     q.close()
+    v = dfft.monitor.health_from_samples(dfft.monitor.load_series(p))
 
 Entry points run on the card; ``device="cpu"`` runs the kernels' plain
 PyTorch versions instead. This package imports neither JAX nor
@@ -124,6 +129,7 @@ from .api import (  # noqa: F401
     Plan3D,
     alloc_local,
     clear_plan_cache,
+    destroy_plan,
     execute,
     explain,
     plan_brick_dft_c2c_3d,
@@ -163,9 +169,11 @@ from .utils.trace import plan_info  # noqa: F401
 from .serving import (CoalescingQueue, DeadlineExceeded,  # noqa: F401
                       Handle, QueueFull, submit, warm_pool)
 # The serving tier's modules are their API surface (dfft.qos.parse_qos,
-# dfft.faults.inject, dfft.numerics.numerics_snapshot); the policy and
-# tenant types and the errors a handle can carry are lifted beside them.
-from . import faults, numerics, qos  # noqa: F401,E402
+# dfft.faults.inject, dfft.numerics.numerics_snapshot,
+# dfft.monitor.health_from_samples, dfft.fleet.fleet_health); the policy
+# and tenant types and the errors a handle can carry are lifted beside
+# them.
+from . import faults, fleet, monitor, numerics, qos  # noqa: F401,E402
 from .faults import InjectedFault  # noqa: F401,E402
 from .numerics import NonFiniteResult  # noqa: F401,E402
 from .qos import QosPolicy, QuotaExceeded, Tenant  # noqa: F401,E402

@@ -1833,6 +1833,18 @@ def clear_plan_cache() -> None:
     _PLAN_CACHE.clear()
 
 
+def destroy_plan(plan) -> None:
+    """The counterpart of ``fft_mpi_destroy_plan`` (the JAX package's
+    parity shim): drop ``plan``'s entries from the plan cache, so that
+    the cache no longer keeps it, and with it its device blocks, alive.
+    Once the caller drops its own reference too, those blocks go back to
+    the caching allocator and ``torch.cuda.empty_cache()`` can return
+    them to the card. Twiddle tables are shared by every plan of a length
+    and stay. The plan stays callable, and warm."""
+    for key in [k for k, v in _PLAN_CACHE.items() if v is plan]:
+        del _PLAN_CACHE[key]
+
+
 def _plan_cache_key(kind: str, shape, world, kw: dict):
     """Hashable cache key, or None when the call bypasses the cache."""
     if isinstance(world, World) and not world.loopback:

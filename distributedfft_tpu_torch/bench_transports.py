@@ -167,7 +167,7 @@ def _tune_rows(rank: int, size: int, n: int, cpu: bool, device,
 
     os.environ["DFFT_WISDOM"] = os.path.join(store, "wisdom.jsonl")
     os.environ["DFFT_HW_PROFILE"] = os.path.join(store, "hwprofile.json")
-    prof = calibrate.calibrate(iters=10)
+    prof = calibrate.calibrate(iters=10, device=device)
     if rank == 0:
         calibrate.write_profile(prof)
     dist.barrier()

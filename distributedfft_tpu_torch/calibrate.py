@@ -214,39 +214,44 @@ def model_correction(algorithm: str, path: str | None = None) -> float:
 
 # -------------------------------------------------------- microbenchmarks
 
-def _device() -> torch.device:
-    if torch.cuda.is_available():
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+def _device(device=None) -> torch.device:
+    """The device to measure on (:func:`.api.resolve_device`): the card
+    unless ``device`` names another; raises without a card."""
+    from .api import resolve_device
+
+    return resolve_device(device)
 
 
-def _measure_hbm_gbps(iters: int, nbytes: int | None = None) -> float | None:
+def _measure_hbm_gbps(iters: int, nbytes: int | None = None, *,
+                      device=None) -> float | None:
     """Streamed ``v + 1``: one pass reads and writes the block once."""
     from .utils.timing import time_fn_amortized
 
     nbytes = _HBM_BYTES if nbytes is None else int(nbytes)
-    x = torch.zeros(nbytes // 4, dtype=torch.float32, device=_device())
+    x = torch.zeros(nbytes // 4, dtype=torch.float32,
+                    device=_device(device))
     t, _ = time_fn_amortized(lambda v: v + 1.0, x, iters=iters, repeats=2)
     return (2.0 * nbytes / t) / 1e9 if t > 0 else None
 
 
 def _mm_tflops(iters: int, product, dtype=torch.float32,
-               n: int | None = None) -> float | None:
+               n: int | None = None, *, device=None) -> float | None:
     """TFlop/s of ``product(a, a)`` on one square ``n x n`` block of
     ``dtype``: ``2 n^3`` flops over the amortised time."""
     from .utils.timing import time_fn_amortized
 
     n = _MM_N if n is None else int(n)
-    a = torch.ones((n, n), dtype=dtype, device=_device())
+    a = torch.ones((n, n), dtype=dtype, device=_device(device))
     t, _ = time_fn_amortized(product, a, a, iters=iters, repeats=2)
     return (2.0 * n ** 3 / t) / 1e12 if t > 0 else None
 
 
-def _measure_peak_tflops(iters: int) -> float | None:
+def _measure_peak_tflops(iters: int, *, device=None) -> float | None:
     """One square matmul in bfloat16 on the card (its tensor cores'
     native feed), float32 on the CPU."""
-    dt = torch.bfloat16 if _device().type == "cuda" else torch.float32
-    return _mm_tflops(iters, torch.matmul, dt)
+    dev = _device(device)
+    dt = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    return _mm_tflops(iters, torch.matmul, dt, device=dev)
 
 
 def _tier_product(tier: str):
@@ -264,14 +269,15 @@ def _tier_product(tier: str):
     return product
 
 
-def _measure_mm_tier_tflops(iters: int, n: int | None = None
+def _measure_mm_tier_tflops(iters: int, n: int | None = None, *,
+                            device=None
                             ) -> tuple[float | None, float | None,
                                        float | None]:
     """``(mm_bf16_tflops, mm_f32_tflops, mm_highest_tflops)``: the rate
     of each matmul tier as the port runs it, the three points the
     tuner's precision-tier model prices candidates with
     (:func:`.tuner.mm_tier_tflops`)."""
-    return tuple(_mm_tflops(iters, _tier_product(t), n=n)
+    return tuple(_mm_tflops(iters, _tier_product(t), n=n, device=device)
                  for t in ("bf16", "f32", "highest"))
 
 
@@ -341,13 +347,13 @@ def _measure_leg_gbps(iters: int) -> tuple[float | None, float | None]:
             _ring_gbps(iters, world, dcn_axis))
 
 
-def _measure_fuse_speedup(iters: int) -> float | None:
+def _measure_fuse_speedup(iters: int, *, device=None) -> float | None:
     """The fused encode kernel's speedup over the unfused pair (the
     strided kernel to memory, then the ``split`` codec's encode reading
     it back) on one block: ``> 1`` means the fused tier's saved pass is
     real on this card. The card only: off it both run their plain
     versions (None)."""
-    dev = _device()
+    dev = _device(device)
     if dev.type != "cuda":
         return None
     from .ops import cuda_fft, cuda_fuse
@@ -375,12 +381,12 @@ def _measure_fuse_speedup(iters: int) -> float | None:
     return tu / tf if tu > 0 and tf > 0 else None
 
 
-def _measure_launch_seconds(iters: int) -> float | None:
+def _measure_launch_seconds(iters: int, *, device=None) -> float | None:
     """The fixed cost of one dispatch: a tiny op, synchronised per
     call."""
     from .utils.timing import sync
 
-    x = torch.zeros(8, dtype=torch.float32, device=_device())
+    x = torch.zeros(8, dtype=torch.float32, device=_device(device))
     sync(x + 1.0)
     best = math.inf
     for _ in range(max(1, iters)):
@@ -390,14 +396,17 @@ def _measure_launch_seconds(iters: int) -> float | None:
     return best if math.isfinite(best) else None
 
 
-def calibrate(iters: int = 10, *, wire: bool = True) -> dict:
-    """Run the microbenchmarks and return a profile document (nothing is
-    written: pair with :func:`write_profile`). A field a benchmark
-    cannot produce (wire in one process, DCN on one node, the fuse
-    speedup off the card) or whose benchmark failed is None. With
-    several processes every process must call it (the wire rings are
-    collective)."""
-    kind, platform = _current_identity()
+def calibrate(iters: int = 10, *, wire: bool = True, device=None) -> dict:
+    """Run the microbenchmarks on ``device`` (the card unless
+    ``device="cpu"``; raises without a card) and return a profile
+    document (nothing is written: pair with :func:`write_profile`). A
+    field a benchmark cannot produce (wire in one process, DCN on one
+    node, the fuse speedup off the card) or whose benchmark failed is
+    None. With several processes every process must call it (the wire
+    rings are collective)."""
+    dev = _device(device)
+    kind, platform = (_current_identity() if dev.type == "cuda"
+                      else ("cpu", "cpu"))
     prof: dict = {
         "schema": PROFILE_SCHEMA,
         "recorded_at": time.strftime("%Y-%m-%dT%H:%M:%S"),
@@ -408,19 +417,20 @@ def calibrate(iters: int = 10, *, wire: bool = True) -> dict:
         "cuda": torch.version.cuda,
     }
     for field, fn in (
-        ("hbm_gbps", lambda: _measure_hbm_gbps(iters)),
-        ("peak_tflops", lambda: _measure_peak_tflops(iters)),
+        ("hbm_gbps", lambda: _measure_hbm_gbps(iters, device=dev)),
+        ("peak_tflops", lambda: _measure_peak_tflops(iters, device=dev)),
         ("wire_gbps", (lambda: _measure_wire_gbps(iters)) if wire
          else (lambda: None)),
-        ("launch_seconds", lambda: _measure_launch_seconds(iters)),
-        ("fuse_speedup", lambda: _measure_fuse_speedup(iters)),
+        ("launch_seconds",
+         lambda: _measure_launch_seconds(iters, device=dev)),
+        ("fuse_speedup", lambda: _measure_fuse_speedup(iters, device=dev)),
     ):
         try:
             prof[field] = fn()
         except Exception:  # noqa: BLE001 -- one sick benchmark nulls its
             prof[field] = None  # field, never the whole calibration
     try:
-        bf16, f32, highest = _measure_mm_tier_tflops(iters)
+        bf16, f32, highest = _measure_mm_tier_tflops(iters, device=dev)
     except Exception:  # noqa: BLE001
         bf16 = f32 = highest = None
     prof["mm_bf16_tflops"] = bf16
@@ -479,20 +489,24 @@ def format_profile(prof: dict) -> str:
     return "\n".join(lines)
 
 
-def size_check(iters: int = 10) -> dict:
+def size_check(iters: int = 10, *, device=None) -> dict:
     """The HBM and matmul microbenchmarks at the JAX package's sizes (a
     64 MiB block; n = 1024) and at larger ones (1 GiB; n = 8192), each
     small size's rates as a share of the large size's, and whether each
     small size holds within ``_SIZE_TOLERANCE`` (``keep_jax_hbm``,
-    ``keep_jax_mm``: every tier and the bf16 peak)."""
-    hbm = {str(b): _measure_hbm_gbps(iters, b)
+    ``keep_jax_mm``: every tier and the bf16 peak). ``device`` as in
+    :func:`calibrate`."""
+    dev = _device(device)
+    hbm = {str(b): _measure_hbm_gbps(iters, b, device=dev)
            for b in (_JAX_HBM_BYTES, _LARGE_HBM_BYTES)}
-    peak = torch.bfloat16 if _device().type == "cuda" else torch.float32
+    peak = torch.bfloat16 if dev.type == "cuda" else torch.float32
     mm = {}
     for n in (_JAX_MM_N, _LARGE_MM_N):
-        mm[str(n)] = {tier: _mm_tflops(iters, _tier_product(tier), n=n)
+        mm[str(n)] = {tier: _mm_tflops(iters, _tier_product(tier), n=n,
+                                       device=dev)
                       for tier in ("bf16", "f32", "highest")}
-        mm[str(n)]["peak"] = _mm_tflops(iters, torch.matmul, peak, n=n)
+        mm[str(n)]["peak"] = _mm_tflops(iters, torch.matmul, peak, n=n,
+                                        device=dev)
 
     def share(small, large):
         return small / large if small and large else None
@@ -512,10 +526,11 @@ def size_check(iters: int = 10) -> dict:
 
 def main(argv=None) -> int:
     """``python -m distributedfft_tpu_torch.calibrate [--iters N]
-    [--sizes] [--write]``: print the card's name and power limit
-    (``nvidia-smi``), the calibrated profile and its JSON; ``--sizes``
-    adds :func:`size_check`; ``--write`` stores the profile at
-    :func:`default_profile_path`."""
+    [--sizes] [--write] [--device D]``: print the card's name and power
+    limit (``nvidia-smi``), the calibrated profile and its JSON;
+    ``--sizes`` adds :func:`size_check`; ``--write`` stores the profile
+    at :func:`default_profile_path`; ``--device cpu`` measures the CPU
+    (default: the card, and without one it raises)."""
     import argparse
     import subprocess
 
@@ -523,18 +538,21 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--sizes", action="store_true")
     ap.add_argument("--write", action="store_true")
+    ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
-    if torch.cuda.is_available():
+    dev = _device(args.device)
+    if dev.type == "cuda":
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True)
         print(smi.stdout.strip().splitlines()[0] if smi.stdout else
               torch.cuda.get_device_name(), flush=True)
-    prof = calibrate(iters=args.iters)
+    prof = calibrate(iters=args.iters, device=dev)
     print(format_profile(prof), flush=True)
     print(json.dumps(prof, sort_keys=True), flush=True)
     if args.sizes:
-        print(json.dumps({"size_check": size_check(args.iters)},
+        print(json.dumps({"size_check": size_check(args.iters,
+                                                   device=dev)},
                          sort_keys=True), flush=True)
     if args.write:
         print(f"written: {write_profile(prof)}", flush=True)

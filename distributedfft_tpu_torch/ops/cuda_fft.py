@@ -24,7 +24,8 @@ the plain version of the route the card would take (``*_plain``: the
 radix stages of :func:`.radix.radix_plain`, or the ``_four_step_ref``
 math as ``torch.einsum`` with the same LUTs); on a CUDA tensor it
 launches its kernel or raises. Each counts its launches in
-``<wrapper>.launches``, and by route in :data:`ROUTES`. Forward
+``<wrapper>.launches``, by route in :data:`ROUTES` and by case in
+:data:`CASES`. Forward
 transforms are unnormalized, inverse ones scaled by 1/n (numpy
 convention); ``normalize=False`` leaves the inverse unscaled.
 
@@ -68,6 +69,13 @@ FALLBACKS: Counter = Counter()
 
 #: Kernel launches by (wrapper, route), route ``radix`` or ``direct``.
 ROUTES: Counter = Counter()
+
+#: Kernel launches by case: (wrapper, forward, shape), with
+#: "unnormalized" after an inverse left unscaled; the fused wrappers'
+#: (wrapper, wire_dtype, forward, shape, fft_axis, tiles). A process
+#: that launches kernels out of sight of its caller (a load-generator
+#: worker) reports these, so the caller can tell which cases ran.
+CASES: Counter = Counter()
 
 
 @functools.lru_cache(maxsize=None)
@@ -269,6 +277,7 @@ def fft_last(x: torch.Tensor, forward: bool = True,
                 *_luts(n, forward, x.device), scale)
     fft_last.launches += 1
     ROUTES[("fft_last", how)] += 1
+    CASES[_case("fft_last", forward, x.shape, normalize)] += 1
     return y
 
 
@@ -298,6 +307,7 @@ def fft_axis0(x: torch.Tensor, forward: bool = True,
                 *_luts(n, forward, x.device), scale)
     fft_axis0.launches += 1
     ROUTES[("fft_axis0", how)] += 1
+    CASES[_case("fft_axis0", forward, x.shape, normalize)] += 1
     return y
 
 
@@ -338,6 +348,7 @@ def plane_launch(x: torch.Tensor, forward: bool, chunk: int) -> torch.Tensor:
                 *_luts(nz, forward, x.device), scale)
     fft2_last.launches += 1
     ROUTES[("fft2_last", how)] += 1
+    CASES[_case("fft2_last", forward, x.shape)] += 1
     return y
 
 
@@ -350,11 +361,19 @@ KERNELS = {"fft2_last": fft2_last, "fft_axis0": fft_axis0,
            "fft_last": fft_last}
 
 
+def _case(name: str, forward: bool, shape, normalize: bool = True):
+    """The :data:`CASES` key of a launch of wrapper ``name``."""
+    key = (name, bool(forward), tuple(shape))
+    return key + ("unnormalized",) if not forward and not normalize else key
+
+
 def reset_launches() -> None:
-    """Zero every launch count, :data:`ROUTES` included."""
+    """Zero every launch count, :data:`ROUTES` and :data:`CASES`
+    included."""
     for fn in KERNELS.values():
         fn.launches = 0
     ROUTES.clear()
+    CASES.clear()
 
 
 def launches() -> dict[str, int]:

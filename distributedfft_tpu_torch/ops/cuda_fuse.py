@@ -186,6 +186,8 @@ def fused_fft_encode(x: torch.Tensor, *, fft_axis: int, forward: bool,
                 *_luts(n, forward, x.device), scale)
     fused_fft_encode.launches += 1
     cuda_fft.ROUTES[("fft_encode", how)] += 1
+    cuda_fft.CASES[("fft_encode", wire_dtype, bool(forward), tuple(x.shape),
+                    fft_axis, tiles)] += 1
     if not code:
         return (q,)
     return (q, side.reshape(_sidecar_shape(x.dim(), fft_axis, tiles)))
@@ -240,6 +242,8 @@ def fused_decode_fft(parts: tuple, dtype, *, fft_axis: int, forward: bool,
                 code, *_luts(n, forward, payload.device), scale)
     fused_decode_fft.launches += 1
     cuda_fft.ROUTES[("decode_fft", how)] += 1
+    cuda_fft.CASES[("decode_fft", wire_dtype, bool(forward), shape,
+                    fft_axis, tiles)] += 1
     return y
 
 

@@ -109,14 +109,26 @@ def is_hybrid_mesh(world) -> bool:
     return is_hybrid_world(world)
 
 
-def fft_world_for(ndev_total: int | None = None) -> World:
-    """The default world of this job: hybrid when several processes run,
-    else a loopback 1D world of ``ndev_total`` ranks (the cards here when
-    None)."""
+def fft_world_for(ndev_total: int | None = None, *, device=None) -> World:
+    """The default world of this job (JAX: ``fft_mesh_for``): a hybrid
+    world over the process group when ``torch.distributed`` runs more
+    than one process, else a loopback 1D world of ``ndev_total`` ranks.
+    Without ``ndev_total`` the ranks are the cards of ``device``'s kind
+    (:func:`..api.resolve_device`: the card unless ``device="cpu"``,
+    and raising without one), one on the CPU."""
     if dist.is_initialized() and dist.get_world_size() > 1:
         return make_hybrid_world()
-    n = ndev_total or max(1, torch.cuda.device_count())
+    n = ndev_total
+    if n is None:
+        from ..api import resolve_device
+
+        n = (torch.cuda.device_count()
+             if resolve_device(device).type == "cuda" else 1)
     return make_world(n) if n > 1 else World(1)
+
+
+#: The JAX package's name of :func:`fft_world_for`.
+fft_mesh_for = fft_world_for
 
 
 def host_local_to_global(world: World, local: np.ndarray):

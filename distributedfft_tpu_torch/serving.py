@@ -275,8 +275,9 @@ class _WaveStats:
     dispatch cohort: a streaming loop iteration's admitted set, or one
     ``flush()``'s drained set.
 
-    Armed by the streaming loop (:meth:`CoalescingQueue.serve`); a
-    queue without it carries None and takes no hook.
+    Armed by the streaming loop (:meth:`CoalescingQueue.serve`) and on a
+    monitored queue; a queue without either carries None and takes no
+    hook.
 
     Drain stamps come from a daemon *stamper* thread that synchronises
     each wave's CUDA events (recorded after the wave's last launch) in
@@ -384,10 +385,18 @@ class _WaveStats:
                     _metrics.inc("serving_wave_busy_seconds", busy,
                                  kind=self.kind)
 
-    def stop(self) -> None:
-        """Let the stamper thread exit once its queue drains (a later
-        :meth:`note_wave` starts it again)."""
+    def stop(self, timeout: float = 5.0) -> None:
+        """Let the stamper thread exit once its queue drains, and wait
+        up to ``timeout`` s for it (a later :meth:`note_wave` starts it
+        again). Joined, it is not left inside a CUDA event wait when the
+        interpreter exits: a daemon thread that returns from such a call
+        during finalization aborts the process."""
+        t = self._thread
+        if t is None or not t.is_alive():
+            return
         self._q.put(None)
+        if t is not threading.current_thread():
+            t.join(timeout)
 
     def snapshot(self) -> dict:
         """One JSON-ready occupancy document (a monitor sample's
@@ -510,9 +519,9 @@ class CoalescingQueue:
 
     ``DFFT_SHADOW_RATE`` arms the numerics plane (:mod:`.numerics`),
     ``streaming=True`` / ``DFFT_SERVE_STREAMING=1`` the drain loop
-    (:meth:`serve`). ``DFFT_MONITOR`` / ``DFFT_MONITOR_DIR`` would arm a
-    live sampler, which the port does not have yet: set, they raise
-    ``NotImplementedError``.
+    (:meth:`serve`), ``DFFT_MONITOR=interval[,path]`` /
+    ``DFFT_MONITOR_DIR=dir`` a live sampler (:class:`.monitor.Monitor`),
+    which :meth:`close` stops.
     """
 
     def __init__(
@@ -541,12 +550,6 @@ class CoalescingQueue:
                 "a world over a process group each rank would flush its "
                 "own groups, and ranks flushing different groups deadlock "
                 "the collective")
-        if (os.environ.get("DFFT_MONITOR", "").strip() not in ("", "0")
-                or os.environ.get("DFFT_MONITOR_DIR", "").strip()):
-            raise NotImplementedError(
-                "DFFT_MONITOR / DFFT_MONITOR_DIR arm the live serving "
-                "monitor, which distributedfft_tpu_torch does not have "
-                "yet (ROADMAP.md, Queue 1 item 11); unset them")
         if streaming is None:
             streaming = os.environ.get(
                 "DFFT_SERVE_STREAMING", "").strip() not in ("", "0")
@@ -640,7 +643,9 @@ class CoalescingQueue:
         # flush-progress sequence, bumped whenever a flush pops groups
         # (a live monitor's stall watchdog compares it across samples)
         self._flush_seq = 0
-        # the live monitor's slot (DFFT_MONITOR raises until it exists)
+        # DFFT_MONITOR=interval[,path] or DFFT_MONITOR_DIR=dir arms a
+        # live sampler (:mod:`.monitor`; the directory names its series
+        # monitor-<host>-<pid>.jsonl). Both unset: no monitor, no hook.
         self._monitor = None
         # DFFT_SHADOW_RATE=p[,seed]: shadow audits against a memoized
         # exact reference plan and non-finite sentinels; unset, None,
@@ -651,13 +656,24 @@ class CoalescingQueue:
         self._shadow_plans: dict[tuple, Any] = {}
         # streaming drain-loop state: serve()/stop() manage the loop;
         # _arrival wakes it (set by submit only while streaming);
-        # _wave_stats carries the occupancy accounting
+        # _wave_stats carries the occupancy accounting (also armed, in
+        # flush mode, on a monitored queue, so the idle-fraction
+        # baseline exists)
         self._streaming = False
         self._serve_thread: threading.Thread | None = None
         self._serve_stop = threading.Event()
         self._drain_on_stop = True
         self._arrival = threading.Event()
         self._wave_stats: _WaveStats | None = None
+        if (os.environ.get("DFFT_MONITOR", "").strip() not in ("", "0")
+                or os.environ.get("DFFT_MONITOR_DIR", "").strip()):
+            from .monitor import Monitor
+
+            self._monitor = Monitor.from_env(self)
+            if self._monitor is not None:
+                self._monitor.start()
+        if self._monitor is not None:
+            self._wave_stats = _WaveStats(self.kind)
         if streaming:
             self.serve()
 

@@ -8,7 +8,8 @@ helpers.
   (``("cpu", "cpu")`` on both sides here), and ``update_model_correction``
   / ``model_correction`` on the same profile documents give the JAX
   documents and factors (time stamps apart).
-- ``calibrate()`` on the CPU at small sizes: every field, the wire, DCN
+- ``calibrate(device="cpu")`` on the CPU at small sizes (without
+  ``device=`` it measures the card, and raises without one): every field, the wire, DCN
   and fuse fields null (one process, off the card), the matmul tiers
   measured one by one (``mm_highest_tflops`` is the port's own field),
   corrections carried over; ``format_profile`` renders each field.
@@ -142,7 +143,10 @@ def test_calibrate_on_the_cpu(small, tmp_path, monkeypatch):
     path = str(tmp_path / "hw.json")
     monkeypatch.setenv("DFFT_HW_PROFILE", path)
     tc.update_model_correction({"alltoall": 2.0})
-    prof = tc.calibrate(iters=2)
+    if not torch.cuda.is_available():   # the card is the default
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tc.calibrate(iters=1)
+    prof = tc.calibrate(iters=2, device="cpu")
     assert set(prof) == FIELDS | {"model_correction"}
     assert prof["model_correction"] == {"alltoall": 2.0}
     assert (prof["device_kind"], prof["platform"], prof["ndev"]) == (
@@ -152,7 +156,8 @@ def test_calibrate_on_the_cpu(small, tmp_path, monkeypatch):
         assert isinstance(prof[f], float) and prof[f] > 0, f
     for f in ("wire_gbps", "fuse_speedup", "ici_gbps", "dcn_gbps"):
         assert prof[f] is None, f
-    assert tc.calibrate(iters=1, wire=False)["wire_gbps"] is None
+    assert tc.calibrate(iters=1, wire=False,
+                        device="cpu")["wire_gbps"] is None
     tc.write_profile(prof)
     assert tc.matching_profile() == prof
     text = tc.format_profile(prof)
@@ -181,12 +186,12 @@ def test_highest_tier_derived_without_its_field(tmp_path, monkeypatch):
 def test_a_failing_benchmark_nulls_its_field(small, monkeypatch, tmp_path):
     monkeypatch.setenv("DFFT_HW_PROFILE", str(tmp_path / "hw.json"))
 
-    def boom(iters):
+    def boom(iters, device=None):
         raise RuntimeError("sick")
 
     monkeypatch.setattr(tc, "_measure_hbm_gbps", boom)
     monkeypatch.setattr(tc, "_measure_mm_tier_tflops", boom)
-    prof = tc.calibrate(iters=1)
+    prof = tc.calibrate(iters=1, device="cpu")
     assert prof["hbm_gbps"] is None and prof["mm_highest_tflops"] is None
     assert prof["peak_tflops"] > 0
 
@@ -200,13 +205,13 @@ def test_size_check_reports_both_sizes(monkeypatch):
     seen = []
     hbm = {tc._JAX_HBM_BYTES: 2700.0, 1 << 30: 3000.0}
     monkeypatch.setattr(tc, "_measure_hbm_gbps",
-                        lambda iters, nbytes: seen.append(nbytes)
-                        or hbm[nbytes])
+                        lambda iters, nbytes, device=None:
+                        seen.append(nbytes) or hbm[nbytes])
     mm = {1024: 1.0, 8192: 2.0}
     monkeypatch.setattr(tc, "_mm_tflops",
-                        lambda iters, product, dtype=None, n=None:
-                        seen.append(n) or mm[n])
-    out = tc.size_check(1)
+                        lambda iters, product, dtype=None, n=None,
+                        device=None: seen.append(n) or mm[n])
+    out = tc.size_check(1, device="cpu")
     assert seen == [tc._JAX_HBM_BYTES, 1 << 30] + [1024] * 4 + [8192] * 4
     assert out["hbm_gbps"] == {str(tc._JAX_HBM_BYTES): 2700.0,
                                str(1 << 30): 3000.0}
@@ -217,7 +222,7 @@ def test_size_check_reports_both_sizes(monkeypatch):
                                "peak": 0.5}
     assert out["keep_jax_hbm"] and not out["keep_jax_mm"]
     hbm[tc._JAX_HBM_BYTES] = 2600.0
-    assert not tc.size_check(1)["keep_jax_hbm"]
+    assert not tc.size_check(1, device="cpu")["keep_jax_hbm"]
 
 
 def test_time_fn_amortized_counts_calls():

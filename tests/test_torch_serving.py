@@ -11,9 +11,9 @@ registry; their outputs agree within the complex128 tier (1e-11), and
 the port's batched outputs equal its unbatched plan bit for bit on the
 CPU. ``warm_pool`` preplans from a wisdom file written by the port's
 tuner the tuples JAX's preplans from its own. The constructor refuses a
-process-group world and raises ``NotImplementedError`` while
-``DFFT_MONITOR`` / ``DFFT_MONITOR_DIR`` ask for the monitor. The
-queue's timers are fired by hand and its clock is fake where a deadline
+process-group world, and ``DFFT_MONITOR`` / ``DFFT_MONITOR_DIR`` arm a
+live monitor with the interval and series path they name (a flush-mode
+queue then also carries wave stats). The queue's timers are fired by hand and its clock is fake where a deadline
 is under test; thread joins carry timeouts of 10 s or less.
 """
 
@@ -245,13 +245,31 @@ def test_process_group_world_is_refused():
 
 
 @pytest.mark.parametrize("var, value", [("DFFT_MONITOR", "0.5"),
-                                        ("DFFT_MONITOR", "1,/tmp/x"),
-                                        ("DFFT_MONITOR_DIR", "mon")])
-def test_monitor_env_raises_until_the_monitor_exists(monkeypatch, var,
-                                                     value):
-    monkeypatch.setenv(var, value)
-    with pytest.raises(NotImplementedError, match="DFFT_MONITOR"):
-        tdfft.CoalescingQueue(None, **CPU)
+                                        ("DFFT_MONITOR", "1,TMP/x.jsonl"),
+                                        ("DFFT_MONITOR_DIR", "TMP/mon")])
+def test_monitor_env_raises_until_the_monitor_exists(monkeypatch, tmp_path,
+                                                     var, value):
+    """The variables arm a monitor with the interval and path they name
+    (the name is kept from when the port refused them)."""
+    from distributedfft_tpu_torch.fleet import series_path
+    from distributedfft_tpu_torch.monitor import (DEFAULT_DIR_INTERVAL_S,
+                                                  Monitor)
+
+    monkeypatch.setenv(var, value.replace("TMP", str(tmp_path)))
+    q = tdfft.CoalescingQueue(None, **CPU)
+    try:
+        mon = q._monitor
+        assert isinstance(mon, Monitor) and mon.queue is q
+        assert mon._thread is not None and mon._thread.is_alive()
+        want = {"0.5": (0.5, None),
+                "1,TMP/x.jsonl": (1.0, str(tmp_path / "x.jsonl")),
+                "TMP/mon": (DEFAULT_DIR_INTERVAL_S,
+                            series_path(str(tmp_path / "mon")))}[value]
+        assert (mon.interval_s, mon.path) == want
+        assert q._wave_stats is not None and not q._streaming
+    finally:
+        q.close()
+    assert mon._thread is None
 
 
 def test_monitor_env_off_values_are_quiet(monkeypatch):
