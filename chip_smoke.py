@@ -10,7 +10,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and L2 relative error each <= 5e-4), and against the torch.fft call
    that computes the same function, whose arithmetic is independent of
    the kernel's; times the kernel, the plain version and that call (a
-   yardstick only) beside the least time the card could take and a
+   yardstick only) beside the least time the card could take (and, on
+   the two-pass route past 8192, twice its bytes: that route's cap) and a
    device copy of the same tensor (one read, one write), the kernel and
    that call also back to back (device time without the host's launch
    time), and the plane kernel both walking the batch in L2-sized chunks
@@ -109,7 +110,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    a 4-rank loopback world, both orders, forward against torch.fft in
    complex128 and backward by round trip, ``ppermute`` equal to
    ``alltoall`` bit for bit; each path's launches by the route their
-   lengths take (past 8192: direct) and no fallback; then the two-level
+   lengths take (past 8192: the two-pass radix route, printed per
+   length) and no fallback; then the two-level
    transform against its plain composition, its time beside torch.fft's,
    its bound and its split over stage 1, twiddle, stage 2 and
    transpose, and the 2^28 plans' times and stages;
@@ -415,6 +417,19 @@ def case_key(case):
     return tuple(case[:3]) + (("unnormalized",) if unnormalized else ())
 
 
+def route_flops(cf, radix, how, n):
+    """Real flops of one length-n transform by route ``how``: the radix
+    stages; the two-pass route's stages of both factors n = m1*m2 and the
+    twiddle's complex product (6 flops) per element; or 8 n (n1 + n2) of
+    the direct four-step sums."""
+    if how == "radix":
+        return radix.plan_flops(n)
+    m1, m2 = cf.split_for(n)
+    if how == "radix2":
+        return m2 * radix.plan_flops(m1) + m1 * radix.plan_flops(m2) + 6 * n
+    return 8 * n * (m1 + m2)
+
+
 def check_kernels(torch, cf, radix, timing, rates):
     """Phase 2: each kernel against its plain version at every shape the
     main path gives it. Returns one record per kernel."""
@@ -460,17 +475,16 @@ def check_kernels(torch, cf, radix, timing, rates):
             lengths = ((n, numel // n),)
         how = (cf.route2d(*shape[1:]) if name == "fft2_last"
                else cf.route(n))
-        # the route's own arithmetic: radix stages, or 8 n (n1 + n2) per
-        # row of the direct four-step sums
-        kernel_flops = sum(
-            seqs * (radix.plan_flops(m) if how == "radix"
-                    else 8 * m * sum(cf.split_for(m)))
-            for m, seqs in lengths)
+        kernel_flops = sum(seqs * route_flops(cf, radix, how, m)
+                           for m, seqs in lengths)
         model_flops = 5.0 * numel * math.log2(n)
         bytes_moved = 2 * numel * 8               # read once, write once
         t_bytes, t_ops = bytes_moved / hbm * 1e3, model_flops / fp32 * 1e3
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        # the two-pass route reads and writes the data twice: its own cap
+        two_pass = (f"bound_2pass_ms={max(2 * t_bytes, t_ops):.4f} "
+                    if how == "radix2" else "")
         forms = ""
         if name == "fft2_last":   # the plane in L2-sized chunks, in one go
             chunk = radix.plane_chunk(*shape[1:])
@@ -487,12 +501,12 @@ def check_kernels(torch, cf, radix, timing, rates):
               f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
               f"copy_ms={copy_ms:.4f} kernel_steady_ms={steady[0]:.4f} "
               f"library_steady_ms={steady[1]:.4f} "
-              f"bound_ms={bound_ms:.4f} ({bound_by}) "
+              f"bound_ms={bound_ms:.4f} ({bound_by}) {two_pass}"
               f"kernel_gflop={kernel_flops / 1e9:.3f} "
               f"kernel_gflops_rate={kernel_flops / ms / 1e6:.1f}", flush=True)
         rec = records.setdefault(name, dict(
             name=name, route="cuda",
-            source=RADIX_SOURCE if how == "radix" else SOURCE,
+            source=RADIX_SOURCE if how.startswith("radix") else SOURCE,
             replaces=REPLACES[name],
             launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
@@ -503,7 +517,7 @@ def check_kernels(torch, cf, radix, timing, rates):
 
 
 # The wrappers with a radix route; every length of both paths (512, 510,
-# 256) is a radix length, so none of them may take the direct route.
+# 256) is a radix length, so none of them may take another route.
 RADIX_WRAPPERS = ("fft_last", "fft2_last", "fft_axis0", "decode_fft",
                   "fft_encode")
 
@@ -2100,12 +2114,20 @@ def time_operators(torch, dfft, timing, dev, card, plans, n=512):
 # ------------------------------------------------------- long 1D paths
 
 # The two-level phase's (batch, n): the reference's largest 1D size (5^11
-# = 3125 x 15625, its row stage on the direct route), 2^24 (4096 x 4096)
-# and a batched 2^20 (1024 x 1024).
+# = 3125 x 15625, its row stage on the two-pass radix route), 2^24 (4096
+# x 4096) and a batched 2^20 (1024 x 1024).
 TWO_LEVEL = ((1, 5 ** 11), (1, 1 << 24), (64, 1 << 20))
 # The distributed 1D plan's lengths on SLAB_RANKS loopback ranks: 2^28
-# (A = B = 16384) and 3 * 2^26 (12288 x 16384), both stages direct.
+# (A = B = 16384) and 3 * 2^26 (12288 x 16384), both stages on the
+# two-pass radix route.
 DIST1D = (1 << 28, 3 << 26)
+# Cases of the direct route that no path at 512 or past 8192 takes any
+# more (a prime factor over 17: 9728 = 19 * 512), so that the four-step
+# sums of kernels 2 and 3 are still held against their plain version.
+DIRECT_CASES = [
+    ("fft_axis0", True, (1, 9728, 512), "direct route, 19 * 512"),
+    ("fft_last", True, (512, 9728), "direct route, 19 * 512"),
+]
 
 
 def long_cases(cf, choose_split_1d, ranks=SLAB_RANKS):
@@ -2135,7 +2157,7 @@ def long_cases(cf, choose_split_1d, ranks=SLAB_RANKS):
 def check_routes_by_length(cf, seen, path):
     """Fail unless every row, strided and plane launch of ``path`` took
     the route its length takes (``cuda_fft.route``): the long paths'
-    lengths past 8192 take the direct one."""
+    lengths past 8192 take the two-pass radix one."""
     want = Counter()
     for key, v in seen.items():
         name, shape = key[0], key[2]
@@ -2167,7 +2189,9 @@ def check_two_level(torch, cf, dev):
             f = torch.fft.fft if fwd else torch.fft.ifft
             err, l2, _ = rel_err(torch, y, f(ref, dim=1))
             del y
-            print(f"two-level [{batch},{n}] {cf.outer_split(n)} "
+            m1, m2 = cf.outer_split(n)
+            print(f"two-level [{batch},{n}] {(m1, m2)} (routes: stage 1 "
+                  f"{cf.route(m1)}, stage 2 {cf.route(m2)}) "
                   f"{'fwd' if fwd else 'inv'}: vs torch.fft (complex128) "
                   f"max rel err={err:.3e} l2 rel err={l2:.3e}", flush=True)
             if not max(err, l2) <= TOL:
@@ -2229,6 +2253,8 @@ def check_dist1d(torch, dfft, dev, ranks=SLAB_RANKS):
     complex128 (the transposed order read back to natural), the backward
     by round trip, and ``ppermute`` equal to ``alltoall`` bit for bit.
     Returns the 2^28 plans, for the times."""
+    from distributedfft_tpu_torch.ops import cuda_fft as cf
+
     world = dfft.make_world(ranks)
     keep = {}
     for n in DIST1D:
@@ -2256,6 +2282,8 @@ def check_dist1d(torch, dfft, dev, ranks=SLAB_RANKS):
                     and torch.equal(plans[("ppermute", 1)](y), r))
             del y, r
             print(f"dist 1D n={n} ({f.spec.a} x {f.spec.b}) P={ranks} "
+                  f"(routes: s1 {cf.route(f.spec.a)}, s4 "
+                  f"{cf.route(f.spec.b)}) "
                   f"{order}: forward vs torch.fft (complex128) max rel err="
                   f"{errs[0]:.3e} l2 rel err={errs[1]:.3e}; roundtrip max "
                   f"rel err={errs[2]:.3e} l2 rel err={errs[3]:.3e}; "
@@ -3071,6 +3099,7 @@ def check_explain_record(label, rec, need, secs, card, n=512):
     timing, comp = rec["timing"], rec["compiled"] or {}
     tot = rec["totals"]
     print(f"explain {label} {n}^3 ({secs:.1f} s; timing {timing['source']}"
+          f" (pads of {timing.get('device_pad_launches')} launches)"
           f"; peak_hbm_bytes {comp.get('peak_hbm_bytes')}, argument "
           f"{comp.get('argument_bytes')}, output {comp.get('output_bytes')}"
           f", temp {comp.get('temp_bytes')}; model total "
@@ -4271,6 +4300,7 @@ def main() -> None:
     from distributedfft_tpu_torch.parallel.fft1d import choose_split_1d
 
     KERNEL_CASES.extend(long_cases(cf, choose_split_1d))
+    KERNEL_CASES.extend(DIRECT_CASES)
     held = {case_key(c) for c in KERNEL_CASES}
     KERNEL_CASES.extend(c for c in tune_cases(512)
                         if case_key(c) not in held)

@@ -6,13 +6,15 @@
 //   pallas_fft.py:_make_kernel_strided  (leading axis)  -> dfft_fft_strided
 //   pallas_fft.py:_make_kernel2d        (fused plane)   -> dfft_fft_plane
 //
-// Two routes. The radix route (dfft_fft_rows, dfft_fft_strided,
+// Three routes. The radix route (dfft_fft_rows, dfft_fft_strided,
 // dfft_fft_plane; device code and pass set-up in radix.cuh) takes every
 // length n <= 8192 whose prime factors are all <= 17, with the stage
-// plan and twiddles the host gives it (ops/radix.py). Every other
-// kernel-eligible length takes the direct route (dfft_fft_rows_direct,
-// dfft_fft_strided_direct, dfft_fft_plane_direct): the four-step sums
-// below.
+// plan and twiddles the host gives it (ops/radix.py). The two-pass radix
+// route (dfft_fft_rows_2p, dfft_fft_strided_2p) takes the row and
+// strided kernels' lengths 8192 < n <= 65536 with the same prime factors:
+// two radix passes, below. Every other kernel-eligible length takes the
+// direct route (dfft_fft_rows_direct, dfft_fft_strided_direct,
+// dfft_fft_plane_direct): the four-step sums below.
 //
 // What bounds the radix route on an H100: bytes, 16 per element per pass
 // (one complex64 read, one written; 3.35 TB/s). A mixed-radix Stockham
@@ -56,6 +58,28 @@
 // through L1, so it runs at the SM's L1/shared-memory bandwidth, several
 // times its memory bound. Each block holds whole sequences in shared
 // memory, so device memory is read once and written once per pass.
+//
+// The two-pass route: n = m1*m2 (the same split, both factors radix
+// lengths, m1 <= m2 <= 256), j = j1*m2 + j2 and k = k1 + m1*k2. A whole
+// sequence no longer fits one block's shared memory with its exchange
+// buffers, so the transform is the four-step split run as two radix
+// passes through a scratch the size of the data, each pass one read and
+// one write of device memory (the route's bound is twice the one-pass
+// bound), every operand of the butterflies in registers or shared memory:
+//   pass 1: the length-m1 column pass over j1 of x as [lead, m1,
+//     m2*cols] (rows: [batch, m1, m2], cols = 1); its sink (radix.cuh:
+//     TwiddleOut) multiplies output (k1, j2) by T[j2, k1] = w_n^(k1*j2),
+//     the direct route's own float64-built table (given transposed), and
+//     stores to the scratch in place of j1;
+//   pass 2: the length-m2 pass over j2, storing (k1, k2) at k1 + m1*k2
+//     (times the inverse's scale): for the strided kernel the column
+//     pass over [lead*m1, m2, cols] (radix.cuh: ReorderOut, a warp still
+//     stores runs of neighbouring columns), for the row kernel the rows
+//     pass over [batch*m1, m2], whose store is a transpose through shared
+//     memory (radix.cuh: TransposeOut: each k2 stores a run of >= 16
+//     consecutive k1, >= 128 bytes). A strided call with cols = 1 is the
+//     row kernel's. The reordering crosses groups, so the route cannot run
+//     in place.
 //
 // Shared memory of the direct route: a block takes S sequences of length
 // n and needs 2*S*n complex64. When even one sequence does not fit (n
@@ -170,6 +194,61 @@ cudaError_t launch_strided(const float2* x, float2* y, float2* scratch,
   return cudaGetLastError();
 }
 
+// Most columns per group of a two-pass column pass.
+constexpr int kTwoPassMostCols = 64;
+
+// Columns per group of a two-pass column pass at most: a factor's
+// sequence is short (49 to 256 points), so a group of 16 columns leaves
+// most of the block's threads without a butterfly; enough columns that
+// the widest stage gives every thread one, from 16 up to
+// kTwoPassMostCols (ColsPass keeps as many as fit shared memory).
+int two_pass_most(const radix::Plan& p) {
+  int most = 16;
+  const long long want = (long long)radix::kThreads * radix::max_radix(p);
+  while (most < kTwoPassMostCols && (long long)most * p.n < want) most *= 2;
+  return most;
+}
+
+// Pass 1 of the two-pass route: the length-m1 column pass over x as
+// [lead, m1, m2*cols] into s, each output times its twiddle from tt
+// (T transposed, [m1, m2]).
+cudaError_t two_pass_first(const float2* x, float2* s, long long lead,
+                           long long cols, const radix::Plan& p1, int m2,
+                           bool fwd, const float2* tw1, const float2* tt,
+                           cudaStream_t st) {
+  const long long nz = (long long)m2 * cols;
+  radix::ColsPass<radix::TwiddleOut> pass(p1, fwd, nz, 0, two_pass_most(p1));
+  if (pass.err != cudaSuccess) return pass.err;
+  return pass(x, radix::TwiddleOut{s, tt, nz, cols, m2}, lead, nz, tw1, 1.0f,
+              st);
+}
+
+// The two-pass route over [batch, n] rows: pass 1 into s, then the rows
+// pass over [batch*m1, m2] with the transposed store into y.
+cudaError_t two_pass_rows(const float2* x, float2* y, float2* s,
+                          long long batch, const radix::Plan& p1,
+                          const radix::Plan& p2, bool fwd, const float2* tw1,
+                          const float2* tw2, const float2* tt, float scale,
+                          cudaStream_t st) {
+  cudaError_t e = two_pass_first(x, s, batch, 1, p1, p2.n, fwd, tw1, tt, st);
+  if (e != cudaSuccess) return e;
+  const int m1 = p1.n, m2 = p2.n;
+  auto extra = [m2](int seqs) { return radix::TransposeOut::bytes(m2, seqs); };
+  const int g = radix::rows_per_group(p2, 16, extra);
+  radix::RowsPass<radix::TransposeOut> pass(p2, fwd, g, extra(g));
+  if (pass.err != cudaSuccess) return pass.err;
+  return pass(s, radix::TransposeOut{y, m1, m2, radix::odd_ld(g)},
+              batch * m1, tw2, scale, st);
+}
+
+// The two-pass launchers' checks: plans of at least two stages, and a
+// scratch apart from x and y, y apart from x.
+bool valid_two_pass(int stages1, int stages2, const void* x, const void* y,
+                    const void* scratch) {
+  return radix::valid_stages(stages1) && radix::valid_stages(stages2) &&
+         scratch != nullptr && scratch != x && scratch != y && x != y;
+}
+
 }  // namespace
 
 extern "C" {
@@ -181,10 +260,10 @@ int dfft_fft_rows(const void* x, void* y, long long batch, int n,
                   int stages, const int* radices, int forward,
                   const void* tw, float scale, void* stream) {
   if (!radix::valid_stages(stages)) return (int)cudaErrorInvalidValue;
-  radix::RowsPass rows(radix::make_plan(n, stages, radices), forward != 0);
+  radix::RowsPass<> rows(radix::make_plan(n, stages, radices), forward != 0);
   if (rows.err != cudaSuccess) return (int)rows.err;
-  return (int)rows((const float2*)x, (float2*)y, batch, (const float2*)tw,
-                   scale, (cudaStream_t)stream);
+  return (int)rows((const float2*)x, radix::RowOut{(float2*)y, n}, batch,
+                   (const float2*)tw, scale, (cudaStream_t)stream);
 }
 
 // The same by the direct route: n = n1*n2, LUTs w1, tw, w2, `seqs` rows
@@ -196,6 +275,26 @@ int dfft_fft_rows_direct(const void* x, void* y, void* scratch,
   return (int)launch_rows(
       (const float2*)x, (float2*)y, (float2*)scratch, batch, n1, n2, seqs,
       (const float2*)w1, (const float2*)tw, (const float2*)w2, scale,
+      (cudaStream_t)stream);
+}
+
+// The same by the two-pass route: n = m1*m2, each factor with its stage
+// radices (host memory) and twiddles tw1, tw2 (device memory), tt the
+// four-step twiddle table T transposed, [m1, m2] (device memory: tt[k1*m2
+// + j2] = w_n^(k1*j2)), scratch of batch*n complex64
+// (neither x nor y; y is not x).
+int dfft_fft_rows_2p(const void* x, void* y, void* scratch, long long batch,
+                     int m1, int stages1, const int* radices1, int m2,
+                     int stages2, const int* radices2, int forward,
+                     const void* tw1, const void* tw2, const void* tt,
+                     float scale, void* stream) {
+  if (!valid_two_pass(stages1, stages2, x, y, scratch))
+    return (int)cudaErrorInvalidValue;
+  return (int)two_pass_rows(
+      (const float2*)x, (float2*)y, (float2*)scratch, batch,
+      radix::make_plan(m1, stages1, radices1),
+      radix::make_plan(m2, stages2, radices2), forward != 0,
+      (const float2*)tw1, (const float2*)tw2, (const float2*)tt, scale,
       (cudaStream_t)stream);
 }
 
@@ -225,6 +324,39 @@ int dfft_fft_strided_direct(const void* x, void* y, void* scratch,
       (cudaStream_t)stream);
 }
 
+// The same by the two-pass route: plans, twiddles, tt and scratch as
+// dfft_fft_rows_2p takes them.
+int dfft_fft_strided_2p(const void* x, void* y, void* scratch,
+                        long long lead, long long cols, int m1, int stages1,
+                        const int* radices1, int m2, int stages2,
+                        const int* radices2, int forward, const void* tw1,
+                        const void* tw2, const void* tt, float scale,
+                        void* stream) {
+  if (!valid_two_pass(stages1, stages2, x, y, scratch))
+    return (int)cudaErrorInvalidValue;
+  const radix::Plan p1 = radix::make_plan(m1, stages1, radices1);
+  const radix::Plan p2 = radix::make_plan(m2, stages2, radices2);
+  const bool fwd = forward != 0;
+  const float2* fx = (const float2*)x;
+  float2* fy = (float2*)y;
+  float2* fs = (float2*)scratch;
+  const float2* ftw1 = (const float2*)tw1;
+  const float2* ftw2 = (const float2*)tw2;
+  const float2* ftt = (const float2*)tt;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (cols == 1)
+    return (int)two_pass_rows(fx, fy, fs, lead, p1, p2, fwd, ftw1, ftw2, ftt,
+                              scale, st);
+  cudaError_t e = two_pass_first(fx, fs, lead, cols, p1, m2, fwd, ftw1, ftt,
+                                 st);
+  if (e != cudaSuccess) return (int)e;
+  radix::ColsPass<radix::ReorderOut> pass(p2, fwd, cols, 0,
+                                          two_pass_most(p2));
+  if (pass.err != cudaSuccess) return (int)pass.err;
+  return (int)pass(fs, radix::ReorderOut{fy, cols, m1, m2}, lead * m1, cols,
+                   ftw2, scale, st);
+}
+
 // 2D DFT over the last two axes of [batch, ny, nz], the radix route, in
 // chunks of `chunk` planes: rows over Z into y, then columns over Y on y
 // in place, scaled by `scale`. Each axis has its stage radices (host
@@ -237,8 +369,8 @@ int dfft_fft_plane(const void* x, void* y, long long batch, int ny,
   if (!radix::valid_stages(y_stages) || !radix::valid_stages(z_stages))
     return (int)cudaErrorInvalidValue;
   if (chunk < 1) return (int)cudaErrorInvalidValue;
-  radix::RowsPass rows(radix::make_plan(nz, z_stages, z_radices),
-                       forward != 0);
+  radix::RowsPass<> rows(radix::make_plan(nz, z_stages, z_radices),
+                         forward != 0);
   if (rows.err != cudaSuccess) return (int)rows.err;
   radix::ColsPass<> cols(radix::make_plan(ny, y_stages, y_radices),
                          forward != 0, nz);
@@ -249,7 +381,8 @@ int dfft_fft_plane(const void* x, void* y, long long batch, int ny,
     const long long cnt = std::min(chunk, batch - b0);
     const float2* xs = (const float2*)x + b0 * plane;
     float2* ys = (float2*)y + b0 * plane;
-    cudaError_t e = rows(xs, ys, cnt * ny, (const float2*)twz, 1.0f, st);
+    cudaError_t e = rows(xs, radix::RowOut{ys, nz}, cnt * ny,
+                         (const float2*)twz, 1.0f, st);
     if (e != cudaSuccess) return (int)e;
     e = cols(ys, radix::C64Out{ys}, cnt, nz, (const float2*)twy, scale, st);
     if (e != cudaSuccess) return (int)e;

@@ -30,8 +30,10 @@
 // each output, times the inverse's scale, straight from registers to
 // the kernel's sink: a complex64 store to device memory (a warp stores
 // 256 contiguous bytes for rows, whole row segments for columns), the
-// same store while taking the encode's amax, or the encode's bf16 pack.
-// Plans have at least two stages (n >= 64 > 17).
+// same store while taking the encode's amax, the encode's bf16 pack, or
+// the two-pass route's stores (four_step.cu: the twiddle product of its
+// first pass, the reordering of its second). Plans have at least two
+// stages (n >= 49 > 17).
 
 #pragma once
 
@@ -558,16 +560,67 @@ __device__ __forceinline__ void group_loop(float2* smem, Smem sm,
   }
 }
 
-// y[b, :] = DFT(x[b, :]) * scale over [batch, n], `seqs` rows per group.
-template <bool FWD, int MAXR>
+// The output of a rows pass: begin(extra) as a column pass's (below);
+// row(r, s) is the sink of row r, the group's row s; flush(r0, cnt) runs
+// once the group's rows r0 .. r0 + cnt - 1 have all been handed to their
+// sinks (after a __syncthreads). Each is called by every thread.
+struct RowOut {  // y[r*n + i] = v
+  float2* y;
+  int n;
+  __device__ void begin(void*) {}
+  __device__ auto row(long long r, int) { return store_c64(y + r * n, 1); }
+  __device__ void flush(long long, int) {}
+};
+
+// Odd row stride of the transposed store's staging buffer: a half warp
+// writing 16 neighbouring outputs of one row hits 16 bank pairs.
+__host__ __device__ __forceinline__ int odd_ld(int len) { return len | 1; }
+
+// The second pass of the two-pass row route (four_step.cu:
+// dfft_fft_rows_2p): row r = b*m1 + k1 of the [batch*m1, m2] scratch is
+// sequence k1 of batch row b, and its output k2 goes to y[b*n + k1 +
+// m1*k2]. The last stage writes the group's rows (seqs >= 16 of them,
+// consecutive k1) into shared memory at k2*ld + s; flush then stores each
+// k2's run of the group's rows: >= 128 contiguous bytes.
+struct TransposeOut {
+  float2* y;
+  int m1, m2, ld;  // ld = odd_ld(rows per group)
+  float2* stage;
+  static size_t bytes(int m2, int seqs) {
+    return (size_t)m2 * odd_ld(seqs) * sizeof(float2);
+  }
+  __device__ void begin(void* extra) { stage = static_cast<float2*>(extra); }
+  __device__ auto row(long long, int s) {
+    float2* d = stage + s;
+    const int step = ld;
+    return [=](int i, float2 v) { d[i * step] = v; };
+  }
+  __device__ void flush(long long r0, int cnt) {
+    // thread -> the group's row s, k2 = k0, k0 + per, ...: neighbouring
+    // threads store neighbouring k1
+    const int per = blockDim.x / cnt, s = threadIdx.x % cnt;
+    const int k0 = threadIdx.x / cnt;
+    if (k0 >= per) return;
+    const long long b0 = r0 / m1;
+    const int k1 = (int)(r0 - b0 * m1) + s, q = k1 / m1;
+    float2* d = y + (b0 + q) * m1 * m2 + (k1 - q * m1);
+    for (int k2 = k0; k2 < m2; k2 += per)
+      d[(long long)m1 * k2] = stage[k2 * ld + s];
+  }
+};
+
+// DFT(x[b, :]) * scale over [batch, n], `seqs` rows per group, each row
+// going to `out`.
+template <bool FWD, int MAXR, typename Out>
 __global__ void __launch_bounds__(kThreads)
-rows_kernel(const float2* x, float2* y, long long batch, Plan plan, int seqs,
+rows_kernel(const float2* x, Out out, long long batch, Plan plan, int seqs,
             Smem sm, const float2* twg, float scale) {
   extern __shared__ float4 radix_smem[];
   float2* smem = reinterpret_cast<float2*>(radix_smem);
   float2* tw = smem + sm.twiddles();
   const int n = plan.n;
   load_twiddles(tw, twg, n);
+  out.begin(tw + (n - 1));
   const Lane ln = lane<false>(seqs);
   const long long groups = (batch + seqs - 1) / seqs;
   auto count = [&](long long g) {
@@ -582,8 +635,9 @@ rows_kernel(const float2* x, float2* y, long long batch, Plan plan, int seqs,
         const long long row = g * seqs + ln.s;
         const float2* in = p + ln.s * n;
         run_stages<FWD, false, MAXR>([=](int i) { return in[i]; },
-                                     store_c64(y + row * n, 1), row < batch,
-                                     ln, seqs, plan, a, b, tw, scale, after);
+                                     out.row(row, ln.s), row < batch, ln,
+                                     seqs, plan, a, b, tw, scale, after);
+        out.flush(g * seqs, count(g));
       });
 }
 
@@ -598,6 +652,51 @@ struct C64Out {  // y[e + i*stride] = v
   __device__ void begin(void*) {}
   __device__ auto column(long long e, long long stride) {
     return store_c64(y + e, stride);
+  }
+  __device__ void end() {}
+};
+
+// The first pass of the two-pass route (four_step.cu: dfft_fft_rows_2p,
+// dfft_fft_strided_2p), a column pass of length m1 over [lead, m1, nz],
+// nz = m2*cols: column e of a row holds j2 = e / cols, and output k1
+// goes to y[e + k1*nz] times the twiddle w_n^(k1*j2) = T[j2, k1], read
+// from tt, the host's table T transposed ([m1, m2], complex64 built in
+// float64, n entries that every lead block reads: they stay in L2).
+// Neighbouring columns hold the same j2 or, when cols = 1, neighbouring
+// ones, so a warp's reads of one k1 are one broadcast or one coalesced
+// run.
+struct TwiddleOut {
+  float2* y;
+  const float2* tt;
+  long long nz, cols;
+  int m2;
+  __device__ void begin(void*) {}
+  __device__ auto column(long long e, long long stride) {
+    const float2* w = tt + (e % nz) / cols;
+    const int m = m2;
+    float2* d = y + e;
+    return [=](int i, float2 v) {
+      d[i * stride] = cmul(v, __ldg(w + i * m));
+    };
+  }
+  __device__ void end() {}
+};
+
+// The second pass of the two-pass strided route, a column pass of length
+// m2 over the [lead*m1, m2, cols] scratch: block l*m1 + k1 holds sequence
+// k1 of lead block l, and output k2 of its column c goes to y[l, k1 +
+// m1*k2, c] (a warp still stores whole runs of neighbouring columns).
+struct ReorderOut {
+  float2* y;
+  long long cols;
+  int m1, m2;
+  __device__ void begin(void*) {}
+  __device__ auto column(long long e, long long) {
+    const long long span = (long long)m2 * cols;
+    const long long blk = e / span, c = e - blk * span;
+    const long long l = blk / m1, k1 = blk - l * m1;
+    float2* d = y + (l * m1 * m2 + k1) * cols + c;
+    return store_c64(d, (long long)m1 * cols);
   }
   __device__ void end() {}
 };
@@ -685,26 +784,31 @@ inline Smem layout(int n, int buf, int land, size_t extra) {
   return Smem{buf, buf, 0};
 }
 
+inline size_t no_extra(int) { return 0; }
+
 // Rows per group: enough that the widest stage gives every thread a
-// butterfly, as far as kRadixSmem allows with prefetch.
-inline int rows_per_group(const Plan& p) {
-  int seqs = 1;
+// butterfly, and at least `least` (a power of two), as far as kRadixSmem
+// allows with prefetch and extra(seqs) bytes of the output's after the
+// twiddles.
+template <typename Extra = size_t (*)(int)>
+int rows_per_group(const Plan& p, int least = 1, Extra extra = no_extra) {
+  int seqs = least;
   while ((long long)seqs * p.n < (long long)kThreads * max_radix(p)) seqs *= 2;
-  while (seqs > 1) {
+  while (seqs > least) {
     const int buf = seqs * padded_ld(p.n);
-    if (smem_bytes(p.n, Smem{buf, buf, 1}, 0) <= kRadixSmem) break;
+    if (smem_bytes(p.n, Smem{buf, buf, 1}, extra(seqs)) <= kRadixSmem) break;
     seqs /= 2;
   }
   return seqs;
 }
 
-// Columns per group: 16 (128-byte row segments of complex64) down to 1,
-// no more than the next power of two of `nz` (a narrow array leaves no
-// lane idle), and the most that fit kRadixSmem with prefetch. land(c):
+// Columns per group: `most` (16: 128-byte row segments of complex64) down
+// to 1, no more than the next power of two of `nz` (a narrow array leaves
+// no lane idle), and the most that fit kRadixSmem with prefetch. land(c):
 // the complex64 the landing copy of c columns takes.
 template <typename Land>
-int cols_per_group(int n, long long nz, Land land) {
-  int c = 16;
+int cols_per_group(int n, long long nz, Land land, int most = 16) {
+  int c = most;
   while (c > 1 && c / 2 >= nz) c /= 2;
   while (c > 1 && smem_bytes(n, Smem{land(c), n * c, 1}, 0) > kRadixSmem)
     c /= 2;
@@ -778,41 +882,50 @@ struct Pass {
   long long blocks(long long groups) const { return std::min(cap, groups); }
 };
 
-using RowsKernel = void (*)(const float2*, float2*, long long, Plan, int,
-                            Smem, const float2*, float);
+template <typename Out>
+using RowsKernel = void (*)(const float2*, Out, long long, Plan, int, Smem,
+                            const float2*, float);
 template <typename Out>
 using ColsKernel = void (*)(const float2*, Out, long long, long long, Plan,
                             int, Smem, const float2*, float);
 
-// The rows pass over [batch, n].
-struct RowsPass : Pass<RowsKernel> {
-  RowsPass(const Plan& p, bool fwd)
-      : Pass(p, rows_per_group(p), rows_per_group(p) * padded_ld(p.n),
-             rows_per_group(p) * padded_ld(p.n), 0,
-             fwd ? rows_kernel<true, 8> : rows_kernel<false, 8>,
-             fwd ? rows_kernel<true, 17> : rows_kernel<false, 17>) {}
-  cudaError_t operator()(const float2* x, float2* y, long long batch,
+// The rows pass over [batch, n] from x into `out` (RowOut: x -> y);
+// `group` rows per group (rows_per_group), `extra`: the bytes of shared
+// memory Out::begin takes.
+template <typename Out = RowOut>
+struct RowsPass : Pass<RowsKernel<Out>> {
+  RowsPass(const Plan& p, bool fwd, int group, size_t extra)
+      : Pass<RowsKernel<Out>>(
+            p, group, group * padded_ld(p.n), group * padded_ld(p.n), extra,
+            fwd ? rows_kernel<true, 8, Out> : rows_kernel<false, 8, Out>,
+            fwd ? rows_kernel<true, 17, Out> : rows_kernel<false, 17, Out>) {}
+  RowsPass(const Plan& p, bool fwd) : RowsPass(p, fwd, rows_per_group(p), 0) {}
+  cudaError_t operator()(const float2* x, Out out, long long batch,
                          const float2* tw, float scale, cudaStream_t st) {
-    const long long b = blocks((batch + group - 1) / group);
+    const int group = this->group;
+    const long long b = this->blocks((batch + group - 1) / group);
+    const RowsKernel<Out> kernel = this->kernel;
     if (b > 0)
-      kernel<<<(unsigned)b, kThreads, shm, st>>>(x, y, batch, plan, group, sm,
-                                                 tw, scale);
+      kernel<<<(unsigned)b, kThreads, this->shm, st>>>(
+          x, out, batch, this->plan, group, this->sm, tw, scale);
     return cudaGetLastError();
   }
 };
 
-inline int c64_cols(int n, long long nz) {
-  return cols_per_group(n, nz, [n](int c) { return n * c; });
+inline int c64_cols(int n, long long nz, int most = 16) {
+  return cols_per_group(n, nz, [n](int c) { return n * c; }, most);
 }
 
 // The columns pass over [lead, n, nz] from x into `out` (C64Out: x -> y,
-// y may be x); `extra`: the bytes of shared memory Out::begin takes.
+// y may be x); `extra`: the bytes of shared memory Out::begin takes;
+// groups of up to `most` columns (c64_cols).
 template <typename Out = C64Out>
 struct ColsPass : Pass<ColsKernel<Out>> {
-  ColsPass(const Plan& p, bool fwd, long long nz, size_t extra = 0)
+  ColsPass(const Plan& p, bool fwd, long long nz, size_t extra = 0,
+           int most = 16)
       : Pass<ColsKernel<Out>>(
-            p, c64_cols(p.n, nz), p.n * c64_cols(p.n, nz),
-            p.n * c64_cols(p.n, nz), extra,
+            p, c64_cols(p.n, nz, most), p.n * c64_cols(p.n, nz, most),
+            p.n * c64_cols(p.n, nz, most), extra,
             fwd ? cols_kernel<true, 8, Out> : cols_kernel<false, 8, Out>,
             fwd ? cols_kernel<true, 17, Out> : cols_kernel<false, 17, Out>) {}
   cudaError_t operator()(const float2* x, Out out, long long lead,

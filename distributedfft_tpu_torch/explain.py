@@ -48,7 +48,7 @@ from .tuner import (MODEL_DCN_GBPS, MODEL_HBM_GBPS, MODEL_LAUNCH_SECONDS,
                     _process_count, mm_tier_tflops, robust_stats)
 from .tuner import _allgather_rows as _gather_rows
 from .utils import metrics as _metrics
-from .utils.timing import sync
+from .utils.timing import _last_tensor, sync
 from .utils.trace import OP_STAGE_KEYS, STAGE_KEYS, stage_key
 
 __all__ = [
@@ -543,7 +543,25 @@ def _load_trace_doc(path: str):
 
 #: Captures :func:`device_stage_samples` makes before it keeps one that
 #: lost a pass.
-DEVICE_CAPTURES = 3
+DEVICE_CAPTURES = 4
+
+#: Fills of a small scratch tensor launched outside every stage span
+#: right after the profiled window opens and again before it closes, in
+#: the first capture; each capture that lost a pass makes the next one's
+#: pads :data:`DEVICE_PAD_GROWTH` times longer. On the H100, in a process
+#: some minutes old, a capture often lost the records of its first 4-7
+#: kernel launches (whatever they were and however long after the window
+#: opened) and once its last 2, launches present; the pads take the loss.
+DEVICE_PAD_LAUNCHES = 64
+DEVICE_PAD_GROWTH = 4
+
+
+def _pad(scratch: torch.Tensor, n: int) -> None:
+    """``n`` fills of ``scratch`` (one kernel launch each on a card),
+    then a wait for them."""
+    for _ in range(n):
+        scratch.fill_(0.0)
+    sync(scratch)
 
 
 def _lost_pass(parsed: dict) -> bool:
@@ -562,11 +580,14 @@ def device_stage_samples(
     ``record_function`` range) after one unprofiled warm pass and one
     profiled warm-up step, export the chrome trace to ``logdir`` (a
     temporary directory, removed after, when None) and attribute the
-    stage times from the device timeline. A capture in which a stage has
-    device time in some passes and none in another lost operations and
-    is made again, up to :data:`DEVICE_CAPTURES` times. Returns
-    ``(parsed, None)`` (:func:`parse_device_trace`) or ``(None, reason)``
-    when the run cannot give a device attribution (the CPU's case)."""
+    stage times from the device timeline. The passes sit between two pads
+    of :data:`DEVICE_PAD_LAUNCHES` fills outside every stage span. A
+    capture in which a stage has device time in some passes and none in
+    another lost operations and is made again with longer pads, up to
+    :data:`DEVICE_CAPTURES` times. Returns ``(parsed, None)``
+    (:func:`parse_device_trace`, with the capture's ``pad_launches``) or
+    ``(None, reason)`` when the run cannot give a device attribution
+    (the CPU's case)."""
     import shutil
     import tempfile
 
@@ -588,9 +609,16 @@ def device_stage_samples(
             cur = fn(cur)
         sync(cur)
 
+    held = _last_tensor(x)
+    scratch = torch.empty(256, dtype=torch.float32,
+                          device=held.device if held is not None else "cpu")
+
     try:
         one_pass()
-        for _ in range(DEVICE_CAPTURES):
+        pads = DEVICE_PAD_LAUNCHES
+        for attempt in range(DEVICE_CAPTURES):
+            if attempt:
+                pads *= DEVICE_PAD_GROWTH
             if os.path.exists(path):
                 os.remove(path)
             try:
@@ -599,8 +627,13 @@ def device_stage_samples(
                                                active=iters, repeat=1),
                              on_trace_ready=lambda p: p.export_chrome_trace(
                                  path)) as prof:
-                    for _ in range(1 + iters):
+                    one_pass()
+                    prof.step()     # the window opens here
+                    _pad(scratch, pads)
+                    for i in range(iters):
                         one_pass()
+                        if i == iters - 1:
+                            _pad(scratch, pads)
                         prof.step()
             except Exception as e:  # noqa: BLE001 -- capture is best-effort
                 return None, f"profiler capture failed: {type(e).__name__}"
@@ -614,6 +647,7 @@ def device_stage_samples(
             if parsed is None:
                 return None, ("no device operations under stage spans in "
                               "trace")
+            parsed["pad_launches"] = pads
             if not _lost_pass(parsed):
                 break
         return parsed, None
@@ -835,7 +869,8 @@ def explain(
     ``iters`` passes feed the samples. ``device_timing`` (None: env
     ``DFFT_DEVICE_TIMING``) takes the samples from the card's timeline
     (:func:`device_stage_samples`), keeping the host brackets' medians in
-    ``record["timing"]["host_stage_seconds"]``; where there is no device
+    ``record["timing"]["host_stage_seconds"]`` and the capture's pad
+    length in ``device_pad_launches``; where there is no device
     timeline the host brackets stay and ``timing`` says why.
     ``concurrent`` (an int >= 2 or a sequence of plans) measures the
     cross-transform interleave instead of the plan's own chunks.
@@ -939,6 +974,7 @@ def explain(
                     chunk_rows = dev["chunks"]
                     timing["source"] = "device"
                     timing["device_pids"] = dev["device_pids"]
+                    timing["device_pad_launches"] = dev["pad_launches"]
                 else:
                     timing["fallback_reason"] = reason
     record["staged_available"] = staged_available

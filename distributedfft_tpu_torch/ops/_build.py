@@ -95,6 +95,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     ip = ctypes.POINTER(ctypes.c_int)
     lib.dfft_fft_rows.argtypes = [p, p, ll, i, i, ip, i, p, f, p]
     lib.dfft_fft_rows_direct.argtypes = [p, p, p, ll, i, i, i, p, p, p, f, p]
+    two_pass = [i, i, ip, i, i, ip, i, p, p, p, f, p]
+    lib.dfft_fft_rows_2p.argtypes = [p, p, p, ll] + two_pass
+    lib.dfft_fft_strided_2p.argtypes = [p, p, p, ll, ll] + two_pass
     lib.dfft_fft_strided.argtypes = [p, p, ll, ll, i, i, ip, i, p, f, p]
     lib.dfft_fft_strided_direct.argtypes = [p, p, p, ll, ll, i, i, i, p, p,
                                             p, f, p]
@@ -111,7 +114,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dfft_decode_fft_direct.argtypes = ([p] * 4 + [ll, ll] + [i] * 5
                                            + [p, p, p, f, p])
     for fn in (lib.dfft_fft_rows, lib.dfft_fft_rows_direct,
-               lib.dfft_fft_strided, lib.dfft_fft_strided_direct,
+               lib.dfft_fft_rows_2p, lib.dfft_fft_strided,
+               lib.dfft_fft_strided_direct, lib.dfft_fft_strided_2p,
                lib.dfft_fft_plane, lib.dfft_fft_plane_direct,
                lib.dfft_fft_encode, lib.dfft_fft_encode_direct,
                lib.dfft_decode_fft,

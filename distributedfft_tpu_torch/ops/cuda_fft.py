@@ -11,18 +11,24 @@ kernels become the CUDA launchers of ``csrc/four_step.cu``:
   package's ``vmap`` over middle axes;
 - :func:`fft_last` (``_make_kernel``): DFT over the rows of [batch, n].
 
-Two routes (:func:`route`), chosen by the length alone. Every kernel
+Three routes (:func:`route`), chosen by the length alone. Every kernel
 takes the radix route (``csrc/radix.cuh``, plan and twiddles from
 :mod:`.radix`) for every length n <= 8192 whose prime factors are all
-<= 17, the plane only when both its axes do; every other eligible
-length takes the direct route: the four-step sums, whose split n =
-n1*n2 (both factors <= 256) and float64-built LUTs are the JAX
+<= 17, the plane only when both its axes do. The row and strided
+kernels take the two-pass radix route (``radix2``) for the lengths
+8192 < n <= 65536 with those prime factors: with the four-step split
+n = m1*m2 (:func:`split_for`), a radix pass of length m1 whose store
+multiplies by the four-step twiddle T, then a radix pass of length m2
+whose store puts (k1, k2) at k1 + m1*k2. Every other eligible length
+takes the direct route: the four-step sums, whose split n = n1*n2 (both
+factors <= 256) and float64-built LUTs (T among them) are the JAX
 package's, bit for bit.
 
 Each wrapper takes complex64, contiguous tensors. On a CPU tensor it runs
 the plain version of the route the card would take (``*_plain``: the
-radix stages of :func:`.radix.radix_plain`, or the ``_four_step_ref``
-math as ``torch.einsum`` with the same LUTs); on a CUDA tensor it
+radix stages of :func:`.radix.radix_plain`, the two passes of
+:func:`two_pass_plain`, or the ``_four_step_ref`` math as
+``torch.einsum`` with the same LUTs); on a CUDA tensor it
 launches its kernel or raises. Each counts its launches in
 ``<wrapper>.launches``, by route in :data:`ROUTES` and by case in
 :data:`CASES`. Forward
@@ -67,7 +73,8 @@ _SMEM_BUDGET = 96 * 1024
 #: :mod:`.dft_matmul` (a two-level length is no fallback).
 FALLBACKS: Counter = Counter()
 
-#: Kernel launches by (wrapper, route), route ``radix`` or ``direct``.
+#: Kernel launches by (wrapper, route), route ``radix``, ``radix2`` (the
+#: two-pass route of the row and strided kernels) or ``direct``.
 ROUTES: Counter = Counter()
 
 #: Kernel launches by case: (wrapper, forward, shape), with
@@ -96,13 +103,24 @@ def eligible2d(ny: int, nz: int) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def route(n: int) -> str:
-    """The route of a length-n row transform: ``radix`` for an eligible
-    n that :func:`.radix.radix_plan` takes, else ``direct``."""
-    return "radix" if eligible(n) and radix.radix_plan(n) else "direct"
+    """The route of a length-n row or strided transform: ``radix`` for an
+    eligible n that :func:`.radix.radix_plan` takes (n <= 8192, prime
+    factors <= 17); ``radix2`` for a longer eligible n whose two factors
+    of :func:`split_for` it takes (the same prime factors); else
+    ``direct``."""
+    if not eligible(n):
+        return "direct"
+    if radix.radix_plan(n):
+        return "radix"
+    if all(radix.radix_plan(m) for m in split_for(n)):
+        return "radix2"
+    return "direct"
 
 
 def route2d(ny: int, nz: int) -> str:
-    """The plane's route: ``radix`` when both axes take it."""
+    """The plane's route: ``radix`` when both axes take it. A plane's
+    axes are at most 8192 long (:func:`eligible2d`), so never
+    ``radix2``."""
     return "radix" if route(ny) == route(nz) == "radix" else "direct"
 
 
@@ -153,6 +171,23 @@ def device_tables(n: int, forward: bool, device: torch.device):
     return hit
 
 
+_DEVICE_TT: dict = {}
+
+
+def device_tt(n: int, forward: bool, device: torch.device) -> torch.Tensor:
+    """The four-step twiddle table T of ``n`` transposed, [m1, m2]
+    complex64 (tt[k1, j2] = T[j2, k1] = w_n^(k1*j2), the same bits), on
+    ``device``: what the two-pass route's first store reads. Uploaded once
+    per (n, direction, device)."""
+    key = (n, forward, str(device))
+    hit = _DEVICE_TT.get(key)
+    if hit is None:
+        t = tables_np(n, forward)[1]
+        hit = torch.from_numpy(np.ascontiguousarray(t.T)).to(device)
+        _DEVICE_TT[key] = hit
+    return hit
+
+
 # ------------------------------------------------------- plain versions
 
 def four_step_plain(x2: torch.Tensor, n: int, forward: bool) -> torch.Tensor:
@@ -166,10 +201,31 @@ def four_step_plain(x2: torch.Tensor, n: int, forward: bool) -> torch.Tensor:
     return z.transpose(1, 2).reshape(x2.shape)
 
 
+def two_pass_plain(x2: torch.Tensor, n: int, forward: bool) -> torch.Tensor:
+    """The two-pass route's math on [rows, n] complex64, unscaled: with
+    (m1, m2) = :func:`split_for` (n), j = j1*m2 + j2 and k = k1 + m1*k2,
+    :func:`.radix.radix_plain` over j1, times the four-step twiddle
+    T[j2, k1] (the complex64 table of :func:`tables_np_cached`), then
+    ``radix_plain`` over j2 and the reorder to k. Everything runs in
+    complex128 and is rounded to complex64 once, at the end."""
+    rows = x2.shape[0]
+    m1, m2 = split_for(n)
+    c128 = torch.complex128
+    t = torch.from_numpy(tables_np_cached(n, m1, m2, forward)[1]).to(
+        x2.device, c128)                                   # [m2, m1]
+    a = x2.to(c128).reshape(rows, m1, m2).transpose(1, 2).reshape(-1, m1)
+    b = radix.radix_plain(a, forward).reshape(rows, m2, m1) * t
+    c = radix.radix_plain(b.transpose(1, 2).reshape(-1, m2), forward)
+    return c.reshape(rows, m1, m2).transpose(1, 2).reshape(rows, n).to(
+        x2.dtype)
+
+
 def _rows_plain(x2: torch.Tensor, n: int, forward: bool,
                 how: str) -> torch.Tensor:
     if how == "radix":
         return radix.radix_plain(x2, forward)
+    if how == "radix2":
+        return two_pass_plain(x2, n, forward)
     return four_step_plain(x2, n, forward)
 
 
@@ -181,9 +237,13 @@ def fft_last_plain(x: torch.Tensor, forward: bool = True,
 
 
 def fft_axis0_plain(x: torch.Tensor, forward: bool = True,
-                    normalize: bool = True) -> torch.Tensor:
+                    normalize: bool = True,
+                    how: str | None = None) -> torch.Tensor:
+    """The strided kernel's plain version, on route ``how`` (default:
+    :func:`route` of the length; the fused kernels pass their own)."""
     lead, n, cols = x.shape
-    y = _rows_plain(x.transpose(1, 2).reshape(-1, n), n, forward, route(n))
+    y = _rows_plain(x.transpose(1, 2).reshape(-1, n), n, forward,
+                    how or route(n))
     y = y.reshape(lead, cols, n).transpose(1, 2).contiguous()
     return y if forward or not normalize else y * (1.0 / n)
 
@@ -252,6 +312,18 @@ def _radices(n: int):
     return len(plan), (ctypes.c_int * len(plan))(*plan)
 
 
+def _two_pass_args(n: int, forward: bool, device) -> tuple:
+    """The two-pass launchers' arguments after the shape: each factor of
+    :func:`split_for` (n) with its radices, the direction, each factor's
+    stage twiddles and the four-step twiddle table transposed
+    (:func:`device_tt`) on ``device`` (uploaded once each)."""
+    m1, m2 = split_for(n)
+    return (m1, *_radices(m1), m2, *_radices(m2), int(forward),
+            radix.device_twiddles(m1, forward, device).data_ptr(),
+            radix.device_twiddles(m2, forward, device).data_ptr(),
+            device_tt(n, forward, device).data_ptr())
+
+
 def fft_last(x: torch.Tensor, forward: bool = True,
              normalize: bool = True) -> torch.Tensor:
     """DFT over the rows of ``x`` [batch, n] (the 1D kernel).
@@ -268,6 +340,11 @@ def fft_last(x: torch.Tensor, forward: bool = True,
         tw = radix.device_twiddles(n, forward, x.device)
         _launch("dfft_fft_rows", x, x.data_ptr(), y.data_ptr(), batch, n,
                 *_radices(n), int(forward), tw.data_ptr(), scale)
+    elif how == "radix2":
+        scratch = torch.empty_like(x)
+        _launch("dfft_fft_rows_2p", x, x.data_ptr(), y.data_ptr(),
+                scratch.data_ptr(), batch,
+                *_two_pass_args(n, forward, x.device), scale)
     else:
         n1, n2 = split_for(n)
         seqs, smem = _block_seqs(n, 16, 1)
@@ -298,6 +375,11 @@ def fft_axis0(x: torch.Tensor, forward: bool = True,
         tw = radix.device_twiddles(n, forward, x.device)
         _launch("dfft_fft_strided", x, x.data_ptr(), y.data_ptr(), lead,
                 cols, n, *_radices(n), int(forward), tw.data_ptr(), scale)
+    elif how == "radix2":
+        scratch = torch.empty_like(x)
+        _launch("dfft_fft_strided_2p", x, x.data_ptr(), y.data_ptr(),
+                scratch.data_ptr(), lead, cols,
+                *_two_pass_args(n, forward, x.device), scale)
     else:
         n1, n2 = split_for(n)
         seqs, smem = _block_seqs(n, 16, 32)

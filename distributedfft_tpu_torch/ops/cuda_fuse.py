@@ -9,8 +9,10 @@ mega-kernels become the CUDA launchers of ``csrc/fuse.cu``:
 - :func:`fused_decode_fft` (``_make_decode_kernel``): the exact wire
   decode, then the DFT along one axis (inverse scaled 1/n).
 
-Both take the route :func:`.cuda_fft.fft_axis0` takes for the same
-length (radix or direct, counted in :data:`.cuda_fft.ROUTES` under
+Each takes the radix route where :func:`.cuda_fft.fft_axis0` does (n <=
+8192, prime factors <= 17) and the direct route for every other length,
+the lengths of the strided kernel's two-pass route included
+(:func:`fused_route`; counted in :data:`.cuda_fft.ROUTES` under
 ``fft_encode`` and ``decode_fft``). On the radix route each runs the
 strided kernel's column pass with its own first or last step, so on the
 card the encode equals the codec's encode of ``fft_axis0(x)`` and the
@@ -23,7 +25,7 @@ array. A site the kernels do not take (:func:`kernel_ineligible`) runs
 the unfused executor and codec, as the JAX package's mirror does, and is
 counted in :data:`FUSION_FALLBACKS` by (site, reason). Otherwise a CPU
 tensor runs the plain version (``*_plain``: the codec and
-:func:`.cuda_fft.fft_axis0_plain`, which follows the length's route) and
+:func:`.cuda_fft.fft_axis0_plain` on the fused route) and
 a CUDA tensor launches the kernel or raises. Each function counts its
 launches in ``<function>.launches``.
 
@@ -93,6 +95,13 @@ def kernel_ineligible(shape, fft_axis: int, tile_axis: int, tiles: int,
     return None
 
 
+def fused_route(n: int) -> str:
+    """The fused kernels' route at length n: ``radix`` where
+    :func:`.cuda_fft.route` says so, else ``direct`` (they have no
+    two-pass form)."""
+    return "radix" if cuda_fft.route(n) == "radix" else "direct"
+
+
 def _strided(shape, axis: int) -> tuple[int, int, int]:
     """(lead, n, cols) of the strided layout of a DFT along ``axis``."""
     ax = axis % len(shape)
@@ -112,23 +121,26 @@ def _sidecar_shape(ndim: int, axis: int, tiles: int) -> list[int]:
 def fused_fft_encode_plain(x: torch.Tensor, *, fft_axis: int, forward: bool,
                            tile_axis: int, tiles: int,
                            wire_dtype: str) -> tuple:
-    """The plain DFT along ``fft_axis`` (``fft_axis0_plain``), then the
-    plain codec."""
+    """The plain DFT along ``fft_axis`` (``fft_axis0_plain`` on the fused
+    route), then the plain codec."""
     lead, n, cols = _strided(x.shape, fft_axis)
     y = cuda_fft.fft_axis0_plain(x.reshape(lead, n, cols).contiguous(),
-                                 forward).reshape(x.shape)
+                                 forward, how=fused_route(n))
+    y = y.reshape(x.shape)
     return wire_codec(wire_dtype).encode(y, tile_axis=tile_axis, tiles=tiles)
 
 
 def fused_decode_fft_plain(parts: tuple, dtype, *, fft_axis: int,
                            forward: bool, tile_axis: int, tiles: int,
                            wire_dtype: str) -> torch.Tensor:
-    """The plain codec decode, then the plain DFT (``fft_axis0_plain``)."""
+    """The plain codec decode, then the plain DFT (``fft_axis0_plain`` on
+    the fused route)."""
     y = wire_codec(wire_dtype).decode(parts, dtype, tile_axis=tile_axis,
                                       tiles=tiles)
     lead, n, cols = _strided(y.shape, fft_axis)
     return cuda_fft.fft_axis0_plain(y.reshape(lead, n, cols).contiguous(),
-                                    forward).reshape(y.shape)
+                                    forward, how=fused_route(n)
+                                    ).reshape(y.shape)
 
 
 # ------------------------------------------------------ kernel wrappers
@@ -168,7 +180,7 @@ def fused_fft_encode(x: torch.Tensor, *, fft_axis: int, forward: bool,
     if code:
         amax = torch.empty(2 * tiles, dtype=torch.int32, device=x.device)
         side = torch.empty((tiles, 2), dtype=torch.float32, device=x.device)
-    how = cuda_fft.route(n)
+    how = fused_route(n)
     if how == "radix":
         y = torch.empty_like(x3) if code else None
         tw = radix.device_twiddles(n, forward, x.device)
@@ -227,7 +239,7 @@ def fused_decode_fft(parts: tuple, dtype, *, fft_axis: int, forward: bool,
     q = payload.contiguous()
     y = torch.empty(shape, dtype=torch.complex64, device=payload.device)
     scale = 1.0 if forward else 1.0 / n
-    how = cuda_fft.route(n)
+    how = fused_route(n)
     if how == "radix":
         tw = radix.device_twiddles(n, forward, payload.device)
         _launch("dfft_decode_fft", payload, q.data_ptr(), _ptr(side),

@@ -3,7 +3,9 @@ host plan, twiddle tables, and the plain PyTorch version of the route.
 
 A length n whose prime factors are all <= 17 (and n <= 8192, so that a
 whole sequence and its tables fit one block's shared memory) is taken
-by ``csrc/radix.cuh`` as a chain of Stockham stages. Stage k has radix
+by ``csrc/radix.cuh`` as a chain of Stockham stages; a longer such
+length runs two passes of it, one per factor of its four-step split
+(``cuda_fft.two_pass_plain``). Stage k has radix
 R and ``ns`` = the product of the radices before it; its butterfly j
 (0 <= j < n/R) reads x[j + m n/R] (m < R), multiplies element m by the
 stage twiddle w_L^(p m) with L = ns R and p = j mod ns, runs an R-point

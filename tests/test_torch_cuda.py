@@ -10,9 +10,10 @@ It holds each kernel against its plain PyTorch version on ragged
 batches and column counts (a block's tail), on odd lengths, and on
 lengths whose sequences do not fit a block's shared memory (the
 device-scratch route), plus the plans against the same plans on the CPU.
-The row, strided and plane kernels are held on both their routes
-(radix: 256, 510, 512, ...; direct: 76 = 4*19, 1216 = 19*64, 16384),
-with the route counted, on a plane batch the launcher's L2 chunks do not
+The row, strided and plane kernels are held on each of their routes
+(radix: 256, 510, 512, ...; two-pass radix past 8192: 12288, 15625,
+16384, 65536; direct: 76 = 4*19, 1216 = 19*64, 9728 = 19*512), with
+the route counted, on a plane batch the launcher's L2 chunks do not
 divide, and by the inverse's scale (a round trip).
 The fused stage+codec kernels are held the same way for each codec, both
 directions, and a transform along axis 0, a middle axis and the last
@@ -58,8 +59,12 @@ def _err(got, want):
 @pytest.mark.parametrize("forward", [True, False])
 @pytest.mark.parametrize("batch,n", [(7, 64), (13, 66), (5, 510), (3, 4096),
                                      (3, 8192), (2, 65536), (9, 256),
-                                     (33, 512), (5, 76), (4, 75)])
+                                     (33, 512), (5, 76), (4, 75),
+                                     (3, 12288), (5, 15625), (17, 16384),
+                                     (1, 16384), (3, 9728)])
 def test_fft_last_kernel_matches_plain(card, batch, n, forward):
+    """Every route (two-pass past 8192 at 12288 ... 65536, with batches
+    whose row groups straddle a batch row: 5 x 125 rows of 15625)."""
     x = _c64(n, (batch, n), card)
     before = cuda_fft.fft_last.launches
     how = cuda_fft.route(n)
@@ -69,6 +74,8 @@ def test_fft_last_kernel_matches_plain(card, batch, n, forward):
     assert cuda_fft.fft_last.launches == before + 1
     assert cuda_fft.ROUTES[("fft_last", how)] == routed + 1
     assert _err(got, cuda_fft.fft_last_plain(x, forward)) < C64
+    ref = (torch.fft.fft if forward else torch.fft.ifft)(x, dim=1)
+    assert _err(got, ref) < C64
 
 
 @pytest.mark.parametrize("forward", [True, False])
@@ -77,10 +84,15 @@ def test_fft_last_kernel_matches_plain(card, batch, n, forward):
                                          (2, 8192, 33), (1, 65536, 3),
                                          (3, 512, 257), (1, 512, 16),
                                          (3, 1024, 7), (2, 1216, 9),
-                                         (1, 16384, 5)])
+                                         (1, 16384, 5), (2, 12288, 33),
+                                         (3, 15625, 1), (2, 16384, 3),
+                                         (1, 65536, 1), (2, 65536, 16),
+                                         (1, 9728, 5)])
 def test_fft_axis0_kernel_matches_plain(card, lead, n, cols, forward):
-    """Both routes (radix: 64 ... 8192; direct: 1216 = 19*64, 16384,
-    65536), ragged column tiles and columns narrower than a group."""
+    """Every route (radix: 64 ... 8192; two-pass: 12288, 15625, 16384,
+    65536, with lead > 1 and cols 1, 3, 5, 16, 33; direct: 1216 = 19*64,
+    9728 = 19*512), ragged column tiles and columns narrower than a
+    group."""
     x = _c64(n + cols, (lead, n, cols), card)
     before = cuda_fft.fft_axis0.launches
     how = cuda_fft.route(n)
@@ -140,6 +152,25 @@ def test_routes_and_inverse_scale(card, n, how):
         assert _err(back, p) < C64
 
 
+@pytest.mark.parametrize("n", [12288, 15625, 16384, 65536])
+def test_two_pass_route_scale_and_round_trip(card, n):
+    """The two-pass route: the inverse left unscaled (``normalize=False``,
+    a stage of a composed transform) is n times the scaled one, and a row
+    and a strided round trip give the input back."""
+    assert cuda_fft.route(n) == "radix2"
+    x = _c64(n + 3, (3, n), card)
+    y = cuda_fft.fft_last(x, True)
+    raw = cuda_fft.fft_last(y, False, normalize=False)
+    assert _err(raw, n * x) < C64
+    assert _err(raw, cuda_fft.fft_last_plain(y, False, normalize=False)) < C64
+    assert _err(cuda_fft.fft_last(y, False), x) < C64
+    c = _c64(n + 4, (2, n, 7), card)
+    d = cuda_fft.fft_axis0(c, True)
+    raw = cuda_fft.fft_axis0(d, False, normalize=False)
+    assert _err(raw, cuda_fft.fft_axis0_plain(d, False, normalize=False)) < C64
+    assert _err(cuda_fft.fft_axis0(d, False), c) < C64
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError):
         cuda_fft.fft_last(torch.zeros((2, 64), dtype=torch.complex128,
@@ -173,10 +204,12 @@ def test_plans_on_the_card_match_the_cpu(card, shape, p):
 # ------------------------------------------------ fused stage+codec kernels
 
 # (shape, axis, tiles): axis 0 (lead 1), a middle axis with ragged
-# columns, the last axis (cols 1), a long radix length (8192) and a
-# direct-route one (1216 = 19*64).
+# columns, the last axis (cols 1), a long radix length (8192), a
+# direct-route one (1216 = 19*64) and one the strided kernel takes by
+# its two-pass route, which the fused kernels take by the direct one.
 FUSED_SITES = [((64, 37, 3), 0, 4), ((3, 66, 37), 1, 2), ((5, 7, 128), 2, 4),
-               ((2, 8192, 3), 1, 4), ((2, 1216, 3), 1, 4)]
+               ((2, 8192, 3), 1, 4), ((2, 1216, 3), 1, 4),
+               ((1, 12288, 3), 1, 4)]
 LEVELS = {"bf16": None, "int8": 127, "split": 32767}
 
 
@@ -200,7 +233,7 @@ def test_fft_encode_kernel_matches_plain(card, codec, forward, shape, axis,
     kw = dict(fft_axis=axis, forward=forward, tile_axis=axis, tiles=tiles,
               wire_dtype=codec)
     before = cuda_fuse.fused_fft_encode.launches
-    how = cuda_fft.route(shape[axis])
+    how = cuda_fuse.fused_route(shape[axis])
     routed = cuda_fft.ROUTES[("fft_encode", how)]
     got = cuda_fuse.fused_fft_encode(x, **kw)
     torch.cuda.synchronize()
@@ -244,7 +277,7 @@ def test_decode_fft_kernel_matches_plain(card, codec, forward, shape, axis,
     kw = dict(fft_axis=axis, forward=forward, tile_axis=axis, tiles=tiles,
               wire_dtype=codec)
     before = cuda_fuse.fused_decode_fft.launches
-    how = cuda_fft.route(shape[axis])
+    how = cuda_fuse.fused_route(shape[axis])
     routed = cuda_fft.ROUTES[("decode_fft", how)]
     got = cuda_fuse.fused_decode_fft(parts, torch.complex64, **kw)
     torch.cuda.synchronize()

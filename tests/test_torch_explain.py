@@ -31,6 +31,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import distributedfft_tpu_torch as tdfft
 from distributedfft_tpu_torch import explain_mod as tex
@@ -575,3 +576,40 @@ def test_device_capture_made_again_after_a_lost_pass(monkeypatch):
     parsed, reason = tex.device_stage_samples(stages, tdfft.alloc_local(plan),
                                               iters=2)
     assert reason is None and parsed is good
+
+
+def test_device_capture_pads_the_window(monkeypatch):
+    """Each capture launches a pad of fills after the profiled window
+    opens and another before it closes, with the passes between; a
+    capture that lost a pass makes the next one's pads DEVICE_PAD_GROWTH
+    times longer, and the kept capture records its pad length."""
+    good = tex.parse_device_trace(_kineto_doc(), iters=2)
+    lost = {"samples": dict(good["samples"], t0=[0.0, 100e-6]),
+            "chunks": {}, "device_pids": [0]}
+    seen = iter([lost, lost, good])
+    monkeypatch.setattr(tex, "parse_device_trace",
+                        lambda doc, iters: next(seen))
+    monkeypatch.setattr(tex, "_load_trace_doc", lambda path: {})
+    events = []
+    monkeypatch.setattr(tex, "_pad", lambda scratch, n: events.append(n))
+    plan = tdfft.plan_dft_c2c_3d(SHAPE, None, device="cpu")
+    stages = [(k, (lambda fn: lambda x: (events.append("pass"), fn(x))[1])(
+        fn)) for k, fn in tex._staged_for(plan)]
+    parsed, reason = tex.device_stage_samples(stages, tdfft.alloc_local(plan),
+                                              iters=2)
+    assert reason is None and parsed is good
+    p0, g = tex.DEVICE_PAD_LAUNCHES, tex.DEVICE_PAD_GROWTH
+    assert parsed["pad_launches"] == p0 * g * g
+    pads = [n for n in events if n != "pass"]
+    assert pads == [p0, p0, p0 * g, p0 * g, p0 * g * g, p0 * g * g]
+    # per capture: the warm-up step's pass, a pad, the passes, a pad
+    per = len(stages)
+    capture = ["pass"] * per + [p0] + ["pass"] * (2 * per) + [p0]
+    assert events[per:per + len(capture)] == capture
+
+
+def test_pad_fills_its_scratch():
+    scratch = torch.ones(8)
+    tex._pad(scratch, 3)
+    assert not scratch.any()
+    tex._pad(scratch, 0)

@@ -85,13 +85,26 @@ def test_main_path_plans(n, plan):
     assert cuda_fft.route(n) == "radix"
 
 
-@pytest.mark.parametrize("n", [76, 19 * 64, 16384, 4913])
+@pytest.mark.parametrize("n", [76, 19 * 64, 19 * 512, 4913])
 def test_lengths_off_the_radix_route(n):
-    """A prime factor over 17 (76 = 4*19), a length over 8192, or a
-    smooth length the kernels do not take at all (17^3) is not radix."""
+    """A prime factor over 17 (76 = 4*19; 9728 = 19*512, also over 8192),
+    or a smooth length the kernels do not take at all (17^3) is direct."""
     assert cuda_fft.route(n) == "direct"
     assert radix.radix_plan(n) is None or not cuda_fft.eligible(n)
     assert cuda_fft.route2d(512, 76) == cuda_fft.route2d(76, 512) == "direct"
+
+
+@pytest.mark.parametrize("n", [12288, 15625, 16384, 65536])
+def test_smooth_lengths_past_8192_take_the_two_pass_route(n):
+    """Past 8192 no one-pass plan exists, but both factors of the split
+    have one: the two-pass route, whose plain version holds the
+    complex64 tier against numpy."""
+    assert radix.radix_plan(n) is None
+    assert all(radix.radix_plan(m) for m in cuda_fft.split_for(n))
+    assert cuda_fft.route(n) == "radix2"
+    x = _c64(n, (2, n))
+    got = cuda_fft.fft_last(torch.from_numpy(x), True).numpy()
+    assert _err(got, np.fft.fft(x.astype(np.complex128), axis=1)) < C64
 
 
 @pytest.mark.parametrize("forward", [True, False])

@@ -4,7 +4,8 @@ the radix route, on the CPU.
 ``cuda_fft.fft_axis0`` and ``cuda_fuse.fused_decode_fft`` choose their
 route by the length alone (``cuda_fft.route``): the radix stages of
 ``csrc/radix.cuh`` for every n <= 8192 whose prime factors are all
-<= 17, the four-step sums otherwise. On CPU tensors they run the plain
+<= 17, for the strided kernel two radix passes past 8192 with the same
+prime factors, the four-step sums otherwise. On CPU tensors they run the plain
 version of that route (``fft_axis0_plain``; the codec's decode, then
 ``fft_axis0_plain``). These tests hold the plain versions against the
 JAX package's Pallas bodies in interpret mode (``pallas_fft.fft_axis0``,
@@ -89,16 +90,34 @@ def test_fft_axis0_plain_runs_the_radix_stages(n, forward):
 
 
 @pytest.mark.parametrize("forward", [True, False])
-@pytest.mark.parametrize("n", [19 * 64, 16384])
+@pytest.mark.parametrize("n", [19 * 64, 19 * 512])
 def test_direct_route_keeps_the_four_step_sums(n, forward):
-    """1216 = 19*64 (a prime factor over 17) and 16384 (over 8192) take
-    the direct route: their plain version is the four-step sums, bit for
+    """1216 = 19*64 and 9728 = 19*512 (a prime factor over 17) take the
+    direct route: their plain version is the four-step sums, bit for
     bit, and holds the complex64 tier against numpy."""
     assert cuda_fft.route(n) == "direct" and cuda_fft.eligible(n)
     x = _c64(n + 2, (2, n, 3))
     got = cuda_fft.fft_axis0_plain(torch.from_numpy(x), forward)
     want = _cols_t(cuda_fft.four_step_plain(_rows_t(torch.from_numpy(x)), n,
                                             forward), 2, 3)
+    if not forward:
+        want = want * (1.0 / n)
+    assert torch.equal(got, want)
+    ref = np.fft.fft(x, axis=1) if forward else np.fft.ifft(x, axis=1)
+    assert _err(got, ref) < C64
+
+
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("n", [12288, 16384])
+def test_two_pass_route_runs_on_the_columns(n, forward):
+    """12288 and 16384 (smooth, over 8192) take the two-pass route: the
+    plain version is ``two_pass_plain`` on the columns as rows, bit for
+    bit, and holds the complex64 tier against numpy."""
+    assert cuda_fft.route(n) == "radix2"
+    x = _c64(n + 2, (2, n, 3))
+    got = cuda_fft.fft_axis0_plain(torch.from_numpy(x), forward)
+    want = _cols_t(cuda_fft.two_pass_plain(_rows_t(torch.from_numpy(x)), n,
+                                           forward), 2, 3)
     if not forward:
         want = want * (1.0 / n)
     assert torch.equal(got, want)
