@@ -252,10 +252,29 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    phase 19's runs (exit 0 healthy, 1 on the drill, with ``stall`` and
    ``fleet_stall`` on rank 0's stream); (e) ``calibrate --device cuda
    --dry-run --json --no-wire`` (exit 0), its HBM figure beside phase
-   16's. It fails past 45 s, and prints the script's seconds;
+   16's. It fails past 45 s;
+21. drives the C ABI (counts from 0): (a) the port's host library
+   (``csrc/dfft_native.cpp``, built with g++ into ``_build/`` before the
+   kernels; its build time) and ``capi.install_c_api`` on the card; (b)
+   the four selftests from compiled C at 512^3 (``c_selftest`` and
+   ``c_selftest_r2c`` on r2c_axis 0, 1 and 2 within 5e-4,
+   ``c_selftest_z2z`` within 1e-11, ``c_selftest_resident`` with 10
+   repeats within 5e-4); (c) ``dfft_plan_c2c_3d`` / ``dfft_execute_c2c``
+   through ctypes at 512^3 on one device, a 4-rank loopback slab and a
+   2x2 loopback pencil, each output bit-equal to the same plan's direct
+   output on the card and within 5e-4 of torch.fft.fftn; (d) medians of
+   10: the host-to-host call and ``dfft_execute_resident`` (host clock
+   around the ctypes call), the plan call alone (CUDA events), the
+   bridge's cost per call (resident less plan, host-to-host less
+   resident) and the two pageable copies; (e) every plan destroyed and
+   ``torch.cuda.memory_allocated()`` back to its level before (b); (f)
+   one slab forward in a log session of the C recorder and one of the
+   Python recorder with the same t0..t3 spans. It fails on a nonzero
+   return code, a negative selftest, a library that does not build, or
+   past 60 s, and prints the script's seconds;
    prints one JSON line of the five kernels and, last, the device line.
 
-Each counted path (5, 6, 8, 9, 10, 11, 12, 13, 16, 17, 18, 19, 20) also
+Each counted path (5, 6, 8, 9, 10, 11, 12, 13, 16, 17, 18, 19, 20, 21) also
 records the case of every kernel call (the calls this thread makes, and
 ``cuda_fft.CASES``, which every launch of the process counts from any
 thread, such as a serving queue's drain loop) and fails on one that
@@ -2817,7 +2836,7 @@ def survivor_cap(tuner, shape, world, budget, wires, tiers, need, dev,
     for cap in range(tuner.DEFAULT_MAX_CANDIDATES, 33):
         kept = tuner.prune_candidates(cands, shape, world, itemsize=8,
                                       limit=cap, max_err=budget,
-                                      dtype=torch.complex64)
+                                      dtype=torch.complex64, device=dev)
         if set(need) <= _families(c.label for c in kept):
             return cap
     fail(f"no survivor cap up to 32 holds {need} for {shape}")
@@ -2971,7 +2990,7 @@ def check_tuner(torch, dfft, cf, cfu, dev, card, n=512):
             twin = twin_error(torch, functools.partial(
                 dfft.plan_dft_r2c_3d, shape, world), win, xr, spec, dev)
             tier = executor_roundtrip_error(_executor_of(win),
-                                            torch.complex64)
+                                            torch.complex64, device=dev)
             ok, bound = tuned_gate(win, err, twin, tier)
             print(f"{label}: winner {win} forward vs torch.fft.rfftn max rel "
                   f"err={err:.3e} (gate {bound:.3e}: the unfused cuda plan "
@@ -3002,7 +3021,7 @@ def check_tuner(torch, dfft, cf, cfu, dev, card, n=512):
             twin = twin_error(torch, functools.partial(
                 dfft.plan_dft_c2r_3d, shape, world), win, spec, back, dev)
             tier = executor_roundtrip_error(_executor_of(win),
-                                            torch.complex64)
+                                            torch.complex64, device=dev)
             ok, bound = tuned_gate(win, err, twin, tier)
             print(f"{label}: winner {win} vs torch.fft.irfftn max rel "
                   f"err={err:.3e} (gate {bound:.3e}: the unfused cuda plan "
@@ -4642,6 +4661,280 @@ def check_regression_loop(torch, dfft, dev, here, card, hw_path, log_spans,
              f"{REGRESS_PHASE_LIMIT_S}")
 
 
+# ------------------------------------------------ the C ABI (phase 21)
+
+#: Phase 21's time limit (s), its world shape and its files.
+CAPI_PHASE_LIMIT_S = 60.0
+CAPI_N = 512
+CAPI_DIR = os.path.join("chiprun_out", "phase21")
+CAPI_TIMED = 10
+
+
+def capi_cases(n=CAPI_N, ranks=SLAB_RANKS, grid=PENCIL_GRID):
+    """The kernel cases phase 21 launches at n^3: the single-device C2C
+    and R2C/C2R pairs (every r2c_axis: the cube's swapped view has the
+    same shapes), the slab and the pencil forward."""
+    h, q = n // 2 + 1, n // ranks
+    rows, cols = grid
+    cases = []
+    for fwd in (True, False):
+        cases += [("fft2_last", fwd, (n, n, n), "C ABI single c2c"),
+                  ("fft_axis0", fwd, (1, n, n * n), "C ABI single c2c"),
+                  ("fft_last", fwd, (n * n, n // 2), "C ABI single r2c z"),
+                  ("fft_axis0", fwd, (n, n, h), "C ABI single r2c y"),
+                  ("fft_axis0", fwd, (1, n, n * h), "C ABI single r2c x")]
+    return cases + [
+        ("fft2_last", True, (q, n, n), "C ABI slab fwd t0"),
+        ("fft_axis0", True, (1, n, q * n), "C ABI slab fwd t3"),
+        ("fft_last", True, (n * n // (rows * cols), n), "C ABI pencil t0"),
+        ("fft_axis0", True, (n // rows, n, n // cols), "C ABI pencil t1"),
+        ("fft_axis0", True, (1, n, n * n // (rows * cols)),
+         "C ABI pencil t3")]
+
+
+def _c_entries(lib):
+    """The ctypes bindings a C caller would use (fresh function objects,
+    so the package's own bindings stay as they are)."""
+    import ctypes
+
+    ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+
+    def fn(name, restype, argtypes):
+        f = lib[name]
+        f.restype, f.argtypes = restype, argtypes
+        return f
+
+    return {"plan": fn("dfft_plan_c2c_3d", ll, [ll] * 3 + [i]),
+            "execute": fn("dfft_execute_c2c", i, [ll, vp, vp]),
+            "upload": fn("dfft_upload", i, [ll, vp]),
+            "run": fn("dfft_execute_resident", i, [ll]),
+            "download": fn("dfft_download", i, [ll, vp]),
+            "destroy": fn("dfft_destroy_plan_c", None, [ll])}
+
+
+def capi_selftests(torch, capi, card, n=CAPI_N):
+    """Phase 21 (b): the four selftests of the library, driven from
+    compiled C at n^3 on the card; fails on a negative value (a C-side
+    failure) or one over its tier."""
+    shape = (n, n, n)
+    runs = [("c_selftest c64", lambda: capi.c_selftest(shape), TOL)]
+    runs += [(f"c_selftest_r2c r2c_axis={a}",
+              lambda a=a: capi.c_selftest_r2c(shape, r2c_axis=a), TOL)
+             for a in (0, 1, 2)]
+    runs += [("c_selftest_z2z (dd)", lambda: capi.c_selftest_z2z(shape),
+              TOL128),
+             ("c_selftest_resident repeats=10",
+              lambda: capi.c_selftest_resident(shape, repeats=10), TOL)]
+    for label, run, tol in runs:
+        t0 = time.perf_counter()
+        err = run()
+        secs = time.perf_counter() - t0
+        print(f"phase 21 (b) {label} at {n}^3: round trip max rel err "
+              f"{err:.3e} (tier {tol:g}), {secs:.2f} s [{card}]", flush=True)
+        if not 0 <= err <= tol:
+            fail(f"phase 21 (b) {label}: {err} (negative: a C-side failure; "
+                 f"else over {tol})")
+
+
+def capi_execute(torch, capi, c, x, xh, world, label):
+    """Phase 21 (c): ``dfft_plan_c2c_3d`` / ``dfft_execute_c2c`` through
+    ctypes on ``world``: the C output against the same port plan's
+    direct output on the card (bit for bit) and ``torch.fft.fftn``
+    (5e-4). Returns the plan id (destroyed in (e))."""
+    import numpy as np
+
+    shape = tuple(x.shape)
+    capi.install_c_api(world, device=x.device)
+    pid = c["plan"](*shape, -1)
+    if pid < 0:
+        fail(f"phase 21 (c) {label}: dfft_plan_c2c_3d returned {pid}")
+    out = np.empty_like(xh)
+    rc = c["execute"](pid, xh.ctypes.data, out.ctypes.data)
+    if rc != 0:
+        fail(f"phase 21 (c) {label}: dfft_execute_c2c returned {rc}")
+    plan = capi._plans[pid].plan
+    direct = plan(x)
+    got = torch.from_numpy(out).to(x.device)
+    same = bool(torch.equal(got, direct))
+    del direct
+    ref = torch.fft.fftn(x)
+    errs = rel_err(torch, got, ref)[:2]
+    del ref, got, out
+    print(f"phase 21 (c) {label} {shape}: executor {plan.executor}, "
+          f"{plan.decomposition}; C output bit-equal to the plan's direct "
+          f"output: {same}; vs torch.fft.fftn max rel err {errs[0]:.3e} l2 "
+          f"rel err {errs[1]:.3e}", flush=True)
+    if not same:
+        fail(f"phase 21 (c) {label}: the C output differs from the plan's")
+    if not max(errs) <= TOL:
+        fail(f"phase 21 (c) {label}: error over {TOL}")
+    return pid
+
+
+def capi_times(torch, timing, capi, c, x, xh, card, reps=CAPI_TIMED):
+    """Phase 21 (d): at n^3 on one device, the medians of ``reps``
+    host-to-host ``dfft_execute_c2c`` calls and ``dfft_execute_resident``
+    calls (host clock around the ctypes call), the plan call alone (CUDA
+    events), and the two pageable copies the host-to-host call makes.
+    Returns the plan ids (destroyed in (e))."""
+    import numpy as np
+
+    capi.install_c_api(None, device=x.device)
+    pid = c["plan"](*x.shape, -1)
+    out = np.empty_like(xh)
+
+    def wall(fn):
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            rc = fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+            if rc != 0:
+                fail(f"phase 21 (d): a C call returned {rc}")
+        return statistics.median(ts)
+
+    c["execute"](pid, xh.ctypes.data, out.ctypes.data)        # warm
+    h2h = wall(lambda: c["execute"](pid, xh.ctypes.data, out.ctypes.data))
+    if c["upload"](pid, xh.ctypes.data) != 0 or c["run"](pid) != 0:
+        fail("phase 21 (d): upload or the first resident run failed")
+    res = wall(lambda: c["run"](pid))
+    plan = capi._plans[pid].plan
+    plan_ms = timing.cuda_time_ms(lambda: plan(x), iters=reps)
+    y = plan(x)
+    host = torch.from_numpy(out)
+
+    def h2d():
+        torch.from_numpy(xh).to(x.device)
+        return 0
+
+    def d2h():
+        host.copy_(y)
+        return 0
+
+    up, down = wall(h2d), wall(d2h)
+    del y, host
+    gib = xh.nbytes / 2 ** 30
+    print(f"phase 21 (d) {tuple(x.shape)} c64 forward, median of {reps}: "
+          f"host-to-host dfft_execute_c2c {h2h:.3f} ms; "
+          f"dfft_execute_resident {res:.3f} ms (host clock around the "
+          f"ctypes call); the plan call alone {plan_ms:.3f} ms (CUDA "
+          f"events); bridge cost per call: resident - plan "
+          f"{res - plan_ms:.3f} ms, host-to-host - resident "
+          f"{h2h - res:.3f} ms; pageable copies of {gib:.2f} GiB: to the "
+          f"card {up:.3f} ms ({gib / up * 1e3:.2f} GiB/s), back "
+          f"{down:.3f} ms ({gib / down * 1e3:.2f} GiB/s) [{card}]",
+          flush=True)
+    return [pid]
+
+
+def capi_trace(torch, dfft, dev, here, n=CAPI_N):
+    """Phase 21 (f): one slab C2C forward at n^3 on SLAB_RANKS loopback
+    ranks in a ``log`` session of the C recorder, and one in a session of
+    the Python recorder: the same t0..t3 spans by name and count."""
+    from distributedfft_tpu_torch.utils import trace
+
+    out_dir = os.path.join(here, CAPI_DIR)
+    os.makedirs(out_dir, exist_ok=True)
+    x = seeded(torch, (n, n, n), dev)
+    plan = dfft.plan_dft_c2c_3d((n, n, n), dfft.make_world(SLAB_RANKS),
+                                device=dev)
+    plan(x)
+    torch.cuda.synchronize()
+    spans, old = {}, os.environ.get("DFFT_TRACE_NATIVE")
+    try:
+        for flag, rec in (("1", "C"), ("0", "Python")):
+            os.environ["DFFT_TRACE_NATIVE"] = flag
+            trace.init_tracing(os.path.join(out_dir, f"trace_{rec}"))
+            if (trace._native_rec is not None) != (rec == "C"):
+                fail(f"phase 21 (f): the {rec} recorder did not engage")
+            plan(x)
+            torch.cuda.synchronize()
+            log = trace.finalize_tracing()
+            lines = open(log).read().splitlines()
+            if lines[0] != "process 0 of 1":
+                fail(f"phase 21 (f): {rec} log header {lines[0]!r}")
+            spans[rec] = Counter(ln.split()[-1] for ln in lines[1:]
+                                 if trace.stage_key(ln.split()[-1]))
+    finally:
+        if old is None:
+            os.environ.pop("DFFT_TRACE_NATIVE", None)
+        else:
+            os.environ["DFFT_TRACE_NATIVE"] = old
+    print(f"phase 21 (f) slab {n}^3 P={SLAB_RANKS} forward: t0..t3 spans "
+          f"of the C recorder's log {dict(spans['C'])}, of the Python "
+          f"recorder's {dict(spans['Python'])}", flush=True)
+    if spans["C"] != spans["Python"] or not spans["C"]:
+        fail("phase 21 (f): the two recorders' t0..t3 spans differ")
+    del x
+
+
+def check_c_abi(torch, dfft, timing, dev, here, card, build_s, n=CAPI_N):
+    """Phase 21: the C ABI on the card (counts from 0). (a) the port's
+    host library, built with g++ at the script's start (its build time),
+    and the bridge installed on the card; (b) the four selftests from
+    compiled C at n^3; (c) ``dfft_plan_c2c_3d`` / ``dfft_execute_c2c``
+    through ctypes on one device, a loopback World(SLAB_RANKS) slab and
+    a PENCIL_GRID pencil, each bit-equal to the same plan's direct
+    output and within 5e-4 of torch.fft.fftn; (d) the host-to-host call,
+    the resident call and the plan call alone, medians of 10; (e) every
+    plan destroyed and ``torch.cuda.memory_allocated()`` back to its
+    level before (b); (f) the C and Python recorders' spans. Fails on a
+    nonzero return code, a negative selftest, or past 60 s."""
+    import gc
+
+    from distributedfft_tpu_torch import capi, native
+
+    t_phase = time.perf_counter()
+    lib = os.path.relpath(native.library_path(), here)
+    print(f"phase 21 (a) host library {lib}: g++ "
+          f"{' '.join(native.CXX_FLAGS)}, built in "
+          f"{build_s:.2f} s at the script's start; ABI version "
+          f"{native._load().dfft_abi_version()}", flush=True)
+    if not capi.install_c_api(device=dev) or not capi.c_api_installed():
+        fail("phase 21 (a): install_c_api on the card failed")
+    dfft.clear_plan_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    t_b = time.perf_counter()
+    capi_selftests(torch, capi, card, n)
+    print(f"phase 21 (b): {time.perf_counter() - t_b:.1f} s", flush=True)
+
+    c = _c_entries(native._load())
+    shape = (n, n, n)
+    x = seeded(torch, shape, dev)
+    xh = x.cpu().numpy()
+    pids = [capi_execute(torch, capi, c, x, xh, None, "single")]
+    pids.append(capi_execute(torch, capi, c, x, xh,
+                             dfft.make_world(SLAB_RANKS),
+                             f"slab loopback P={SLAB_RANKS}"))
+    pids.append(capi_execute(torch, capi, c, x, xh, PENCIL_GRID,
+                             f"pencil loopback {PENCIL_GRID}"))
+    pids += capi_times(torch, timing, capi, c, x, xh, card)
+    del x, xh
+
+    for pid in pids:
+        c["destroy"](pid)
+    left = [p for p in pids if p in capi._plans]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem = torch.cuda.memory_allocated()
+    print(f"phase 21 (e): {len(pids)} plans destroyed ({len(left)} left in "
+          f"the registry); torch.cuda.memory_allocated() {mem} B against "
+          f"{mem0} B before (b)", flush=True)
+    if left or mem != mem0:
+        fail(f"phase 21 (e): plans {left} left, or {mem - mem0} B not "
+             f"returned")
+
+    capi_trace(torch, dfft, dev, here, n)
+    secs = time.perf_counter() - t_phase
+    print(f"C ABI phase: {secs:.1f} s [{card}]", flush=True)
+    if secs > CAPI_PHASE_LIMIT_S:
+        fail(f"the C ABI phase took {secs:.1f} s > {CAPI_PHASE_LIMIT_S}")
+
+
 def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "distributedfft_tpu_torch")):
@@ -4669,6 +4962,14 @@ def main() -> None:
           f"figures: {rates[2]}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in fp32
 
+    from distributedfft_tpu_torch import native
+
+    t0 = time.perf_counter()
+    if not native.is_available():
+        fail(f"the host library did not build: {native.build_error()}")
+    native_build_s = time.perf_counter() - t0
+    print(f"host library build+load (g++): {native_build_s:.2f} s "
+          f"({os.path.relpath(native.SOURCE, here)})", flush=True)
     t0 = time.perf_counter()
     _build.library()
     print(f"kernel build+load: {time.perf_counter() - t0:.1f} s "
@@ -4691,7 +4992,7 @@ def main() -> None:
     held = {case_key(c) for c in KERNEL_CASES}
     KERNEL_CASES.extend(c for c in serving_cases(STREAM_N)
                         if case_key(c) not in held)
-    for c in fleet_cases() + ramp_cases():
+    for c in fleet_cases() + ramp_cases() + capi_cases():
         if case_key(c) not in held:
             held.add(case_key(c))
             KERNEL_CASES.append(c)
@@ -5134,6 +5435,29 @@ def main() -> None:
         fail(f"the regression-loop path took a fallback: "
              f"{dict(cf.FALLBACKS)} (before: {before})")
     shutil.rmtree(os.path.dirname(hw_path), ignore_errors=True)
+
+    # ---- the C ABI: counts from 0 ----
+    cf.reset_launches()
+    cfu.reset_launches()
+    dfft.clear_plan_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(cf.FALLBACKS)
+    with recording_cases(cf, cfu) as seen:
+        check_c_abi(torch, dfft, timing, dev, here, card, native_build_s)
+    path = {**cf.launches(), **cfu.launches()}
+    print(f"launches on the C ABI path: {path}", flush=True)
+    check_routes(cf, "the C ABI path", {}, dict(cf.ROUTES))
+    check_covered(seen, "the C ABI path")
+    for k in ("fft2_last", "fft_axis0", "fft_last"):
+        if path[k] <= 0:
+            fail(f"kernel {k} was not launched on the C ABI path")
+    for k, v in path.items():
+        records[k]["launches"] += v
+    if dict(cf.FALLBACKS) != before:
+        fail(f"the C ABI path took a fallback: {dict(cf.FALLBACKS)} "
+             f"(before: {before})")
+    print(f"peak device memory of the C ABI path: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(f"chip_smoke.py: {time.perf_counter() - t_script:.1f} s [{card}]",
           flush=True)
 

@@ -136,24 +136,45 @@ def dd_from_host(x, device=None) -> tuple[torch.Tensor, torch.Tensor]:
     lo) float32/complex64 tensors on ``device`` (the card unless another
     is named): ``hi = f32(x)``, ``lo = f32(x - hi)``, as the JAX
     package splits it. ``lo`` itself rounds, so the pair carries ~49
-    significand bits."""
+    significand bits. A float64/complex128 array is copied to ``device``
+    once and split there (IEEE casts and one subtraction per component:
+    the bits of the host split, NaN and infinity included); other dtypes
+    are split on the host."""
     from ..api import resolve_device
 
     x = np.asarray(x)
+    dev = resolve_device(device)
+    if x.dtype in (np.float64, np.complex128):
+        wide = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        hi = wide.to(_NARROW[wide.dtype])
+        if not wide.is_complex():
+            return hi, (wide - hi).to(hi.dtype)
+        lo = torch.view_as_real(wide) - torch.view_as_real(hi)
+        return hi, torch.view_as_complex(lo.to(torch.float32))
     if np.iscomplexobj(x):
         hi = x.astype(np.complex64)
         lo = (x - hi.astype(np.complex128)).astype(np.complex64)
     else:
         hi = x.astype(np.float32)
         lo = (x - hi.astype(np.float64)).astype(np.float32)
-    dev = resolve_device(device)
     return (torch.from_numpy(np.ascontiguousarray(hi)).to(dev),
             torch.from_numpy(np.ascontiguousarray(lo)).to(dev))
 
 
 def dd_to_host(hi, lo) -> np.ndarray:
     """A (hi, lo) pair as one host float64/complex128 array (the exact
-    sum)."""
+    sum). A pair of tensors is summed on their device, component by
+    component as numpy adds (an infinite ``hi`` beside a NaN imaginary
+    ``lo`` keeps its infinite real part), and copied back once."""
+    if (isinstance(hi, torch.Tensor) and isinstance(lo, torch.Tensor)
+            and hi.dtype in _WIDE and lo.dtype == hi.dtype
+            and hi.device == lo.device):
+        wide = hi.detach().to(_WIDE[hi.dtype])
+        if wide.is_complex():
+            torch.view_as_real(wide).add_(torch.view_as_real(lo.detach()))
+        else:
+            wide.add_(lo.detach())
+        return wide.cpu().numpy()
     h = hi.detach().cpu().numpy() if isinstance(hi, torch.Tensor) else \
         np.asarray(hi)
     lo = lo.detach().cpu().numpy() if isinstance(lo, torch.Tensor) else \

@@ -280,12 +280,14 @@ def executor_roundtrip_error(name: str, dtype, n: int = 256, *,
     |x|`` over a seeded standard-normal ``(8, n)`` block, the seed and
     block of the JAX package's), the number the tuner admits a
     ``matmul:bf16`` candidate against. 0.0 for bare labels and exact
-    tiers. Measured on ``device`` (the card when there is one, else the
-    CPU, where every tier is the full-precision product, as on JAX's CPU
-    backend) and cached per (label, dtype, n, device). ``sample`` (an
-    ``(8, n)``-reshapeable block) measures on the caller's data instead,
-    cached by its digest. ``dtype`` is a numpy or torch complex dtype or
-    its name."""
+    tiers. Measured on ``device`` through :func:`..api.resolve_device`
+    (the card unless the caller names another; without a card it
+    raises; on the CPU every tier is the full-precision product, as on
+    JAX's CPU backend) and cached per (label, dtype, n, device). The
+    callers pass the device of the plan or candidates they price.
+    ``sample`` (an ``(8, n)``-reshapeable block) measures on the
+    caller's data instead, cached by its digest. ``dtype`` is a numpy or
+    torch complex dtype or its name."""
     if ":" not in name:
         return 0.0
     _, tier, _ = split_executor(name)
@@ -295,12 +297,11 @@ def executor_roundtrip_error(name: str, dtype, n: int = 256, *,
 
     import numpy as np
 
+    from ..api import resolve_device
     from ..parallel.exchange import np_dtype
 
     ndt = np_dtype(dtype)
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    device = resolve_device(device)
     if sample is not None:
         x = np.asarray(sample, dtype=ndt).reshape(8, -1)
         digest = hashlib.sha256(x.tobytes()).hexdigest()[:16]

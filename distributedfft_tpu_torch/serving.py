@@ -1451,7 +1451,8 @@ class CoalescingQueue:
         except Exception:  # noqa: BLE001 -- unknown codec: no budget
             pass
         try:
-            err += executor_roundtrip_error(plan.executor, plan.dtype)
+            err += executor_roundtrip_error(plan.executor, plan.dtype,
+                                            device=plan.device)
         except Exception:  # noqa: BLE001 -- bare label: no tier budget
             pass
         return err
@@ -1624,7 +1625,7 @@ class CoalescingQueue:
                     algorithm=plan.algorithm,
                     executor=plan.executor,
                     overlap_chunks=int(plan.overlap_chunks or 1)),
-                0.0)
+                0.0, device=plan.device)
         except Exception:  # noqa: BLE001 -- annotation is telemetry
             pass
 

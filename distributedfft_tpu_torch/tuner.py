@@ -189,20 +189,20 @@ def mm_tier_tflops(executor: str) -> float | None:
     return MODEL_MM_TFLOPS[tier]
 
 
-def candidate_roundtrip_error(cand: Candidate, dtype) -> float:
+def candidate_roundtrip_error(cand: Candidate, dtype, device=None) -> float:
     """The round-trip error a candidate's reduced-accuracy axes cost
     together: the wire cast's
     (:func:`.parallel.exchange.wire_roundtrip_error`) plus the executor
-    tier's (:func:`.ops.executors.executor_roundtrip_error`), the sum
-    one ``max_roundtrip_err`` budget governs. 0.0 for an exact
-    candidate."""
+    tier's (:func:`.ops.executors.executor_roundtrip_error`, measured on
+    ``device``, the candidates' device), the sum one
+    ``max_roundtrip_err`` budget governs. 0.0 for an exact candidate."""
     from .ops.executors import executor_roundtrip_error
     from .parallel.exchange import wire_roundtrip_error
 
     err = 0.0
     if cand.wire_dtype is not None:
         err += wire_roundtrip_error(dtype, cand.wire_dtype)
-    err += executor_roundtrip_error(cand.executor, dtype)
+    err += executor_roundtrip_error(cand.executor, dtype, device=device)
     return err
 
 
@@ -440,6 +440,7 @@ def prune_candidates(
     batch: int | None = None,
     max_err: float | None = None,
     dtype=None,
+    device=None,
 ) -> list[Candidate]:
     """At most ``limit`` survivors (``DFFT_TUNE_MAX``, default 8), before
     anything is built: geometries (decomposition, transport, K, wire)
@@ -448,12 +449,12 @@ def prune_candidates(
     order), so the survivors measure every executor on the model's
     favourite geometry before the runners-up. ``max_err`` drops every
     candidate whose :func:`candidate_roundtrip_error` at ``dtype``
-    (complex64 when None) exceeds it."""
+    (complex64 when None) on ``device`` exceeds it."""
     if max_err is not None:
         dt = dtype if dtype is not None else np.complex64
         candidates = [
             c for c in candidates
-            if candidate_roundtrip_error(c, dt) <= max_err]
+            if candidate_roundtrip_error(c, dt, device) <= max_err]
     if limit is None:
         limit = int(os.environ.get("DFFT_TUNE_MAX", DEFAULT_MAX_CANDIDATES))
     limit = max(1, limit)
@@ -781,10 +782,12 @@ def record_wisdom(
     *,
     path: str | None = None,
     times: dict[str, float] | None = None,
+    device=None,
 ) -> dict | None:
     """Append one tournament's result to the store (one ``O_APPEND``
-    write: :func:`.utils.atomicio.append_line`). Returns the entry, or
-    None when the store is disabled."""
+    write: :func:`.utils.atomicio.append_line`); a reduced tier's
+    ``precision_err`` is measured on ``device``, the winner's. Returns
+    the entry, or None when the store is disabled."""
     if path is None:
         path = default_wisdom_path()
     if path is None:
@@ -812,7 +815,7 @@ def record_wisdom(
     from .ops.executors import executor_roundtrip_error
 
     prec_err = executor_roundtrip_error(
-        winner.executor, key.get("dtype", "complex64"))
+        winner.executor, key.get("dtype", "complex64"), device=device)
     if prec_err:
         entry["precision_err"] = prec_err
     if times:
@@ -919,11 +922,13 @@ def _build_candidate(plan_fn: Callable, shape, mesh, base: PlanOptions,
     return plan_fn(shape, mesh, options=opts, **plan_kw)
 
 
-def _replay_candidate(entry: dict, dtype, err_budget) -> Candidate:
+def _replay_candidate(entry: dict, dtype, err_budget,
+                      device=None) -> Candidate:
     """A wisdom entry's winner as a candidate to build: a
     reduced-accuracy winner (compressed wire, reduced tier, or both)
-    replays only where the budget admits the sum of its recorded errors,
-    else exact (exact wire and the bare, unfused label)."""
+    replays only where the budget admits the sum of its recorded errors
+    (an entry without ``precision_err`` measured on ``device``), else
+    exact (exact wire and the bare, unfused label)."""
     from .ops.executors import (REDUCED_TIERS, executor_roundtrip_error,
                                 split_executor, split_fuse)
 
@@ -944,7 +949,8 @@ def _replay_candidate(entry: dict, dtype, err_budget) -> Candidate:
         if reduced_tier:
             rec_prec = entry.get("precision_err")
             if rec_prec is None:
-                rec_prec = executor_roundtrip_error(ex, dtype)
+                rec_prec = executor_roundtrip_error(ex, dtype,
+                                                    device=device)
             total += float(rec_prec)
         if err_budget is None or total > err_budget:
             wd = None
@@ -1018,6 +1024,7 @@ def tuned_plan(kind: str, shape, mesh, options: PlanOptions,
         ndev=ndev, mesh_dims=mesh_dims, layouts=layouts, batch=batch,
         err_budget=err_budget, mm_precision=options.mm_precision)
     path = default_wisdom_path()
+    device = api.resolve_device(plan_kw.get("device"))
 
     def build_one(cand: Candidate, donate: bool):
         return _build_candidate(plan_fn, shape, mesh, base, plan_kw, cand,
@@ -1026,7 +1033,7 @@ def tuned_plan(kind: str, shape, mesh, options: PlanOptions,
     entry = lookup_wisdom(key, path) if path is not None else None
     if entry is not None:
         _metrics.inc("tune_wisdom_hits", kind=kind)
-        return build_one(_replay_candidate(entry, dtype, err_budget),
+        return build_one(_replay_candidate(entry, dtype, err_budget, device),
                          options.donate)
     _metrics.inc("tune_wisdom_misses", kind=kind)
     if resolve_tune_mode(options.tune) == "wisdom":
@@ -1048,13 +1055,12 @@ def tuned_plan(kind: str, shape, mesh, options: PlanOptions,
     hybrid = kind != "r2c" and is_hybrid_mesh(mesh)
     cands = prune_candidates(
         enumerate_candidates(shape, ndev, mesh_dims=mesh_dims,
-                             executors=_default_executors(
-                                 api.resolve_device(plan_kw.get("device"))),
+                             executors=_default_executors(device),
                              itemsize=itemsize, batch=batch, hybrid=hybrid,
                              wire_dtypes=wire_dtypes, mm_tiers=mm_tiers,
                              real=kind == "r2c"),
         shape, mesh, itemsize=itemsize, batch=batch,
-        max_err=err_budget, dtype=dtype)
+        max_err=err_budget, dtype=dtype, device=device)
     _metrics.set_gauge("tune_candidates", len(cands), kind=kind,
                        stage="pruned")
     by_label = {c.label: c for c in cands}
@@ -1067,7 +1073,7 @@ def tuned_plan(kind: str, shape, mesh, options: PlanOptions,
     _log_model_divergence(by_label, times, winner, shape, mesh,
                           itemsize=itemsize, batch=batch)
     record_wisdom(key, by_label[winner], times[winner], path=path,
-                  times=times)
+                  times=times, device=device)
     if options.donate:
         return build_one(by_label[winner], True)
     return built[winner]

@@ -12,8 +12,13 @@ Chrome trace), the rank being that of ``torch.distributed`` when it is
 initialized, else 0. The in-memory recorder is a ring of
 ``DFFT_TRACE_MAX_EVENTS`` events (0: unbounded) that evicts the oldest.
 
-The JAX package's C recorder (``native/dfft_native.cpp``) has no
-counterpart here: the port loads no shared library for the host side.
+A ``"log"`` session records through the C recorder of the port's host
+library (``dfft_trace_*`` in ``csrc/dfft_native.cpp``, :mod:`..native`)
+when the library builds, as the JAX package's does; ``DFFT_TRACE_NATIVE=0``
+forces the Python recorder, and ``"chrome"`` sessions always use it. The C
+recorder stores spans in the order they begin and has no ring;
+:func:`record_span` returns False under it (its begin/end API takes no
+explicit times), and :func:`capture_events` tees under either recorder.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ DEFAULT_TRACE_MAX_EVENTS = 1 << 20
 
 _events: list[tuple[str, float, float]] | None = None
 _trace_root: str | None = None
+_native_rec = None  # native.NativeTrace while the C recorder is in use
+_session = 0  # bumped by init/finalize: stale in-flight spans are dropped
 _format = "log"
 # perf_counter pairs plus _epoch land on the time.time() axis, so the
 # files of several ranks share one timeline.
@@ -62,7 +69,7 @@ def _push(ev: list, name: str, start: float, stop: float) -> None:
 
 
 def tracing_enabled() -> bool:
-    return _events is not None
+    return _events is not None or _native_rec is not None
 
 
 def _rank() -> tuple[int, int]:
@@ -72,12 +79,29 @@ def _rank() -> tuple[int, int]:
     return 0, 1
 
 
+def _try_native():
+    """The C recorder of the port's host library, initialised, or None
+    when ``DFFT_TRACE_NATIVE=0`` or the library is unavailable."""
+    if os.environ.get("DFFT_TRACE_NATIVE", "1") == "0":
+        return None
+    from .. import native
+
+    rec = native.NativeTrace()
+    if not rec.available:
+        return None
+    rec.init()
+    return rec
+
+
 def init_tracing(root: str = "", format: str | None = None) -> None:
     """Start collecting events. ``root`` prefixes the file
     :func:`finalize_tracing` writes; ``format`` (default
     ``DFFT_TRACE_FORMAT``, else ``"log"``) is ``"log"`` or ``"chrome"``.
-    An open session is finalized (written) first."""
+    A ``"log"`` session takes the C recorder unless
+    ``DFFT_TRACE_NATIVE=0`` (module docstring). An open session is
+    finalized (written) first."""
     global _events, _trace_root, _format, _epoch, _max_events, _dropped
+    global _native_rec, _session
     if tracing_enabled():
         finalize_tracing()
     fmt = format or os.environ.get("DFFT_TRACE_FORMAT", "") or "log"
@@ -93,7 +117,9 @@ def init_tracing(root: str = "", format: str | None = None) -> None:
     except ValueError:
         _max_events = DEFAULT_TRACE_MAX_EVENTS
     _dropped = 0
-    _events = []
+    _session += 1
+    _native_rec = _try_native() if fmt == "log" else None
+    _events = None if _native_rec is not None else []
 
 
 def _write_chrome(path: str, events, proc: int, nprocs: int) -> None:
@@ -118,11 +144,20 @@ def _write_chrome(path: str, events, proc: int, nprocs: int) -> None:
 
 def finalize_tracing() -> str | None:
     """Write ``<root>_<rank>.log`` (or ``.json``) and stop tracing.
-    Returns the path, or None when no session was open."""
-    global _events, _trace_root, _dropped
+    Returns the path, or None when no session was open. Raises
+    ``OSError`` when the C recorder's dump fails."""
+    global _events, _trace_root, _dropped, _native_rec, _session
     if not tracing_enabled():
         return None
     proc, nprocs = _rank()
+    _session += 1
+    if _native_rec is not None:
+        # A failed dump keeps the session, and the C table its spans.
+        path = f"{_trace_root}_{proc}.log"
+        if not _native_rec.dump(path, proc, nprocs):
+            raise OSError(f"the C trace recorder's dump to {path!r} failed")
+        _native_rec, _trace_root = None, None
+        return path
     events, root = _events, _trace_root
     _events, _trace_root = None, None
     if _format == "chrome":
@@ -152,7 +187,22 @@ def add_trace(name: str):
     The pair brackets the host's launch of the work, not the device's
     run of it; the profiler's timeline has the device side."""
     with torch.profiler.record_function(name):
-        ev, cap = _events, _capture
+        rec, cap, sess = _native_rec, _capture, _session
+        if rec is not None:
+            # The C table is process-global: a finalize or re-init inside
+            # the block would let a stale id land in the next session's
+            # table, so the session count drops such an end.
+            eid = rec.begin(name)
+            start = time.perf_counter() if cap is not None else 0.0
+            try:
+                yield
+            finally:
+                if cap is not None:
+                    cap.append((name, start, time.perf_counter()))
+                if _session == sess:
+                    rec.end(eid)
+            return
+        ev = _events
         if ev is None and cap is None:
             yield
             return
@@ -169,7 +219,8 @@ def add_trace(name: str):
 
 def record_span(name: str, start: float, stop: float) -> bool:
     """Record an already-completed span with ``time.perf_counter()``
-    endpoints. True when a session took it."""
+    endpoints. True when a session took it: never under the C recorder,
+    whose begin/end API takes no explicit times."""
     ev = _events
     if ev is None:
         return False

@@ -545,12 +545,16 @@ def test_metrics_only_run_records_depth_wait_and_reason(metrics_on):
 
 class _Session:
     """A trace session under ``tmp_path``; ``events`` holds its spans
-    (``record_span``'s retroactive ones too) once the block exits."""
+    (``record_span``'s retroactive ones too) once the block exits. The
+    Python recorder, pinned through ``monkeypatch``: the C recorder takes
+    no retroactive span and keeps its spans in its own table."""
 
-    def __init__(self, tmp_path):
+    def __init__(self, tmp_path, monkeypatch):
         self.root, self.events = str(tmp_path / "trace"), []
+        self.monkeypatch = monkeypatch
 
     def __enter__(self):
+        self.monkeypatch.setenv("DFFT_TRACE_NATIVE", "0")
         tr.init_tracing(self.root)
         return self
 
@@ -560,10 +564,11 @@ class _Session:
 
 
 @pytest.mark.parametrize("world", [None, 4])
-def test_request_spans_with_the_stage_spans(tmp_path, metrics_on, world):
+def test_request_spans_with_the_stage_spans(tmp_path, metrics_on, world,
+                                            monkeypatch):
     """submit / wait / flush / plan / execute / result spans, unique ids,
     on one timeline with the chain's t0..t3 stage spans."""
-    with _Session(tmp_path) as session:
+    with _Session(tmp_path, monkeypatch) as session:
         q = _queue(world)
         hs = [q.submit(_world(s)) for s in (1, 2, 3)]
         assert q.flush() == 3
@@ -585,8 +590,9 @@ def test_request_spans_with_the_stage_spans(tmp_path, metrics_on, world):
             assert stop <= flush[2]
 
 
-def test_auto_flush_reason_and_result_reason(tmp_path, metrics_on):
-    with _Session(tmp_path) as session:
+def test_auto_flush_reason_and_result_reason(tmp_path, metrics_on,
+                                            monkeypatch):
+    with _Session(tmp_path, monkeypatch) as session:
         q = _queue(4, max_batch=2)
         h1 = q.submit(_world(11))
         q.submit(_world(12))
@@ -817,11 +823,11 @@ def test_warm_pool_counts_stale_skips(tmp_path, capsys, metrics_on):
     assert "skipped 1 stale wisdom tuple" in capsys.readouterr().err
 
 
-def test_warm_pool_spans_and_zero_timing(tmp_path, metrics_on):
+def test_warm_pool_spans_and_zero_timing(tmp_path, metrics_on, monkeypatch):
     path = tmp_path / "w.jsonl"
     _port_entry(path, "2026-08-01T00:00:00")
     _port_entry(path, "2026-08-02T00:00:00", (4, 4, 4))
-    with _Session(tmp_path) as session:
+    with _Session(tmp_path, monkeypatch) as session:
         plans = tdfft.warm_pool(None, top_n=2, path=str(path),
                                 max_batch=4, **CPU)
     assert len(plans) == 4

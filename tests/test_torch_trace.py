@@ -48,7 +48,8 @@ def test_stage_key_matches_jax(name):
     assert ttr.stage_key(name) == stage_key(name)
 
 
-def test_log_file_per_rank(tmp_path):
+def test_log_file_per_rank(tmp_path, monkeypatch):
+    monkeypatch.setenv("DFFT_TRACE_NATIVE", "0")   # spans in end order
     root = str(tmp_path / "trace")
     ttr.init_tracing(root)
     assert ttr.tracing_enabled()
@@ -243,3 +244,142 @@ def test_plan_info():
                  "overlap: 2 chunks", "in box[3]", "out box[3]",
                  "4 ranks"):
         assert text in info, text
+
+
+# ------------------------------------------------------ the C recorder
+
+requires_c_recorder = pytest.mark.skipif(
+    not tdfft.native.is_available(),
+    reason="the port's host library did not build")
+
+
+@requires_c_recorder
+def test_c_recorder_log_equals_jax(tmp_path, monkeypatch):
+    """A "log" session takes the C recorder in both packages (each its
+    own library); the two logs have the same header and span names, in
+    the order the spans began."""
+    from distributedfft_tpu import native as jnative
+    from distributedfft_tpu.utils import trace as jtr
+
+    if not jnative.is_available():
+        pytest.skip("the JAX package's library did not build")
+    monkeypatch.delenv("DFFT_TRACE_NATIVE", raising=False)
+    monkeypatch.delenv("DFFT_TRACE_FORMAT", raising=False)
+    logs = []
+    for mod, tag in ((jtr, "jax"), (ttr, "port")):
+        mod.init_tracing(str(tmp_path / tag))
+        assert mod._native_rec is not None
+        with mod.add_trace("outer"):
+            with mod.add_trace("inner"):
+                pass
+        for name in ("alpha", "beta[1]", "t0_fft_yz"):
+            with mod.add_trace(name):
+                pass
+        logs.append(open(mod.finalize_tracing()).read().splitlines())
+    jlog, tlog = logs
+    assert tlog[0] == jlog[0] == "process 0 of 1"
+    names = [ln.split()[-1] for ln in tlog[1:]]
+    assert names == [ln.split()[-1] for ln in jlog[1:]]
+    assert names == ["outer", "inner", "alpha", "beta[1]", "t0_fft_yz"]
+
+
+@requires_c_recorder
+def test_record_span_is_false_under_the_c_recorder(tmp_path, monkeypatch):
+    import time
+
+    monkeypatch.delenv("DFFT_TRACE_NATIVE", raising=False)
+    ttr.init_tracing(str(tmp_path / "c"))
+    assert ttr._native_rec is not None and ttr._events is None
+    assert ttr.tracing_enabled()
+    now = time.perf_counter()
+    assert ttr.record_span("retro", now - 0.1, now) is False
+    with ttr.capture_events() as ev:          # the tee works under it
+        with ttr.add_trace("live"):
+            pass
+    assert [e[0] for e in ev] == ["live"]
+    text = open(ttr.finalize_tracing()).read()
+    assert "live" in text and "retro" not in text
+    assert not ttr.tracing_enabled()
+
+
+def test_native_off_and_chrome_take_the_python_recorder(tmp_path,
+                                                       monkeypatch):
+    monkeypatch.setenv("DFFT_TRACE_NATIVE", "0")
+    ttr.init_tracing(str(tmp_path / "p"))
+    assert ttr._native_rec is None and ttr._events == []
+    with ttr.add_trace("gamma"):
+        pass
+    assert ttr.record_span("retro", 1.0, 2.0) is True
+    text = open(ttr.finalize_tracing()).read()
+    assert "gamma" in text and "retro" in text
+    monkeypatch.delenv("DFFT_TRACE_NATIVE")
+    ttr.init_tracing(str(tmp_path / "ch"), format="chrome")
+    assert ttr._native_rec is None and ttr._events == []
+    assert ttr.finalize_tracing().endswith(".json")
+
+
+@requires_c_recorder
+def test_c_recorder_failed_dump_raises(tmp_path, monkeypatch):
+    """A dump the C recorder cannot write raises OSError and keeps the
+    session and its spans, as JAX's does."""
+    monkeypatch.delenv("DFFT_TRACE_NATIVE", raising=False)
+    ttr.init_tracing(str(tmp_path / "no" / "such" / "dir" / "t"))
+    with ttr.add_trace("kept"):
+        pass
+    with pytest.raises(OSError, match="dump"):
+        ttr.finalize_tracing()
+    assert ttr.tracing_enabled()
+    ttr._trace_root = str(tmp_path / "ok")
+    assert "kept" in open(ttr.finalize_tracing()).read()
+
+
+@requires_c_recorder
+def test_c_recorder_reinit_and_finalize_inside_a_span(tmp_path,
+                                                      monkeypatch):
+    """Re-init writes the open session; a finalize and re-init inside an
+    open span neither crashes nor lets the stale end land in the new
+    session."""
+    monkeypatch.delenv("DFFT_TRACE_NATIVE", raising=False)
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    ttr.init_tracing(a)
+    with ttr.add_trace("first"):
+        pass
+    ttr.init_tracing(b)
+    assert ttr._native_rec is not None
+    with ttr.add_trace("second"):
+        pass
+    assert "first" in open(f"{a}_0.log").read()
+    text = open(ttr.finalize_tracing()).read()
+    assert "second" in text and "first" not in text
+    ttr.init_tracing(str(tmp_path / "r"))
+    with ttr.add_trace("outer"):
+        ttr.finalize_tracing()
+        ttr.init_tracing(str(tmp_path / "rb"))
+        with ttr.add_trace("inner"):
+            pass
+    lines = open(ttr.finalize_tracing()).read().splitlines()[1:]
+    assert [ln.split()[-1] for ln in lines] == ["inner"]
+    assert float(lines[0].split()[1]) >= 0.0
+
+
+@requires_c_recorder
+@pytest.mark.parametrize("world", [2, (2, 2)])
+def test_c_recorder_plan_spans_equal_the_python_recorders(tmp_path,
+                                                         monkeypatch, world):
+    """One plan call in a C-recorder session and in a Python-recorder
+    session: the same t0..t3 spans by name and count."""
+    from collections import Counter
+
+    plan = tdfft.plan_dft_c2c_3d((8, 8, 8), world, device="cpu")
+    x = torch.from_numpy(testing.make_world_data((8, 8, 8), np.complex64))
+    got = []
+    for flag in ("1", "0"):
+        monkeypatch.setenv("DFFT_TRACE_NATIVE", flag)
+        ttr.init_tracing(str(tmp_path / f"s{flag}"))
+        assert (ttr._native_rec is not None) == (flag == "1")
+        plan(x)
+        lines = open(ttr.finalize_tracing()).read().splitlines()[1:]
+        got.append(Counter(ln.split()[-1] for ln in lines))
+    assert got[0] == got[1]
+    keys = {ttr.stage_key(n) for n in got[0]}
+    assert {"t0", "t2", "t3"} <= keys

@@ -372,7 +372,7 @@ def test_prune_candidates_matches_jax(case, same_constants):
     tc = tuner.enumerate_candidates(shape, mesh, batch=kw.get("batch"),
                                     **ekw)
     got = [_mine(c) for c in tuner.prune_candidates(
-        tc, shape, mesh, dtype=torch.complex64, **pkw)]
+        tc, shape, mesh, dtype=torch.complex64, device="cpu", **pkw)]
     assert got == want
 
 
@@ -464,10 +464,12 @@ def test_reduced_tiers_and_roundtrip_errors():
     for name in ("matmul:bf16", "matmul:f32", "cuda:bf16"):
         # on the CPU every tier is the full-precision product, as on
         # JAX's CPU backend: the round trip's own rounding only
-        err = tx.executor_roundtrip_error(name, "complex64")
+        err = tx.executor_roundtrip_error(name, "complex64", device="cpu")
         assert 0.0 < err < 1e-5
-        assert tx.executor_roundtrip_error(name, torch.complex64) == err
-    assert tx.executor_roundtrip_error("matmul:bf16", np.complex128) < 1e-13
+        assert tx.executor_roundtrip_error(name, torch.complex64,
+                                           device="cpu") == err
+    assert tx.executor_roundtrip_error("matmul:bf16", np.complex128,
+                                       device="cpu") < 1e-13
 
 
 # ------------------------------------------------------- winner picking
@@ -863,7 +865,7 @@ def test_reduced_winner_replays_exact_without_a_budget(store, monkeypatch):
     key = tuner.wisdom_key(kind="c2c", shape=shape, dtype=torch.complex64,
                            direction=-1, ndev=4, err_budget=1e-2)
     win = tuner.Candidate("slab", "ppermute", "cuda:f32:fuse", 1, "bf16")
-    entry = tuner.record_wisdom(key, win, 1e-3)
+    entry = tuner.record_wisdom(key, win, 1e-3, device="cpu")
     assert tuner._replay_candidate(entry, torch.complex64, 1e-2) == win
     exact = tuner._replay_candidate(entry, torch.complex64, None)
     assert exact == tuner.Candidate("slab", "ppermute", "cuda", 1, None)
