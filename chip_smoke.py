@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of distributedfft_tpu_torch on one NVIDIA card.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. It
+Run from the root of a checkout: ``python3 chip_smoke.py``
+(``--route-cases``: only the GENERIC_CASES kernel cases of phase 2 and
+the non-smooth paths of phase 5, on whichever package sits beside the
+script, so that a parent commit's tree can be timed beside it). It
 
 1. prints the card's name and power limit and builds the CUDA kernels
    from ``distributedfft_tpu_torch/csrc`` (nvcc, sm_90a);
@@ -15,7 +18,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    device copy of the same tensor (one read, one write), the kernel and
    that call also back to back (device time without the host's launch
    time), and the plane kernel both walking the batch in L2-sized chunks
-   and in one go;
+   and in one go; the GENERIC_CASES hold the row and strided kernels'
+   generic prime stage (608, 361 = 19 * 19, the two-pass 9728, 8194 and
+   12482, whose 241 and 79 are one-stage passes) and the plane's direct
+   route at [152, 608, 608];
 3. holds the two fused stage+codec kernels (``csrc/fuse.cu``) against
    their plain versions at every shape and codec the compressed path
    gives them: sidecars bit-identical, mantissas at most one level apart,
@@ -32,7 +38,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    backward, then the slab chain on a loopback world of 4 ranks at 512^3
    and at (510, 510, 512), each checked against torch.fft.fftn and by a
    round trip; every row, strided and plane kernel must have been
-   launched in that run, by the radix route only;
+   launched in that run, by the radix route only; then (counts from 0)
+   the non-smooth paths, the slab at [608, 512, 512] on 4 loopback ranks
+   and the pencil at [512, 512, 608] on 2x2 (608 = 2^5 * 19 on the
+   generic prime stage), forward against torch.fft.fftn and backward
+   against torch.fft.ifftn and by round trip, every row, strided and
+   plane kernel launched by the radix route only, with their times and
+   t0..t3;
 6. drives the compressed and real path at 512^3 on a loopback world of
    4: the C2C plans with the split codec fused (and their unfused twins,
    compared bit for bit and printed), the R2C/C2R plans exact and with
@@ -243,8 +255,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    that plan in chrome format, merged alone, with phase 9's text log and
    with ``--align start`` (exit 0; the t0..t3 counts equal the spans
    the two sessions recorded); (d) ``wisdom --gate`` on phase 16's store
-   with three runs of its replayed c2c winner stamped ``tuned=`` (exit
-   0), ``qos --ledger`` on phase 18 (c)'s ledger, ``health``, ``health
+   with three runs of its replayed c2c winner stamped ``tuned=`` (exit 1
+   if their verdict against the stored time is ``regressed``, else 0:
+   both are host-clock times minutes apart on a shared host), then with
+   three runs at the stored time (exit 0, ``within-noise``) and at 1.5
+   times it (exit 1, ``regressed +50.0%``), ``qos --ledger`` on phase 18 (c)'s ledger, ``health``, ``health
    --gate`` and ``live --prom`` on 18 (f)'s series (exit 0),
    ``numerics`` on that series (exit 2: (f) ran before (e) armed the
    numerics plane, so its samples carry no numerics block) and on one
@@ -479,13 +494,14 @@ def route_flops(cf, radix, how, n):
     return 8 * n * (m1 + m2)
 
 
-def check_kernels(torch, cf, radix, timing, rates):
+def check_kernels(torch, cf, radix, timing, rates, cases=None):
     """Phase 2: each kernel against its plain version at every shape the
-    main path gives it. Returns one record per kernel."""
+    main path gives it (``cases``: KERNEL_CASES unless given). Returns one
+    record per kernel."""
     hbm, fp32, _ = rates
     dev = torch.device("cuda", torch.cuda.current_device())
     records = {}
-    for i, case in enumerate(KERNEL_CASES):
+    for i, case in enumerate(KERNEL_CASES if cases is None else cases):
         name, fwd, shape, where = case[:4]
         kw = {} if case_key(case) == tuple(case[:3]) else {"normalize": False}
         kernel = lambda x, f, _k=getattr(cf, name): _k(x, f, **kw)
@@ -565,8 +581,9 @@ def check_kernels(torch, cf, radix, timing, rates):
     return records
 
 
-# The wrappers with a radix route; every length of both paths (512, 510,
-# 256) is a radix length, so none of them may take another route.
+# The wrappers with a radix route; every length of the paths at 512 (512,
+# 510, 256) and of the non-smooth paths (608 on the row and strided
+# kernels) is a radix length, so none of them may take another route.
 RADIX_WRAPPERS = ("fft_last", "fft2_last", "fft_axis0", "decode_fft",
                   "fft_encode")
 
@@ -2174,13 +2191,101 @@ TWO_LEVEL = ((1, 5 ** 11), (1, 1 << 24), (64, 1 << 20))
 # (A = B = 16384) and 3 * 2^26 (12288 x 16384), both stages on the
 # two-pass radix route.
 DIST1D = (1 << 28, 3 << 26)
-# Cases of the direct route that no path at 512 or past 8192 takes any
-# more (a prime factor over 17: 9728 = 19 * 512), so that the four-step
-# sums of kernels 2 and 3 are still held against their plain version.
-DIRECT_CASES = [
-    ("fft_axis0", True, (1, 9728, 512), "direct route, 19 * 512"),
-    ("fft_last", True, (512, 9728), "direct route, 19 * 512"),
+# ------------------------------- lengths with a prime factor over 17
+
+# The paths at a length with a prime factor over 17: the slab at [608,
+# 512, 512] on SLAB_RANKS and the pencil at [512, 512, 608] on
+# PENCIL_GRID (608 = 2^5 * 19, plan 8.4.19 on the radix route's generic
+# prime stage).
+GENERIC_PATHS = (((608, 512, 512), SLAB_RANKS, "slab"),
+                 ((512, 512, 608), PENCIL_GRID, "pencil"))
+# Kernel cases of the row and strided kernels' generic prime stage: the
+# two paths' n = 608; 361 = 19 * 19 (two generic stages in a row); 9728
+# = 19 * 512 past 8192 (split 76 * 128, 76 = 4 * 19 on the generic
+# stage); two-pass lengths with a one-stage factor, 8194 = 34 * 241 (the
+# second pass) and 12482 = 79 * 158 (the first); and the plane kernel's
+# direct route at a non-smooth plane (a slab's t0 at 608^3 on 4 ranks),
+# the route kernel 1 still takes there.
+GENERIC_CASES = [
+    ("fft_axis0", True, (1, 608, 65536), "slab [608,512,512] fwd t3"),
+    ("fft_axis0", False, (1, 608, 65536), "slab [608,512,512] bwd t0"),
+    ("fft_last", True, (65536, 608), "pencil [512,512,608] fwd t0"),
+    ("fft_last", False, (65536, 608), "pencil [512,512,608] bwd t3"),
+    ("fft_last", True, (65536, 361), "361 = 19 * 19"),
+    ("fft_axis0", True, (1, 9728, 512), "9728 = 19 * 512"),
+    ("fft_last", True, (512, 9728), "9728 = 19 * 512"),
+    ("fft_axis0", True, (1, 8194, 512), "8194 = 34 * 241"),
+    ("fft_last", True, (512, 8194), "8194 = 34 * 241"),
+    ("fft_last", True, (512, 12482), "12482 = 79 * 158"),
+    ("fft2_last", True, (152, 608, 608), "non-smooth plane"),
+    ("fft2_last", False, (152, 608, 608), "non-smooth plane"),
 ]
+
+
+def generic_path_cases(ranks=SLAB_RANKS, grid=PENCIL_GRID):
+    """The kernel cases of GENERIC_PATHS at n = 512 (the 608-long ones are
+    GENERIC_CASES): the slab's t0 planes and backward Z rows and Y
+    columns, the pencil's Y and X columns."""
+    q = 608 // ranks
+    rows, cols = grid
+    y_cols = 608 // cols          # the pencil's Z split over its columns
+    x_cols = (512 // rows) * y_cols
+    cases = [("fft2_last", True, (q, 512, 512), "slab [608,512,512] t0"),
+             ("fft_last", False, (608 * 512 // ranks, 512),
+              "slab [608,512,512] bwd t0"),
+             ("fft_axis0", False, (q, 512, 512), "slab [608,512,512] bwd t3")]
+    for fwd in (True, False):
+        cases += [("fft_axis0", fwd, (512 // rows, 512, y_cols),
+                   "pencil [512,512,608] t1"),
+                  ("fft_axis0", fwd, (1, 512, x_cols),
+                   "pencil [512,512,608] t3 / bwd t0")]
+    return cases
+
+
+def check_generic_paths(torch, dfft, dev):
+    """The GENERIC_PATHS plans: forward against torch.fft.fftn, backward
+    against torch.fft.ifftn of the forward output and by round trip, each
+    within TOL (max-norm and L2). Returns {label: (fwd, bwd, shape)}."""
+    plans = {}
+    for shape, world, kind in GENERIC_PATHS:
+        label = (f"{kind} [{','.join(map(str, shape))}] loopback "
+                 f"{world if kind == 'slab' else 'x'.join(map(str, world))}")
+        x = seeded(torch, shape, dev)
+        fwd = dfft.plan_dft_c2c_3d(shape, world, device=dev)
+        bwd = dfft.plan_dft_c2c_3d(shape, world, direction=dfft.BACKWARD,
+                                   device=dev)
+        y = fwd(x)
+        torch.cuda.synchronize()
+        if tuple(y.shape) != shape or not bool(torch.isfinite(
+                torch.view_as_real(y)).all()):
+            fail(f"{label}: forward output not finite or of shape "
+                 f"{tuple(y.shape)}")
+        errs = rel_err(torch, y, torch.fft.fftn(x))[:2]
+        back = bwd(y)
+        torch.cuda.synchronize()
+        errs += rel_err(torch, back, torch.fft.ifftn(y))[:2]
+        errs += rel_err(torch, back, x)[:2]
+        print(f"{label}: forward vs torch.fft.fftn max rel err={errs[0]:.3e}"
+              f" l2 rel err={errs[1]:.3e}; backward vs torch.fft.ifftn max "
+              f"rel err={errs[2]:.3e} l2 rel err={errs[3]:.3e}; roundtrip "
+              f"max rel err={errs[4]:.3e} l2 rel err={errs[5]:.3e}",
+              flush=True)
+        if not max(errs) <= TOL:
+            fail(f"{label}: error over {TOL}")
+        plans[label] = (fwd, bwd, shape)
+        del x, y, back
+        torch.cuda.empty_cache()
+    return plans
+
+
+def time_generic_paths(torch, timing, dev, plans):
+    """The GENERIC_PATHS plans' forward and backward times and t0..t3."""
+    for label, (fwd, bwd, shape) in plans.items():
+        x = seeded(torch, shape, dev)
+        time_plans(torch, timing, fwd, bwd, x, label)
+        stage_split(torch, timing, fwd, bwd, x, label)
+        del x
+        torch.cuda.empty_cache()
 
 
 def long_cases(cf, choose_split_1d, ranks=SLAB_RANKS):
@@ -4394,6 +4499,16 @@ def bench_line(name, seconds, stages, snap, cost, n=512, **extra):
             **extra}
 
 
+def wisdom_row(out, label, want):
+    """Fail unless ``report wisdom``'s table has one c2c row at n^3 for
+    the winner ``label`` and that row holds ``want``."""
+    rows = [ln for ln in out.splitlines() if ln.startswith("c2c ")
+            and f"->  {label} " in ln]
+    if len(rows) != 1 or want not in rows[0]:
+        fail(f"report wisdom: the c2c row of {label} is not one row "
+             f"holding {want!r}: {out!r}")
+
+
 def write_lines(path, lines):
     with open(path, "w") as f:
         for line in lines:
@@ -4417,14 +4532,16 @@ def check_regression_loop(torch, dfft, dev, here, card, hw_path, log_spans,
     in chrome format, merged alone, with phase 9's text log, and with
     ``--align start``: the t0..t3 counts equal what the two sessions
     recorded (``log_spans``: phase 9's). (d) ``wisdom --gate`` on phase
-    16's store with runs of its tuned winner, ``qos`` on phase 18's
+    16's store with runs of its tuned winner (the exit their verdict
+    gives) and with runs at 1 and 1.5 times its stored time (exit 0 and
+    1), ``qos`` on phase 18's
     ledger, ``health`` / ``live`` on phase 18 (f)'s series, ``numerics``
     on that series (dark: (f) ran before the plane was armed, exit 2)
     and on a sample taken now, after 18 (e)'s audit (exit 0), ``fleet``
     on phase 19's two runs (``fleet_streams``: the drill's rank 0 and 1
     stream ids). (e) ``calibrate`` on the card, dry run. Fails past
     REGRESS_PHASE_LIMIT_S."""
-    from distributedfft_tpu_torch import monitor, report, tuner
+    from distributedfft_tpu_torch import monitor, regress, report, tuner
     from distributedfft_tpu_torch.explain import compiled_summary
     from distributedfft_tpu_torch.utils import metrics, timing, trace
 
@@ -4593,12 +4710,38 @@ def check_regression_loop(torch, dfft, dev, here, card, hw_path, log_spans,
     runs = os.path.join(out_dir, "tuned_runs.jsonl")
     write_lines(runs, tuned_lines)
     run_report(report, here, ["record", runs, "--history", hist], 0, secs)
-    got, _ = run_report(report, here, ["wisdom", "--gate", "--wisdom", store,
-                                       "--history", hist], 0, secs)
+    # The stored time and the replays are host-clock readings taken
+    # minutes apart on a host shared with other machines, so whether they
+    # agree within the band is the host's noise, not the code's: the
+    # gate's exit on them must follow their verdict, and two histories
+    # made from the stored time pin each exit code.
+    stored = float(entries[key]["seconds"])
+    real = regress.wisdom_verdict(stored,
+                                  [ln["seconds"] for ln in tuned_lines])
+    got, _ = run_report(report, here, [
+        "wisdom", "--gate", "--wisdom", store, "--history", hist],
+        1 if real["verdict"] == "regressed" else 0, secs)
     print(f"wisdom --gate on phase 16's store ({len(entries)} entries; the "
-          f"c2c winner {want} stored at {entries[key]['seconds']:.6f} s, "
-          f"replayed {[round(ln['seconds'], 6) for ln in tuned_lines]} s) "
+          f"c2c winner {want} stored at {stored:.6f} s, replayed "
+          f"{[round(ln['seconds'], 6) for ln in tuned_lines]} s, verdict "
+          f"{real['verdict']} {real.get('delta_pct', 0.0):+.1f}%) "
           f"[{card}]:\n{got}", flush=True)
+    wisdom_row(got, want, f"[{real['verdict']}")
+    for factor, verdict, rc in ((1.0, "within-noise", 0),
+                                (1.5, "regressed", 1)):
+        pinned = os.path.join(out_dir, f"wisdom_x{factor}.jsonl")
+        if os.path.exists(pinned):
+            os.remove(pinned)
+        fixed = [dict(ln, seconds=stored * factor) for ln in tuned_lines]
+        runs = os.path.join(out_dir, f"tuned_runs_x{factor}.jsonl")
+        write_lines(runs, fixed)
+        run_report(report, here, ["record", runs, "--history", pinned], 0,
+                   secs)
+        got, _ = run_report(report, here, [
+            "wisdom", "--gate", "--wisdom", store, "--history", pinned], rc,
+            secs)
+        wisdom_row(got, want, f"[{verdict} {100.0 * (factor - 1.0):+.1f}%, "
+                   f"fresh n={len(fixed)}]")
 
     ledger = os.path.join(here, QOS_LEDGER)
     got, _ = run_report(report, here, ["qos", "--ledger", ledger], 0, secs)
@@ -4976,6 +5119,21 @@ def main() -> None:
           f"({', '.join(os.path.relpath(p, here) for p in _build.sources())}"
           f")", flush=True)
 
+    if sys.argv[1:] == ["--route-cases"]:
+        # the generic-stage cases and paths alone, on whichever package
+        # sits beside this script (a parent commit's, to compare)
+        check_kernels(torch, cf, radix, timing, rates, GENERIC_CASES)
+        dev = torch.device("cuda", torch.cuda.current_device())
+        with recording_cases(cf, cfu) as seen:
+            cf.reset_launches()
+            plans = check_generic_paths(torch, dfft, dev)
+        print(f"routes on the non-smooth paths: {dict(cf.ROUTES)}; cases "
+              f"{sorted(seen, key=str)}", flush=True)
+        time_generic_paths(torch, timing, dev, plans)
+        print(f"chip_smoke.py --route-cases: "
+              f"{time.perf_counter() - t_script:.1f} s [{card}]", flush=True)
+        return
+
     from distributedfft_tpu_torch.plan_logic import resolve_overlap_chunks
 
     auto_k = resolve_overlap_chunks("auto", (512,) * 3, SLAB_RANKS)
@@ -4985,7 +5143,8 @@ def main() -> None:
     from distributedfft_tpu_torch.parallel.fft1d import choose_split_1d
 
     KERNEL_CASES.extend(long_cases(cf, choose_split_1d))
-    KERNEL_CASES.extend(DIRECT_CASES)
+    KERNEL_CASES.extend(GENERIC_CASES)
+    KERNEL_CASES.extend(generic_path_cases())
     held = {case_key(c) for c in KERNEL_CASES}
     KERNEL_CASES.extend(c for c in tune_cases(512)
                         if case_key(c) not in held)
@@ -5053,6 +5212,30 @@ def main() -> None:
     time_plans(torch, timing, *slab, x, f"slab 512^3 loopback P={SLAB_RANKS}")
     stage_split(torch, timing, *slab, x, f"slab 512^3 loopback P={SLAB_RANKS}")
     del x
+    torch.cuda.empty_cache()
+
+    # ---- the non-smooth paths (608 = 2^5 * 19): counts from 0 ----
+    cf.reset_launches()
+    cfu.reset_launches()
+    dfft.clear_plan_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with recording_cases(cf, cfu) as seen:
+        generic = check_generic_paths(torch, dfft, dev)
+    path = {**cf.launches(), **cfu.launches()}
+    print(f"launches on the non-smooth paths: {path}", flush=True)
+    check_routes(cf, "the non-smooth paths", {}, dict(cf.ROUTES))
+    check_covered(seen, "the non-smooth paths")
+    print(f"peak device memory of the non-smooth paths: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for k in ("fft2_last", "fft_axis0", "fft_last"):
+        if path[k] <= 0:
+            fail(f"kernel {k} was not launched on the non-smooth paths")
+    for k, v in path.items():
+        records[k]["launches"] += v
+    if dict(cf.FALLBACKS) != fallbacks:
+        fail(f"the non-smooth paths took a fallback: {dict(cf.FALLBACKS)}")
+    time_generic_paths(torch, timing, dev, generic)
+    del generic
     torch.cuda.empty_cache()
 
     # ---- the compressed and real path: counts from 0, each plan once ----

@@ -7,14 +7,15 @@
 //   pallas_fft.py:_make_kernel2d        (fused plane)   -> dfft_fft_plane
 //
 // Three routes. The radix route (dfft_fft_rows, dfft_fft_strided,
-// dfft_fft_plane; device code and pass set-up in radix.cuh) takes every
-// length n <= 8192 whose prime factors are all <= 17, with the stage
-// plan and twiddles the host gives it (ops/radix.py). The two-pass radix
-// route (dfft_fft_rows_2p, dfft_fft_strided_2p) takes the row and
-// strided kernels' lengths 8192 < n <= 65536 with the same prime factors:
-// two radix passes, below. Every other kernel-eligible length takes the
-// direct route (dfft_fft_rows_direct, dfft_fft_strided_direct,
-// dfft_fft_plane_direct): the four-step sums below.
+// dfft_fft_plane; device code and pass set-up in radix.cuh) takes, with
+// the stage plan and table the host gives it (ops/radix.py), every
+// kernel-eligible length n <= 8192 for the row and strided kernels (a
+// prime factor from 19 to 251 runs radix.cuh's generic prime stage),
+// and for the plane the lengths whose prime factors are all <= 17. The
+// two-pass radix route (dfft_fft_rows_2p, dfft_fft_strided_2p) takes the
+// row and strided kernels' eligible lengths 8192 < n <= 65536: two radix
+// passes, below. The plane's other eligible lengths take the direct
+// route (dfft_fft_plane_direct): the four-step sums below.
 //
 // What bounds the radix route on an H100: bytes, 16 per element per pass
 // (one complex64 read, one written; 3.35 TB/s). A mixed-radix Stockham
@@ -31,6 +32,17 @@
 // 1/n applied there. The twiddles are read from shared memory, copied
 // once per block.
 //
+// A prime factor from 19 to 251 (radix.cuh: generic_stage) is a stage
+// whose butterfly does not fit registers: it runs from the exchange
+// buffer, each thread summing a few output pairs (k, R - k) of one
+// butterfly against the R roots in shared memory, about 5 (R - 1)/2
+// flops an output (~625 at 251), still under the fp32 balance for R up
+// to ~70 and about at it past that. It lives in a kernel variant of its
+// own (MAXR = kMaxPrime), so the variants of the smooth lengths compile
+// and run as they did before it. It replaces the direct route's
+// four-step sums for kernels 2 and 3 (8*(n1+n2) flops a point, through
+// device scratch past ~6000 points: 31 ms at [1,9728,512], PERF.md).
+//
 // The strided kernel is the column pass of that routine over [lead, n,
 // cols] (x -> y): each group is 16 neighbouring columns of one lead
 // block, fewer only where cols is narrower. The plane is two passes of
@@ -42,7 +54,8 @@
 // slower than one pass over the whole batch (its launches are each under
 // one wave of blocks; PERF.md), so fft2_last passes the whole batch.
 //
-// The direct route (pallas_fft.py:_four_step_pass): a length-n axis,
+// The direct route of the plane (pallas_fft.py:_four_step_pass; its row
+// and strided passes are rows_kernel and strided_kernel): a length-n axis,
 // n = n1*n2 with both factors <= 256, is viewed as A[j1, j2]
 // (j = j1*n2 + j2) and
 //   G[j2, k1] = sum_j1 A[j1, j2] W1[j1, k1]      stage 1
@@ -59,8 +72,9 @@
 // times its memory bound. Each block holds whole sequences in shared
 // memory, so device memory is read once and written once per pass.
 //
-// The two-pass route: n = m1*m2 (the same split, both factors radix
-// lengths, m1 <= m2 <= 256), j = j1*m2 + j2 and k = k1 + m1*k2. A whole
+// The two-pass route: n = m1*m2 (the same split, m1 <= m2 <= 256, each
+// factor a radix plan, one stage when it is a prime over 17, as 241 of
+// 8194 = 34 * 241), j = j1*m2 + j2 and k = k1 + m1*k2. A whole
 // sequence no longer fits one block's shared memory with its exchange
 // buffers, so the transform is the four-step split run as two radix
 // passes through a scratch the size of the data, each pass one read and
@@ -87,7 +101,7 @@
 // memory: the input, a caller-allocated scratch the size of the data,
 // and the output. __syncthreads orders the block's device-memory writes
 // as it does shared ones, and each block reads only the region it
-// writes, so every launcher may also run in place (y == x).
+// writes, so the plane's strided pass runs in place (y == x).
 //
 // Every launcher returns cudaGetLastError() of its own launches.
 
@@ -198,14 +212,15 @@ cudaError_t launch_strided(const float2* x, float2* y, float2* scratch,
 constexpr int kTwoPassMostCols = 64;
 
 // Columns per group of a two-pass column pass at most: a factor's
-// sequence is short (49 to 256 points), so a group of 16 columns leaves
-// most of the block's threads without a butterfly; enough columns that
-// the widest stage gives every thread one, from 16 up to
+// sequence is short (33 to 256 points), so a group of 16 columns leaves
+// most of the block's threads without an item; enough columns that the
+// stage with the fewest items gives every thread one, from 16 up to
 // kTwoPassMostCols (ColsPass keeps as many as fit shared memory).
 int two_pass_most(const radix::Plan& p) {
   int most = 16;
-  const long long want = (long long)radix::kThreads * radix::max_radix(p);
-  while (most < kTwoPassMostCols && (long long)most * p.n < want) most *= 2;
+  while (most < kTwoPassMostCols &&
+         (long long)most * radix::min_items(p) < radix::kThreads)
+    most *= 2;
   return most;
 }
 
@@ -241,11 +256,11 @@ cudaError_t two_pass_rows(const float2* x, float2* y, float2* s,
               batch * m1, tw2, scale, st);
 }
 
-// The two-pass launchers' checks: plans of at least two stages, and a
-// scratch apart from x and y, y apart from x.
-bool valid_two_pass(int stages1, int stages2, const void* x, const void* y,
-                    const void* scratch) {
-  return radix::valid_stages(stages1) && radix::valid_stages(stages2) &&
+// The two-pass launchers' checks: valid plans, and a scratch apart from
+// x and y, y apart from x.
+bool valid_two_pass(const radix::Plan& p1, const radix::Plan& p2,
+                    const void* x, const void* y, const void* scratch) {
+  return radix::valid_plan(p1) && radix::valid_plan(p2) &&
          scratch != nullptr && scratch != x && scratch != y && x != y;
 }
 
@@ -255,31 +270,21 @@ extern "C" {
 
 // y[b, :] = DFT(x[b, :]) * scale for b < batch, the radix route: n has
 // the stage radices radices[0..stages-1] (host memory) and the stage
-// twiddles tw (device memory, n - 1 complex64).
+// table tw (device memory: n - 1 twiddles, then the roots of each generic
+// stage; ops/radix.py:table_np).
 int dfft_fft_rows(const void* x, void* y, long long batch, int n,
                   int stages, const int* radices, int forward,
                   const void* tw, float scale, void* stream) {
-  if (!radix::valid_stages(stages)) return (int)cudaErrorInvalidValue;
-  radix::RowsPass<> rows(radix::make_plan(n, stages, radices), forward != 0);
+  const radix::Plan plan = radix::make_plan(n, stages, radices);
+  if (!radix::valid_plan(plan)) return (int)cudaErrorInvalidValue;
+  radix::RowsPass<> rows(plan, forward != 0);
   if (rows.err != cudaSuccess) return (int)rows.err;
   return (int)rows((const float2*)x, radix::RowOut{(float2*)y, n}, batch,
                    (const float2*)tw, scale, (cudaStream_t)stream);
 }
 
-// The same by the direct route: n = n1*n2, LUTs w1, tw, w2, `seqs` rows
-// per block, scratch as in rows_kernel.
-int dfft_fft_rows_direct(const void* x, void* y, void* scratch,
-                         long long batch, int n1, int n2, int seqs,
-                         const void* w1, const void* tw, const void* w2,
-                         float scale, void* stream) {
-  return (int)launch_rows(
-      (const float2*)x, (float2*)y, (float2*)scratch, batch, n1, n2, seqs,
-      (const float2*)w1, (const float2*)tw, (const float2*)w2, scale,
-      (cudaStream_t)stream);
-}
-
 // The same by the two-pass route: n = m1*m2, each factor with its stage
-// radices (host memory) and twiddles tw1, tw2 (device memory), tt the
+// radices (host memory) and tables tw1, tw2 (device memory), tt the
 // four-step twiddle table T transposed, [m1, m2] (device memory: tt[k1*m2
 // + j2] = w_n^(k1*j2)), scratch of batch*n complex64
 // (neither x nor y; y is not x).
@@ -288,40 +293,28 @@ int dfft_fft_rows_2p(const void* x, void* y, void* scratch, long long batch,
                      int stages2, const int* radices2, int forward,
                      const void* tw1, const void* tw2, const void* tt,
                      float scale, void* stream) {
-  if (!valid_two_pass(stages1, stages2, x, y, scratch))
+  const radix::Plan p1 = radix::make_plan(m1, stages1, radices1);
+  const radix::Plan p2 = radix::make_plan(m2, stages2, radices2);
+  if (!valid_two_pass(p1, p2, x, y, scratch))
     return (int)cudaErrorInvalidValue;
   return (int)two_pass_rows(
-      (const float2*)x, (float2*)y, (float2*)scratch, batch,
-      radix::make_plan(m1, stages1, radices1),
-      radix::make_plan(m2, stages2, radices2), forward != 0,
-      (const float2*)tw1, (const float2*)tw2, (const float2*)tt, scale,
-      (cudaStream_t)stream);
+      (const float2*)x, (float2*)y, (float2*)scratch, batch, p1, p2,
+      forward != 0, (const float2*)tw1, (const float2*)tw2,
+      (const float2*)tt, scale, (cudaStream_t)stream);
 }
 
 // y[l, :, c] = DFT(x[l, :, c]) * scale over [lead, n, cols], the radix
-// route (radix.cuh's column routine; plan and twiddles as dfft_fft_rows
+// route (radix.cuh's column routine; plan and table as dfft_fft_rows
 // takes them). y may be x.
 int dfft_fft_strided(const void* x, void* y, long long lead, long long cols,
                      int n, int stages, const int* radices, int forward,
                      const void* tw, float scale, void* stream) {
-  if (!radix::valid_stages(stages)) return (int)cudaErrorInvalidValue;
-  radix::ColsPass<> pass(radix::make_plan(n, stages, radices), forward != 0,
-                         cols);
+  const radix::Plan plan = radix::make_plan(n, stages, radices);
+  if (!radix::valid_plan(plan)) return (int)cudaErrorInvalidValue;
+  radix::ColsPass<> pass(plan, forward != 0, cols);
   if (pass.err != cudaSuccess) return (int)pass.err;
   return (int)pass((const float2*)x, radix::C64Out{(float2*)y}, lead, cols,
                    (const float2*)tw, scale, (cudaStream_t)stream);
-}
-
-// The same by the direct route: n = n1*n2, LUTs w1, tw, w2, `seqs`
-// columns per block, scratch as in rows_kernel.
-int dfft_fft_strided_direct(const void* x, void* y, void* scratch,
-                            long long lead, long long cols, int n1, int n2,
-                            int seqs, const void* w1, const void* tw,
-                            const void* w2, float scale, void* stream) {
-  return (int)launch_strided(
-      (const float2*)x, (float2*)y, (float2*)scratch, lead, cols, n1, n2,
-      seqs, (const float2*)w1, (const float2*)tw, (const float2*)w2, scale,
-      (cudaStream_t)stream);
 }
 
 // The same by the two-pass route: plans, twiddles, tt and scratch as
@@ -332,10 +325,10 @@ int dfft_fft_strided_2p(const void* x, void* y, void* scratch,
                         const int* radices2, int forward, const void* tw1,
                         const void* tw2, const void* tt, float scale,
                         void* stream) {
-  if (!valid_two_pass(stages1, stages2, x, y, scratch))
-    return (int)cudaErrorInvalidValue;
   const radix::Plan p1 = radix::make_plan(m1, stages1, radices1);
   const radix::Plan p2 = radix::make_plan(m2, stages2, radices2);
+  if (!valid_two_pass(p1, p2, x, y, scratch))
+    return (int)cudaErrorInvalidValue;
   const bool fwd = forward != 0;
   const float2* fx = (const float2*)x;
   float2* fy = (float2*)y;
@@ -360,20 +353,19 @@ int dfft_fft_strided_2p(const void* x, void* y, void* scratch,
 // 2D DFT over the last two axes of [batch, ny, nz], the radix route, in
 // chunks of `chunk` planes: rows over Z into y, then columns over Y on y
 // in place, scaled by `scale`. Each axis has its stage radices (host
-// memory) and twiddles (device memory).
+// memory) and table (device memory).
 int dfft_fft_plane(const void* x, void* y, long long batch, int ny,
                    int y_stages, const int* y_radices, int nz, int z_stages,
                    const int* z_radices, int forward, const void* twy,
                    const void* twz, long long chunk, float scale,
                    void* stream) {
-  if (!radix::valid_stages(y_stages) || !radix::valid_stages(z_stages))
+  const radix::Plan py = radix::make_plan(ny, y_stages, y_radices);
+  const radix::Plan pz = radix::make_plan(nz, z_stages, z_radices);
+  if (!radix::valid_plan(py) || !radix::valid_plan(pz) || chunk < 1)
     return (int)cudaErrorInvalidValue;
-  if (chunk < 1) return (int)cudaErrorInvalidValue;
-  radix::RowsPass<> rows(radix::make_plan(nz, z_stages, z_radices),
-                         forward != 0);
+  radix::RowsPass<> rows(pz, forward != 0);
   if (rows.err != cudaSuccess) return (int)rows.err;
-  radix::ColsPass<> cols(radix::make_plan(ny, y_stages, y_radices),
-                         forward != 0, nz);
+  radix::ColsPass<> cols(py, forward != 0, nz);
   if (cols.err != cudaSuccess) return (int)cols.err;
   const long long plane = (long long)ny * nz;
   const cudaStream_t st = (cudaStream_t)stream;

@@ -17,8 +17,9 @@
 // Both kernels have two routes, as the strided kernel has them
 // (four_step.cu), chosen by the length alone. The radix route
 // (dfft_fft_encode, dfft_decode_fft; lengths n <= 8192 whose prime
-// factors are all <= 17) is radix.cuh's column pass, the strided
-// kernel's own, with the same plan, twiddles, instantiation and scale;
+// factors are all <= 17: ops/cuda_fuse.py:fused_route) is radix.cuh's
+// column pass, the strided kernel's own, with the same plan, table,
+// instantiation and scale;
 // only where a value comes from or goes to differs. The direct route
 // (dfft_fft_encode_direct, dfft_decode_fft_direct, every other eligible
 // length) runs the four-step routine of four_step.cuh.
@@ -346,8 +347,8 @@ decode_cols_kernel(const void* q, const float* side, float2* y,
   float2* smem = reinterpret_cast<float2*>(radix_smem);
   const int n = plan.n;
   float2* tw = smem + sm.twiddles();
-  float* steps = reinterpret_cast<float*>(tw + (n - 1));
-  radix::load_twiddles(tw, twg, n);
+  float* steps = reinterpret_cast<float*>(tw + plan.table);
+  radix::load_twiddles(tw, twg, plan);
   if (CODEC != 0)
     for (int i = threadIdx.x; i < 2 * tiles; i += blockDim.x)
       steps[i] = side[i];
@@ -419,22 +420,26 @@ int wire_land(int n, int c, int pb) {
   return (int)((bytes + 15) / 16 * 2);
 }
 
-int wire_cols(int n, long long nz, int pb) {
+int wire_cols(const radix::Plan& p, long long nz, int pb) {
+  const int n = p.n;
   return radix::cols_per_group(
-      n, nz, [=](int c) { return wire_land(n, c, pb); });
+      p, nz, [=](int c) { return wire_land(n, c, pb); });
 }
 
-// The decode pass over [lead, n, nz] of one codec and direction.
+// The decode pass over [lead, n, nz] of one codec and direction; no
+// generic-stage variant (fused_route gives the fused kernels only plans of
+// hand-written radices), as in the encode's ColsPass<..., false>.
 struct DecodePass : radix::Pass<DecodeKernel> {
   int tiles;
   DecodePass(const radix::Plan& p, bool fwd, int codec, long long nz,
              int tiles_)
-      : Pass(p, wire_cols(p.n, nz, pair_bytes(codec)),
-             p.n * wire_cols(p.n, nz, pair_bytes(codec)),
-             wire_land(p.n, wire_cols(p.n, nz, pair_bytes(codec)),
+      : Pass(p, wire_cols(p, nz, pair_bytes(codec)),
+             p.n * wire_cols(p, nz, pair_bytes(codec)),
+             wire_land(p.n, wire_cols(p, nz, pair_bytes(codec)),
                        pair_bytes(codec)),
              2 * (size_t)tiles_ * sizeof(float),
-             decode_kernel(codec, fwd, false), decode_kernel(codec, fwd, true)),
+             decode_kernel(codec, fwd, false), decode_kernel(codec, fwd, true),
+             nullptr),
         tiles(tiles_) {}
   cudaError_t operator()(const void* q, const float* side, float2* y,
                          long long lead, long long nz, const float2* tw,
@@ -559,23 +564,23 @@ int dfft_fft_encode(const void* x, void* y, void* q, void* amax, void* side,
                     long long lead, long long cols, int n, int stages,
                     const int* radices, int tiles, int codec, float levels,
                     int forward, const void* tw, float scale, void* stream) {
-  if (!radix::valid_stages(stages) || codec < 0 || codec > 2 || tiles < 1 ||
+  const radix::Plan plan = radix::make_plan(n, stages, radices);
+  if (!radix::valid_plan(plan) || codec < 0 || codec > 2 || tiles < 1 ||
       n % tiles != 0)
     return (int)cudaErrorInvalidValue;
-  const radix::Plan plan = radix::make_plan(n, stages, radices);
   const bool fwd = forward != 0;
   const float2* fx = (const float2*)x;
   const float2* ftw = (const float2*)tw;
   const cudaStream_t st = (cudaStream_t)stream;
   if (codec == 0) {
-    radix::ColsPass<Bf16Out> pass(plan, fwd, cols);
+    radix::ColsPass<Bf16Out, false> pass(plan, fwd, cols);
     if (pass.err != cudaSuccess) return (int)pass.err;
     return (int)pass(fx, Bf16Out{(__nv_bfloat162*)q}, lead, cols, ftw, scale,
                      st);
   }
   const int slots = 2 * tiles;
-  radix::ColsPass<C64AmaxOut> pass(plan, fwd, cols,
-                                   slots * sizeof(unsigned));
+  radix::ColsPass<C64AmaxOut, false> pass(plan, fwd, cols,
+                                          slots * sizeof(unsigned));
   if (pass.err != cudaSuccess) return (int)pass.err;
   cudaError_t e = cudaMemsetAsync(amax, 0, slots * sizeof(unsigned), st);
   if (e != cudaSuccess) return (int)e;
@@ -648,11 +653,11 @@ int dfft_decode_fft(const void* q, const void* side, void* y, long long lead,
                     long long cols, int n, int stages, const int* radices,
                     int tiles, int codec, int forward, const void* tw,
                     float scale, void* stream) {
-  if (!radix::valid_stages(stages) || codec < 0 || codec > 2 || tiles < 1 ||
+  const radix::Plan plan = radix::make_plan(n, stages, radices);
+  if (!radix::valid_plan(plan) || codec < 0 || codec > 2 || tiles < 1 ||
       n % tiles != 0)
     return (int)cudaErrorInvalidValue;
-  DecodePass pass(radix::make_plan(n, stages, radices), forward != 0, codec,
-                  cols, tiles);
+  DecodePass pass(plan, forward != 0, codec, cols, tiles);
   if (pass.err != cudaSuccess) return (int)pass.err;
   return (int)pass(q, (const float*)side, (float2*)y, lead, cols,
                    (const float2*)tw, scale, (cudaStream_t)stream);

@@ -6,14 +6,17 @@
 // of such a pass.
 //
 // The plan comes from the host (ops/radix.py): the stage radices, each a
-// factor of n in {2, 3, 4, 5, 7, 8, 11, 13, 16, 17}, and the stage
-// twiddle table, n - 1 complex64 built in float64. Stage k has radix R
-// and ns = the product of the radices before it. Its butterfly j
-// (0 <= j < n/R) reads x[j + m n/R] (m < R), multiplies element m by
-// w_L^(p m) (L = ns R, p = j mod ns; table entry (ns-1) + (m-1) ns + p),
-// runs an R-point DFT and writes output k to (j - p) R + p + k ns. After
-// the last stage the sequence is in natural order (Stockham autosort: no
-// bit reversal). Every product is an fp32 FMA: no tensor cores, no TF32.
+// factor of n in {2, 3, 4, 5, 7, 8, 11, 13, 16, 17} (a butterfly in
+// registers) or a prime from 19 to 251 (the generic prime stage, below),
+// and the stage table: n - 1 twiddles, then the R roots w_R^q of each
+// generic stage R in stage order, complex64 built in float64. Stage k
+// has radix R and ns = the product of the radices before it. Its
+// butterfly j (0 <= j < n/R) reads x[j + m n/R] (m < R), multiplies
+// element m by w_L^(p m) (L = ns R, p = j mod ns; table entry (ns-1) +
+// (m-1) ns + p), runs an R-point DFT and writes output k to (j - p) R + p
+// + k ns. After the last stage the sequence is in natural order
+// (Stockham autosort: no bit reversal). Every product is an fp32 FMA: no
+// tensor cores, no TF32.
 //
 // A persistent block walks groups of sequences: rows (each gets
 // blockDim/seqs neighbouring threads) or neighbouring columns of a
@@ -32,8 +35,10 @@
 // 256 contiguous bytes for rows, whole row segments for columns), the
 // same store while taking the encode's amax, the encode's bf16 pack, or
 // the two-pass route's stores (four_step.cu: the twiddle product of its
-// first pass, the reordering of its second). Plans have at least two
-// stages (n >= 49 > 17).
+// first pass, the reordering of its second). A plan of one stage (a
+// two-pass factor that is a prime over 17, such as 241 of 8194 = 34 *
+// 241) reads the landed copy and hands its outputs to the sink in that
+// one stage.
 
 #pragma once
 
@@ -47,12 +52,26 @@ namespace radix {
 
 constexpr int kThreads = 512;
 constexpr int kMaxStages = 16;
+// Largest radix with a butterfly in registers: every larger stage is a
+// prime from 19 to kMaxPrime on the generic stage.
+constexpr int kMaxHand = 17;
+constexpr int kMaxPrime = 251;
+// Output pairs (k, R - k) one item of a generic stage sums at most
+// (ops/radix.py: GENERIC_PAIRS).
+constexpr int kPairs = 4;
 
 struct Plan {
   int n;
   int stages;
+  int table;  // complex64 of the stage table: twiddles, then roots
   int radix[kMaxStages];
 };
+
+// Items of a generic stage of radix r per butterfly: its (r - 1)/2 output
+// pairs in chunks of at most kPairs.
+__host__ __device__ __forceinline__ int generic_chunks(int r) {
+  return ((r - 1) / 2 + kPairs - 1) / kPairs;
+}
 
 __device__ __forceinline__ float2 add(float2 a, float2 b) {
   return make_float2(a.x + b.x, a.y + b.y);
@@ -320,6 +339,86 @@ __device__ void stage(Src src, float2* __restrict__ out, Sink sink,
   }
 }
 
+// One Stockham stage of a prime radix r from 19 to 251 (a runtime value)
+// on one sequence; FIRST, LAST, src, out, sink as stage's, and `roots`
+// the stage's r roots w_r^q (q < r, the transform's direction in their
+// sign) in shared memory. A butterfly of r points does not fit
+// registers, so it runs from the exchange buffer (or the landed copy) as
+// generic_chunks(r) items: item (c, j), c < chunks, j < n/r, reads the
+// butterfly's r inputs, twiddling each as it reads it, forms a_m = v_m +
+// v_{r-m} and b_m = v_m - v_{r-m} (m = 1 .. h, h = (r - 1)/2) and sums,
+// for each pair k of its chunk (at most kPairs of them),
+//   out[k], out[r-k] = v_0 + sum_m a_m Re w + i sum_m b_m Im w
+//                      and  v_0 + sum_m a_m Re w - i sum_m b_m Im w,
+// w = roots[m k mod r] (the index kept as a running sum, no division);
+// chunk 0 also writes out[0] = v_0 + sum_m a_m. About 5 h flops per
+// output, all fp32 FMAs. Neighbouring threads take neighbouring j of one
+// chunk, so their reads are neighbouring elements (rows padded one in 16
+// against the banks, columns at i*sstride + s), their roots one entry (a
+// broadcast) and their writes neighbouring elements, or, in the last
+// stage (ns = n/r, so j = p), neighbouring outputs for the sink.
+template <bool FIRST, bool LAST, bool COL, typename Src, typename Sink>
+__device__ void generic_stage(int r, Src src, float2* __restrict__ out,
+                              Sink sink, int sstride, int n, int ns, int t,
+                              int step, const float2* tw,
+                              const float2* roots, float scale) {
+  const int q = n / r, h = (r - 1) >> 1;
+  const int chunks = generic_chunks(r);
+  const int per = (h + chunks - 1) / chunks;
+  for (int w = t; w < q * chunks; w += step) {
+    const int c = w / q, j = w - c * q;
+    const int p = FIRST ? 0 : j % ns;
+    const int k0 = 1 + c * per, cnt = min(per, h + 1 - k0);
+    auto in = [&](int m) -> float2 {
+      if constexpr (FIRST) {
+        return src(j + m * q);
+      } else {
+        const float2 v = src[sat<COL>(j + m * q, sstride)];
+        return m == 0 ? v : cmul(v, tw[(m - 1) * ns + p]);
+      }
+    };
+    const float2 x0 = in(0);
+    float2 sum = x0, cs[kPairs], sn[kPairs];
+    int e[kPairs];
+#pragma unroll
+    for (int u = 0; u < kPairs; ++u) {
+      cs[u] = x0;
+      sn[u] = make_float2(0.f, 0.f);
+      e[u] = 0;
+    }
+    for (int m = 1; m <= h; ++m) {
+      const float2 vm = in(m), vr = in(r - m);
+      const float2 a = add(vm, vr), b = sub(vm, vr);
+      sum = add(sum, a);
+#pragma unroll
+      for (int u = 0; u < kPairs; ++u) {
+        int x = e[u] + k0 + u;  // k0 + u <= chunks * per < r
+        x -= x >= r ? r : 0;
+        e[u] = x;
+        const float2 rt = roots[x];
+        cs[u] = make_float2(fmaf(a.x, rt.x, cs[u].x), fmaf(a.y, rt.x, cs[u].y));
+        sn[u] = make_float2(fmaf(b.x, rt.y, sn[u].x), fmaf(b.y, rt.y, sn[u].y));
+      }
+    }
+    const int base = (j - p) * r + p;
+    auto put = [&](int k, float2 v) {
+      if constexpr (LAST)
+        sink(base + k * ns, scl(v, scale));
+      else
+        out[sat<COL>(base + k * ns, sstride)] = v;
+    };
+    if (c == 0) put(0, sum);
+#pragma unroll
+    for (int u = 0; u < kPairs; ++u) {
+      if (u < cnt) {
+        const float2 is = make_float2(-sn[u].y, sn[u].x);  // i * sn
+        put(k0 + u, add(cs[u], is));
+        put(r - k0 - u, sub(cs[u], is));
+      }
+    }
+  }
+}
+
 // Which sequence of the group a thread works on, and its butterflies:
 // j = t, t + step, ... of each stage.
 struct Lane {
@@ -333,14 +432,19 @@ __device__ __forceinline__ Lane lane(int seqs) {
   return Lane{(int)threadIdx.x / per, (int)threadIdx.x % per, per};
 }
 
-// The stage of radix r. Radices above MAXR are not compiled in (MAXR = 8
-// keeps the registers of plans of small radices few).
+// The stage of radix r (`roots`: a generic stage's). A kernel variant
+// compiles the radices up to MAXR: 8 (it keeps the registers of plans of
+// small radices few), kMaxHand (every hand-written radix) or kMaxPrime
+// (those, and the generic stage for every other). Pass gives a variant
+// only plans whose radices it compiles (max_radix), so a radix without
+// a case is unreachable there; the variants without the generic stage
+// compile exactly as they did before it existed.
 template <bool FWD, bool FIRST, bool LAST, bool COL, int MAXR, typename Src,
           typename Sink>
 __device__ __forceinline__ void stage_r(int r, Src src, float2* out,
                                         Sink sink, int sstride, int n, int ns,
                                         Lane ln, const float2* tw,
-                                        float scale) {
+                                        const float2* roots, float scale) {
 #define DFFT_STAGE(R)                                                   \
   stage<R, FWD, FIRST, LAST, COL>(src, out, sink, sstride, n, ns, ln.t, \
                                   ln.step, tw, scale)
@@ -358,8 +462,17 @@ __device__ __forceinline__ void stage_r(int r, Src src, float2* out,
           case 13: DFFT_STAGE(13); break;
           case 16: DFFT_STAGE(16); break;
           case 17: DFFT_STAGE(17); break;
-          default: break;  // the host plan never gives another radix
+          default:
+            if constexpr (MAXR > kMaxHand)
+              generic_stage<FIRST, LAST, COL>(r, src, out, sink, sstride, n,
+                                              ns, ln.t, ln.step, tw, roots,
+                                              scale);
+            else
+              __builtin_unreachable();
+            break;
         }
+      } else {
+        __builtin_unreachable();
       }
       break;
   }
@@ -375,9 +488,11 @@ struct NoSink {
 // Every stage of the plan on the thread's sequence of the group: the
 // first stage reads element i as first(i) (from the landed copy), the
 // last hands output i, times `scale`, to sink(i, v), the stages between
-// exchange through a and b. `after_first` runs once the landed copy is
-// free again. Must be called by every thread of the block; ends with
-// __syncthreads.
+// exchange through a and b; a plan of one stage (a generic prime:
+// valid_plan admits no other, and Pass gives it the MAXR = kMaxPrime
+// variant) does both in that stage. `after_first` runs once
+// the landed copy is free again. Must be called by every thread of the
+// block; the last stage is followed by a __syncthreads.
 template <bool FWD, bool COL, int MAXR, typename First, typename Sink,
           typename After>
 __device__ void run_stages(First first, Sink sink, bool on, Lane ln, int seqs,
@@ -385,27 +500,45 @@ __device__ void run_stages(First first, Sink sink, bool on, Lane ln, int seqs,
                            const float2* tw, float scale, After after_first) {
   const int n = plan.n, last = plan.stages - 1;
   const int off = COL ? ln.s : ln.s * padded_ld(n);
+  const float2* roots = tw + (n - 1);  // the generic stages', in order
+  auto next_roots = [&](int r) {
+    if (r > kMaxHand) roots += r;
+  };
+  if constexpr (MAXR > kMaxHand) {
+    if (last == 0) {
+      if (on)
+        generic_stage<true, true, COL>(plan.radix[0], first, nullptr, sink,
+                                       seqs, n, 1, ln.t, ln.step, tw, roots,
+                                       scale);
+      __syncthreads();
+      after_first();
+      return;
+    }
+  }
   if (on)
     stage_r<FWD, true, false, COL, MAXR>(plan.radix[0], first, a + off,
-                                         NoSink{}, seqs, n, 1, ln, tw, 1.0f);
+                                         NoSink{}, seqs, n, 1, ln, tw, roots,
+                                         1.0f);
   __syncthreads();
   after_first();
+  next_roots(plan.radix[0]);
   int ns = plan.radix[0];
   for (int k = 1; k < last; ++k) {
     if (on)
       stage_r<FWD, false, false, COL, MAXR>(
           plan.radix[k], static_cast<const float2*>(a + off), b + off,
-          NoSink{}, seqs, n, ns, ln, tw + (ns - 1), 1.0f);
+          NoSink{}, seqs, n, ns, ln, tw + (ns - 1), roots, 1.0f);
     __syncthreads();
     float2* swap = a;
     a = b;
     b = swap;
+    next_roots(plan.radix[k]);
     ns *= plan.radix[k];
   }
   if (on)
     stage_r<FWD, false, true, COL, MAXR>(
         plan.radix[last], static_cast<const float2*>(a + off), nullptr, sink,
-        seqs, n, ns, ln, tw + (ns - 1), scale);
+        seqs, n, ns, ln, tw + (ns - 1), roots, scale);
   __syncthreads();
 }
 
@@ -516,8 +649,9 @@ __device__ __forceinline__ void load_wire_tile(char* dst, const char* src,
 
 // ----------------------------------------------------------------- kernels
 // Shared memory, in complex64: the landing buffer p (`pbuf`), the
-// exchange buffers a and b (`buf` each), then the n - 1 twiddles, copied
-// once per block, then whatever else a kernel keeps (the decode's steps).
+// exchange buffers a and b (`buf` each), then the stage table (plan.table:
+// the n - 1 twiddles and the generic stages' roots), copied once per
+// block, then whatever else a kernel keeps (the decode's steps).
 // With prefetch the copy of a block's next group lands in p while it runs
 // the later stages of the current one; without (when three buffers do
 // not fit), b is p and pbuf == buf. Blocks walk groups blockIdx.x, +
@@ -530,9 +664,10 @@ struct Smem {
   }
 };
 
+// Copy the plan's stage table (plan.table complex64) into shared memory.
 __device__ __forceinline__ void load_twiddles(float2* dst, const float2* src,
-                                              int n) {
-  for (int i = threadIdx.x; i < n - 1; i += blockDim.x) dst[i] = src[i];
+                                              const Plan& plan) {
+  for (int i = threadIdx.x; i < plan.table; i += blockDim.x) dst[i] = src[i];
 }
 
 // The group loop of every radix kernel: load(g, p) starts the copy of
@@ -619,8 +754,8 @@ rows_kernel(const float2* x, Out out, long long batch, Plan plan, int seqs,
   float2* smem = reinterpret_cast<float2*>(radix_smem);
   float2* tw = smem + sm.twiddles();
   const int n = plan.n;
-  load_twiddles(tw, twg, n);
-  out.begin(tw + (n - 1));
+  load_twiddles(tw, twg, plan);
+  out.begin(tw + plan.table);
   const Lane ln = lane<false>(seqs);
   const long long groups = (batch + seqs - 1) / seqs;
   auto count = [&](long long g) {
@@ -713,8 +848,8 @@ cols_kernel(const float2* x, Out out, long long lead, long long nz,
   float2* smem = reinterpret_cast<float2*>(radix_smem);
   float2* tw = smem + sm.twiddles();
   const int n = plan.n;
-  load_twiddles(tw, twg, n);
-  out.begin(tw + (n - 1));
+  load_twiddles(tw, twg, plan);
+  out.begin(tw + plan.table);
   const Lane ln = lane<true>(cols);
   const long long tiles = (nz + cols - 1) / cols;
   const long long groups = lead * tiles;
@@ -742,6 +877,32 @@ cols_kernel(const float2* x, Out out, long long lead, long long nz,
   out.end();
 }
 
+// The generic-stage variants (MAXR = kMaxPrime) of the kernels for the
+// outputs four_step.cu launches them with are compiled in generic.cu, a
+// translation unit of their own that nvcc builds in parallel with the
+// others; every other file only declares them.
+#define DFFT_GENERIC_ROWS(FWD, OUT)                                         \
+  template __global__ void rows_kernel<FWD, kMaxPrime, OUT>(               \
+      const float2*, OUT, long long, Plan, int, Smem, const float2*, float)
+#define DFFT_GENERIC_COLS(FWD, OUT)                                         \
+  template __global__ void cols_kernel<FWD, kMaxPrime, OUT>(               \
+      const float2*, OUT, long long, long long, Plan, int, Smem,           \
+      const float2*, float)
+#define DFFT_GENERIC_KERNELS(PREFIX)                                        \
+  PREFIX DFFT_GENERIC_ROWS(true, RowOut);                                   \
+  PREFIX DFFT_GENERIC_ROWS(false, RowOut);                                  \
+  PREFIX DFFT_GENERIC_ROWS(true, TransposeOut);                             \
+  PREFIX DFFT_GENERIC_ROWS(false, TransposeOut);                            \
+  PREFIX DFFT_GENERIC_COLS(true, C64Out);                                   \
+  PREFIX DFFT_GENERIC_COLS(false, C64Out);                                  \
+  PREFIX DFFT_GENERIC_COLS(true, TwiddleOut);                               \
+  PREFIX DFFT_GENERIC_COLS(false, TwiddleOut);                              \
+  PREFIX DFFT_GENERIC_COLS(true, ReorderOut);                               \
+  PREFIX DFFT_GENERIC_COLS(false, ReorderOut)
+#ifndef DFFT_GENERIC_TU
+DFFT_GENERIC_KERNELS(extern);
+#endif
+
 // ------------------------------------------------------------- host side
 // The set-up of a radix pass, shared by the launchers of four_step.cu and
 // fuse.cu.
@@ -753,16 +914,34 @@ cols_kernel(const float2* x, Out out, long long lead, long long nz,
 constexpr size_t kRadixSmem = 200 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 
+// The plan of radices[0..stages-1] (host memory) for length n, its
+// table the n - 1 twiddles and the roots of each generic stage.
 inline Plan make_plan(int n, int stages, const int* radices) {
   Plan p{};
   p.n = n;
   p.stages = stages;
-  for (int k = 0; k < stages && k < kMaxStages; ++k) p.radix[k] = radices[k];
+  p.table = n - 1;
+  for (int k = 0; k < stages && k < kMaxStages; ++k) {
+    p.radix[k] = radices[k];
+    if (radices[k] > kMaxHand) p.table += radices[k];
+  }
   return p;
 }
 
-inline bool valid_stages(int stages) {
-  return stages >= 2 && stages <= kMaxStages;
+// A plan the kernels run: 1 to kMaxStages stages whose radices multiply
+// out to n, each a hand-written radix or an odd radix from 19 to
+// kMaxPrime (the generic stage), and one stage only when it is generic.
+inline bool valid_plan(const Plan& p) {
+  if (p.stages < 1 || p.stages > kMaxStages) return false;
+  long long prod = 1;
+  for (int k = 0; k < p.stages; ++k) {
+    const int r = p.radix[k];
+    const bool hand = r == 2 || r == 3 || r == 4 || r == 5 || r == 7 ||
+                      r == 8 || r == 11 || r == 13 || r == 16 || r == 17;
+    if (!hand && (r <= kMaxHand || r > kMaxPrime || r % 2 == 0)) return false;
+    prod *= r;
+  }
+  return prod == p.n && (p.stages > 1 || p.radix[0] > kMaxHand);
 }
 
 inline int max_radix(const Plan& p) {
@@ -771,32 +950,45 @@ inline int max_radix(const Plan& p) {
   return r;
 }
 
-// Bytes of the layout sm for length n: buffers, twiddles and `extra`.
-inline size_t smem_bytes(int n, const Smem& sm, size_t extra) {
-  return ((size_t)sm.twiddles() + (n - 1)) * sizeof(float2) + extra;
+// The fewest items any stage of the plan gives one sequence: n/R
+// butterflies, each generic_chunks(R) items on a generic stage.
+inline int min_items(const Plan& p) {
+  int least = p.n;
+  for (int k = 0; k < p.stages; ++k) {
+    const int r = p.radix[k];
+    least = std::min(least, p.n / r * (r > kMaxHand ? generic_chunks(r) : 1));
+  }
+  return least;
+}
+
+// Bytes of the layout sm for a plan of `table` table entries: buffers,
+// table and `extra`.
+inline size_t smem_bytes(int table, const Smem& sm, size_t extra) {
+  return ((size_t)sm.twiddles() + table) * sizeof(float2) + extra;
 }
 
 // The layout with a landing buffer of `land` complex64 and prefetch, or,
 // when that does not fit the card, without prefetch.
-inline Smem layout(int n, int buf, int land, size_t extra) {
+inline Smem layout(int table, int buf, int land, size_t extra) {
   const Smem pre{land, buf, 1};
-  if (smem_bytes(n, pre, extra) <= kMaxSmem) return pre;
+  if (smem_bytes(table, pre, extra) <= kMaxSmem) return pre;
   return Smem{buf, buf, 0};
 }
 
 inline size_t no_extra(int) { return 0; }
 
-// Rows per group: enough that the widest stage gives every thread a
-// butterfly, and at least `least` (a power of two), as far as kRadixSmem
-// allows with prefetch and extra(seqs) bytes of the output's after the
-// twiddles.
+// Rows per group: enough that the stage with the fewest items gives
+// every thread one, and at least `least` (a power of two), as far as
+// kRadixSmem allows with prefetch and extra(seqs) bytes of the output's
+// after the table.
 template <typename Extra = size_t (*)(int)>
 int rows_per_group(const Plan& p, int least = 1, Extra extra = no_extra) {
   int seqs = least;
-  while ((long long)seqs * p.n < (long long)kThreads * max_radix(p)) seqs *= 2;
+  while ((long long)seqs * min_items(p) < kThreads) seqs *= 2;
   while (seqs > least) {
     const int buf = seqs * padded_ld(p.n);
-    if (smem_bytes(p.n, Smem{buf, buf, 1}, extra(seqs)) <= kRadixSmem) break;
+    if (smem_bytes(p.table, Smem{buf, buf, 1}, extra(seqs)) <= kRadixSmem)
+      break;
     seqs /= 2;
   }
   return seqs;
@@ -807,10 +999,11 @@ int rows_per_group(const Plan& p, int least = 1, Extra extra = no_extra) {
 // no lane idle), and the most that fit kRadixSmem with prefetch. land(c):
 // the complex64 the landing copy of c columns takes.
 template <typename Land>
-int cols_per_group(int n, long long nz, Land land, int most = 16) {
+int cols_per_group(const Plan& p, long long nz, Land land, int most = 16) {
   int c = most;
   while (c > 1 && c / 2 >= nz) c /= 2;
-  while (c > 1 && smem_bytes(n, Smem{land(c), n * c, 1}, 0) > kRadixSmem)
+  while (c > 1 &&
+         smem_bytes(p.table, Smem{land(c), p.n * c, 1}, 0) > kRadixSmem)
     c /= 2;
   return c;
 }
@@ -857,10 +1050,11 @@ cudaError_t resident_blocks(Kernel kernel, size_t shm, long long* blocks) {
 }
 
 // One radix pass, set up once and launched per call: its group size
-// (rows or columns), shared-memory layout, kernel (by whether any radix
-// is over 8) and resident blocks. buf: complex64 of each exchange buffer;
-// land: of the landing buffer with prefetch; extra: bytes after the
-// twiddles.
+// (rows or columns), shared-memory layout, kernel variant (the one that
+// compiles the plan's largest radix: k8, k17 or kgen, the generic
+// stage's; a pass built without kgen refuses a plan that needs it) and
+// resident blocks. buf: complex64 of each exchange buffer; land: of the
+// landing buffer with prefetch; extra: bytes after the table.
 template <typename Kernel>
 struct Pass {
   Plan plan;
@@ -872,11 +1066,14 @@ struct Pass {
   cudaError_t err;
 
   Pass(const Plan& p, int group_, int buf, int land, size_t extra, Kernel k8,
-       Kernel k17)
-      : plan(p), group(group_), sm(layout(p.n, buf, land, extra)),
-        shm(smem_bytes(p.n, sm, extra)),
-        kernel(max_radix(p) <= 8 ? k8 : k17) {
-    err = resident_blocks(kernel, shm, &cap);
+       Kernel k17, Kernel kgen)
+      : plan(p), group(group_), sm(layout(p.table, buf, land, extra)),
+        shm(smem_bytes(p.table, sm, extra)),
+        kernel(max_radix(p) <= 8          ? k8
+               : max_radix(p) <= kMaxHand ? k17
+                                          : kgen) {
+    err = kernel == nullptr ? cudaErrorInvalidValue
+                            : resident_blocks(kernel, shm, &cap);
   }
 
   long long blocks(long long groups) const { return std::min(cap, groups); }
@@ -898,7 +1095,10 @@ struct RowsPass : Pass<RowsKernel<Out>> {
       : Pass<RowsKernel<Out>>(
             p, group, group * padded_ld(p.n), group * padded_ld(p.n), extra,
             fwd ? rows_kernel<true, 8, Out> : rows_kernel<false, 8, Out>,
-            fwd ? rows_kernel<true, 17, Out> : rows_kernel<false, 17, Out>) {}
+            fwd ? rows_kernel<true, kMaxHand, Out>
+                : rows_kernel<false, kMaxHand, Out>,
+            fwd ? rows_kernel<true, kMaxPrime, Out>
+                : rows_kernel<false, kMaxPrime, Out>) {}
   RowsPass(const Plan& p, bool fwd) : RowsPass(p, fwd, rows_per_group(p), 0) {}
   cudaError_t operator()(const float2* x, Out out, long long batch,
                          const float2* tw, float scale, cudaStream_t st) {
@@ -912,22 +1112,37 @@ struct RowsPass : Pass<RowsKernel<Out>> {
   }
 };
 
-inline int c64_cols(int n, long long nz, int most = 16) {
-  return cols_per_group(n, nz, [n](int c) { return n * c; }, most);
+inline int c64_cols(const Plan& p, long long nz, int most = 16) {
+  const int n = p.n;
+  return cols_per_group(p, nz, [n](int c) { return n * c; }, most);
+}
+
+// The generic variant of the column pass into `out`, or nullptr when
+// GENERIC is false (the pass then has no generic stage compiled in).
+template <bool GENERIC, typename Out>
+ColsKernel<Out> generic_cols(bool fwd) {
+  if constexpr (GENERIC)
+    return fwd ? cols_kernel<true, kMaxPrime, Out>
+               : cols_kernel<false, kMaxPrime, Out>;
+  else
+    return nullptr;
 }
 
 // The columns pass over [lead, n, nz] from x into `out` (C64Out: x -> y,
 // y may be x); `extra`: the bytes of shared memory Out::begin takes;
-// groups of up to `most` columns (c64_cols).
-template <typename Out = C64Out>
+// groups of up to `most` columns (c64_cols). GENERIC: whether the pass
+// takes plans with a generic stage (fuse.cu's outputs do not yet).
+template <typename Out = C64Out, bool GENERIC = true>
 struct ColsPass : Pass<ColsKernel<Out>> {
   ColsPass(const Plan& p, bool fwd, long long nz, size_t extra = 0,
            int most = 16)
       : Pass<ColsKernel<Out>>(
-            p, c64_cols(p.n, nz, most), p.n * c64_cols(p.n, nz, most),
-            p.n * c64_cols(p.n, nz, most), extra,
+            p, c64_cols(p, nz, most), p.n * c64_cols(p, nz, most),
+            p.n * c64_cols(p, nz, most), extra,
             fwd ? cols_kernel<true, 8, Out> : cols_kernel<false, 8, Out>,
-            fwd ? cols_kernel<true, 17, Out> : cols_kernel<false, 17, Out>) {}
+            fwd ? cols_kernel<true, kMaxHand, Out>
+                : cols_kernel<false, kMaxHand, Out>,
+            generic_cols<GENERIC, Out>(fwd)) {}
   cudaError_t operator()(const float2* x, Out out, long long lead,
                          long long nz, const float2* tw, float scale,
                          cudaStream_t st) {

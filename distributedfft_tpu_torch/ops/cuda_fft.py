@@ -11,24 +11,25 @@ kernels become the CUDA launchers of ``csrc/four_step.cu``:
   package's ``vmap`` over middle axes;
 - :func:`fft_last` (``_make_kernel``): DFT over the rows of [batch, n].
 
-Three routes (:func:`route`), chosen by the length alone. Every kernel
-takes the radix route (``csrc/radix.cuh``, plan and twiddles from
-:mod:`.radix`) for every length n <= 8192 whose prime factors are all
-<= 17, the plane only when both its axes do. The row and strided
-kernels take the two-pass radix route (``radix2``) for the lengths
-8192 < n <= 65536 with those prime factors: with the four-step split
-n = m1*m2 (:func:`split_for`), a radix pass of length m1 whose store
-multiplies by the four-step twiddle T, then a radix pass of length m2
-whose store puts (k1, k2) at k1 + m1*k2. Every other eligible length
-takes the direct route: the four-step sums, whose split n = n1*n2 (both
-factors <= 256) and float64-built LUTs (T among them) are the JAX
-package's, bit for bit.
+Three routes, chosen by the length alone. The row and strided kernels
+(:func:`route`) take the radix route (``csrc/radix.cuh``, plan and
+table from :mod:`.radix`) at every eligible length n <= 8192, a prime
+factor from 19 to 251 on its generic prime stage, and the two-pass radix
+route (``radix2``) at every eligible 8192 < n <= 65536: with the
+four-step split n = m1*m2 (:func:`split_for`), a radix pass of length
+m1 whose store multiplies by the four-step twiddle T, then a radix pass
+of length m2 whose store puts (k1, k2) at k1 + m1*k2. The plane
+(:func:`route2d`) and the fused kernels (``cuda_fuse.fused_route``)
+take the radix route where both axes' (or the length's) prime factors
+are all <= 17 (:func:`hand_route`), else the direct route: the four-step
+sums, whose split n = n1*n2 (both factors <= 256) and float64-built LUTs
+(T among them) are the JAX package's, bit for bit.
 
 Each wrapper takes complex64, contiguous tensors. On a CPU tensor it runs
 the plain version of the route the card would take (``*_plain``: the
 radix stages of :func:`.radix.radix_plain`, the two passes of
-:func:`two_pass_plain`, or the ``_four_step_ref`` math as
-``torch.einsum`` with the same LUTs); on a CUDA tensor it
+:func:`two_pass_plain`, or, for the plane, the ``_four_step_ref`` math
+as ``torch.einsum`` with the same LUTs); on a CUDA tensor it
 launches its kernel or raises. Each counts its launches in
 ``<wrapper>.launches``, by route in :data:`ROUTES` and by case in
 :data:`CASES`. Forward
@@ -74,7 +75,8 @@ _SMEM_BUDGET = 96 * 1024
 FALLBACKS: Counter = Counter()
 
 #: Kernel launches by (wrapper, route), route ``radix``, ``radix2`` (the
-#: two-pass route of the row and strided kernels) or ``direct``.
+#: two-pass route of the row and strided kernels) or ``direct`` (the
+#: plane's and the fused kernels' four-step sums).
 ROUTES: Counter = Counter()
 
 #: Kernel launches by case: (wrapper, forward, shape), with
@@ -104,24 +106,27 @@ def eligible2d(ny: int, nz: int) -> bool:
 @functools.lru_cache(maxsize=None)
 def route(n: int) -> str:
     """The route of a length-n row or strided transform: ``radix`` for an
-    eligible n that :func:`.radix.radix_plan` takes (n <= 8192, prime
-    factors <= 17); ``radix2`` for a longer eligible n whose two factors
-    of :func:`split_for` it takes (the same prime factors); else
-    ``direct``."""
+    eligible n <= 8192 (:func:`.radix.radix_plan` takes every one: its
+    prime factors are <= 251), ``radix2`` for an eligible n past it (both
+    factors of :func:`split_for` are radix lengths); ``direct`` only for
+    a length the kernels do not take at all."""
     if not eligible(n):
         return "direct"
-    if radix.radix_plan(n):
-        return "radix"
-    if all(radix.radix_plan(m) for m in split_for(n)):
-        return "radix2"
-    return "direct"
+    return "radix" if radix.radix_plan(n) else "radix2"
+
+
+def hand_route(n: int) -> str:
+    """The route of the plane and fused kernels at an eligible length n:
+    ``radix`` when :func:`.radix.hand_plan` takes it (n <= 8192, prime
+    factors <= 17, every stage a register butterfly), else ``direct``."""
+    return "radix" if eligible(n) and radix.hand_plan(n) else "direct"
 
 
 def route2d(ny: int, nz: int) -> str:
-    """The plane's route: ``radix`` when both axes take it. A plane's
-    axes are at most 8192 long (:func:`eligible2d`), so never
-    ``radix2``."""
-    return "radix" if route(ny) == route(nz) == "radix" else "direct"
+    """The plane's route: ``radix`` when both axes take it by
+    :func:`hand_route`. A plane's axes are at most 8192 long
+    (:func:`eligible2d`), so never ``radix2``."""
+    return "radix" if hand_route(ny) == hand_route(nz) == "radix" else "direct"
 
 
 def record_fallback(axis: int, reason: str) -> None:
@@ -222,6 +227,7 @@ def two_pass_plain(x2: torch.Tensor, n: int, forward: bool) -> torch.Tensor:
 
 def _rows_plain(x2: torch.Tensor, n: int, forward: bool,
                 how: str) -> torch.Tensor:
+    """[rows, n] through route ``how``'s plain version, unscaled."""
     if how == "radix":
         return radix.radix_plain(x2, forward)
     if how == "radix2":
@@ -340,18 +346,11 @@ def fft_last(x: torch.Tensor, forward: bool = True,
         tw = radix.device_twiddles(n, forward, x.device)
         _launch("dfft_fft_rows", x, x.data_ptr(), y.data_ptr(), batch, n,
                 *_radices(n), int(forward), tw.data_ptr(), scale)
-    elif how == "radix2":
+    else:
         scratch = torch.empty_like(x)
         _launch("dfft_fft_rows_2p", x, x.data_ptr(), y.data_ptr(),
                 scratch.data_ptr(), batch,
                 *_two_pass_args(n, forward, x.device), scale)
-    else:
-        n1, n2 = split_for(n)
-        seqs, smem = _block_seqs(n, 16, 1)
-        scratch = None if smem else torch.empty_like(x)
-        _launch("dfft_fft_rows_direct", x, x.data_ptr(), y.data_ptr(),
-                _ptr(scratch), batch, n1, n2, seqs,
-                *_luts(n, forward, x.device), scale)
     fft_last.launches += 1
     ROUTES[("fft_last", how)] += 1
     CASES[_case("fft_last", forward, x.shape, normalize)] += 1
@@ -375,18 +374,11 @@ def fft_axis0(x: torch.Tensor, forward: bool = True,
         tw = radix.device_twiddles(n, forward, x.device)
         _launch("dfft_fft_strided", x, x.data_ptr(), y.data_ptr(), lead,
                 cols, n, *_radices(n), int(forward), tw.data_ptr(), scale)
-    elif how == "radix2":
+    else:
         scratch = torch.empty_like(x)
         _launch("dfft_fft_strided_2p", x, x.data_ptr(), y.data_ptr(),
                 scratch.data_ptr(), lead, cols,
                 *_two_pass_args(n, forward, x.device), scale)
-    else:
-        n1, n2 = split_for(n)
-        seqs, smem = _block_seqs(n, 16, 32)
-        scratch = None if smem else torch.empty_like(x)
-        _launch("dfft_fft_strided_direct", x, x.data_ptr(), y.data_ptr(),
-                _ptr(scratch), lead, cols, n1, n2, seqs,
-                *_luts(n, forward, x.device), scale)
     fft_axis0.launches += 1
     ROUTES[("fft_axis0", how)] += 1
     CASES[_case("fft_axis0", forward, x.shape, normalize)] += 1

@@ -12,9 +12,13 @@ lengths whose sequences do not fit a block's shared memory (the
 device-scratch route), plus the plans against the same plans on the CPU.
 The row, strided and plane kernels are held on each of their routes
 (radix: 256, 510, 512, ...; two-pass radix past 8192: 12288, 15625,
-16384, 65536; direct: 76 = 4*19, 1216 = 19*64, 9728 = 19*512), with
-the route counted, on a plane batch the launcher's L2 chunks do not
-divide, and by the inverse's scale (a round trip).
+16384, 65536; the generic prime stage of the row and strided kernels:
+69 = 3*23, 76 = 4*19, 361 = 19*19, 502 = 2*251, 608, 1216 = 19*64,
+8032 = 32*251, and past 8192 9728 = 76*128, 8194 = 34*241, 12482 =
+79*158, 64256 = 251*256, the last three with a one-stage pass; the
+plane's direct route at 76), with the route counted, on a plane batch
+the launcher's L2 chunks do not divide, and by the inverse's scale (a
+round trip).
 The fused stage+codec kernels are held the same way for each codec, both
 directions, and a transform along axis 0, a middle axis and the last
 axis, on both routes; on the radix route the decode against the strided
@@ -61,10 +65,14 @@ def _err(got, want):
                                      (3, 8192), (2, 65536), (9, 256),
                                      (33, 512), (5, 76), (4, 75),
                                      (3, 12288), (5, 15625), (17, 16384),
-                                     (1, 16384), (3, 9728)])
+                                     (1, 16384), (3, 9728), (4, 69),
+                                     (5, 361), (7, 502), (3, 608),
+                                     (2, 8032), (2, 8194), (3, 12482),
+                                     (2, 64256)])
 def test_fft_last_kernel_matches_plain(card, batch, n, forward):
     """Every route (two-pass past 8192 at 12288 ... 65536, with batches
-    whose row groups straddle a batch row: 5 x 125 rows of 15625)."""
+    whose row groups straddle a batch row: 5 x 125 rows of 15625; the
+    generic stage, one stage alone in a pass at 8194, 12482, 64256)."""
     x = _c64(n, (batch, n), card)
     before = cuda_fft.fft_last.launches
     how = cuda_fft.route(n)
@@ -87,12 +95,16 @@ def test_fft_last_kernel_matches_plain(card, batch, n, forward):
                                          (1, 16384, 5), (2, 12288, 33),
                                          (3, 15625, 1), (2, 16384, 3),
                                          (1, 65536, 1), (2, 65536, 16),
-                                         (1, 9728, 5)])
+                                         (1, 9728, 5), (1, 608, 130),
+                                         (2, 361, 7), (3, 502, 17),
+                                         (1, 8194, 5), (2, 12482, 3),
+                                         (1, 64256, 1)])
 def test_fft_axis0_kernel_matches_plain(card, lead, n, cols, forward):
-    """Every route (radix: 64 ... 8192; two-pass: 12288, 15625, 16384,
-    65536, with lead > 1 and cols 1, 3, 5, 16, 33; direct: 1216 = 19*64,
-    9728 = 19*512), ragged column tiles and columns narrower than a
-    group."""
+    """Every route (radix: 64 ... 8192, the generic stage at 361, 502,
+    608, 1216 = 19*64; two-pass: 12288, 15625, 16384, 65536, with lead >
+    1 and cols 1, 3, 5, 16, 33, the generic stage at 9728 = 19*512 and a
+    one-stage pass at 8194, 12482, 64256), ragged column tiles and
+    columns narrower than a group."""
     x = _c64(n + cols, (lead, n, cols), card)
     before = cuda_fft.fft_axis0.launches
     how = cuda_fft.route(n)
@@ -134,7 +146,7 @@ def test_fft2_last_kernel_matches_plain(card, batch, ny, nz, forward):
 
 
 @pytest.mark.parametrize("n,how", [(256, "radix"), (510, "radix"),
-                                   (512, "radix"), (76, "direct")])
+                                   (512, "radix"), (76, "radix")])
 def test_routes_and_inverse_scale(card, n, how):
     """Each route as :func:`route` names it; the inverse carries 1/n (a
     row round trip) and 1/(ny*nz) (a plane round trip, chunked and in one
@@ -152,7 +164,7 @@ def test_routes_and_inverse_scale(card, n, how):
         assert _err(back, p) < C64
 
 
-@pytest.mark.parametrize("n", [12288, 15625, 16384, 65536])
+@pytest.mark.parametrize("n", [12288, 15625, 16384, 65536, 8194, 12482])
 def test_two_pass_route_scale_and_round_trip(card, n):
     """The two-pass route: the inverse left unscaled (``normalize=False``,
     a stage of a composed transform) is n times the scaled one, and a row

@@ -24,6 +24,8 @@ from distributedfft_tpu_torch.ops import cuda_fft, radix
 C64 = testing.tolerance(np.complex64)  # 5e-4, the complex64 tier
 JAX_TIER = 1e-5                        # fp32 sums in another order
 RADICES = {2, 3, 4, 5, 7, 8, 11, 13, 16, 17}
+GENERIC = {p for p in range(19, 252)
+           if all(p % d for d in range(2, math.isqrt(p) + 1))}
 
 
 def _c64(seed, shape):
@@ -47,23 +49,25 @@ def _smooth(n: int) -> bool:
 # ------------------------------------------------------------------ plans
 
 def test_every_eligible_length_has_the_rules_route():
-    """For every kernel-eligible n in [64, 8192]: the route is radix
-    exactly when n <= 8192 and every prime factor is <= 17; a radix plan
-    multiplies out to n, uses only the hand-written radices, puts the
-    power-of-two part first in ceil(a/4) stages and has at least two
-    stages (the kernels' first reads and last writes device memory)."""
+    """For every kernel-eligible n in [64, 8192]: the row and strided
+    kernels' route is radix; the plan multiplies out to n, uses the
+    hand-written radices and, for a prime factor over 17, that prime as
+    a generic stage, puts the power-of-two part first in ceil(a/4)
+    stages, the odd primes after it in ascending order, and has at least
+    two stages; it has only hand-written radices (the plane's radix
+    route) exactly when every prime factor is <= 17."""
     radix_count = 0
     for n in range(64, 8193):
         if not cuda_fft.eligible(n):
             continue
         plan = radix.radix_plan(n)
-        assert (cuda_fft.route(n) == "radix") == _smooth(n), n
-        assert (plan is not None) == _smooth(n), n
-        if plan is None:
-            continue
+        assert cuda_fft.route(n) == "radix", n
+        assert (radix.hand_plan(n) is not None) == _smooth(n), n
+        assert (cuda_fft.route2d(n, 64) == "radix") == _smooth(n), n
         radix_count += 1
         assert math.prod(plan) == n
-        assert set(plan) <= RADICES
+        assert set(plan) <= RADICES | GENERIC
+        assert (set(plan) <= RADICES) == _smooth(n)
         assert len(plan) >= 2
         a = (n & -n).bit_length() - 1
         pow2 = [r for r in plan if r & (r - 1) == 0]
@@ -72,7 +76,7 @@ def test_every_eligible_length_has_the_rules_route():
         assert max(pow2, default=1) <= 2 * min(pow2, default=1)
         odd = list(plan[len(pow2):])
         assert odd == sorted(odd)
-    assert radix_count > 300
+    assert radix_count > 4000
 
 
 @pytest.mark.parametrize("n,plan", [(256, (16, 16)), (512, (8, 8, 8)),
@@ -87,10 +91,17 @@ def test_main_path_plans(n, plan):
 
 @pytest.mark.parametrize("n", [76, 19 * 64, 19 * 512, 4913])
 def test_lengths_off_the_radix_route(n):
-    """A prime factor over 17 (76 = 4*19; 9728 = 19*512, also over 8192),
-    or a smooth length the kernels do not take at all (17^3) is direct."""
-    assert cuda_fft.route(n) == "direct"
-    assert radix.radix_plan(n) is None or not cuda_fft.eligible(n)
+    """Off the hand-written radix route: a prime factor over 17 (76 =
+    4*19, 1216 = 19*64) takes the generic stage on the row and strided
+    kernels' radix route, or past 8192 (9728 = 19*512) their two-pass
+    route, and keeps the plane and fused kernels direct; a smooth length
+    the kernels do not take at all (17^3) is direct for every kernel."""
+    if not cuda_fft.eligible(n):
+        assert cuda_fft.route(n) == cuda_fft.hand_route(n) == "direct"
+        return
+    assert cuda_fft.route(n) == ("radix" if n <= 8192 else "radix2")
+    assert radix.hand_plan(n) is None
+    assert cuda_fft.hand_route(n) == "direct"
     assert cuda_fft.route2d(512, 76) == cuda_fft.route2d(76, 512) == "direct"
 
 
@@ -164,14 +175,23 @@ def test_radix_plain_matches_pallas_plane_kernel(ny, nz, forward):
 
 @pytest.mark.parametrize("forward", [True, False])
 def test_direct_route_keeps_the_four_step_sums(forward):
-    """76 = 4*19 takes the direct route: its plain version is the
-    four-step sums, and a plane with one such axis runs direct whole."""
+    """76 = 4*19: the row kernel's plain version is the radix stages (19
+    on the generic stage), while the direct route the fused kernels take
+    there keeps the four-step sums, and a plane with one such axis runs
+    direct whole."""
     x = _c64(76, (3, 76))
     got = cuda_fft.fft_last_plain(torch.from_numpy(x), forward)
-    want = cuda_fft.four_step_plain(torch.from_numpy(x), 76, forward)
+    want = radix.radix_plain(torch.from_numpy(x), forward)
     if not forward:
-        want = want / 76
+        want = want * (1.0 / 76)
     assert torch.equal(got, want)
+    cols = torch.from_numpy(x).t().contiguous().reshape(1, 76, 3)
+    direct = cuda_fft.fft_axis0_plain(cols, forward, normalize=False,
+                                      how="direct")
+    four = cuda_fft.four_step_plain(torch.from_numpy(x), 76, forward)
+    assert torch.equal(direct, four.t().reshape(1, 76, 3))
+    assert _err(direct.reshape(76, 3).t(), np.fft.fft(x) if forward
+                else np.fft.ifft(x) * 76) < C64
     p = _c64(77, (2, 76, 64))
     ref = np.fft.fft2(p) if forward else np.fft.ifft2(p)
     assert _err(cuda_fft.fft2_last(torch.from_numpy(p), forward), ref) < C64

@@ -92,12 +92,16 @@ def test_fft_axis0_plain_runs_the_radix_stages(n, forward):
 @pytest.mark.parametrize("forward", [True, False])
 @pytest.mark.parametrize("n", [19 * 64, 19 * 512])
 def test_direct_route_keeps_the_four_step_sums(n, forward):
-    """1216 = 19*64 and 9728 = 19*512 (a prime factor over 17) take the
-    direct route: their plain version is the four-step sums, bit for
-    bit, and holds the complex64 tier against numpy."""
-    assert cuda_fft.route(n) == "direct" and cuda_fft.eligible(n)
+    """1216 = 19*64 and 9728 = 19*512 (a prime factor over 17): the
+    strided kernel takes the generic stage (its radix or two-pass
+    route), while the direct route, which the fused kernels take there,
+    keeps the four-step sums as its plain version, bit for bit; both
+    hold the complex64 tier against numpy."""
+    assert cuda_fft.eligible(n) and cuda_fuse.fused_route(n) == "direct"
+    assert cuda_fft.route(n) == ("radix" if n <= 8192 else "radix2")
     x = _c64(n + 2, (2, n, 3))
-    got = cuda_fft.fft_axis0_plain(torch.from_numpy(x), forward)
+    got = cuda_fft.fft_axis0_plain(torch.from_numpy(x), forward,
+                                   how="direct")
     want = _cols_t(cuda_fft.four_step_plain(_rows_t(torch.from_numpy(x)), n,
                                             forward), 2, 3)
     if not forward:
@@ -105,6 +109,8 @@ def test_direct_route_keeps_the_four_step_sums(n, forward):
     assert torch.equal(got, want)
     ref = np.fft.fft(x, axis=1) if forward else np.fft.ifft(x, axis=1)
     assert _err(got, ref) < C64
+    assert _err(cuda_fft.fft_axis0_plain(torch.from_numpy(x), forward),
+                ref) < C64
 
 
 @pytest.mark.parametrize("forward", [True, False])

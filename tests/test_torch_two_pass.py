@@ -1,7 +1,6 @@
 """The two-pass radix route of the row and strided kernels, on the CPU.
 
-Past 8192, an eligible length whose prime factors are all <= 17 runs on
-the card as two radix passes of ``csrc/radix.cuh`` over the four-step
+Past 8192, an eligible length runs on the card as two radix passes of ``csrc/radix.cuh`` over the four-step
 split n = m1*m2 (``cuda_fft.route`` names it ``radix2``): the pass over
 j1 with the twiddle T in its store, then the pass over j2 with the
 reorder to k = k1 + m1*k2 in its store. On CPU tensors the wrappers run
@@ -12,8 +11,11 @@ plain version against the JAX package's Pallas kernels in interpret mode
 rounding on both sides, the sums in another order) and against numpy at
 the complex64 tier (5e-4); check the route by length, the tables the
 route reads, and that the fused kernels, which have no two-pass form,
-count and run the direct route at these lengths.
+count and run the direct route at these lengths. The lengths with a
+prime factor over 17 are ``tests/test_torch_generic_radix.py``'s.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -72,26 +74,33 @@ def test_two_pass_lengths_take_the_new_route(n):
 
 @pytest.mark.parametrize("n", DIRECT)
 def test_lengths_with_a_prime_over_17_stay_direct(n):
+    """A prime factor over 17: the fused kernels stay on the direct
+    route; the row and strided kernels take the generic stage on their
+    radix route (76, 1216) or their two-pass route (9728 = 76 * 128)."""
     assert cuda_fft.eligible(n)
-    assert cuda_fft.route(n) == "direct"
     assert cuda_fuse.fused_route(n) == "direct"
+    assert cuda_fft.route(n) == ("radix" if n <= 8192 else "radix2")
 
 
 def test_every_eligible_length_past_8192_has_the_rules_route():
     """For every kernel-eligible 8192 < n <= 65536: the route is
-    ``radix2`` exactly when every prime factor is <= 17, and then both
-    factors of the split have radix plans of at least two stages."""
+    ``radix2``; both factors of the split have radix plans, of at least
+    two stages when every prime factor is <= 17, of one stage only for a
+    factor that is a prime over 17 (241 of 8194 = 34 * 241); the fused
+    kernels take the direct route."""
     count = 0
     for n in range(8193, 65537):
         if not cuda_fft.eligible(n):
             continue
-        assert (cuda_fft.route(n) == "radix2") == _smooth(n), n
+        assert cuda_fft.route(n) == "radix2", n
+        assert cuda_fuse.fused_route(n) == "direct", n
+        plans = [radix.radix_plan(m) for m in cuda_fft.split_for(n)]
+        assert all(math.prod(p) == m
+                   for p, m in zip(plans, cuda_fft.split_for(n))), n
+        assert all(len(p) >= 2 or p[0] > 17 for p in plans), n
         if _smooth(n):
             count += 1
-            assert all(len(radix.radix_plan(m)) >= 2
-                       for m in cuda_fft.split_for(n)), n
-        else:
-            assert cuda_fft.route(n) == "direct", n
+            assert all(len(p) >= 2 for p in plans), n
     assert count > 1000
 
 
