@@ -2,9 +2,10 @@
 """Smoke test of distributedfft_tpu_torch on one NVIDIA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``
-(``--route-cases``: only the GENERIC_CASES kernel cases of phase 2 and
-the non-smooth paths of phase 5, on whichever package sits beside the
-script, so that a parent commit's tree can be timed beside it). It
+(``--route-cases``: only the GENERIC_CASES kernel cases of phase 2, the
+generic fused cases of phase 3 and the non-smooth and 608^3 paths of
+phase 5, on whichever package sits beside the script, so that a parent
+commit's tree can be timed beside it). It
 
 1. prints the card's name and power limit and builds the CUDA kernels
    from ``distributedfft_tpu_torch/csrc`` (nvcc, sm_90a);
@@ -18,10 +19,10 @@ script, so that a parent commit's tree can be timed beside it). It
    device copy of the same tensor (one read, one write), the kernel and
    that call also back to back (device time without the host's launch
    time), and the plane kernel both walking the batch in L2-sized chunks
-   and in one go; the GENERIC_CASES hold the row and strided kernels'
-   generic prime stage (608, 361 = 19 * 19, the two-pass 9728, 8194 and
-   12482, whose 241 and 79 are one-stage passes) and the plane's direct
-   route at [152, 608, 608];
+   and in one go; the GENERIC_CASES hold the generic prime stage of the
+   row and strided kernels (608, 361 = 19 * 19, the two-pass 9728, 8194
+   and 12482, whose 241 and 79 are one-stage passes) and of the plane
+   at [152, 608, 608], with the 608^3 slab's other cases;
 3. holds the two fused stage+codec kernels (``csrc/fuse.cu``) against
    their plain versions at every shape and codec the compressed path
    gives them: sidecars bit-identical, mantissas at most one level apart,
@@ -31,7 +32,8 @@ script, so that a parent commit's tree can be timed beside it). It
    1e-6), timed beside a device copy and the unfused decode + torch.fft;
    the encode also against the codec's encode of the strided kernel's
    output (payload and sidecar bit for bit), timed beside a device copy
-   and that unfused sender;
+   and that unfused sender; the fused cases include the 608^3 paths'
+   sites and 76 = 4 * 19 on the generic stage (generic_fused_cases);
 4. checks the port on a small uneven input against numpy's float64 fftn
    (single device and the 4-rank slab; the repo's seeded world data);
 5. drives the C2C main path: the single-device plan at 512^3 forward and
@@ -44,7 +46,14 @@ script, so that a parent commit's tree can be timed beside it). It
    generic prime stage), forward against torch.fft.fftn and backward
    against torch.fft.ifftn and by round trip, every row, strided and
    plane kernel launched by the radix route only, with their times and
-   t0..t3;
+   t0..t3; then (counts from 0) the 608^3 paths: the slab C2C at 608^3
+   on 4 loopback ranks (t0 planes [152, 608, 608]) exact, then with the
+   split, bf16 and int8 wires fused, each fused plan against its unfused
+   twin bit for bit both ways, and the [512, 512, 608] pencil on 2x2
+   with the split wire fused against its twin (kernels 4 and 5 at cols
+   = 1 on its t0_fft_z / t3_fft_z sites); the plane, encode and decode
+   kernels launched, by the radix route only, no fallback; peak device
+   memory, plan times and t0..t3;
 6. drives the compressed and real path at 512^3 on a loopback world of
    4: the C2C plans with the split codec fused (and their unfused twins,
    compared bit for bit and printed), the R2C/C2R plans exact and with
@@ -776,16 +785,21 @@ def exact_dft(torch, x, axis, fwd):
     return (torch.fft.fft if fwd else torch.fft.ifft)(x, dim=axis)
 
 
-def check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates):
+def check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates,
+                        cases=None):
     """Phase 3: the fused stage+codec kernels against their plain
-    versions at every (shape, codec) the compressed path gives them, the
-    decode also against the strided kernel on the decoded wire. Returns
+    versions at every (shape, codec) the compressed path gives them
+    (``cases``: FUSED_CASES unless given), the encode also against the
+    codec's encode of the strided kernel's output and the decode against
+    the strided kernel on the decoded wire: bit for bit where the fused
+    route is radix (``cuda_fuse.fused_route``), else reported. Returns
     one record per kernel."""
     hbm, fp32, _ = rates
     dev = torch.device("cuda", torch.cuda.current_device())
     records = {}
     for i, (name, codec, fwd, shape, axis, tiles, where) in enumerate(
-            FUSED_CASES):
+            FUSED_CASES if cases is None else cases):
+        how = cfu.fused_route(shape[axis])
         kw = dict(fft_axis=axis, forward=fwd, tile_axis=axis,
                   tiles=tiles, wire_dtype=codec)
         cw = wire_codec(codec)
@@ -811,7 +825,7 @@ def check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates):
                     (t.shape, t.dtype) for t in twin]:
                 fail(f"{name} {label}: wire parts differ in shape or dtype")
             apart_twin = [int((g != t).sum()) for g, t in zip(got, twin)]
-            if any(apart_twin):
+            if any(apart_twin) and how == "radix":
                 fail(f"{name} {label}: differs from the codec's encode of "
                      f"fft_axis0(x) in {apart_twin} values (payload, "
                      f"sidecar)")
@@ -836,9 +850,9 @@ def check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates):
             got_y, want_y = dec(got), dec(want)
             err, l2, abs_err = rel_err(torch, got_y, want_y)
             out = torch.empty_like(x)
-            detail = (f"route={cf.route(shape[axis])}; vs codec("
-                      f"fft_along_axis(x)): payload and sidecar "
-                      f"bit-identical; steady_ms="
+            detail = (f"route={how}; vs codec(fft_along_axis(x)): "
+                      f"{apart_twin} values apart (payload, sidecar); "
+                      f"steady_ms="
                       f"{steady_ms(torch, kernel):.4f} copy_ms="
                       f"{steady_ms(torch, lambda: out.copy_(x)):.4f} "
                       f"unfused_ms="
@@ -869,7 +883,8 @@ def check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates):
             _, fu_l2, _ = rel_err(torch, got_y, unfused_y)
             twin = twin_report(torch, (got_y,), (unfused_y,))
             del unfused_y
-            if not fu_l2 <= FUSED_VS_UNFUSED or twin != "bit-identical":
+            if how == "radix" and not (fu_l2 <= FUSED_VS_UNFUSED
+                                       and twin == "bit-identical"):
                 fail(f"{name} {label}: vs fft_along_axis(decode): {twin}, "
                      f"l2 {fu_l2:.3e}")
             # unfused_ms: the codec's decode, then torch.fft (two calls:
@@ -878,7 +893,7 @@ def check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates):
             lib = lambda: exact_dft(torch, dec(parts), axis, fwd)
             unfused = lambda: cf.fft_along_axis(dec(parts), axis, fwd)
             out = torch.empty_like(got_y)
-            detail = (f"route={cf.route(shape[axis])}; vs "
+            detail = (f"route={how}; vs "
                       f"fft_along_axis(decode): {twin}; steady_ms="
                       f"{steady_ms(torch, kernel):.4f} copy_ms="
                       f"{steady_ms(torch, lambda: out.copy_(got_y)):.4f} "
@@ -2203,9 +2218,10 @@ GENERIC_PATHS = (((608, 512, 512), SLAB_RANKS, "slab"),
 # two paths' n = 608; 361 = 19 * 19 (two generic stages in a row); 9728
 # = 19 * 512 past 8192 (split 76 * 128, 76 = 4 * 19 on the generic
 # stage); two-pass lengths with a one-stage factor, 8194 = 34 * 241 (the
-# second pass) and 12482 = 79 * 158 (the first); and the plane kernel's
-# direct route at a non-smooth plane (a slab's t0 at 608^3 on 4 ranks),
-# the route kernel 1 still takes there.
+# second pass) and 12482 = 79 * 158 (the first); and the slab C2C at
+# 608^3 on 4 ranks (GENERIC_FUSED), its t0 planes [152, 608, 608] on the
+# plane kernel's radix route (the generic stage on both axes), the
+# plane's inverse held beside them.
 GENERIC_CASES = [
     ("fft_axis0", True, (1, 608, 65536), "slab [608,512,512] fwd t3"),
     ("fft_axis0", False, (1, 608, 65536), "slab [608,512,512] bwd t0"),
@@ -2217,8 +2233,12 @@ GENERIC_CASES = [
     ("fft_axis0", True, (1, 8194, 512), "8194 = 34 * 241"),
     ("fft_last", True, (512, 8194), "8194 = 34 * 241"),
     ("fft_last", True, (512, 12482), "12482 = 79 * 158"),
-    ("fft2_last", True, (152, 608, 608), "non-smooth plane"),
-    ("fft2_last", False, (152, 608, 608), "non-smooth plane"),
+    ("fft2_last", True, (152, 608, 608), "slab 608^3 fwd t0"),
+    ("fft2_last", False, (152, 608, 608), "the plane's inverse (held)"),
+    ("fft_axis0", True, (1, 608, 92416), "slab 608^3 fwd t3"),
+    ("fft_axis0", False, (1, 608, 92416), "slab 608^3 bwd t0"),
+    ("fft_last", False, (92416, 608), "slab 608^3 bwd t0"),
+    ("fft_axis0", False, (152, 608, 608), "slab 608^3 bwd t3"),
 ]
 
 
@@ -2284,6 +2304,220 @@ def time_generic_paths(torch, timing, dev, plans):
         x = seeded(torch, shape, dev)
         time_plans(torch, timing, fwd, bwd, x, label)
         stage_split(torch, timing, fwd, bwd, x, label)
+        del x
+        torch.cuda.empty_cache()
+
+
+# The paths that launch the plane and the fused kernels at a length with
+# a prime factor over 17 (GENERIC_FUSED): the slab C2C at 608^3 on
+# SLAB_RANKS (its t0 planes [152, 608, 608]), exact and with each fusable
+# wire fused beside its unfused twin, and the pencil at [512, 512, 608]
+# on PENCIL_GRID with the split wire fused beside its twin (its
+# t0_fft_z / t3_fft_z sites run kernels 4 and 5 at cols = 1).
+GENERIC_FUSED = (608, 512)
+
+
+def generic_fused_cases(n=GENERIC_FUSED[0], m=GENERIC_FUSED[1],
+                        ranks=SLAB_RANKS, grid=PENCIL_GRID):
+    """The fused kernel cases of the GENERIC_FUSED paths at the slab n^3
+    and the pencil [m, m, n] (their row, strided and plane cases are
+    GENERIC_CASES and generic_path_cases'), and at shapes no path
+    launches (held only): the other codecs at the pencil's cols = 1
+    sites, the encode's inverse with cols > 1 at n, and both kernels at
+    76 = 4 * 19."""
+    q = n // ranks
+    rows, cols = grid
+    pen = f"pencil [{m},{m},{n}]"
+    z = (m // rows, m // cols, n)             # t0_fft_z / t3_fft_z blocks
+    y = (m // rows, m, n // cols)             # t1_fft_y
+    x = (m, m // rows, n // cols)             # t3_fft_x / bwd t0_fft_x
+    fused = ([("decode_fft", c, True, (n, q, n), 0, ranks,
+               f"slab {n}^3 fwd t3_fft_x") for c in CODECS]
+             + [("decode_fft", c, False, (q, n, n), 1, ranks,
+                 f"slab {n}^3 bwd t3_fft_y") for c in CODECS]
+             + [("fft_encode", c, True, z, 2, cols,
+                 f"{pen} fwd t0_fft_z, cols=1") for c in CODECS]
+             + [("decode_fft", c, False, z, 2, cols,
+                 f"{pen} bwd t3_fft_z, cols=1") for c in CODECS]
+             + [("decode_fft", "split", True, y, 1, rows, f"{pen} fwd t1"),
+                ("decode_fft", "split", True, x, 0, rows, f"{pen} fwd t3"),
+                ("fft_encode", "split", False, x, 0, rows, f"{pen} bwd t0"),
+                ("decode_fft", "split", False, y, 1, rows, f"{pen} bwd t1")]
+             + [("fft_encode", c, False, (n, 64, 64), 0, ranks,
+                 f"held: inverse, cols > 1 at {n}") for c in CODECS]
+             + [("fft_encode", "split", True, (76, 256, 256), 0, ranks,
+                 "held: 76 = 4 * 19"),
+                ("decode_fft", "split", False, (256, 76, 256), 1, ranks,
+                 "held: 76 = 4 * 19")])
+    return fused
+
+
+def check_generic_fused_paths(torch, dfft, cfu, dev, n=GENERIC_FUSED[0],
+                              m=GENERIC_FUSED[1]):
+    """The GENERIC_FUSED paths: (a) the slab C2C at n^3 on SLAB_RANKS
+    exact, forward against torch.fft.fftn, backward against
+    torch.fft.ifftn and by round trip; (b) the same slab with each
+    fusable wire fused against its unfused twin, both directions, the
+    split plan within TOL of torch.fft, the fused sites on the JAX
+    package's routes; (c) the pencil [m, m, n] on PENCIL_GRID with the
+    split wire fused against its twin. Where the fused kernels take the
+    radix route at n (``cuda_fuse.fused_route``) every fused output must
+    equal its twin's bit for bit; elsewhere (a parent tree's direct
+    route, timed by ``--route-cases``) the twins are reported. Returns
+    {label: (fwd, bwd, shape)} for the timing phase."""
+    shape = (n, n, n)
+    bitwise = cfu.fused_route(n) == "radix"
+    plans = {}
+    x = seeded(torch, shape, dev)
+    ref = torch.fft.fftn(x)
+    label = f"slab {n}^3 loopback {SLAB_RANKS}"
+    fwd = dfft.plan_dft_c2c_3d(shape, SLAB_RANKS, device=dev)
+    bwd = dfft.plan_dft_c2c_3d(shape, SLAB_RANKS, direction=dfft.BACKWARD,
+                               device=dev)
+    y = fwd(x)
+    torch.cuda.synchronize()
+    if tuple(y.shape) != shape or not bool(torch.isfinite(
+            torch.view_as_real(y)).all()):
+        fail(f"{label}: forward output not finite or of shape "
+             f"{tuple(y.shape)}")
+    errs = rel_err(torch, y, ref)[:2]
+    back = bwd(y)
+    errs += rel_err(torch, back, torch.fft.ifftn(y))[:2]
+    errs += rel_err(torch, back, x)[:2]
+    print(f"{label}: forward vs torch.fft.fftn max rel err={errs[0]:.3e} l2 "
+          f"rel err={errs[1]:.3e}; backward vs torch.fft.ifftn max rel err="
+          f"{errs[2]:.3e} l2 rel err={errs[3]:.3e}; roundtrip max rel err="
+          f"{errs[4]:.3e} l2 rel err={errs[5]:.3e}", flush=True)
+    if not max(errs) <= TOL:
+        fail(f"{label}: error over {TOL}")
+    plans[label] = (fwd, bwd, shape)
+    del y, back, ref
+    torch.cuda.empty_cache()
+
+    def twins(label, fused, unfused, inp, key):
+        """Run a fused pair and its unfused twin; fail unless the outputs
+        are equal bit for bit (where ``bitwise``) and the sites take the
+        JAX package's routes. Returns (forward output, errors)."""
+        (ff, fb), (uf, ub) = fused, unfused
+        yf = ff(inp)
+        rep_f = twin_report(torch, (yf,), (uf(inp),))
+        bf = fb(yf)
+        rep_b = twin_report(torch, (bf,), (ub(yf),))
+        errs = (rel_err(torch, yf, torch.fft.fftn(inp))[:2]
+                + rel_err(torch, bf, inp)[:2])
+        print(f"{label}: forward vs torch.fft.fftn max rel err={errs[0]:.3e}"
+              f" l2 rel err={errs[1]:.3e}; roundtrip max rel err="
+              f"{errs[2]:.3e} l2 rel err={errs[3]:.3e}; vs the unfused twin:"
+              f" forward {rep_f}, backward {rep_b}", flush=True)
+        if bitwise and (rep_f, rep_b) != ("bit-identical", "bit-identical"):
+            fail(f"{label}: outputs differ from the unfused twin's")
+        for plan, what in ((ff, "fwd"), (fb, "bwd")):
+            sites = list(plan.graph.meta["fusion"]["sites"].values())
+            routes = [(st["sender"], st["receiver"]) for st in sites]
+            want = (PENCIL_SITE_ROUTES if key == "pencil"
+                    else [SITE_ROUTES[f"c2c {what}"]])
+            if routes != want:
+                fail(f"{label} {what}: fused sites {routes}, expected {want}")
+        del yf, bf
+        return errs
+
+    for codec in CODECS:
+        lab = f"slab {n}^3 c2c {codec} fused loopback {SLAB_RANKS}"
+        pair = lambda fuse: tuple(dfft.plan_dft_c2c_3d(
+            shape, SLAB_RANKS, wire_dtype=codec, fuse=fuse, direction=d,
+            device=dev) for d in (dfft.FORWARD, dfft.BACKWARD))
+        fused, unfused = pair(True), pair(False)
+        errs = twins(lab, fused, unfused, x, "slab")
+        if codec == "split" and not max(errs) <= TOL:
+            fail(f"{lab}: error over {TOL}")
+        plans[lab] = (*fused, shape)
+        plans[lab.replace(" fused", " unfused")] = (*unfused, shape)
+        torch.cuda.empty_cache()
+    del x
+    torch.cuda.empty_cache()
+
+    pshape = (m, m, n)
+    xp = seeded(torch, pshape, dev)
+    grid = f"{PENCIL_GRID[0]}x{PENCIL_GRID[1]}"
+    lab = f"pencil [{m},{m},{n}] c2c split fused {grid}"
+    pair = lambda fuse: tuple(dfft.plan_dft_c2c_3d(
+        pshape, PENCIL_GRID, wire_dtype="split", fuse=fuse, direction=d,
+        device=dev) for d in (dfft.FORWARD, dfft.BACKWARD))
+    fused, unfused = pair(True), pair(False)
+    if fused[0].world.grid != PENCIL_GRID:
+        fail(f"{lab}: plan on {fused[0].world.grid}")
+    errs = twins(lab, fused, unfused, xp, "pencil")
+    if not max(errs) <= TOL:
+        fail(f"{lab}: error over {TOL}")
+    plans[lab] = (*fused, pshape)
+    plans[lab.replace(" fused", " unfused")] = (*unfused, pshape)
+    del xp
+    torch.cuda.empty_cache()
+    return plans
+
+
+# The fused kernels' own gate (cuda_fuse.kernel_ineligible). The other
+# reasons cuda_fuse.FUSION_FALLBACKS counts are the stage graph's sender
+# and receiver routes (a slab's multi_axis sender), which are the JAX
+# package's site routes and are held as such.
+KERNEL_GATE = ("codec", "dtype", "empty", "tile_axis", "length",
+               "uneven_tiles")
+
+
+def gated(cfu) -> dict:
+    """The fused sites the kernel gate refused, by (site, reason)."""
+    return {k: v for k, v in cfu.FUSION_FALLBACKS.items()
+            if k[1] in KERNEL_GATE}
+
+
+def run_generic_fused_paths(torch, dfft, cf, cfu, dev, records=None):
+    """The GENERIC_FUSED paths with counts from 0: prints the launches by
+    wrapper and route and the peak device memory; with ``records`` (the
+    full run) fails unless the plane, encode and decode kernels were
+    launched, each by the radix route only, with no kernel fallback
+    (``cuda_fft.FALLBACKS``) and no site the fused kernels' gate refused
+    (KERNEL_GATE), and adds the launches to the records. Returns the
+    plans."""
+    cf.reset_launches()
+    cfu.reset_launches()
+    dfft.clear_plan_cache()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = (dict(cf.FALLBACKS), gated(cfu))
+    label = "the 608^3 paths"
+    with recording_cases(cf, cfu) as seen:
+        plans = check_generic_fused_paths(torch, dfft, cfu, dev)
+    path = {**cf.launches(), **cfu.launches()}
+    print(f"launches on {label}: {path}; by (wrapper, route): "
+          f"{ {k: v for k, v in cf.ROUTES.items() if v} }", flush=True)
+    print(f"peak device memory of {label}: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"(a 608^3 complex64 array is "
+          f"{608 ** 3 * 8 / 2**30:.2f} GiB)", flush=True)
+    if records is None:
+        print(f"cases on {label}: {sorted(seen, key=str)}", flush=True)
+        return plans
+    check_routes(cf, label, {}, dict(cf.ROUTES))
+    check_covered(seen, label)
+    for k in ("fft2_last", "fft_encode", "decode_fft"):
+        if path[k] <= 0:
+            fail(f"kernel {k} was not launched on {label}")
+    if (dict(cf.FALLBACKS), gated(cfu)) != before:
+        fail(f"{label} took a fallback: {dict(cf.FALLBACKS)}, "
+             f"{gated(cfu)} (before: {before})")
+    for k, v in path.items():
+        records[k]["launches"] += v
+    return plans
+
+
+def time_generic_fused_paths(torch, timing, dev, plans):
+    """The GENERIC_FUSED plans' forward and backward times (median of
+    10), and t0..t3 of the exact and split fused slabs and the pencils."""
+    for label, (fwd, bwd, shape) in plans.items():
+        x = seeded(torch, shape, dev)
+        time_plans(torch, timing, fwd, bwd, x, label)
+        if "int8" not in label and "bf16" not in label:
+            stage_split(torch, timing, fwd, bwd, x, label)
         del x
         torch.cuda.empty_cache()
 
@@ -5123,6 +5357,8 @@ def main() -> None:
         # the generic-stage cases and paths alone, on whichever package
         # sits beside this script (a parent commit's, to compare)
         check_kernels(torch, cf, radix, timing, rates, GENERIC_CASES)
+        check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates,
+                            generic_fused_cases())
         dev = torch.device("cuda", torch.cuda.current_device())
         with recording_cases(cf, cfu) as seen:
             cf.reset_launches()
@@ -5130,6 +5366,9 @@ def main() -> None:
         print(f"routes on the non-smooth paths: {dict(cf.ROUTES)}; cases "
               f"{sorted(seen, key=str)}", flush=True)
         time_generic_paths(torch, timing, dev, plans)
+        del plans
+        plans = run_generic_fused_paths(torch, dfft, cf, cfu, dev)
+        time_generic_fused_paths(torch, timing, dev, plans)
         print(f"chip_smoke.py --route-cases: "
               f"{time.perf_counter() - t_script:.1f} s [{card}]", flush=True)
         return
@@ -5155,6 +5394,7 @@ def main() -> None:
         if case_key(c) not in held:
             held.add(case_key(c))
             KERNEL_CASES.append(c)
+    FUSED_CASES.extend(generic_fused_cases())
     FUSED_CASES.extend(serving_fused_cases(SERVE_N))
     records = check_kernels(torch, cf, radix, timing, rates)
     records.update(check_fused_kernels(torch, cf, cfu, wire_codec, timing,
@@ -5236,6 +5476,13 @@ def main() -> None:
         fail(f"the non-smooth paths took a fallback: {dict(cf.FALLBACKS)}")
     time_generic_paths(torch, timing, dev, generic)
     del generic
+    torch.cuda.empty_cache()
+
+    # ---- the 608^3 paths (kernels 1, 4 and 5 on the generic stage) ----
+    generic = run_generic_fused_paths(torch, dfft, cf, cfu, dev, records)
+    time_generic_fused_paths(torch, timing, dev, generic)
+    del generic
+    dfft.clear_plan_cache()
     torch.cuda.empty_cache()
 
     # ---- the compressed and real path: counts from 0, each plan once ----

@@ -1,5 +1,7 @@
-// The four-step DFT device routine shared by the kernels of four_step.cu
-// and fuse.cu (see four_step.cu for the math and the design).
+// The four-step DFT device routine of the direct route of the fused
+// encode and decode kernels (fuse.cu: dfft_fft_encode_direct,
+// dfft_decode_fft_direct), which take it only at the eligible lengths past
+// 8192; every other kernel and length runs the radix route (radix.cuh).
 //
 // A length-n axis, n = n1*n2 with both factors <= 256, is viewed as
 // A[j1, j2] (j = j1*n2 + j2) and
@@ -7,7 +9,13 @@
 //   H[j2, k1] = G[j2, k1] T[j2, k1]              twiddle
 //   Z[k1, k2] = sum_j2 H[j2, k1] W2[j2, k2]      stage 2
 //   X[k1 + n1*k2] = Z[k1, k2]                    natural output order.
-// The sums are direct fp32 FMAs: no tensor cores, no TF32.
+// The sums are direct fp32 FMAs: no tensor cores, no TF32 (the TPU
+// kernel, pallas_fft.py:_four_step_pass, contracts at `highest`
+// precision). The LUTs W1, T, W2 are complex64 built on the host in
+// float64 (ops/cuda_fft.py:tables_np). It does 8*(n1+n2) flops per
+// element, each complex multiply-add loading its operand from shared
+// memory and its LUT entry through L1, so it runs at the SM's L1 and
+// shared-memory bandwidth, several times its memory bound.
 
 #pragma once
 

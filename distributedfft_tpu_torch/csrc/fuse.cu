@@ -14,34 +14,37 @@
 // (pallas_fuse.py:158-172, :207-210). The sidecar is [tiles, 2] f32: one
 // power-of-two step per (tile, plane).
 //
-// Both kernels have two routes, as the strided kernel has them
-// (four_step.cu), chosen by the length alone. The radix route
-// (dfft_fft_encode, dfft_decode_fft; lengths n <= 8192 whose prime
-// factors are all <= 17: ops/cuda_fuse.py:fused_route) is radix.cuh's
+// Both kernels have two routes, chosen by the length alone
+// (ops/cuda_fuse.py:fused_route). The radix route (dfft_fft_encode,
+// dfft_decode_fft) takes every eligible length n <= 8192, the lengths
+// the strided kernel takes by its radix route (four_step.cu): radix.cuh's
 // column pass, the strided kernel's own, with the same plan, table,
-// instantiation and scale;
-// only where a value comes from or goes to differs. The direct route
-// (dfft_fft_encode_direct, dfft_decode_fft_direct, every other eligible
-// length) runs the four-step routine of four_step.cuh.
+// kernel variant and scale, a prime factor from 19 to 251 on the generic
+// prime stage (its variants compiled in fuse_generic_encode.cu and
+// fuse_generic_decode.cu, declared in fuse.cuh); only where a value comes
+// from or goes to differs. The direct
+// route (dfft_fft_encode_direct, dfft_decode_fft_direct) takes the
+// eligible lengths past 8192, which the strided kernel takes by its
+// two-pass route: it runs the four-step routine of four_step.cuh.
 //
 // fft_encode, radix route: the column pass (cols_kernel) with another
 //   output in place of its complex64 store (the last stage's sink), so
 //   each value is the one fft_axis0 would store, to the bit, and the
 //   payload is the plain codec's on fft_axis0(x):
 //   bf16        one launch: each (re, im) pair rounded to nearest even as
-//               the last stage produces it.
+//               the last stage produces it (fuse.cuh: Bf16Out).
 //   int8/split  three launches. The TPU kernel held the whole block in
 //               VMEM for one grid step because the per-(tile, plane) amax
 //               is a reduction over the block. Here launch A is the
 //               column pass storing the c64 transform to device scratch
 //               `y` (fft_axis0(x) itself) while each thread keeps running
-//               maxima per tile in registers; each block merges them by
-//               one atomicMax per slot on the uint32 bits (valid because
-//               amax >= 0; the result does not depend on the order of the
-//               blocks). Launch B turns the 2*tiles amax slots into the
-//               sidecar's steps; launch C quantizes y one tile's run
-//               of rows at a time: rintf (half to even) of v / step,
-//               clamped to +-levels.
+//               maxima per tile in registers (fuse.cuh: C64AmaxOut); each
+//               block merges them by one atomicMax per slot on the uint32
+//               bits (valid because amax >= 0; the result does not depend
+//               on the order of the blocks). Launch B turns the 2*tiles
+//               amax slots into the sidecar's steps; launch C quantizes y
+//               one tile's run of rows at a time: rintf (half to even) of
+//               v / step, clamped to +-levels.
 // fft_encode, direct route: the four-step routine, then the bf16 cast in
 //   the same launch; or, quantized, launch A writes the c64 transform to
 //   `y` and takes the amax, B and C as above.
@@ -51,8 +54,9 @@
 //   the group before, and the first stage unpacks each value as it reads
 //   it (bf16 -> f32, or mantissa * the pow2 step of its input tile:
 //   exact, the plain decode's value), so fused_decode_fft(parts) and
-//   fft_axis0(decode(parts)) agree to the bit. Direct route: unpack into
-//   shared memory, then the four-step routine.
+//   fft_axis0(decode(parts)) agree to the bit (fuse.cuh:
+//   decode_cols_kernel). Direct route: unpack into shared memory or
+//   device scratch, then the four-step routine.
 //
 // What bounds them on an H100: the decode's and the bf16 encode's radix
 // routes do one column pass, which reads c64 or the wire once and writes
@@ -63,19 +67,15 @@
 // quantizer in its last stage, instead of storing y, moves fewer bytes
 // (8 + 8 + 2 or 4) but measured slower on the H100: the column pass
 // takes about a device copy's time even when it stores nothing, while
-// launch C runs at the copy rate (PERF.md). The direct routes run
-// the direct sums of four_step.cu (8*(n1+n2) flops per complex element,
-// limited by shared-memory and L1 traffic, ~8x the device-memory bound
-// at n = 512). Sequences longer than fit a block's shared memory run the
-// four-step routine on device scratch, as in four_step.cu.
+// launch C runs at the copy rate (PERF.md). The direct routes run the
+// four-step sums (8*(n1+n2) flops per complex element, limited by
+// shared-memory and L1 traffic); sequences longer than fit a block's
+// shared memory run the four-step routine on device scratch.
 //
 // Every launcher returns cudaGetLastError() of its own launches.
 
-#include <cuda_bf16.h>
-#include <stdint.h>
-
 #include "four_step.cuh"
-#include "radix.cuh"
+#include "fuse.cuh"
 
 namespace {
 
@@ -265,27 +265,6 @@ cudaError_t launch_quantize(const float2* y, void* q, const float* side,
   return cudaGetLastError();
 }
 
-// Wire bytes per complex value of a codec.
-__host__ __device__ constexpr int pair_bytes(int codec) {
-  return codec == 1 ? 2 : 4;
-}
-
-// The wire value whose (re, im) pair sits at e (device or shared memory)
-// as c64, t its input tile, `side` the [tiles, 2] steps: exact.
-template <int CODEC>
-__device__ __forceinline__ float2 unpack(const char* e, const float* side,
-                                         int t) {
-  if (CODEC == 0)
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(e));
-  const float sr = side[2 * t], si = side[2 * t + 1];
-  if (CODEC == 1) {
-    const char2 p = *reinterpret_cast<const char2*>(e);
-    return make_float2((float)p.x * sr, (float)p.y * si);
-  }
-  const short2 p = *reinterpret_cast<const short2*>(e);
-  return make_float2((float)p.x * sr, (float)p.y * si);
-}
-
 // decode_fft by the direct route: CODEC 0 bf16, 1 int8, 2 int16 (split).
 // The unpacked block goes into shared memory, or into y itself when the
 // sequences do not fit (the routine then runs in place on y with
@@ -306,7 +285,8 @@ decode_fft_kernel(const void* q, const float* side, float2* y,
     for (int i = threadIdx.x; i < cnt * n; i += blockDim.x) {
       const int s = i % cnt, j = i / cnt;
       const long long e = blk.base + (long long)j * cols + s;
-      y[e] = unpack<CODEC>(qb + e * pair_bytes(CODEC), side, j / seg);
+      y[e] = fuse::unpack<CODEC>(qb + e * fuse::pair_bytes(CODEC), side,
+                                   j / seg);
     }
     __syncthreads();
     four_step<true>(y + blk.base, scratch + blk.base, y + blk.base, 1, cols,
@@ -317,9 +297,9 @@ decode_fft_kernel(const void* q, const float* side, float2* y,
   float2* b = smem + (long long)seqs * n;
   for (int i = threadIdx.x; i < cnt * n; i += blockDim.x) {
     const int s = i % cnt, j = i / cnt;
-    a[s + j * seqs] = unpack<CODEC>(
-        qb + (blk.base + (long long)j * cols + s) * pair_bytes(CODEC), side,
-        j / seg);
+    a[s + j * seqs] = fuse::unpack<CODEC>(
+        qb + (blk.base + (long long)j * cols + s) * fuse::pair_bytes(CODEC),
+        side, j / seg);
   }
   __syncthreads();
   four_step<true>(a, b, a, 1, seqs, cnt, n1, n2, w1, tw, w2, scale);
@@ -330,83 +310,17 @@ decode_fft_kernel(const void* q, const float* side, float2* y,
   }
 }
 
-// decode_fft by the radix route over [lead, n, nz] (CODEC as above),
-// `cols` neighbouring columns per group: radix.cuh's column pass with
-// another landing step. The group's raw wire tile lands in shared memory
-// (load_wire_tile: 16-byte copies of whole aligned row segments, else
-// 4-byte copies of each segment's covering span, which an odd nz gives
-// int8); the first stage reads each value through unpack, at the
-// segment's offset in its landed row; the steps sit in shared memory
-// after the twiddles.
-template <int CODEC, bool FWD, int MAXR>
-__global__ void __launch_bounds__(radix::kThreads)
-decode_cols_kernel(const void* q, const float* side, float2* y,
-                   long long lead, long long nz, radix::Plan plan, int cols,
-                   radix::Smem sm, int tiles, const float2* twg, float scale) {
-  extern __shared__ float4 radix_smem[];
-  float2* smem = reinterpret_cast<float2*>(radix_smem);
-  const int n = plan.n;
-  float2* tw = smem + sm.twiddles();
-  float* steps = reinterpret_cast<float*>(tw + plan.table);
-  radix::load_twiddles(tw, twg, plan);
-  if (CODEC != 0)
-    for (int i = threadIdx.x; i < 2 * tiles; i += blockDim.x)
-      steps[i] = side[i];
-  constexpr int pb = pair_bytes(CODEC);
-  const int seg = n / tiles, bytes = cols * pb;
-  const long long ld = nz * pb;
-  const char* qb = static_cast<const char*>(q);
-  const radix::Lane ln = radix::lane<true>(cols);
-  const long long per = (nz + cols - 1) / cols;
-  const long long groups = lead * per;
-  // element offset of the group's first value; cnt: its columns
-  auto where = [&](long long g, int* cnt) {
-    const long long l = g / per, c0 = (g - l * per) * cols;
-    *cnt = (int)(nz - c0 < cols ? nz - c0 : cols);
-    return l * n * nz + c0;
-  };
-  auto fast = [&](const char* src, int cnt) {
-    return cnt == cols && (bytes & 15) == 0 && (ld & 15) == 0 &&
-           (reinterpret_cast<size_t>(src) & 15) == 0;
-  };
-  radix::group_loop(
-      smem, sm, groups,
-      [&](long long g, float2* dst) {
-        int cnt;
-        const char* src = qb + where(g, &cnt) * pb;
-        radix::load_wire_tile(reinterpret_cast<char*>(dst), src, n, cnt * pb,
-                              bytes, ld, fast(src, cnt));
-      },
-      [&](long long g, float2* p, float2* a, float2* b, auto after) {
-        int cnt;
-        const long long e0 = where(g, &cnt);
-        const char* src = qb + e0 * pb;
-        const bool f = fast(src, cnt);
-        const int w = radix::wire_ld(bytes, f);
-        // row i's segment starts at (src + i*ld) & 3 in its landed row
-        const int o0 = f ? 0 : (int)(reinterpret_cast<size_t>(src) & 3);
-        const int od = f ? 0 : (int)(ld & 3);
-        const char* in = reinterpret_cast<const char*>(p) + ln.s * pb;
-        radix::run_stages<FWD, true, MAXR>(
-            [=](int i) {
-              return unpack<CODEC>(in + i * w + ((o0 + i * od) & 3), steps,
-                                   i / seg);
-            },
-            radix::store_c64(y + e0 + ln.s, nz), ln.s < cnt, ln, cols, plan,
-            a, b, tw, scale, after);
-      });
-}
-
 using DecodeKernel = void (*)(const void*, const float*, float2*, long long,
                               long long, radix::Plan, int, radix::Smem, int,
                               const float2*, float);
 
-DecodeKernel decode_kernel(int codec, bool fwd, bool wide) {
-#define DFFT_DECODE(C)                                                   \
-  (fwd ? (wide ? decode_cols_kernel<C, true, 17>                        \
-               : decode_cols_kernel<C, true, 8>)                        \
-       : (wide ? decode_cols_kernel<C, false, 17>                       \
-               : decode_cols_kernel<C, false, 8>))
+// The decode kernel of a codec and direction that compiles the radices up
+// to MAXR (8, kMaxHand or kMaxPrime: radix.cuh's stage_r).
+template <int MAXR>
+DecodeKernel decode_kernel(int codec, bool fwd) {
+#define DFFT_DECODE(C)                                 \
+  (fwd ? fuse::decode_cols_kernel<C, true, MAXR>       \
+       : fuse::decode_cols_kernel<C, false, MAXR>)
   return codec == 0 ? DFFT_DECODE(0) : codec == 1 ? DFFT_DECODE(1)
                                                   : DFFT_DECODE(2);
 #undef DFFT_DECODE
@@ -426,20 +340,20 @@ int wire_cols(const radix::Plan& p, long long nz, int pb) {
       p, nz, [=](int c) { return wire_land(n, c, pb); });
 }
 
-// The decode pass over [lead, n, nz] of one codec and direction; no
-// generic-stage variant (fused_route gives the fused kernels only plans of
-// hand-written radices), as in the encode's ColsPass<..., false>.
+// The decode pass over [lead, n, nz] of one codec and direction; its
+// kernel variant is the plan's (radix.cuh:Pass), the generic one
+// (fuse_generic_decode.cu) for a prime factor over 17.
 struct DecodePass : radix::Pass<DecodeKernel> {
   int tiles;
   DecodePass(const radix::Plan& p, bool fwd, int codec, long long nz,
              int tiles_)
-      : Pass(p, wire_cols(p, nz, pair_bytes(codec)),
-             p.n * wire_cols(p, nz, pair_bytes(codec)),
-             wire_land(p.n, wire_cols(p, nz, pair_bytes(codec)),
-                       pair_bytes(codec)),
-             2 * (size_t)tiles_ * sizeof(float),
-             decode_kernel(codec, fwd, false), decode_kernel(codec, fwd, true),
-             nullptr),
+      : Pass(p, wire_cols(p, nz, fuse::pair_bytes(codec)),
+             p.n * wire_cols(p, nz, fuse::pair_bytes(codec)),
+             wire_land(p.n, wire_cols(p, nz, fuse::pair_bytes(codec)),
+                       fuse::pair_bytes(codec)),
+             2 * (size_t)tiles_ * sizeof(float), decode_kernel<8>(codec, fwd),
+             decode_kernel<radix::kMaxHand>(codec, fwd),
+             decode_kernel<radix::kMaxPrime>(codec, fwd)),
         tiles(tiles_) {}
   cudaError_t operator()(const void* q, const float* side, float2* y,
                          long long lead, long long nz, const float2* tw,
@@ -449,95 +363,6 @@ struct DecodePass : radix::Pass<DecodeKernel> {
       kernel<<<(unsigned)b, radix::kThreads, shm, st>>>(
           q, side, y, lead, nz, plan, group, sm, tiles, tw, scale);
     return cudaGetLastError();
-  }
-};
-
-// fft_encode by the radix route: radix.cuh's column pass (cols_kernel,
-// the strided kernel's template) with one of these outputs. Each takes
-// output i of a column as the strided kernel would store it, to the
-// bit: same plan, twiddles, instantiation and scale before the sink.
-
-// bf16: each (re, im) pair rounded to nearest even.
-struct Bf16Out {
-  __nv_bfloat162* q;
-  __device__ void begin(void*) {}
-  __device__ auto column(long long e, long long stride) {
-    __nv_bfloat162* d = q + e;
-    return [=](int i, float2 v) {
-      d[i * stride] = __floats2bfloat162_rn(v.x, v.y);
-    };
-  }
-  __device__ void end() {}
-};
-
-// Tiles whose amax a thread keeps in registers.
-constexpr int kRegTiles = 4;
-
-// The tile of output index i: i / seg, as (i + 1/2) * (1/seg) in fp32.
-// Exact for n = tiles*seg < 2^22: the product is within tiles * 2^-23 of
-// (i + 1/2) / seg, which lies at least 1/(2 seg) from an integer.
-__device__ __forceinline__ int tile_of(int i, float inv_seg) {
-  return (int)(((float)i + 0.5f) * inv_seg);
-}
-
-// Pass A of the quantized encode: stores each value as the strided
-// kernel does (y is then fft_axis0(x), bit for bit) and takes the amax
-// of |re| and |im| of each tile of the output index into amax[2t] and
-// amax[2t + 1], as the uint32 bits of the non-negative floats (they
-// order as the floats do, so atomicMax is exact and the result does not
-// depend on the order of the blocks). A thread keeps running maxima of
-// up to kRegTiles tiles in registers over every group its block walks;
-// at the block's end each warp reduces them (one shared atomicMax per
-// warp and slot) and the block merges its 2*tiles shared slots into
-// amax (one global atomicMax per slot). More tiles than kRegTiles go
-// straight to the shared slots, value by value.
-struct C64AmaxOut {
-  float2* y;
-  unsigned* amax;
-  int tiles, seg;
-  float inv_seg;
-  unsigned* slots;
-  float m[2 * kRegTiles];
-  __device__ void begin(void* extra) {
-    slots = static_cast<unsigned*>(extra);
-    inv_seg = 1.0f / seg;
-    for (int i = threadIdx.x; i < 2 * tiles; i += blockDim.x) slots[i] = 0u;
-#pragma unroll
-    for (int k = 0; k < 2 * kRegTiles; ++k) m[k] = 0.f;
-  }
-  __device__ auto column(long long e, long long stride) {
-    float2* d = y + e;
-    return [this, d, stride](int i, float2 v) {
-      d[i * stride] = v;
-      const int t = tile_of(i, inv_seg);
-      const float re = fabsf(v.x), im = fabsf(v.y);
-      if (tiles <= kRegTiles) {
-#pragma unroll
-        for (int k = 0; k < kRegTiles; ++k)
-          if (k == t) {
-            m[2 * k] = fmaxf(m[2 * k], re);
-            m[2 * k + 1] = fmaxf(m[2 * k + 1], im);
-          }
-      } else {
-        atomicMax(&slots[2 * t], __float_as_uint(re));
-        atomicMax(&slots[2 * t + 1], __float_as_uint(im));
-      }
-    };
-  }
-  __device__ void end() {
-    __syncthreads();
-    if (tiles <= kRegTiles) {
-#pragma unroll
-      for (int k = 0; k < 2 * kRegTiles; ++k) {
-        if (k >= 2 * tiles) break;
-        const unsigned w =
-            __reduce_max_sync(0xffffffffu, __float_as_uint(m[k]));
-        if ((threadIdx.x & 31) == 0 && w != 0u) atomicMax(&slots[k], w);
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < 2 * tiles; i += blockDim.x)
-      if (slots[i] != 0u) atomicMax(&amax[i], slots[i]);
   }
 };
 
@@ -573,20 +398,20 @@ int dfft_fft_encode(const void* x, void* y, void* q, void* amax, void* side,
   const float2* ftw = (const float2*)tw;
   const cudaStream_t st = (cudaStream_t)stream;
   if (codec == 0) {
-    radix::ColsPass<Bf16Out, false> pass(plan, fwd, cols);
+    radix::ColsPass<fuse::Bf16Out> pass(plan, fwd, cols);
     if (pass.err != cudaSuccess) return (int)pass.err;
-    return (int)pass(fx, Bf16Out{(__nv_bfloat162*)q}, lead, cols, ftw, scale,
-                     st);
+    return (int)pass(fx, fuse::Bf16Out{(__nv_bfloat162*)q}, lead, cols, ftw,
+                     scale, st);
   }
   const int slots = 2 * tiles;
-  radix::ColsPass<C64AmaxOut, false> pass(plan, fwd, cols,
-                                          slots * sizeof(unsigned));
+  radix::ColsPass<fuse::C64AmaxOut> pass(plan, fwd, cols,
+                                         slots * sizeof(unsigned));
   if (pass.err != cudaSuccess) return (int)pass.err;
   cudaError_t e = cudaMemsetAsync(amax, 0, slots * sizeof(unsigned), st);
   if (e != cudaSuccess) return (int)e;
   e = pass(
-      fx, C64AmaxOut{(float2*)y, (unsigned*)amax, tiles, n / tiles}, lead,
-      cols, ftw, scale, st);
+      fx, fuse::C64AmaxOut{(float2*)y, (unsigned*)amax, tiles, n / tiles},
+      lead, cols, ftw, scale, st);
   if (e != cudaSuccess) return (int)e;
   steps_kernel<<<(slots + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       (const unsigned*)amax, (float*)side, slots, levels);
@@ -596,8 +421,9 @@ int dfft_fft_encode(const void* x, void* y, void* q, void* amax, void* side,
                               n, cols, tiles, codec, levels, st);
 }
 
-// The same by the direct route (the four-step routine): n = n1*n2, LUTs
-// w1, tw, w2, `seqs` columns per block. For codecs 1-2, `y` is a c64
+// The same by the direct route (the four-step routine; the eligible
+// lengths past 8192): n = n1*n2, LUTs w1, tw, w2, `seqs` columns per
+// block. For codecs 1-2, `y` is a c64
 // scratch of x's size and `amax` as above. scratch == nullptr: sequences
 // in shared memory (then `y` may be nullptr for bf16).
 int dfft_fft_encode_direct(const void* x, void* y, void* scratch, void* q,
@@ -663,8 +489,8 @@ int dfft_decode_fft(const void* q, const void* side, void* y, long long lead,
                    (const float2*)tw, scale, (cudaStream_t)stream);
 }
 
-// The same by the direct route: n = n1*n2, LUTs w1, tw, w2, `seqs`
-// columns per block. scratch == nullptr: sequences in shared memory;
+// The same by the direct route (the eligible lengths past 8192): n =
+// n1*n2, LUTs w1, tw, w2, `seqs` columns per block. scratch == nullptr: sequences in shared memory;
 // otherwise a c64 scratch of y's size.
 int dfft_decode_fft_direct(const void* q, const void* side, void* y,
                            void* scratch, long long lead, long long cols,

@@ -880,7 +880,9 @@ cols_kernel(const float2* x, Out out, long long lead, long long nz,
 // The generic-stage variants (MAXR = kMaxPrime) of the kernels for the
 // outputs four_step.cu launches them with are compiled in generic.cu, a
 // translation unit of their own that nvcc builds in parallel with the
-// others; every other file only declares them.
+// others; every other file only declares them (fuse.cuh does the same
+// for fuse.cu's outputs and decode kernel, compiled in
+// fuse_generic_encode.cu and fuse_generic_decode.cu).
 #define DFFT_GENERIC_ROWS(FWD, OUT)                                         \
   template __global__ void rows_kernel<FWD, kMaxPrime, OUT>(               \
       const float2*, OUT, long long, Plan, int, Smem, const float2*, float)
@@ -1052,8 +1054,7 @@ cudaError_t resident_blocks(Kernel kernel, size_t shm, long long* blocks) {
 // One radix pass, set up once and launched per call: its group size
 // (rows or columns), shared-memory layout, kernel variant (the one that
 // compiles the plan's largest radix: k8, k17 or kgen, the generic
-// stage's; a pass built without kgen refuses a plan that needs it) and
-// resident blocks. buf: complex64 of each exchange buffer; land: of the
+// stage's) and resident blocks. buf: complex64 of each exchange buffer; land: of the
 // landing buffer with prefetch; extra: bytes after the table.
 template <typename Kernel>
 struct Pass {
@@ -1072,8 +1073,7 @@ struct Pass {
         kernel(max_radix(p) <= 8          ? k8
                : max_radix(p) <= kMaxHand ? k17
                                           : kgen) {
-    err = kernel == nullptr ? cudaErrorInvalidValue
-                            : resident_blocks(kernel, shm, &cap);
+    err = resident_blocks(kernel, shm, &cap);
   }
 
   long long blocks(long long groups) const { return std::min(cap, groups); }
@@ -1117,22 +1117,10 @@ inline int c64_cols(const Plan& p, long long nz, int most = 16) {
   return cols_per_group(p, nz, [n](int c) { return n * c; }, most);
 }
 
-// The generic variant of the column pass into `out`, or nullptr when
-// GENERIC is false (the pass then has no generic stage compiled in).
-template <bool GENERIC, typename Out>
-ColsKernel<Out> generic_cols(bool fwd) {
-  if constexpr (GENERIC)
-    return fwd ? cols_kernel<true, kMaxPrime, Out>
-               : cols_kernel<false, kMaxPrime, Out>;
-  else
-    return nullptr;
-}
-
 // The columns pass over [lead, n, nz] from x into `out` (C64Out: x -> y,
 // y may be x); `extra`: the bytes of shared memory Out::begin takes;
-// groups of up to `most` columns (c64_cols). GENERIC: whether the pass
-// takes plans with a generic stage (fuse.cu's outputs do not yet).
-template <typename Out = C64Out, bool GENERIC = true>
+// groups of up to `most` columns (c64_cols).
+template <typename Out = C64Out>
 struct ColsPass : Pass<ColsKernel<Out>> {
   ColsPass(const Plan& p, bool fwd, long long nz, size_t extra = 0,
            int most = 16)
@@ -1142,7 +1130,8 @@ struct ColsPass : Pass<ColsKernel<Out>> {
             fwd ? cols_kernel<true, 8, Out> : cols_kernel<false, 8, Out>,
             fwd ? cols_kernel<true, kMaxHand, Out>
                 : cols_kernel<false, kMaxHand, Out>,
-            generic_cols<GENERIC, Out>(fwd)) {}
+            fwd ? cols_kernel<true, kMaxPrime, Out>
+                : cols_kernel<false, kMaxPrime, Out>) {}
   cudaError_t operator()(const float2* x, Out out, long long lead,
                          long long nz, const float2* tw, float scale,
                          cudaStream_t st) {

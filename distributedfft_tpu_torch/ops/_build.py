@@ -16,8 +16,10 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import tempfile
 import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -57,19 +59,21 @@ def _nvcc() -> str:
     return path
 
 
-def _run_all(cmds: list[list[str]]) -> None:
-    """Run the commands in parallel; raise with the output of any that
-    fails."""
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands in parallel and return their outputs; raise with
+    the output of any that fails."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
-    errors = []
+    outs, errors = [], []
     for cmd, proc in zip(cmds, procs):
         out, _ = proc.communicate()
+        outs.append(out)
         if proc.returncode != 0:
             errors.append(f"{' '.join(cmd)} -> {proc.returncode}:\n{out}")
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    return outs
 
 
 def _build(so: str) -> None:
@@ -100,8 +104,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dfft_fft_strided.argtypes = [p, p, ll, ll, i, i, ip, i, p, f, p]
     lib.dfft_fft_plane.argtypes = [p, p, ll, i, i, ip, i, i, ip, i, p, p, ll,
                                    f, p]
-    lib.dfft_fft_plane_direct.argtypes = ([p, p, p, ll] + [i] * 8 + [p] * 6
-                                          + [f, p])
     lib.dfft_fft_encode.argtypes = [p, p, p, p, p, ll, ll, i, i, ip, i, i,
                                     f, i, p, f, p]
     lib.dfft_fft_encode_direct.argtypes = ([p] * 6 + [ll, ll] + [i] * 5
@@ -111,11 +113,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dfft_decode_fft_direct.argtypes = ([p] * 4 + [ll, ll] + [i] * 5
                                            + [p, p, p, f, p])
     for fn in (lib.dfft_fft_rows, lib.dfft_fft_rows_2p, lib.dfft_fft_strided,
-               lib.dfft_fft_strided_2p,
-               lib.dfft_fft_plane, lib.dfft_fft_plane_direct,
+               lib.dfft_fft_strided_2p, lib.dfft_fft_plane,
                lib.dfft_fft_encode, lib.dfft_fft_encode_direct,
-               lib.dfft_decode_fft,
-               lib.dfft_decode_fft_direct):
+               lib.dfft_decode_fft, lib.dfft_decode_fft_direct):
         fn.restype = ctypes.c_int
 
 
@@ -138,3 +138,57 @@ def check(err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` a launcher returned."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def ptxas_usage(csrc: str = CSRC) -> dict[str, tuple[int, int, int]]:
+    """(registers, spill-store bytes, spill-load bytes) of every kernel
+    compiled from the ``.cu`` files under ``csrc``, as ``nvcc -Xptxas -v``
+    reports them (one nvcc per source, all together), keyed by the
+    demangled name with the anonymous namespace and ``fuse::`` dropped,
+    so that a kernel keeps its key when it moves between translation
+    units or namespaces. Needs ``nvcc``."""
+    srcs = sorted(glob.glob(os.path.join(csrc, "*.cu")))
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = _run_all([[_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                          os.path.join(tmp, f"{i}.o"), src]
+                         for i, src in enumerate(srcs)])
+    usage, name = {}, None
+    for line in "\n".join(outs).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            usage[name] = [0, 0, 0]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name in usage:
+            usage[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in usage:
+            usage[name][0] = int(m.group(1))
+    names = list(usage)
+    filt = shutil.which("cu++filt") or os.path.join(
+        os.path.dirname(_nvcc()), "cu++filt")
+    plain = subprocess.run([filt], input="\n".join(names), text=True,
+                           capture_output=True, check=True).stdout.split("\n")
+    drop = re.compile(r"\(anonymous namespace\)::|<unnamed>::|fuse::")
+    return {drop.sub("", d.strip()): tuple(usage[n])
+            for n, d in zip(names, plain)}
+
+
+if __name__ == "__main__":
+    # python -m distributedfft_tpu_torch.ops._build [OTHER_CSRC]: each
+    # kernel's registers and spills, beside those of the same kernel
+    # built from OTHER_CSRC (another tree's csrc/) when one is given.
+    import sys
+
+    mine = ptxas_usage()
+    other = ptxas_usage(sys.argv[1]) if len(sys.argv) > 1 else {}
+    same = 0
+    for k in sorted(mine):
+        theirs = other.get(k)
+        same += theirs == mine[k]
+        print(f"{mine[k]} {'' if theirs is None else theirs} {k}")
+    if other:
+        print(f"ptxas: {len(mine)} kernels here, {len(other)} there; "
+              f"{same} with equal registers and spills; only there: "
+              f"{sorted(set(other) - set(mine))}")

@@ -11,26 +11,25 @@ kernels become the CUDA launchers of ``csrc/four_step.cu``:
   package's ``vmap`` over middle axes;
 - :func:`fft_last` (``_make_kernel``): DFT over the rows of [batch, n].
 
-Three routes, chosen by the length alone. The row and strided kernels
-(:func:`route`) take the radix route (``csrc/radix.cuh``, plan and
-table from :mod:`.radix`) at every eligible length n <= 8192, a prime
-factor from 19 to 251 on its generic prime stage, and the two-pass radix
+Routes, chosen by the length alone (:func:`route`). Every eligible
+length n <= 8192 takes the radix route (``csrc/radix.cuh``, plan and
+table from :mod:`.radix`), a prime factor from 19 to 251 on its generic
+prime stage; so does every eligible plane (:func:`route2d`: its axes are
+at most 8192 long). The row and strided kernels take the two-pass radix
 route (``radix2``) at every eligible 8192 < n <= 65536: with the
 four-step split n = m1*m2 (:func:`split_for`), a radix pass of length
 m1 whose store multiplies by the four-step twiddle T, then a radix pass
-of length m2 whose store puts (k1, k2) at k1 + m1*k2. The plane
-(:func:`route2d`) and the fused kernels (``cuda_fuse.fused_route``)
-take the radix route where both axes' (or the length's) prime factors
-are all <= 17 (:func:`hand_route`), else the direct route: the four-step
+of length m2 whose store puts (k1, k2) at k1 + m1*k2. The fused kernels
+(``cuda_fuse.fused_route``) take the direct route there: the four-step
 sums, whose split n = n1*n2 (both factors <= 256) and float64-built LUTs
 (T among them) are the JAX package's, bit for bit.
 
 Each wrapper takes complex64, contiguous tensors. On a CPU tensor it runs
 the plain version of the route the card would take (``*_plain``: the
 radix stages of :func:`.radix.radix_plain`, the two passes of
-:func:`two_pass_plain`, or, for the plane, the ``_four_step_ref`` math
-as ``torch.einsum`` with the same LUTs); on a CUDA tensor it
-launches its kernel or raises. Each counts its launches in
+:func:`two_pass_plain`, or the direct route's ``_four_step_ref`` math as
+``torch.einsum`` with the same LUTs, :func:`four_step_plain`); on a CUDA
+tensor it launches its kernel or raises. Each counts its launches in
 ``<wrapper>.launches``, by route in :data:`ROUTES` and by case in
 :data:`CASES`. Forward
 transforms are unnormalized, inverse ones scaled by 1/n (numpy
@@ -76,7 +75,7 @@ FALLBACKS: Counter = Counter()
 
 #: Kernel launches by (wrapper, route), route ``radix``, ``radix2`` (the
 #: two-pass route of the row and strided kernels) or ``direct`` (the
-#: plane's and the fused kernels' four-step sums).
+#: fused kernels' four-step sums past 8192).
 ROUTES: Counter = Counter()
 
 #: Kernel launches by case: (wrapper, forward, shape), with
@@ -115,18 +114,13 @@ def route(n: int) -> str:
     return "radix" if radix.radix_plan(n) else "radix2"
 
 
-def hand_route(n: int) -> str:
-    """The route of the plane and fused kernels at an eligible length n:
-    ``radix`` when :func:`.radix.hand_plan` takes it (n <= 8192, prime
-    factors <= 17, every stage a register butterfly), else ``direct``."""
-    return "radix" if eligible(n) and radix.hand_plan(n) else "direct"
-
-
 def route2d(ny: int, nz: int) -> str:
     """The plane's route: ``radix`` when both axes take it by
-    :func:`hand_route`. A plane's axes are at most 8192 long
-    (:func:`eligible2d`), so never ``radix2``."""
-    return "radix" if hand_route(ny) == hand_route(nz) == "radix" else "direct"
+    :func:`route`, which is every eligible plane: :func:`eligible2d`
+    bounds ny*nz by 524288 and each axis by 64 from below, so both are
+    at most 8192 long and never ``radix2``. ``direct`` only for a plane
+    the kernel does not take at all."""
+    return "radix" if route(ny) == route(nz) == "radix" else "direct"
 
 
 def record_fallback(axis: int, reason: str) -> None:
@@ -389,6 +383,9 @@ def fft2_last(x: torch.Tensor, forward: bool = True) -> torch.Tensor:
     """2D DFT over the last two axes of ``x`` [batch, ny, nz] (the plane
     kernel); the inverse is scaled 1/(ny*nz)."""
     _check(x, 3, "fft2_last", x.shape[1], x.shape[2])
+    if route2d(x.shape[1], x.shape[2]) != "radix":
+        raise ValueError(f"fft2_last: an axis of the plane "
+                         f"{tuple(x.shape[1:])} is past {radix.MAX_N}")
     if x.device.type == "cpu":
         return fft2_last_plain(x, forward)
     return plane_launch(x, forward, x.shape[0])
@@ -404,24 +401,13 @@ def plane_launch(x: torch.Tensor, forward: bool, chunk: int) -> torch.Tensor:
     batch, ny, nz = x.shape
     y = torch.empty_like(x)
     scale = 1.0 / (ny * nz) if not forward else 1.0
-    how = route2d(ny, nz)
-    if how == "radix":
-        twy = radix.device_twiddles(ny, forward, x.device)
-        twz = radix.device_twiddles(nz, forward, x.device)
-        _launch("dfft_fft_plane", x, x.data_ptr(), y.data_ptr(), batch, ny,
-                *_radices(ny), nz, *_radices(nz), int(forward),
-                twy.data_ptr(), twz.data_ptr(), min(chunk, batch), scale)
-    else:
-        (y1, y2), (z1, z2) = split_for(ny), split_for(nz)
-        seqs_z, z_smem = _block_seqs(nz, 16, 1)
-        seqs_y, y_smem = _block_seqs(ny, 16, 32)
-        scratch = None if z_smem and y_smem else torch.empty_like(x)
-        _launch("dfft_fft_plane_direct", x, x.data_ptr(), y.data_ptr(),
-                _ptr(scratch), batch, y1, y2, z1, z2, seqs_z, seqs_y,
-                int(z_smem), int(y_smem), *_luts(ny, forward, x.device),
-                *_luts(nz, forward, x.device), scale)
+    twy = radix.device_twiddles(ny, forward, x.device)
+    twz = radix.device_twiddles(nz, forward, x.device)
+    _launch("dfft_fft_plane", x, x.data_ptr(), y.data_ptr(), batch, ny,
+            *_radices(ny), nz, *_radices(nz), int(forward), twy.data_ptr(),
+            twz.data_ptr(), min(chunk, batch), scale)
     fft2_last.launches += 1
-    ROUTES[("fft2_last", how)] += 1
+    ROUTES[("fft2_last", "radix")] += 1
     CASES[_case("fft2_last", forward, x.shape)] += 1
     return y
 

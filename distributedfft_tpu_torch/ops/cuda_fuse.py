@@ -9,17 +9,16 @@ mega-kernels become the CUDA launchers of ``csrc/fuse.cu``:
 - :func:`fused_decode_fft` (``_make_decode_kernel``): the exact wire
   decode, then the DFT along one axis (inverse scaled 1/n).
 
-Each takes the radix route at the lengths n <= 8192 whose prime factors
-are all <= 17 (:func:`.cuda_fft.hand_route`) and the direct route for
-every other length, the lengths where :func:`.cuda_fft.fft_axis0` takes
-the generic prime stage or its two-pass route included
-(:func:`fused_route`; counted in :data:`.cuda_fft.ROUTES` under
-``fft_encode`` and ``decode_fft``). On the radix route each runs the
-strided kernel's column pass with its own first or last step, so on the
-card the encode equals the codec's encode of ``fft_axis0(x)`` and the
-decode equals ``fft_axis0`` of the decoded wire, bit for bit; on the
-direct route the two agree within the complex64 tier, not bit for
-bit.
+Each takes the radix route wherever :func:`.cuda_fft.fft_axis0` does
+(every eligible n <= 8192, a prime factor from 19 to 251 on the generic
+prime stage) and the direct route past 8192, where ``fft_axis0`` takes
+its two-pass route (:func:`fused_route`; counted in
+:data:`.cuda_fft.ROUTES` under ``fft_encode`` and ``decode_fft``). On
+the radix route each runs the strided kernel's column pass with its own
+first or last step, so on the card the encode equals the codec's encode
+of ``fft_axis0(x)`` and the decode equals ``fft_axis0`` of the decoded
+wire, bit for bit; on the direct route the two agree within the
+complex64 tier, not bit for bit.
 
 Both return what the JAX functions return: the encode gives the tuple
 of wire parts, payload first, exactly shaped as
@@ -99,10 +98,11 @@ def kernel_ineligible(shape, fft_axis: int, tile_axis: int, tiles: int,
 
 
 def fused_route(n: int) -> str:
-    """The fused kernels' route at length n: ``radix`` where every prime
-    factor is <= 17 (:func:`.cuda_fft.hand_route`), else ``direct`` (they
-    have no generic stage and no two-pass form yet)."""
-    return cuda_fft.hand_route(n)
+    """The fused kernels' route at length n: ``radix`` where
+    :func:`.cuda_fft.route` is (every eligible n <= 8192, the generic
+    prime stage included), else ``direct``: past 8192 they have no
+    two-pass form yet, and take the four-step sums."""
+    return "radix" if cuda_fft.route(n) == "radix" else "direct"
 
 
 def _strided(shape, axis: int) -> tuple[int, int, int]:

@@ -1,5 +1,5 @@
-"""The radix route of the row, strided, plane and fused decode kernels:
-host plan, twiddle tables, and the plain PyTorch version of the route.
+"""The radix route of the row, strided, plane and fused kernels: host
+plan, twiddle tables, and the plain PyTorch version of the route.
 
 A length n <= 8192 (so that a whole sequence and its tables fit one
 block's shared memory) whose prime factors are all <= 251 is taken by
@@ -88,15 +88,6 @@ def radix_plan(n: int) -> tuple[int, ...] | None:
 def is_generic(r: int) -> bool:
     """Whether a stage of radix r runs the generic prime stage."""
     return r not in HAND_RADICES
-
-
-@functools.lru_cache(maxsize=None)
-def hand_plan(n: int) -> tuple[int, ...] | None:
-    """:func:`radix_plan` (n) when every stage has a register butterfly
-    (every prime factor <= 17), else None: the lengths the plane and fused
-    kernels take the radix route at."""
-    plan = radix_plan(n)
-    return plan if plan and not any(map(is_generic, plan)) else None
 
 
 def stage_geometry(plan) -> list[tuple[int, int]]:

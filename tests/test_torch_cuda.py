@@ -12,19 +12,19 @@ lengths whose sequences do not fit a block's shared memory (the
 device-scratch route), plus the plans against the same plans on the CPU.
 The row, strided and plane kernels are held on each of their routes
 (radix: 256, 510, 512, ...; two-pass radix past 8192: 12288, 15625,
-16384, 65536; the generic prime stage of the row and strided kernels:
-69 = 3*23, 76 = 4*19, 361 = 19*19, 502 = 2*251, 608, 1216 = 19*64,
-8032 = 32*251, and past 8192 9728 = 76*128, 8194 = 34*241, 12482 =
-79*158, 64256 = 251*256, the last three with a one-stage pass; the
-plane's direct route at 76), with the route counted, on a plane batch
-the launcher's L2 chunks do not divide, and by the inverse's scale (a
-round trip).
+16384, 65536; the generic prime stage: 69 = 3*23, 76 = 4*19, 361 =
+19*19, 502 = 2*251, 608, 1216 = 19*64, 8032 = 32*251, the plane at 76,
+and past 8192 9728 = 76*128, 8194 = 34*241, 12482 = 79*158, 64256 =
+251*256, the last three with a one-stage pass), with the route counted,
+on a plane batch the launcher's L2 chunks do not divide, and by the
+inverse's scale (a round trip).
 The fused stage+codec kernels are held the same way for each codec, both
 directions, and a transform along axis 0, a middle axis and the last
-axis, on both routes; on the radix route the decode against the strided
-kernel on the decoded wire and the encode against the codec's encode of
-the strided kernel's output (bit for bit); the fused real plans against
-the unfused ones.
+axis, on both routes (radix up to 8192, the generic stage at 1216, 608,
+76, 482 = 2*241, 722 = 2*19*19 and 361; direct past it); on
+the radix route the decode against the strided kernel on the decoded
+wire and the encode against the codec's encode of the strided kernel's
+output (bit for bit); the fused real plans against the unfused ones.
 """
 
 import numpy as np
@@ -132,7 +132,8 @@ def test_fft_axis0_runs_in_place_on_the_plane(card):
 @pytest.mark.parametrize("batch,ny,nz", [(3, 64, 72), (2, 510, 512),
                                          (1, 64, 8192), (1, 8192, 64),
                                          (3, 256, 256), (13, 512, 512),
-                                         (2, 76, 64), (3, 66, 70)])
+                                         (2, 76, 64), (3, 66, 70),
+                                         (2, 608, 76)])
 def test_fft2_last_kernel_matches_plain(card, batch, ny, nz, forward):
     x = _c64(ny + nz, (batch, ny, nz), card)
     before = cuda_fft.fft2_last.launches
@@ -216,9 +217,9 @@ def test_plans_on_the_card_match_the_cpu(card, shape, p):
 # ------------------------------------------------ fused stage+codec kernels
 
 # (shape, axis, tiles): axis 0 (lead 1), a middle axis with ragged
-# columns, the last axis (cols 1), a long radix length (8192), a
-# direct-route one (1216 = 19*64) and one the strided kernel takes by
-# its two-pass route, which the fused kernels take by the direct one.
+# columns, the last axis (cols 1), a long radix length (8192), one on the
+# generic stage (1216 = 19*64) and one the strided kernel takes by its
+# two-pass route, which the fused kernels take by the direct one.
 FUSED_SITES = [((64, 37, 3), 0, 4), ((3, 66, 37), 1, 2), ((5, 7, 128), 2, 4),
                ((2, 8192, 3), 1, 4), ((2, 1216, 3), 1, 4),
                ((1, 12288, 3), 1, 4)]
@@ -302,13 +303,17 @@ def test_decode_fft_kernel_matches_plain(card, codec, forward, shape, axis,
 @pytest.mark.parametrize("codec", ["bf16", "int8", "split"])
 @pytest.mark.parametrize("forward", [True, False])
 @pytest.mark.parametrize("lead,n,cols", [(2, 512, 16), (2, 512, 257),
-                                         (1, 510, 257), (3, 64, 7)])
+                                         (1, 510, 257), (3, 64, 7),
+                                         (2, 608, 16), (1, 76, 37),
+                                         (2, 482, 3), (4, 722, 1)])
 def test_fused_decode_equals_fft_axis0_of_the_decode(card, codec, forward,
                                                       lead, n, cols):
     """The radix decode kernel runs the strided kernel's stages on the
     exactly unpacked wire, so it equals fft_axis0(decode(parts)) (within
-    1e-6 L2; the shared stage code makes them equal to the bit). 257
-    columns put every other int8 row segment at 2 mod 4 bytes."""
+    1e-6 L2; the shared stage code makes them equal to the bit), the
+    generic stage's variant included (608 = 8.4.19, 76 = 4.19, 482 =
+    2.241, 722 = 2.19.19 with one column). 257 columns put every other
+    int8 row segment at 2 mod 4 bytes."""
     from distributedfft_tpu_torch.ops import cuda_fuse
     from distributedfft_tpu_torch.parallel.exchange import wire_codec
 
@@ -328,14 +333,17 @@ def test_fused_decode_equals_fft_axis0_of_the_decode(card, codec, forward,
 # (lead, n, cols, tiles) of the encode against its unfused form: every
 # tile count of 1..4 that divides n; 257 columns (odd rows of int8
 # pairs), 510 = 2.3.5.17 (tile edges inside the last stage's stride of
-# 30), 96 = 8.4.3 and 8192 (one column per group, no prefetch); and 8
-# and 6 tiles, more than a thread keeps in registers (the amax goes
-# through shared memory).
+# 30), 96 = 8.4.3 and 8192 (one column per group, no prefetch); 608 =
+# 8.4.19 and 76 = 4.19 on the generic stage, 482 = 2.241 and 361 =
+# 19.19 (one column) too; and 8 and 6 tiles, more than a thread keeps in
+# registers (the amax goes through shared memory).
 ENCODE_TWINS = [(lead, n, cols, t)
                 for lead, n, cols in [(2, 512, 16), (2, 512, 257),
-                                      (1, 510, 257), (3, 64, 7), (2, 96, 5)]
+                                      (1, 510, 257), (3, 64, 7), (2, 96, 5),
+                                      (2, 608, 16), (1, 76, 37)]
                 for t in (1, 2, 3, 4) if n % t == 0] + [
-    (1, 8192, 3, 4), (2, 512, 16, 8), (2, 96, 5, 6)]
+    (1, 8192, 3, 4), (2, 512, 16, 8), (2, 96, 5, 6), (3, 482, 5, 2),
+    (4, 361, 1, 1)]
 
 
 @pytest.mark.parametrize("codec", ["bf16", "int8", "split"])

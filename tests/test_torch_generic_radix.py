@@ -12,8 +12,9 @@ the JAX package's Pallas kernels in interpret mode at 1e-5 (fp32-level
 rounding on both sides, the sums in another order); and a slab and a
 pencil plan at a non-smooth shape on the port's ``cuda`` executor
 against the JAX package's ``pallas`` executor on the 8-device CPU mesh.
-The plane and fused kernels keep the register-butterfly rule (prime
-factors <= 17), so their routes are checked unchanged.
+The plane and fused kernels take the same radix route at these lengths
+(their plain versions are ``tests/test_torch_generic_fused.py``'s); the
+fused kernels keep the direct route past 8192.
 """
 
 import math
@@ -87,8 +88,9 @@ def test_every_eligible_length_takes_a_radix_route(lo, hi):
     ``radix`` up to 8192 and ``radix2`` past it, never ``direct``; the
     plan (or each factor's of the split) multiplies out to n with the
     hand-written radices and primes 19..251 only, one stage only for a
-    generic prime; the plane and fused kernels keep the radix route
-    exactly where every prime factor is <= 17."""
+    generic prime, a generic stage exactly where a prime factor is over
+    17; the fused kernels take the radix route up to 8192 and the direct
+    one past it, and a plane with such an axis takes the radix route."""
     generic = 0
     for n in range(lo, hi + 1):
         if not cuda_fft.eligible(n):
@@ -99,10 +101,12 @@ def test_every_eligible_length_takes_a_radix_route(lo, hi):
             _check_plan(m)
         smooth = _smooth(n)
         generic += not smooth
-        assert (cuda_fft.hand_route(n) == "radix") == (smooth and n <= 8192)
-        assert cuda_fuse.fused_route(n) == cuda_fft.hand_route(n)
+        assert cuda_fuse.fused_route(n) == ("radix" if n <= 8192
+                                            else "direct"), n
         if n <= 8192:
-            assert (radix.hand_plan(n) is not None) == smooth, n
+            plan = radix.radix_plan(n)
+            assert any(map(radix.is_generic, plan)) == (not smooth), n
+            assert cuda_fft.route2d(n, 64) == "radix", n
     assert generic > (3000 if hi <= 8192 else 10000)
 
 
@@ -113,7 +117,7 @@ def test_every_eligible_length_takes_a_radix_route(lo, hi):
                                     (437, (19, 23))])
 def test_generic_plans(n, plan):
     assert radix.radix_plan(n) == plan
-    assert radix.hand_plan(n) is None
+    assert max(plan) > 17
     assert all(radix.is_generic(r) == (r > 17) for r in plan)
 
 
@@ -131,7 +135,10 @@ def test_two_pass_splits_with_a_one_stage_factor(n, split, plans):
 
 @pytest.mark.parametrize("ny,nz", [(608, 608), (512, 608), (76, 64)])
 def test_plane_keeps_the_direct_route_off_smooth_lengths(ny, nz):
-    assert cuda_fft.route2d(ny, nz) == "direct"
+    """A plane with an axis of a prime factor over 17 no longer keeps the
+    direct route: it takes the radix route, as the smooth planes do (the
+    name is the test's own from before the plane had a generic stage)."""
+    assert cuda_fft.route2d(ny, nz) == "radix"
     assert cuda_fft.route2d(512, 512) == cuda_fft.route2d(510, 512) == "radix"
 
 

@@ -54,16 +54,16 @@ def test_every_eligible_length_has_the_rules_route():
     hand-written radices and, for a prime factor over 17, that prime as
     a generic stage, puts the power-of-two part first in ceil(a/4)
     stages, the odd primes after it in ascending order, and has at least
-    two stages; it has only hand-written radices (the plane's radix
-    route) exactly when every prime factor is <= 17."""
+    two stages; it has only hand-written radices exactly when every
+    prime factor is <= 17; a plane with such an axis takes the radix
+    route whatever its prime factors."""
     radix_count = 0
     for n in range(64, 8193):
         if not cuda_fft.eligible(n):
             continue
         plan = radix.radix_plan(n)
         assert cuda_fft.route(n) == "radix", n
-        assert (radix.hand_plan(n) is not None) == _smooth(n), n
-        assert (cuda_fft.route2d(n, 64) == "radix") == _smooth(n), n
+        assert cuda_fft.route2d(n, 64) == cuda_fft.route2d(64, n) == "radix"
         radix_count += 1
         assert math.prod(plan) == n
         assert set(plan) <= RADICES | GENERIC
@@ -91,18 +91,23 @@ def test_main_path_plans(n, plan):
 
 @pytest.mark.parametrize("n", [76, 19 * 64, 19 * 512, 4913])
 def test_lengths_off_the_radix_route(n):
-    """Off the hand-written radix route: a prime factor over 17 (76 =
-    4*19, 1216 = 19*64) takes the generic stage on the row and strided
-    kernels' radix route, or past 8192 (9728 = 19*512) their two-pass
-    route, and keeps the plane and fused kernels direct; a smooth length
-    the kernels do not take at all (17^3) is direct for every kernel."""
+    """Off the hand-written radices: a prime factor over 17 (76 = 4*19,
+    1216 = 19*64) takes the generic stage on the radix route of every
+    kernel, the plane's and the fused ones' included, or past 8192 (9728
+    = 19*512) the row and strided kernels' two-pass route and the fused
+    kernels' direct one; a smooth length the kernels do not take at all
+    (17^3) is direct for every kernel."""
+    from distributedfft_tpu_torch.ops import cuda_fuse
+
     if not cuda_fft.eligible(n):
-        assert cuda_fft.route(n) == cuda_fft.hand_route(n) == "direct"
+        assert cuda_fft.route(n) == cuda_fuse.fused_route(n) == "direct"
         return
     assert cuda_fft.route(n) == ("radix" if n <= 8192 else "radix2")
-    assert radix.hand_plan(n) is None
-    assert cuda_fft.hand_route(n) == "direct"
-    assert cuda_fft.route2d(512, 76) == cuda_fft.route2d(76, 512) == "direct"
+    assert cuda_fuse.fused_route(n) == ("radix" if n <= 8192 else "direct")
+    plans = ([radix.radix_plan(n)] if n <= 8192
+             else [radix.radix_plan(m) for m in cuda_fft.split_for(n)])
+    assert any(radix.is_generic(r) for p in plans for r in p)
+    assert cuda_fft.route2d(512, 76) == cuda_fft.route2d(76, 512) == "radix"
 
 
 @pytest.mark.parametrize("n", [12288, 15625, 16384, 65536])
@@ -176,9 +181,9 @@ def test_radix_plain_matches_pallas_plane_kernel(ny, nz, forward):
 @pytest.mark.parametrize("forward", [True, False])
 def test_direct_route_keeps_the_four_step_sums(forward):
     """76 = 4*19: the row kernel's plain version is the radix stages (19
-    on the generic stage), while the direct route the fused kernels take
-    there keeps the four-step sums, and a plane with one such axis runs
-    direct whole."""
+    on the generic stage), the direct route's plain version (the fused
+    kernels' past 8192) keeps the four-step sums at any length it is
+    given, and a plane with one such axis takes the radix route whole."""
     x = _c64(76, (3, 76))
     got = cuda_fft.fft_last_plain(torch.from_numpy(x), forward)
     want = radix.radix_plain(torch.from_numpy(x), forward)

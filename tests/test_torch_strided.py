@@ -2,10 +2,10 @@
 the radix route, on the CPU.
 
 ``cuda_fft.fft_axis0`` and ``cuda_fuse.fused_decode_fft`` choose their
-route by the length alone (``cuda_fft.route``): the radix stages of
-``csrc/radix.cuh`` for every n <= 8192 whose prime factors are all
-<= 17, for the strided kernel two radix passes past 8192 with the same
-prime factors, the four-step sums otherwise. On CPU tensors they run the plain
+route by the length alone (``cuda_fft.route``, ``cuda_fuse.fused_route``):
+the radix stages of ``csrc/radix.cuh`` for every eligible n <= 8192 (a
+prime factor from 19 to 251 on the generic stage), past 8192 two radix
+passes for the strided kernel and the four-step sums for the decode. On CPU tensors they run the plain
 version of that route (``fft_axis0_plain``; the codec's decode, then
 ``fft_axis0_plain``). These tests hold the plain versions against the
 JAX package's Pallas bodies in interpret mode (``pallas_fft.fft_axis0``,
@@ -94,10 +94,11 @@ def test_fft_axis0_plain_runs_the_radix_stages(n, forward):
 def test_direct_route_keeps_the_four_step_sums(n, forward):
     """1216 = 19*64 and 9728 = 19*512 (a prime factor over 17): the
     strided kernel takes the generic stage (its radix or two-pass
-    route), while the direct route, which the fused kernels take there,
-    keeps the four-step sums as its plain version, bit for bit; both
-    hold the complex64 tier against numpy."""
-    assert cuda_fft.eligible(n) and cuda_fuse.fused_route(n) == "direct"
+    route), as the fused kernels do at 1216, while the direct route,
+    which they take at 9728, keeps the four-step sums as its plain
+    version, bit for bit; both hold the complex64 tier against numpy."""
+    assert cuda_fft.eligible(n)
+    assert cuda_fuse.fused_route(n) == ("radix" if n <= 8192 else "direct")
     assert cuda_fft.route(n) == ("radix" if n <= 8192 else "radix2")
     x = _c64(n + 2, (2, n, 3))
     got = cuda_fft.fft_axis0_plain(torch.from_numpy(x), forward,

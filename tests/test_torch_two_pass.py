@@ -11,7 +11,8 @@ plain version against the JAX package's Pallas kernels in interpret mode
 rounding on both sides, the sums in another order) and against numpy at
 the complex64 tier (5e-4); check the route by length, the tables the
 route reads, and that the fused kernels, which have no two-pass form,
-count and run the direct route at these lengths. The lengths with a
+count and run the direct route at these lengths (and the radix route up
+to 8192, where ``fft_axis0`` takes it). The lengths with a
 prime factor over 17 are ``tests/test_torch_generic_radix.py``'s.
 """
 
@@ -74,11 +75,13 @@ def test_two_pass_lengths_take_the_new_route(n):
 
 @pytest.mark.parametrize("n", DIRECT)
 def test_lengths_with_a_prime_over_17_stay_direct(n):
-    """A prime factor over 17: the fused kernels stay on the direct
-    route; the row and strided kernels take the generic stage on their
-    radix route (76, 1216) or their two-pass route (9728 = 76 * 128)."""
+    """A prime factor over 17: the row and strided kernels take the
+    generic stage on their radix route (76, 1216) or their two-pass route
+    (9728 = 76 * 128); the fused kernels stay on the direct route only
+    past 8192 and take the generic stage below it (the name is the
+    test's own from before they had one)."""
     assert cuda_fft.eligible(n)
-    assert cuda_fuse.fused_route(n) == "direct"
+    assert cuda_fuse.fused_route(n) == ("radix" if n <= 8192 else "direct")
     assert cuda_fft.route(n) == ("radix" if n <= 8192 else "radix2")
 
 
