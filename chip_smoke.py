@@ -32,8 +32,12 @@ commit's tree can be timed beside it). It
    1e-6), timed beside a device copy and the unfused decode + torch.fft;
    the encode also against the codec's encode of the strided kernel's
    output (payload and sidecar bit for bit), timed beside a device copy
-   and that unfused sender; the fused cases include the 608^3 paths'
-   sites and 76 = 4 * 19 on the generic stage (generic_fused_cases);
+   and that unfused sender (the row kernel at a last-axis site, cols =
+   1, where the fused kernels take their row form; past 8192 the
+   two-pass route, whose cases also print ``bound_2pass_ms``); the fused
+   cases include the 608^3 paths' sites, 76 = 4 * 19 on the generic
+   stage (generic_fused_cases) and the sites past 8192
+   (long_fused_cases);
 4. checks the port on a small uneven input against numpy's float64 fftn
    (single device and the 4-rank slab; the repo's seeded world data);
 5. drives the C2C main path: the single-device plan at 512^3 forward and
@@ -51,9 +55,18 @@ commit's tree can be timed beside it). It
    split, bf16 and int8 wires fused, each fused plan against its unfused
    twin bit for bit both ways, and the [512, 512, 608] pencil on 2x2
    with the split wire fused against its twin (kernels 4 and 5 at cols
-   = 1 on its t0_fft_z / t3_fft_z sites); the plane, encode and decode
-   kernels launched, by the radix route only, no fallback; peak device
-   memory, plan times and t0..t3;
+   = 1, their row form, on its t0_fft_z / t3_fft_z sites); the plane,
+   encode and decode kernels launched, by the radix route (and the fused
+   kernels' row form) only, no fallback; peak device memory, plan times
+   and t0..t3; then (counts from 0) the paths past 8192 at 2^28
+   elements: the slab C2C [16384, 128, 128] on 4 loopback ranks exact
+   and with each wire fused against its twin (the forward's t3 decode
+   along X with columns on the two-pass route), and the split fused
+   pencils [128, 128, 16384] (t0_fft_z's encode and the backward's
+   t3_fft_z decode in the row form on the two-pass route) and [16384,
+   128, 128] (the X sites with columns) on 2x2 against their twins,
+   every fused output bit for bit, every launch on its length's route
+   and form (none direct), the fused kernels in each two-pass form;
 6. drives the compressed and real path at 512^3 on a loopback world of
    4: the C2C plans with the split codec fused (and their unfused twins,
    compared bit for bit and printed), the R2C/C2R plans exact and with
@@ -71,7 +84,8 @@ commit's tree can be timed beside it). It
    for bit both ways, the fused sites on the JAX package's routes), the
    R2C/C2R plans against torch.fft.rfftn/irfftn; every row, strided,
    encode and decode kernel must have been launched in that run, by the
-   radix route only, and no complex64 phase at 512 may have taken a
+   radix route only (the fused kernels on the last-axis sites by its
+   row form), and no complex64 phase at 512 may have taken a
    fallback; times each plan and its t0/t2a/t1/t2b/t3 stages (median of
    10);
 9. drives the exchange transports at 512^3: the slab C2C plan on a
@@ -208,7 +222,8 @@ commit's tree can be timed beside it). It
    in a batch delivered as it is while its cohort completes; (e) the
    shadow audit at 512^3 on split fused 2x2 pencil plans, every request
    audited against the exact cuda plan and held to the plane's drift
-   rule; (f) right after (c)'s warm round, the same round (two tenants,
+   rule, each result bit for bit against the unfused batch-2 twin, the
+   fused kernels on the last-axis sites in their row form; (f) right after (c)'s warm round, the same round (two tenants,
    two threads, 32 requests at 256^3; cold, then warm) on a queue armed
    by ``DFFT_MONITOR=0.05,chiprun_out/monitor.jsonl``, then ten pairs of
    blocks of at least 1 s of such rounds on that queue, the sampler
@@ -590,11 +605,21 @@ def check_kernels(torch, cf, radix, timing, rates, cases=None):
     return records
 
 
-# The wrappers with a radix route; every length of the paths at 512 (512,
-# 510, 256) and of the non-smooth paths (608 on the row and strided
-# kernels) is a radix length, so none of them may take another route.
-RADIX_WRAPPERS = ("fft_last", "fft2_last", "fft_axis0", "decode_fft",
-                  "fft_encode")
+# The routes each wrapper may take on the paths whose lengths are all at
+# most 8192 (512, 510, 256, 608, ...): the radix route, and for the fused
+# kernels also its row form at cols = 1 (cuda_fuse.fused_form).
+RADIX_FORMS = {"fft_last": ("radix",), "fft2_last": ("radix",),
+               "fft_axis0": ("radix",), "decode_fft": ("radix", "radix_rows"),
+               "fft_encode": ("radix", "radix_rows")}
+
+
+def fused_form(cfu, shape, axis):
+    """The route a fused launch over ``shape`` along ``axis`` is counted
+    under (``cuda_fuse.fused_form``; on a tree without it, as a parent's
+    timed by ``--route-cases``, its ``fused_route``)."""
+    n, cols = shape[axis], math.prod(shape[axis + 1:])
+    form = getattr(cfu, "fused_form", None)
+    return form(n, cols) if form else cfu.fused_route(n)
 
 
 @contextlib.contextmanager
@@ -658,13 +683,14 @@ def check_covered(seen, path, extra=()):
 def check_routes(cf, path, first, total):
     """Print the launches of each wrapper by route (``first``: the counts
     of the path's first part, the single device) and fail if a row,
-    strided, plane, decode or encode kernel took the direct route."""
+    strided, plane, decode or encode kernel took a route other than the
+    radix one (the fused kernels: or its row form)."""
     rest = {k: v - first.get(k, 0) for k, v in total.items()}
     print(f"routes on {path} (wrapper, route): "
           + (f"single {first}; rest {rest}; " if first else "")
           + f"all {total}", flush=True)
     for (wrapper, how), v in total.items():
-        if wrapper in RADIX_WRAPPERS and how != "radix" and v:
+        if wrapper in RADIX_FORMS and how not in RADIX_FORMS[wrapper] and v:
             fail(f"{wrapper} took the {how} route {v} times on {path}")
 
 
@@ -790,16 +816,17 @@ def check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates,
     """Phase 3: the fused stage+codec kernels against their plain
     versions at every (shape, codec) the compressed path gives them
     (``cases``: FUSED_CASES unless given), the encode also against the
-    codec's encode of the strided kernel's output and the decode against
-    the strided kernel on the decoded wire: bit for bit where the fused
-    route is radix (``cuda_fuse.fused_route``), else reported. Returns
-    one record per kernel."""
+    codec's encode of the strided or row kernel's output and the decode
+    against that kernel on the decoded wire: bit for bit on every route
+    but a parent tree's direct one (``--route-cases``), which is
+    reported. Returns one record per kernel."""
     hbm, fp32, _ = rates
     dev = torch.device("cuda", torch.cuda.current_device())
     records = {}
-    for i, (name, codec, fwd, shape, axis, tiles, where) in enumerate(
-            FUSED_CASES if cases is None else cases):
-        how = cfu.fused_route(shape[axis])
+    for i, case in enumerate(FUSED_CASES if cases is None else cases):
+        name, codec, fwd, shape, axis, tiles, where = case[:7]
+        bounded = case[7] if len(case) > 7 else True
+        how = fused_form(cfu, shape, axis)
         kw = dict(fft_axis=axis, forward=fwd, tile_axis=axis,
                   tiles=tiles, wire_dtype=codec)
         cw = wire_codec(codec)
@@ -812,9 +839,10 @@ def check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates,
         if name == "fft_encode":
             kernel = lambda: cfu.fused_fft_encode(x, **kw)
             plain = lambda: cfu.fused_fft_encode_plain(x, **kw)
-            # the unfused sender on the card: the strided kernel, then the
-            # codec; the radix encode runs the same column pass and packs
-            # or quantizes what it produces, so the two agree to the bit
+            # the unfused sender on the card: the strided kernel (the row
+            # kernel on the last axis), then the codec; the encode runs the
+            # same passes and packs or quantizes what the last produces,
+            # so the two agree to the bit
             unfused = lambda: cw.encode(cf.fft_along_axis(x, axis, fwd),
                                         tile_axis=axis, tiles=tiles)
             got, want, twin = kernel(), plain(), unfused()
@@ -825,7 +853,7 @@ def check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates,
                     (t.shape, t.dtype) for t in twin]:
                 fail(f"{name} {label}: wire parts differ in shape or dtype")
             apart_twin = [int((g != t).sum()) for g, t in zip(got, twin)]
-            if any(apart_twin) and how == "radix":
+            if any(apart_twin) and "direct" not in how:
                 fail(f"{name} {label}: differs from the codec's encode of "
                      f"fft_axis0(x) in {apart_twin} values (payload, "
                      f"sidecar)")
@@ -877,14 +905,14 @@ def check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates,
                      f"> {TOL}")
             # the unfused receiver on the card: the strided kernel (the
             # row kernel on the last axis) on the decoded wire; the
-            # decode kernel runs the same radix stages on the same
-            # exactly decoded values, so the two agree to the bit
+            # decode kernel runs the same passes on the same exactly
+            # decoded values, so the two agree to the bit
             unfused_y = cf.fft_along_axis(dec(parts), axis, fwd)
             _, fu_l2, _ = rel_err(torch, got_y, unfused_y)
             twin = twin_report(torch, (got_y,), (unfused_y,))
             del unfused_y
-            if how == "radix" and not (fu_l2 <= FUSED_VS_UNFUSED
-                                       and twin == "bit-identical"):
+            if "direct" not in how and not (fu_l2 <= FUSED_VS_UNFUSED
+                                            and twin == "bit-identical"):
                 fail(f"{name} {label}: vs fft_along_axis(decode): {twin}, "
                      f"l2 {fu_l2:.3e}")
             # unfused_ms: the codec's decode, then torch.fft (two calls:
@@ -915,11 +943,15 @@ def check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates,
         # The JAX package's bounds were measured at four tiles (its slab
         # cases). At the pencil's two tiles each step covers twice the
         # values, and the int8 codec alone exceeds its bound there (2.04e-2
-        # on an H100 at the [256,256,512] inverse), so every case holds
-        # the kernel to the codec's own error, the four-tile cases also
-        # to the bound.
+        # on an H100 at the [256,256,512] inverse); on the data of the
+        # paths past 8192 (long_fused_cases, marked unbounded) it does at
+        # four tiles too (2.244e-2 at the [16384,32,128] forward decode,
+        # 2.054e-2 at the [4096,128,128] inverse). So every case holds
+        # the kernel to the codec's own error, the other four-tile cases
+        # also to the bound.
         if not codec_err <= codec_ref + 1e-6 or (
-                tiles == SLAB_RANKS and not codec_err <= ENC_BOUNDS[codec]):
+                tiles == SLAB_RANKS and bounded
+                and not codec_err <= ENC_BOUNDS[codec]):
             fail(f"{name} {label}: decoded vs torch.fft {codec_err:.3e}, "
                  f"the codec's own {codec_ref:.3e}, bound "
                  f"{ENC_BOUNDS[codec]}")
@@ -931,13 +963,18 @@ def check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates,
         t_ops = 5.0 * numel * math.log2(n) / fp32 * 1e3
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        # the two-pass route also reads and writes a c64 scratch of the
+        # data: its own cap
+        two_pass = (f" bound_2pass_ms="
+                    f"{max(t_bytes + numel * 16 / hbm * 1e3, t_ops):.4f}"
+                    if how.startswith("radix2") else "")
         print(f"kernel {name:10s} {label:54s} {detail} max_rel_err={err:.3e} "
               f"l2_rel_err={l2:.3e} max_abs_err={abs_err:.3e} "
               f"vs_torch_fft_max_rel={codec_err:.3e} (the codec's own "
               f"{codec_ref:.3e}, bound {ENC_BOUNDS[codec]}) "
               f"kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-              f"({bound_by})", flush=True)
+              f"({bound_by}){two_pass}", flush=True)
         rec = records.setdefault(name, dict(
             name=name, route="cuda", source=FUSE_SOURCE,
             replaces=REPLACES[name], launches=0, max_abs_err=0.0, ms=ms,
@@ -2352,25 +2389,26 @@ def generic_fused_cases(n=GENERIC_FUSED[0], m=GENERIC_FUSED[1],
     return fused
 
 
-def check_generic_fused_paths(torch, dfft, cfu, dev, n=GENERIC_FUSED[0],
-                              m=GENERIC_FUSED[1]):
-    """The GENERIC_FUSED paths: (a) the slab C2C at n^3 on SLAB_RANKS
-    exact, forward against torch.fft.fftn, backward against
-    torch.fft.ifftn and by round trip; (b) the same slab with each
-    fusable wire fused against its unfused twin, both directions, the
-    split plan within TOL of torch.fft, the fused sites on the JAX
-    package's routes; (c) the pencil [m, m, n] on PENCIL_GRID with the
-    split wire fused against its twin. Where the fused kernels take the
-    radix route at n (``cuda_fuse.fused_route``) every fused output must
-    equal its twin's bit for bit; elsewhere (a parent tree's direct
-    route, timed by ``--route-cases``) the twins are reported. Returns
-    {label: (fwd, bwd, shape)} for the timing phase."""
-    shape = (n, n, n)
-    bitwise = cfu.fused_route(n) == "radix"
+def check_fused_paths(torch, dfft, cfu, dev, slab, pencils):
+    """The fused paths of a slab and pencils: (a) the slab C2C at
+    ``slab`` on SLAB_RANKS exact, forward against torch.fft.fftn,
+    backward against torch.fft.ifftn and by round trip; (b) the same slab
+    with each fusable wire fused against its unfused twin, both
+    directions, the split plan within TOL of torch.fft, the fused sites
+    on the JAX package's routes; (c) each pencil in ``pencils`` on
+    PENCIL_GRID with the split wire fused against its twin. Where the
+    fused kernels take no direct route at a plan's lengths
+    (``cuda_fuse.fused_route``) every fused output must equal its twin's
+    bit for bit; elsewhere (a parent tree's direct route, timed by
+    ``--route-cases``) the twins are reported. Returns {label: (fwd, bwd,
+    shape)} for the timing phase."""
+    shape = tuple(slab)
+    bitwise = lambda shp: all(cfu.fused_route(m) != "direct" for m in shp)
     plans = {}
     x = seeded(torch, shape, dev)
     ref = torch.fft.fftn(x)
-    label = f"slab {n}^3 loopback {SLAB_RANKS}"
+    name = "x".join(map(str, shape))
+    label = f"slab {name} loopback {SLAB_RANKS}"
     fwd = dfft.plan_dft_c2c_3d(shape, SLAB_RANKS, device=dev)
     bwd = dfft.plan_dft_c2c_3d(shape, SLAB_RANKS, direction=dfft.BACKWARD,
                                device=dev)
@@ -2381,6 +2419,7 @@ def check_generic_fused_paths(torch, dfft, cfu, dev, n=GENERIC_FUSED[0],
         fail(f"{label}: forward output not finite or of shape "
              f"{tuple(y.shape)}")
     errs = rel_err(torch, y, ref)[:2]
+    del ref
     back = bwd(y)
     errs += rel_err(torch, back, torch.fft.ifftn(y))[:2]
     errs += rel_err(torch, back, x)[:2]
@@ -2391,13 +2430,13 @@ def check_generic_fused_paths(torch, dfft, cfu, dev, n=GENERIC_FUSED[0],
     if not max(errs) <= TOL:
         fail(f"{label}: error over {TOL}")
     plans[label] = (fwd, bwd, shape)
-    del y, back, ref
+    del y, back
     torch.cuda.empty_cache()
 
     def twins(label, fused, unfused, inp, key):
         """Run a fused pair and its unfused twin; fail unless the outputs
         are equal bit for bit (where ``bitwise``) and the sites take the
-        JAX package's routes. Returns (forward output, errors)."""
+        JAX package's routes. Returns the errors."""
         (ff, fb), (uf, ub) = fused, unfused
         yf = ff(inp)
         rep_f = twin_report(torch, (yf,), (uf(inp),))
@@ -2409,7 +2448,8 @@ def check_generic_fused_paths(torch, dfft, cfu, dev, n=GENERIC_FUSED[0],
               f" l2 rel err={errs[1]:.3e}; roundtrip max rel err="
               f"{errs[2]:.3e} l2 rel err={errs[3]:.3e}; vs the unfused twin:"
               f" forward {rep_f}, backward {rep_b}", flush=True)
-        if bitwise and (rep_f, rep_b) != ("bit-identical", "bit-identical"):
+        if bitwise(inp.shape) and (rep_f, rep_b) != ("bit-identical",
+                                                    "bit-identical"):
             fail(f"{label}: outputs differ from the unfused twin's")
         for plan, what in ((ff, "fwd"), (fb, "bwd")):
             sites = list(plan.graph.meta["fusion"]["sites"].values())
@@ -2422,7 +2462,7 @@ def check_generic_fused_paths(torch, dfft, cfu, dev, n=GENERIC_FUSED[0],
         return errs
 
     for codec in CODECS:
-        lab = f"slab {n}^3 c2c {codec} fused loopback {SLAB_RANKS}"
+        lab = f"slab {name} c2c {codec} fused loopback {SLAB_RANKS}"
         pair = lambda fuse: tuple(dfft.plan_dft_c2c_3d(
             shape, SLAB_RANKS, wire_dtype=codec, fuse=fuse, direction=d,
             device=dev) for d in (dfft.FORWARD, dfft.BACKWARD))
@@ -2436,24 +2476,31 @@ def check_generic_fused_paths(torch, dfft, cfu, dev, n=GENERIC_FUSED[0],
     del x
     torch.cuda.empty_cache()
 
-    pshape = (m, m, n)
-    xp = seeded(torch, pshape, dev)
     grid = f"{PENCIL_GRID[0]}x{PENCIL_GRID[1]}"
-    lab = f"pencil [{m},{m},{n}] c2c split fused {grid}"
-    pair = lambda fuse: tuple(dfft.plan_dft_c2c_3d(
-        pshape, PENCIL_GRID, wire_dtype="split", fuse=fuse, direction=d,
-        device=dev) for d in (dfft.FORWARD, dfft.BACKWARD))
-    fused, unfused = pair(True), pair(False)
-    if fused[0].world.grid != PENCIL_GRID:
-        fail(f"{lab}: plan on {fused[0].world.grid}")
-    errs = twins(lab, fused, unfused, xp, "pencil")
-    if not max(errs) <= TOL:
-        fail(f"{lab}: error over {TOL}")
-    plans[lab] = (*fused, pshape)
-    plans[lab.replace(" fused", " unfused")] = (*unfused, pshape)
-    del xp
-    torch.cuda.empty_cache()
+    for pshape in map(tuple, pencils):
+        xp = seeded(torch, pshape, dev)
+        lab = f"pencil [{','.join(map(str, pshape))}] c2c split fused {grid}"
+        pair = lambda fuse: tuple(dfft.plan_dft_c2c_3d(
+            pshape, PENCIL_GRID, wire_dtype="split", fuse=fuse, direction=d,
+            device=dev) for d in (dfft.FORWARD, dfft.BACKWARD))
+        fused, unfused = pair(True), pair(False)
+        if fused[0].world.grid != PENCIL_GRID:
+            fail(f"{lab}: plan on {fused[0].world.grid}")
+        errs = twins(lab, fused, unfused, xp, "pencil")
+        if not max(errs) <= TOL:
+            fail(f"{lab}: error over {TOL}")
+        plans[lab] = (*fused, pshape)
+        plans[lab.replace(" fused", " unfused")] = (*unfused, pshape)
+        del xp
+        torch.cuda.empty_cache()
     return plans
+
+
+def check_generic_fused_paths(torch, dfft, cfu, dev, n=GENERIC_FUSED[0],
+                              m=GENERIC_FUSED[1]):
+    """The GENERIC_FUSED paths: check_fused_paths of the slab n^3 and the
+    pencil [m, m, n]."""
+    return check_fused_paths(torch, dfft, cfu, dev, (n, n, n), [(m, m, n)])
 
 
 # The fused kernels' own gate (cuda_fuse.kernel_ineligible). The other
@@ -2470,44 +2517,59 @@ def gated(cfu) -> dict:
             if k[1] in KERNEL_GATE}
 
 
-def run_generic_fused_paths(torch, dfft, cf, cfu, dev, records=None):
-    """The GENERIC_FUSED paths with counts from 0: prints the launches by
-    wrapper and route and the peak device memory; with ``records`` (the
-    full run) fails unless the plane, encode and decode kernels were
-    launched, each by the radix route only, with no kernel fallback
-    (``cuda_fft.FALLBACKS``) and no site the fused kernels' gate refused
-    (KERNEL_GATE), and adds the launches to the records. Returns the
-    plans."""
+def run_fused_paths(torch, dfft, cf, cfu, dev, label, drive, records=None,
+                    need=(), by_length=False):
+    """Drive a fused-paths phase (``drive()`` returns its plans) with
+    counts from 0: prints the launches by wrapper and route and the peak
+    device memory; with ``records`` (the full run) fails unless each
+    entry of ``need`` (a wrapper, or a (wrapper, route) of
+    ``cuda_fft.ROUTES``) was launched, every launch took the route its
+    length takes (``by_length``: check_routes_by_length, the fused
+    kernels' form included) or the radix route (check_routes), with no
+    kernel fallback (``cuda_fft.FALLBACKS``) and no site the fused
+    kernels' gate refused (KERNEL_GATE), and adds the launches to the
+    records. Returns the plans."""
     cf.reset_launches()
     cfu.reset_launches()
     dfft.clear_plan_cache()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = (dict(cf.FALLBACKS), gated(cfu))
-    label = "the 608^3 paths"
     with recording_cases(cf, cfu) as seen:
-        plans = check_generic_fused_paths(torch, dfft, cfu, dev)
+        plans = drive()
     path = {**cf.launches(), **cfu.launches()}
     print(f"launches on {label}: {path}; by (wrapper, route): "
           f"{ {k: v for k, v in cf.ROUTES.items() if v} }", flush=True)
     print(f"peak device memory of {label}: "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-          f"(a 608^3 complex64 array is "
-          f"{608 ** 3 * 8 / 2**30:.2f} GiB)", flush=True)
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     if records is None:
         print(f"cases on {label}: {sorted(seen, key=str)}", flush=True)
         return plans
-    check_routes(cf, label, {}, dict(cf.ROUTES))
+    if by_length:
+        check_routes_by_length(cf, seen, label, cfu)
+    else:
+        check_routes(cf, label, {}, dict(cf.ROUTES))
     check_covered(seen, label)
-    for k in ("fft2_last", "fft_encode", "decode_fft"):
-        if path[k] <= 0:
-            fail(f"kernel {k} was not launched on {label}")
+    for k in need:
+        if (path[k] if isinstance(k, str) else cf.ROUTES[k]) <= 0:
+            fail(f"{k} was not launched on {label}")
     if (dict(cf.FALLBACKS), gated(cfu)) != before:
         fail(f"{label} took a fallback: {dict(cf.FALLBACKS)}, "
              f"{gated(cfu)} (before: {before})")
     for k, v in path.items():
         records[k]["launches"] += v
     return plans
+
+
+def run_generic_fused_paths(torch, dfft, cf, cfu, dev, records=None):
+    """The GENERIC_FUSED paths (run_fused_paths): the plane, encode and
+    decode kernels launched, by the radix route (the fused kernels also
+    by its row form, on the pencil's last-axis sites) only."""
+    return run_fused_paths(
+        torch, dfft, cf, cfu, dev, "the 608^3 paths",
+        lambda: check_generic_fused_paths(torch, dfft, cfu, dev), records,
+        need=("fft2_last", "fft_encode", "decode_fft",
+              ("fft_encode", "radix_rows"), ("decode_fft", "radix_rows")))
 
 
 def time_generic_fused_paths(torch, timing, dev, plans):
@@ -2519,6 +2581,133 @@ def time_generic_fused_paths(torch, timing, dev, plans):
         if "int8" not in label and "bf16" not in label:
             stage_split(torch, timing, fwd, bwd, x, label)
         del x
+        torch.cuda.empty_cache()
+
+
+# --------------------------------------------------- the paths past 8192
+
+# The fused paths past 8192 at 2^28 elements (twice 512^3): the slab C2C
+# [16384, 128, 128] on SLAB_RANKS, exact and with each fusable wire fused
+# (its forward's t3_fft_x decodes along X = 16384 with columns, on the
+# two-pass route; its backward's sender is a two-axis t0, unfused, and
+# its receiver decodes along Y = 128); and the split fused pencils on
+# PENCIL_GRID [128, 128, 16384] (t0_fft_z's encode and the backward's
+# t3_fft_z decode in the row form, cols = 1, on the two-pass route) and
+# [16384, 128, 128] (t3_fft_x's decode and the backward's t0_fft_x
+# encode along X with columns on the two-pass route).
+LONG_SLAB = (16384, 128, 128)
+LONG_PENCILS = ((128, 128, 16384), (16384, 128, 128))
+
+
+def long_path_cases(slab=LONG_SLAB, pencils=LONG_PENCILS, ranks=SLAB_RANKS,
+                    grid=PENCIL_GRID):
+    """The row, strided and plane kernel cases of the paths past 8192:
+    the slab's t0 planes, t3 columns, backward X and Z axes of its
+    two-axis t0 and backward t3 columns; each pencil's Z rows, Y and X
+    columns, both directions (the unfused twins' and the exact plan's)."""
+    xs, ys, zs = slab
+    q, qy = xs // ranks, ys // ranks
+    lab = f"slab [{xs},{ys},{zs}]"
+    cases = [("fft2_last", True, (q, ys, zs), f"{lab} fwd t0"),
+             ("fft_axis0", True, (1, xs, qy * zs), f"{lab} fwd t3"),
+             ("fft_axis0", False, (1, xs, qy * zs), f"{lab} bwd t0 x"),
+             ("fft_last", False, (xs * qy, zs), f"{lab} bwd t0 z"),
+             ("fft_axis0", False, (q, ys, zs), f"{lab} bwd t3")]
+    rows, cols = grid
+    for a, b, c in pencils:
+        lab = f"pencil [{a},{b},{c}]"
+        for fwd in (True, False):
+            cases += [("fft_last", fwd, (a // rows * (b // cols), c),
+                       f"{lab} t0 / bwd t3 z"),
+                      ("fft_axis0", fwd, (a // rows, b, c // cols),
+                       f"{lab} t1 y"),
+                      ("fft_axis0", fwd, (1, a, b // rows * (c // cols)),
+                       f"{lab} t3 / bwd t0 x")]
+    return cases
+
+
+def long_fused_cases(slab=LONG_SLAB, pencils=LONG_PENCILS, ranks=SLAB_RANKS,
+                     grid=PENCIL_GRID):
+    """The fused kernel cases of the paths past 8192 (each codec at the
+    slab's receivers, the split wire at the pencils' sites), and, held
+    only, the other codecs in the two-pass forms no path runs with them:
+    the encode in the row form and with columns, the decode in the row
+    form (on smaller leads). Each case's eighth entry, False, exempts it
+    from the JAX package's codec bound (ENC_BOUNDS), which the int8
+    codec alone exceeds on these paths' data; check_fused_kernels holds
+    it to the codec's own error."""
+    xs, ys, zs = slab
+    lab = f"slab [{xs},{ys},{zs}]"
+    cases = []
+    for c in CODECS:
+        cases += [("decode_fft", c, True, (xs, ys // ranks, zs), 0, ranks,
+                   f"{lab} fwd t3_fft_x"),
+                  ("decode_fft", c, False, (xs // ranks, ys, zs), 1, ranks,
+                   f"{lab} bwd t3_fft_y")]
+    rows, cols = grid
+    for a, b, c in pencils:
+        lab = f"pencil [{a},{b},{c}]"
+        z = (a // rows, b // cols, c)
+        y = (a // rows, b, c // cols)
+        x = (a, b // rows, c // cols)
+        cases += [("fft_encode", "split", True, z, 2, cols,
+                   f"{lab} fwd t0_fft_z, cols=1"),
+                  ("decode_fft", "split", True, y, 1, rows,
+                   f"{lab} fwd t1_fft_y"),
+                  ("decode_fft", "split", True, x, 0, rows,
+                   f"{lab} fwd t3_fft_x"),
+                  ("fft_encode", "split", False, x, 0, rows,
+                   f"{lab} bwd t0_fft_x"),
+                  ("decode_fft", "split", False, y, 1, rows,
+                   f"{lab} bwd t1_fft_y"),
+                  ("decode_fft", "split", False, z, 2, cols,
+                   f"{lab} bwd t3_fft_z, cols=1")]
+    n = max(max(p) for p in pencils)
+    for c in CODECS[:2]:
+        cases += [("fft_encode", c, True, (4, 64, n), 2, cols,
+                   "held: two-pass row form"),
+                  ("decode_fft", c, False, (4, 64, n), 2, cols,
+                   "held: two-pass row form"),
+                  ("fft_encode", c, False, (n, 8, 64), 0, rows,
+                   "held: two-pass with columns")]
+    return [c + (False,) for c in cases]
+
+
+def run_long_paths(torch, dfft, cf, cfu, dev, records=None,
+                   slab=LONG_SLAB, pencils=LONG_PENCILS):
+    """The paths past 8192 (run_fused_paths of check_fused_paths at
+    ``slab`` and ``pencils``): every launch on the route and form its
+    length takes (none on a direct route), the fused kernels in each of
+    the two-pass route's forms, each fused plan bit for bit against its
+    twin."""
+    xs = max(max(slab), max(max(p) for p in pencils))
+    return run_fused_paths(
+        torch, dfft, cf, cfu, dev, f"the paths past 8192 (n = {xs})",
+        lambda: check_fused_paths(torch, dfft, cfu, dev, slab, pencils),
+        records, by_length=True,
+        need=(("fft_encode", "radix2"), ("fft_encode", "radix2_rows"),
+              ("decode_fft", "radix2"), ("decode_fft", "radix2_rows")))
+
+
+def time_fused_pencil(torch, dfft, timing, dev, n=512):
+    """The split fused pencil C2C at n^3 on PENCIL_GRID beside its
+    unfused twin: forward and backward times (median of 10) and stage
+    medians, whose t0 / backward t3 are the fused kernels' last-axis
+    sites (``--route-cases``: the parent's beside this tree's)."""
+    shape = (n, n, n)
+    x = seeded(torch, shape, dev)
+    grid = f"{PENCIL_GRID[0]}x{PENCIL_GRID[1]}"
+    for fuse in (True, False):
+        f, b = (dfft.plan_dft_c2c_3d(shape, PENCIL_GRID, wire_dtype="split",
+                                     fuse=fuse, direction=d, device=dev)
+                for d in (dfft.FORWARD, dfft.BACKWARD))
+        label = (f"pencil c2c split {'fused' if fuse else 'unfused'} "
+                 f"{n}^3 {grid}")
+        time_plans(torch, timing, f, b, x, label)
+        y = f(x)
+        stage_medians(torch, timing, f, x, f"{label} forward")
+        stage_medians(torch, timing, b, y, f"{label} backward")
+        del y, f, b
         torch.cuda.empty_cache()
 
 
@@ -2546,18 +2735,21 @@ def long_cases(cf, choose_split_1d, ranks=SLAB_RANKS):
     return cases
 
 
-def check_routes_by_length(cf, seen, path):
+def check_routes_by_length(cf, seen, path, cfu=None):
     """Fail unless every row, strided and plane launch of ``path`` took
-    the route its length takes (``cuda_fft.route``): the long paths'
-    lengths past 8192 take the two-pass radix one."""
+    the route its length takes (``cuda_fft.route``), and every fused
+    launch (with ``cfu``) its form (``cuda_fuse.fused_form``): the long
+    paths' lengths past 8192 take the two-pass radix one."""
     want = Counter()
     for key, v in seen.items():
-        name, shape = key[0], key[2]
+        name = key[0]
         if name == "fft2_last":
-            want[(name, cf.route2d(*shape[1:]))] += v
+            want[(name, cf.route2d(*key[2][1:]))] += v
         elif name in ("fft_axis0", "fft_last"):
-            n = shape[1] if name == "fft_axis0" else shape[-1]
+            n = key[2][1] if name == "fft_axis0" else key[2][-1]
             want[(name, cf.route(n))] += v
+        elif cfu is not None:
+            want[(name, fused_form(cfu, key[3], key[4]))] += v
     got = {k: v for k, v in cf.ROUTES.items() if v}
     print(f"routes on {path} (wrapper, route): {got}", flush=True)
     if got != dict(want):
@@ -4316,9 +4508,20 @@ def serve_audit(torch, dfft, metrics, numerics, dev, card, n=SERVE_N):
     xs = [seeded(torch, shape, dev, SEED + 220 + i) for i in range(2)]
     for d in (dfft.FORWARD, dfft.BACKWARD):
         hs = [q.submit(x, direction=d) for x in xs]
-        for h in hs:
-            _result(h, "audit")
-        del hs
+        got = [_result(h, "audit") for h in hs]
+        # each result against the unfused twin (the batch-2 plan of the
+        # same wire without fusion), bit for bit: the fused sites run
+        # their twins' passes, the last-axis ones in the row form
+        twin = dfft.plan_dft_c2c_3d(shape, PENCIL_GRID, wire_dtype="split",
+                                    batch=2, direction=d, device=dev)
+        report = twin_report(torch, got, list(twin(torch.stack(xs))))
+        print(f"serving audit {n}^3 {'fwd' if d == dfft.FORWARD else 'bwd'}:"
+              f" the queue's results vs the unfused twin: {report}",
+              flush=True)
+        if report != "bit-identical":
+            fail(f"serving audit: results differ from the unfused twin's: "
+                 f"{report}")
+        del hs, got, twin
     snap = numerics.numerics_snapshot()
     plan = q._plan(((n, n, n), "complex64", dfft.FORWARD), 2, False)
     admitted = q._admitted_err(plan)
@@ -5351,24 +5554,26 @@ def main() -> None:
     _build.library()
     print(f"kernel build+load: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(os.path.relpath(p, here) for p in _build.sources())}"
-          f")", flush=True)
+          f"); seconds per unit, all started together: "
+          f"{getattr(_build, 'BUILD_SECONDS', 'not measured')}", flush=True)
 
     if sys.argv[1:] == ["--route-cases"]:
-        # the generic-stage cases and paths alone, on whichever package
-        # sits beside this script (a parent commit's, to compare)
-        check_kernels(torch, cf, radix, timing, rates, GENERIC_CASES)
-        check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates,
-                            generic_fused_cases())
+        # the fused kernels' cases and paths at cols = 1 and past 8192
+        # alone, on whichever package sits beside this script (a parent
+        # commit's, to compare): the pencils' last-axis sites at 512 and
+        # 608, the long cases, the 608^3 and long paths, the split fused
+        # pencil at 512^3 beside its twin
+        cases = [c for c in FUSED_CASES + generic_fused_cases()
+                 if math.prod(c[3][c[4] + 1:]) == 1] + long_fused_cases()
+        check_fused_kernels(torch, cf, cfu, wire_codec, timing, rates, cases)
         dev = torch.device("cuda", torch.cuda.current_device())
-        with recording_cases(cf, cfu) as seen:
-            cf.reset_launches()
-            plans = check_generic_paths(torch, dfft, dev)
-        print(f"routes on the non-smooth paths: {dict(cf.ROUTES)}; cases "
-              f"{sorted(seen, key=str)}", flush=True)
-        time_generic_paths(torch, timing, dev, plans)
-        del plans
-        plans = run_generic_fused_paths(torch, dfft, cf, cfu, dev)
-        time_generic_fused_paths(torch, timing, dev, plans)
+        for run in (run_generic_fused_paths, run_long_paths):
+            plans = run(torch, dfft, cf, cfu, dev)
+            time_generic_fused_paths(torch, timing, dev, plans)
+            del plans
+            dfft.clear_plan_cache()
+            torch.cuda.empty_cache()
+        time_fused_pencil(torch, dfft, timing, dev)
         print(f"chip_smoke.py --route-cases: "
               f"{time.perf_counter() - t_script:.1f} s [{card}]", flush=True)
         return
@@ -5385,6 +5590,9 @@ def main() -> None:
     KERNEL_CASES.extend(GENERIC_CASES)
     KERNEL_CASES.extend(generic_path_cases())
     held = {case_key(c) for c in KERNEL_CASES}
+    KERNEL_CASES.extend(c for c in long_path_cases()
+                        if case_key(c) not in held)
+    held = {case_key(c) for c in KERNEL_CASES}
     KERNEL_CASES.extend(c for c in tune_cases(512)
                         if case_key(c) not in held)
     held = {case_key(c) for c in KERNEL_CASES}
@@ -5396,6 +5604,8 @@ def main() -> None:
             KERNEL_CASES.append(c)
     FUSED_CASES.extend(generic_fused_cases())
     FUSED_CASES.extend(serving_fused_cases(SERVE_N))
+    held = {c[:6] for c in FUSED_CASES}
+    FUSED_CASES.extend(c for c in long_fused_cases() if c[:6] not in held)
     records = check_kernels(torch, cf, radix, timing, rates)
     records.update(check_fused_kernels(torch, cf, cfu, wire_codec, timing,
                                        rates))
@@ -5485,6 +5695,13 @@ def main() -> None:
     dfft.clear_plan_cache()
     torch.cuda.empty_cache()
 
+    # ---- the paths past 8192 (kernels 4 and 5 on the two-pass route) ----
+    long = run_long_paths(torch, dfft, cf, cfu, dev, records)
+    time_generic_fused_paths(torch, timing, dev, long)
+    del long
+    dfft.clear_plan_cache()
+    torch.cuda.empty_cache()
+
     # ---- the compressed and real path: counts from 0, each plan once ----
     cf.reset_launches()
     cfu.reset_launches()
@@ -5541,6 +5758,9 @@ def main() -> None:
     for k in ("fft_last", "fft_axis0", "fft_encode", "decode_fft"):
         if path[k] <= 0:
             fail(f"kernel {k} was not launched on the pencil path")
+    for k in ("fft_encode", "decode_fft"):   # t0_fft_z, bwd t3_fft_z
+        if cf.ROUTES[(k, "radix_rows")] <= 0:
+            fail(f"kernel {k} did not take its row form on the pencil path")
     for k, v in path.items():
         records[k]["launches"] += v
     if dict(cf.FALLBACKS) != fallbacks:
@@ -5813,6 +6033,10 @@ def main() -> None:
     for k in batched + fused:
         if seen[k] <= 0:
             fail(f"the serving path did not launch {k}")
+    for k in ("fft_encode", "decode_fft"):   # the audited pencil queue's
+        if cf.ROUTES[(k, "radix_rows")] <= 0:
+            fail(f"kernel {k} did not take its row form on the serving "
+                 f"path")
     for k, v in path.items():
         if v <= 0:
             fail(f"kernel {k} was not launched on the serving path")

@@ -81,54 +81,52 @@
 
 #include "radix.cuh"
 
-namespace {
+namespace radix {
 
-// Most columns per group of a two-pass column pass.
-constexpr int kTwoPassMostCols = 64;
-
-// Columns per group of a two-pass column pass at most: a factor's
-// sequence is short (33 to 256 points), so a group of 16 columns leaves
-// most of the block's threads without an item; enough columns that the
-// stage with the fewest items gives every thread one, from 16 up to
-// kTwoPassMostCols (ColsPass keeps as many as fit shared memory).
-int two_pass_most(const radix::Plan& p) {
-  int most = 16;
-  while (most < kTwoPassMostCols &&
-         (long long)most * radix::min_items(p) < radix::kThreads)
-    most *= 2;
-  return most;
-}
-
-// Pass 1 of the two-pass route: the length-m1 column pass over x as
-// [lead, m1, m2*cols] into s, each output times its twiddle from tt
-// (T transposed, [m1, m2]).
 cudaError_t two_pass_first(const float2* x, float2* s, long long lead,
-                           long long cols, const radix::Plan& p1, int m2,
-                           bool fwd, const float2* tw1, const float2* tt,
+                           long long cols, const Plan& p1, int m2, bool fwd,
+                           const float2* tw1, const float2* tt,
                            cudaStream_t st) {
   const long long nz = (long long)m2 * cols;
-  radix::ColsPass<radix::TwiddleOut> pass(p1, fwd, nz, 0, two_pass_most(p1));
+  ColsPass<TwiddleOut> pass(p1, fwd, nz, 0, two_pass_most(p1));
   if (pass.err != cudaSuccess) return pass.err;
-  return pass(x, radix::TwiddleOut{s, tt, nz, cols, m2}, lead, nz, tw1, 1.0f,
+  return pass(x, TwiddleOut{s, tt, nz, cols, m2}, lead, nz, tw1, 1.0f, st);
+}
+
+cudaError_t two_pass_second(const float2* s, float2* y, long long lead,
+                            long long cols, int m1, const Plan& p2, bool fwd,
+                            const float2* tw2, float scale, cudaStream_t st) {
+  const int m2 = p2.n;
+  if (cols == 1) {
+    auto extra = [m2](int seqs) { return TransposeOut::bytes(m2, seqs); };
+    const int g = rows_per_group(p2, 16, extra);
+    RowsPass<TransposeOut> pass(p2, fwd, g, extra(g));
+    if (pass.err != cudaSuccess) return pass.err;
+    return pass(s, TransposeOut{y, m1, m2, odd_ld(g)}, lead * m1, tw2, scale,
+                st);
+  }
+  ColsPass<ReorderOut> pass(p2, fwd, cols, 0, two_pass_most(p2));
+  if (pass.err != cudaSuccess) return pass.err;
+  return pass(s, ReorderOut{y, cols, m1, m2}, lead * m1, cols, tw2, scale,
               st);
 }
 
-// The two-pass route over [batch, n] rows: pass 1 into s, then the rows
-// pass over [batch*m1, m2] with the transposed store into y.
-cudaError_t two_pass_rows(const float2* x, float2* y, float2* s,
-                          long long batch, const radix::Plan& p1,
-                          const radix::Plan& p2, bool fwd, const float2* tw1,
-                          const float2* tw2, const float2* tt, float scale,
-                          cudaStream_t st) {
-  cudaError_t e = two_pass_first(x, s, batch, 1, p1, p2.n, fwd, tw1, tt, st);
+}  // namespace radix
+
+namespace {
+
+// The two-pass route over [lead, n, cols] (cols = 1: rows): pass 1 into
+// s, then pass 2 into y.
+cudaError_t two_pass(const float2* x, float2* y, float2* s, long long lead,
+                     long long cols, const radix::Plan& p1,
+                     const radix::Plan& p2, bool fwd, const float2* tw1,
+                     const float2* tw2, const float2* tt, float scale,
+                     cudaStream_t st) {
+  cudaError_t e = radix::two_pass_first(x, s, lead, cols, p1, p2.n, fwd, tw1,
+                                        tt, st);
   if (e != cudaSuccess) return e;
-  const int m1 = p1.n, m2 = p2.n;
-  auto extra = [m2](int seqs) { return radix::TransposeOut::bytes(m2, seqs); };
-  const int g = radix::rows_per_group(p2, 16, extra);
-  radix::RowsPass<radix::TransposeOut> pass(p2, fwd, g, extra(g));
-  if (pass.err != cudaSuccess) return pass.err;
-  return pass(s, radix::TransposeOut{y, m1, m2, radix::odd_ld(g)},
-              batch * m1, tw2, scale, st);
+  return radix::two_pass_second(s, y, lead, cols, p1.n, p2, fwd, tw2, scale,
+                                st);
 }
 
 // The two-pass launchers' checks: valid plans, and a scratch apart from
@@ -172,10 +170,10 @@ int dfft_fft_rows_2p(const void* x, void* y, void* scratch, long long batch,
   const radix::Plan p2 = radix::make_plan(m2, stages2, radices2);
   if (!valid_two_pass(p1, p2, x, y, scratch))
     return (int)cudaErrorInvalidValue;
-  return (int)two_pass_rows(
-      (const float2*)x, (float2*)y, (float2*)scratch, batch, p1, p2,
-      forward != 0, (const float2*)tw1, (const float2*)tw2,
-      (const float2*)tt, scale, (cudaStream_t)stream);
+  return (int)two_pass((const float2*)x, (float2*)y, (float2*)scratch, batch,
+                       1, p1, p2, forward != 0, (const float2*)tw1,
+                       (const float2*)tw2, (const float2*)tt, scale,
+                       (cudaStream_t)stream);
 }
 
 // y[l, :, c] = DFT(x[l, :, c]) * scale over [lead, n, cols], the radix
@@ -204,25 +202,10 @@ int dfft_fft_strided_2p(const void* x, void* y, void* scratch,
   const radix::Plan p2 = radix::make_plan(m2, stages2, radices2);
   if (!valid_two_pass(p1, p2, x, y, scratch))
     return (int)cudaErrorInvalidValue;
-  const bool fwd = forward != 0;
-  const float2* fx = (const float2*)x;
-  float2* fy = (float2*)y;
-  float2* fs = (float2*)scratch;
-  const float2* ftw1 = (const float2*)tw1;
-  const float2* ftw2 = (const float2*)tw2;
-  const float2* ftt = (const float2*)tt;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (cols == 1)
-    return (int)two_pass_rows(fx, fy, fs, lead, p1, p2, fwd, ftw1, ftw2, ftt,
-                              scale, st);
-  cudaError_t e = two_pass_first(fx, fs, lead, cols, p1, m2, fwd, ftw1, ftt,
-                                 st);
-  if (e != cudaSuccess) return (int)e;
-  radix::ColsPass<radix::ReorderOut> pass(p2, fwd, cols, 0,
-                                          two_pass_most(p2));
-  if (pass.err != cudaSuccess) return (int)pass.err;
-  return (int)pass(fs, radix::ReorderOut{fy, cols, m1, m2}, lead * m1, cols,
-                   ftw2, scale, st);
+  return (int)two_pass((const float2*)x, (float2*)y, (float2*)scratch, lead,
+                       cols, p1, p2, forward != 0, (const float2*)tw1,
+                       (const float2*)tw2, (const float2*)tt, scale,
+                       (cudaStream_t)stream);
 }
 
 // 2D DFT over the last two axes of [batch, ny, nz], the radix route, in

@@ -1,6 +1,6 @@
 // The generic-prime-stage variants (MAXR = kMaxPrime) of the fused decode
-// kernel of fuse.cu (fuse.cuh: decode_cols_kernel) for each codec, both
-// directions. Like generic.cu's, each compiles every hand-written
+// kernel's column pass (fuse.cuh: decode_cols_kernel) for each codec,
+// both directions. Like generic.cu's, each compiles every hand-written
 // butterfly and radix.cuh:generic_stage, here with the wire reader in
 // every first stage, so they build in a process of their own beside the
 // other translation units (ops/_build.py starts one nvcc per .cu, all
@@ -9,4 +9,4 @@
 #define DFFT_FUSE_GENERIC_DECODE_TU
 #include "fuse.cuh"
 
-DFFT_FUSE_GENERIC_DECODES()
+DFFT_FUSE_COLUMN_DECODE(, radix::kMaxPrime)

@@ -1,9 +1,9 @@
 // Radix-FFT device code of the row, strided and plane kernels
-// (four_step.cu: dfft_fft_rows, dfft_fft_strided, dfft_fft_plane) and of
-// the fused encode and decode kernels (fuse.cu: dfft_fft_encode,
-// dfft_decode_fft): mixed-radix Stockham stages on whole sequences held
-// in shared memory, butterflies in registers; and the host-side set-up
-// of such a pass.
+// (four_step.cu: dfft_fft_rows, dfft_fft_strided, dfft_fft_plane, and
+// the two-pass route's *_2p) and of the fused encode and decode kernels
+// (fuse.cu): mixed-radix Stockham stages on whole sequences held in
+// shared memory, butterflies in registers; and the host-side set-up of
+// such a pass.
 //
 // The plan comes from the host (ops/radix.py): the stage radices, each a
 // factor of n in {2, 3, 4, 5, 7, 8, 11, 13, 16, 17} (a butterfly in
@@ -695,16 +695,18 @@ __device__ __forceinline__ void group_loop(float2* smem, Smem sm,
   }
 }
 
-// The output of a rows pass: begin(extra) as a column pass's (below);
-// row(r, s) is the sink of row r, the group's row s; flush(r0, cnt) runs
-// once the group's rows r0 .. r0 + cnt - 1 have all been handed to their
-// sinks (after a __syncthreads). Each is called by every thread.
+// The output of a rows pass: begin(extra) and end() as a column pass's
+// (below); row(r, s) is the sink of row r, the group's row s; flush(r0,
+// cnt) runs once the group's rows r0 .. r0 + cnt - 1 have all been
+// handed to their sinks (after a __syncthreads). Each is called by every
+// thread.
 struct RowOut {  // y[r*n + i] = v
   float2* y;
   int n;
   __device__ void begin(void*) {}
   __device__ auto row(long long r, int) { return store_c64(y + r * n, 1); }
   __device__ void flush(long long, int) {}
+  __device__ void end() {}
 };
 
 // Odd row stride of the transposed store's staging buffer: a half warp
@@ -742,6 +744,7 @@ struct TransposeOut {
     for (int k2 = k0; k2 < m2; k2 += per)
       d[(long long)m1 * k2] = stage[k2 * ld + s];
   }
+  __device__ void end() {}
 };
 
 // DFT(x[b, :]) * scale over [batch, n], `seqs` rows per group, each row
@@ -774,6 +777,7 @@ rows_kernel(const float2* x, Out out, long long batch, Plan plan, int seqs,
                                      seqs, plan, a, b, tw, scale, after);
         out.flush(g * seqs, count(g));
       });
+  out.end();
 }
 
 // The output of a column pass: what its last stage does with each value.
@@ -881,8 +885,7 @@ cols_kernel(const float2* x, Out out, long long lead, long long nz,
 // outputs four_step.cu launches them with are compiled in generic.cu, a
 // translation unit of their own that nvcc builds in parallel with the
 // others; every other file only declares them (fuse.cuh does the same
-// for fuse.cu's outputs and decode kernel, compiled in
-// fuse_generic_encode.cu and fuse_generic_decode.cu).
+// for the fused kernels' families, each compiled in a fuse_*.cu unit).
 #define DFFT_GENERIC_ROWS(FWD, OUT)                                         \
   template __global__ void rows_kernel<FWD, kMaxPrime, OUT>(               \
       const float2*, OUT, long long, Plan, int, Smem, const float2*, float)
@@ -1144,5 +1147,42 @@ struct ColsPass : Pass<ColsKernel<Out>> {
     return cudaGetLastError();
   }
 };
+
+// ------------------------------------------------------ the two-pass route
+// n = m1*m2 (four_step.cu). Its two passes are defined in four_step.cu
+// and shared with the fused launchers of fuse.cu, which read the wire in
+// the first pass (decode) or store through the codec in the second
+// (encode) and run the other pass as it is.
+
+// Most columns per group of a two-pass column pass.
+constexpr int kTwoPassMostCols = 64;
+
+// Columns per group of a two-pass column pass at most: a factor's
+// sequence is short (33 to 256 points), so a group of 16 columns leaves
+// most of the block's threads without an item; enough columns that the
+// stage with the fewest items gives every thread one, from 16 up to
+// kTwoPassMostCols (ColsPass keeps as many as fit shared memory).
+inline int two_pass_most(const Plan& p) {
+  int most = 16;
+  while (most < kTwoPassMostCols &&
+         (long long)most * min_items(p) < kThreads)
+    most *= 2;
+  return most;
+}
+
+// Pass 1: the length-m1 column pass over x as [lead, m1, m2*cols] into s,
+// each output times its twiddle from tt (T transposed, [m1, m2]).
+cudaError_t two_pass_first(const float2* x, float2* s, long long lead,
+                           long long cols, const Plan& p1, int m2, bool fwd,
+                           const float2* tw1, const float2* tt,
+                           cudaStream_t st);
+
+// Pass 2: the length-m2 pass over the scratch s into y, output (k1, k2)
+// at k1 + m1*k2 times `scale`: the column pass over [lead*m1, m2, cols]
+// (ReorderOut), or at cols = 1 the rows pass over [lead*m1, m2] with the
+// transposed store (TransposeOut).
+cudaError_t two_pass_second(const float2* s, float2* y, long long lead,
+                            long long cols, int m1, const Plan& p2, bool fwd,
+                            const float2* tw2, float scale, cudaStream_t st);
 
 }  // namespace radix

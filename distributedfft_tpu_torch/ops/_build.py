@@ -21,6 +21,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -59,18 +60,38 @@ def _nvcc() -> str:
     return path
 
 
+#: Wall seconds of each command of the last build, by source file name
+#: (each nvcc from the start of all of them to its own end).
+BUILD_SECONDS: dict[str, float] = {}
+
+
 def _run_all(cmds: list[list[str]]) -> list[str]:
     """Run the commands in parallel and return their outputs; raise with
-    the output of any that fails."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    outs, errors = [], []
-    for cmd, proc in zip(cmds, procs):
-        out, _ = proc.communicate()
-        outs.append(out)
-        if proc.returncode != 0:
-            errors.append(f"{' '.join(cmd)} -> {proc.returncode}:\n{out}")
+    the output of any that fails. Each command's wall seconds go into
+    :data:`BUILD_SECONDS` under the name of its last argument."""
+    BUILD_SECONDS.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [open(os.path.join(tmp, f"{i}.log"), "w+")
+                for i in range(len(cmds))]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(c, stdout=log, stderr=subprocess.STDOUT,
+                                  text=True) for c, log in zip(cmds, logs)]
+        pending = set(range(len(cmds)))
+        while pending:
+            for i in list(pending):
+                if procs[i].poll() is not None:
+                    BUILD_SECONDS[os.path.basename(cmds[i][-1])] = round(
+                        time.perf_counter() - t0, 1)
+                    pending.discard(i)
+            time.sleep(0.05)
+        outs, errors = [], []
+        for cmd, proc, log in zip(cmds, procs, logs):
+            log.seek(0)
+            out = log.read()
+            log.close()
+            outs.append(out)
+            if proc.returncode != 0:
+                errors.append(f"{' '.join(cmd)} -> {proc.returncode}:\n{out}")
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     return outs
@@ -84,8 +105,11 @@ def _build(so: str) -> None:
     try:
         _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
                   for src, obj in zip(sources(), objs)])
+        units = dict(BUILD_SECONDS)
         tmp = f"{so}.{tag}.tmp"
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        BUILD_SECONDS.clear()
+        BUILD_SECONDS.update(units)
         os.replace(tmp, so)  # atomic: concurrent builds agree
     finally:
         for obj in objs:
@@ -106,16 +130,14 @@ def _declare(lib: ctypes.CDLL) -> None:
                                    f, p]
     lib.dfft_fft_encode.argtypes = [p, p, p, p, p, ll, ll, i, i, ip, i, i,
                                     f, i, p, f, p]
-    lib.dfft_fft_encode_direct.argtypes = ([p] * 6 + [ll, ll] + [i] * 5
-                                           + [f, p, p, p, f, p])
+    lib.dfft_fft_encode_2p.argtypes = [p] * 6 + [ll, ll, i, i, f] + two_pass
     lib.dfft_decode_fft.argtypes = [p, p, p, ll, ll, i, i, ip, i, i, i, p,
                                     f, p]
-    lib.dfft_decode_fft_direct.argtypes = ([p] * 4 + [ll, ll] + [i] * 5
-                                           + [p, p, p, f, p])
+    lib.dfft_decode_fft_2p.argtypes = [p] * 4 + [ll, ll, i, i] + two_pass
     for fn in (lib.dfft_fft_rows, lib.dfft_fft_rows_2p, lib.dfft_fft_strided,
                lib.dfft_fft_strided_2p, lib.dfft_fft_plane,
-               lib.dfft_fft_encode, lib.dfft_fft_encode_direct,
-               lib.dfft_decode_fft, lib.dfft_decode_fft_direct):
+               lib.dfft_fft_encode, lib.dfft_fft_encode_2p,
+               lib.dfft_decode_fft, lib.dfft_decode_fft_2p):
         fn.restype = ctypes.c_int
 
 
@@ -182,7 +204,11 @@ if __name__ == "__main__":
     import sys
 
     mine = ptxas_usage()
-    other = ptxas_usage(sys.argv[1]) if len(sys.argv) > 1 else {}
+    print(f"seconds per unit, all together: {BUILD_SECONDS}")
+    other = {}
+    if len(sys.argv) > 1:
+        other = ptxas_usage(sys.argv[1])
+        print(f"seconds per unit there: {BUILD_SECONDS}")
     same = 0
     for k in sorted(mine):
         theirs = other.get(k)

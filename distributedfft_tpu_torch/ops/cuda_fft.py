@@ -17,19 +17,18 @@ table from :mod:`.radix`), a prime factor from 19 to 251 on its generic
 prime stage; so does every eligible plane (:func:`route2d`: its axes are
 at most 8192 long). The row and strided kernels take the two-pass radix
 route (``radix2``) at every eligible 8192 < n <= 65536: with the
-four-step split n = m1*m2 (:func:`split_for`), a radix pass of length
-m1 whose store multiplies by the four-step twiddle T, then a radix pass
-of length m2 whose store puts (k1, k2) at k1 + m1*k2. The fused kernels
-(``cuda_fuse.fused_route``) take the direct route there: the four-step
-sums, whose split n = n1*n2 (both factors <= 256) and float64-built LUTs
-(T among them) are the JAX package's, bit for bit.
+four-step split n = m1*m2 (:func:`split_for`, the JAX package's, both
+factors <= 256), a radix pass of length m1 whose store multiplies by the
+four-step twiddle T (float64-built, the JAX package's, bit for bit),
+then a radix pass of length m2 whose store puts (k1, k2) at k1 + m1*k2.
+The fused kernels (``cuda_fuse.fused_route``) take the same route at
+every length.
 
 Each wrapper takes complex64, contiguous tensors. On a CPU tensor it runs
 the plain version of the route the card would take (``*_plain``: the
-radix stages of :func:`.radix.radix_plain`, the two passes of
-:func:`two_pass_plain`, or the direct route's ``_four_step_ref`` math as
-``torch.einsum`` with the same LUTs, :func:`four_step_plain`); on a CUDA
-tensor it launches its kernel or raises. Each counts its launches in
+radix stages of :func:`.radix.radix_plain` or the two passes of
+:func:`two_pass_plain`); on a CUDA tensor it launches its kernel or
+raises. Each counts its launches in
 ``<wrapper>.launches``, by route in :data:`ROUTES` and by case in
 :data:`CASES`. Forward
 transforms are unnormalized, inverse ones scaled by 1/n (numpy
@@ -63,19 +62,16 @@ MAX_FACTOR = 256
 # CUDA plane launcher itself has no plane limit.
 _MAX_PLANE_ELEMS = 524288
 
-# Shared memory a block may use for its sequences (2*S*n complex64 each);
-# below the 227 KB maximum so that two blocks fit on one SM.
-_SMEM_BUDGET = 96 * 1024
-
 #: Routes away from a kernel, by (axis, reason): ``plane2d`` counts planes
 #: the 2D kernel does not take (they run per axis); ``dtype``, ``empty``
 #: and ``length`` count transforms :func:`fft_along_axis` sends to
 #: :mod:`.dft_matmul` (a two-level length is no fallback).
 FALLBACKS: Counter = Counter()
 
-#: Kernel launches by (wrapper, route), route ``radix``, ``radix2`` (the
-#: two-pass route of the row and strided kernels) or ``direct`` (the
-#: fused kernels' four-step sums past 8192).
+#: Kernel launches by (wrapper, route): ``radix`` or ``radix2`` (the
+#: two-pass route past 8192); the fused wrappers count a last-axis site
+#: (cols = 1) under ``radix_rows`` or ``radix2_rows`` (their row form,
+#: ``cuda_fuse.fused_form``).
 ROUTES: Counter = Counter()
 
 #: Kernel launches by case: (wrapper, forward, shape), with
@@ -130,7 +126,7 @@ def record_fallback(axis: int, reason: str) -> None:
     _metrics.inc("pallas_fallback", axis=int(axis), reason=reason)
 
 
-# ------------------------------------------------------------------ LUTs
+# ----------------------------------------------------------- the table T
 
 def _dft_matrix_np(n: int, forward: bool) -> np.ndarray:
     """Dense n x n DFT matrix W[j, k] = exp(-+2 pi i j k / n), float64."""
@@ -141,7 +137,9 @@ def _dft_matrix_np(n: int, forward: bool) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def tables_np_cached(n: int, n1: int, n2: int, forward: bool):
-    """(W1[j1, k1], T[j2, k1], W2[j2, k2]) complex64, built in float64."""
+    """(W1[j1, k1], T[j2, k1], W2[j2, k2]) complex64, built in float64:
+    the JAX package's four-step LUTs of n = n1*n2, bit for bit, of which
+    the two-pass route reads T."""
     w1 = _dft_matrix_np(n1, forward)
     w2 = _dft_matrix_np(n2, forward)
     sign = -2j if forward else 2j
@@ -149,25 +147,6 @@ def tables_np_cached(n: int, n1: int, n2: int, forward: bool):
     t = np.exp(sign * np.pi * (jk % n) / n)
     c64 = lambda a: np.ascontiguousarray(a.astype(np.complex64))
     return c64(w1), c64(t), c64(w2)
-
-
-def tables_np(n: int, forward: bool):
-    n1, n2 = split_for(n)
-    return tables_np_cached(n, n1, n2, forward)
-
-
-_DEVICE_TABLES: dict = {}
-
-
-def device_tables(n: int, forward: bool, device: torch.device):
-    """The LUTs of ``n`` on ``device``, uploaded once per (n, direction,
-    device)."""
-    key = (n, forward, str(device))
-    hit = _DEVICE_TABLES.get(key)
-    if hit is None:
-        hit = tuple(torch.from_numpy(m).to(device) for m in tables_np(n, forward))
-        _DEVICE_TABLES[key] = hit
-    return hit
 
 
 _DEVICE_TT: dict = {}
@@ -181,24 +160,13 @@ def device_tt(n: int, forward: bool, device: torch.device) -> torch.Tensor:
     key = (n, forward, str(device))
     hit = _DEVICE_TT.get(key)
     if hit is None:
-        t = tables_np(n, forward)[1]
+        t = tables_np_cached(n, *split_for(n), forward)[1]
         hit = torch.from_numpy(np.ascontiguousarray(t.T)).to(device)
         _DEVICE_TT[key] = hit
     return hit
 
 
 # ------------------------------------------------------- plain versions
-
-def four_step_plain(x2: torch.Tensor, n: int, forward: bool) -> torch.Tensor:
-    """The kernels' math on [rows, n] complex64 (``_four_step_ref``)."""
-    n1, n2 = split_for(n)
-    w1, t, w2 = (torch.from_numpy(m).to(x2.device) for m in tables_np(n, forward))
-    a = x2.reshape(-1, n1, n2)
-    g = torch.einsum("bij,ik->bjk", a, w1)
-    h = g * t
-    z = torch.einsum("bjk,jl->bkl", h, w2)
-    return z.transpose(1, 2).reshape(x2.shape)
-
 
 def two_pass_plain(x2: torch.Tensor, n: int, forward: bool) -> torch.Tensor:
     """The two-pass route's math on [rows, n] complex64, unscaled: with
@@ -226,7 +194,7 @@ def _rows_plain(x2: torch.Tensor, n: int, forward: bool,
         return radix.radix_plain(x2, forward)
     if how == "radix2":
         return two_pass_plain(x2, n, forward)
-    return four_step_plain(x2, n, forward)
+    raise ValueError(f"length {n} is not kernel-eligible: no route")
 
 
 def fft_last_plain(x: torch.Tensor, forward: bool = True,
@@ -240,7 +208,7 @@ def fft_axis0_plain(x: torch.Tensor, forward: bool = True,
                     normalize: bool = True,
                     how: str | None = None) -> torch.Tensor:
     """The strided kernel's plain version, on route ``how`` (default:
-    :func:`route` of the length; the fused kernels pass their own)."""
+    :func:`route` of the length)."""
     lead, n, cols = x.shape
     y = _rows_plain(x.transpose(1, 2).reshape(-1, n), n, forward,
                     how or route(n))
@@ -275,18 +243,6 @@ def _check(x: torch.Tensor, ndim: int, what: str, *lengths: int) -> None:
         raise ValueError(f"{what}: no kernel for device {x.device}")
 
 
-def _block_seqs(n: int, most: int, spill: int) -> tuple[int, bool]:
-    """(sequences per block, in shared memory?) for length-n sequences:
-    the most that fit ``_SMEM_BUDGET``, else ``spill`` per block through
-    device scratch."""
-    s = most
-    while s > 1 and 16 * s * n > _SMEM_BUDGET:
-        s //= 2
-    if 16 * s * n <= _SMEM_BUDGET:
-        return s, True
-    return spill, False
-
-
 def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
@@ -299,10 +255,6 @@ def _launch(name: str, x: torch.Tensor, *args) -> None:
             return _launch(name, x, *args)
     stream = torch.cuda.current_stream().cuda_stream
     check(getattr(library(), name)(*args, stream), name)
-
-
-def _luts(n: int, forward: bool, device) -> list:
-    return [t.data_ptr() for t in device_tables(n, forward, device)]
 
 
 @functools.lru_cache(maxsize=None)

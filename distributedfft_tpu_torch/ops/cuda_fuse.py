@@ -9,16 +9,18 @@ mega-kernels become the CUDA launchers of ``csrc/fuse.cu``:
 - :func:`fused_decode_fft` (``_make_decode_kernel``): the exact wire
   decode, then the DFT along one axis (inverse scaled 1/n).
 
-Each takes the radix route wherever :func:`.cuda_fft.fft_axis0` does
-(every eligible n <= 8192, a prime factor from 19 to 251 on the generic
-prime stage) and the direct route past 8192, where ``fft_axis0`` takes
-its two-pass route (:func:`fused_route`; counted in
-:data:`.cuda_fft.ROUTES` under ``fft_encode`` and ``decode_fft``). On
-the radix route each runs the strided kernel's column pass with its own
-first or last step, so on the card the encode equals the codec's encode
-of ``fft_axis0(x)`` and the decode equals ``fft_axis0`` of the decoded
-wire, bit for bit; on the direct route the two agree within the
-complex64 tier, not bit for bit.
+Each takes the route :func:`.cuda_fft.fft_axis0` takes at the length
+(:func:`fused_route`): ``radix`` for every eligible n <= 8192 (a prime
+factor from 19 to 251 on the generic prime stage), ``radix2``, the
+two-pass route, past it; and on it the passes of its unfused twin, the
+kernel ``fft_along_axis`` runs there: the strided kernel's, or at a
+last-axis site (cols = 1) the row kernel's (the row form). Each form is
+counted in :data:`.cuda_fft.ROUTES` under ``fft_encode`` and
+``decode_fft`` by :func:`fused_form`. Only the encode's storing pass and
+the decode's reading pass differ from the twin's, in where a value goes
+to or comes from, so on the card the encode equals the codec's encode
+of ``fft_along_axis(x)`` and the decode equals ``fft_along_axis`` of the
+decoded wire, bit for bit.
 
 Both return what the JAX functions return: the encode gives the tuple
 of wire parts, payload first, exactly shaped as
@@ -27,8 +29,8 @@ array. A site the kernels do not take (:func:`kernel_ineligible`) runs
 the unfused executor and codec, as the JAX package's mirror does, and is
 counted in :data:`FUSION_FALLBACKS` by (site, reason). Otherwise a CPU
 tensor runs the plain version (``*_plain``: the codec and
-:func:`.cuda_fft.fft_axis0_plain` on the fused route) and
-a CUDA tensor launches the kernel or raises. Each function counts its
+:func:`.cuda_fft.fft_axis0_plain` on the fused route) and a CUDA tensor
+launches the kernel or raises. Each function counts its
 launches in ``<function>.launches``.
 
 One gate of the JAX package is not carried over: ``vmem``. The TPU
@@ -50,8 +52,7 @@ import torch
 from ..parallel.exchange import wire_codec
 from ..utils import metrics as _metrics
 from . import cuda_fft, radix
-from .cuda_fft import (_block_seqs, _launch, _luts, _ptr, _radices, eligible,
-                       split_for)
+from .cuda_fft import _launch, _ptr, _radices, _two_pass_args, eligible
 
 #: Quantized codecs the kernels pack: name -> (signed levels, mantissa
 #: dtype, codec id of the C interface). ``bf16`` is the cast-only codec.
@@ -98,11 +99,18 @@ def kernel_ineligible(shape, fft_axis: int, tile_axis: int, tiles: int,
 
 
 def fused_route(n: int) -> str:
-    """The fused kernels' route at length n: ``radix`` where
-    :func:`.cuda_fft.route` is (every eligible n <= 8192, the generic
-    prime stage included), else ``direct``: past 8192 they have no
-    two-pass form yet, and take the four-step sums."""
-    return "radix" if cuda_fft.route(n) == "radix" else "direct"
+    """The fused kernels' route at length n: :func:`.cuda_fft.route`'s
+    (``radix`` for every eligible n <= 8192, the generic prime stage
+    included; ``radix2``, the two-pass route, past it)."""
+    return cuda_fft.route(n)
+
+
+def fused_form(n: int, cols: int) -> str:
+    """The route a fused launch over [lead, n, cols] is counted under in
+    :data:`.cuda_fft.ROUTES`: :func:`fused_route`, with ``_rows`` at
+    cols = 1, where the kernels take the row form (the row kernel's
+    rows pass; on the two-pass route its second pass)."""
+    return fused_route(n) + ("_rows" if cols == 1 else "")
 
 
 def _strided(shape, axis: int) -> tuple[int, int, int]:
@@ -183,24 +191,20 @@ def fused_fft_encode(x: torch.Tensor, *, fft_axis: int, forward: bool,
     if code:
         amax = torch.empty(2 * tiles, dtype=torch.int32, device=x.device)
         side = torch.empty((tiles, 2), dtype=torch.float32, device=x.device)
-    how = fused_route(n)
-    if how == "radix":
-        y = torch.empty_like(x3) if code else None
+    y = torch.empty_like(x3) if code else None
+    if fused_route(n) == "radix":
         tw = radix.device_twiddles(n, forward, x.device)
         _launch("dfft_fft_encode", x, x3.data_ptr(), _ptr(y), q.data_ptr(),
                 _ptr(amax), _ptr(side), lead, cols, n, *_radices(n), tiles,
                 code, levels, int(forward), tw.data_ptr(), scale)
     else:
-        n1, n2 = split_for(n)
-        seqs, smem = _block_seqs(n, 16, 32)
-        scratch = None if smem else torch.empty_like(x3)
-        y = torch.empty_like(x3) if code or not smem else None
-        _launch("dfft_fft_encode_direct", x, x3.data_ptr(), _ptr(y),
-                _ptr(scratch), q.data_ptr(), _ptr(amax), _ptr(side), lead,
-                cols, n1, n2, seqs, tiles, code, levels,
-                *_luts(n, forward, x.device), scale)
+        scratch = torch.empty_like(x3)
+        _launch("dfft_fft_encode_2p", x, x3.data_ptr(), _ptr(y),
+                scratch.data_ptr(), q.data_ptr(), _ptr(amax), _ptr(side),
+                lead, cols, tiles, code, levels,
+                *_two_pass_args(n, forward, x.device), scale)
     fused_fft_encode.launches += 1
-    cuda_fft.ROUTES[("fft_encode", how)] += 1
+    cuda_fft.ROUTES[("fft_encode", fused_form(n, cols))] += 1
     cuda_fft.CASES[("fft_encode", wire_dtype, bool(forward), tuple(x.shape),
                     fft_axis, tiles)] += 1
     if not code:
@@ -242,21 +246,18 @@ def fused_decode_fft(parts: tuple, dtype, *, fft_axis: int, forward: bool,
     q = payload.contiguous()
     y = torch.empty(shape, dtype=torch.complex64, device=payload.device)
     scale = 1.0 if forward else 1.0 / n
-    how = fused_route(n)
-    if how == "radix":
+    if fused_route(n) == "radix":
         tw = radix.device_twiddles(n, forward, payload.device)
         _launch("dfft_decode_fft", payload, q.data_ptr(), _ptr(side),
                 y.data_ptr(), lead, cols, n, *_radices(n), tiles, code,
                 int(forward), tw.data_ptr(), scale)
     else:
-        n1, n2 = split_for(n)
-        seqs, smem = _block_seqs(n, 16, 32)
-        scratch = None if smem else torch.empty_like(y)
-        _launch("dfft_decode_fft_direct", payload, q.data_ptr(), _ptr(side),
-                y.data_ptr(), _ptr(scratch), lead, cols, n1, n2, seqs, tiles,
-                code, *_luts(n, forward, payload.device), scale)
+        scratch = torch.empty_like(y)
+        _launch("dfft_decode_fft_2p", payload, q.data_ptr(), _ptr(side),
+                y.data_ptr(), scratch.data_ptr(), lead, cols, tiles, code,
+                *_two_pass_args(n, forward, payload.device), scale)
     fused_decode_fft.launches += 1
-    cuda_fft.ROUTES[("decode_fft", how)] += 1
+    cuda_fft.ROUTES[("decode_fft", fused_form(n, cols))] += 1
     cuda_fft.CASES[("decode_fft", wire_dtype, bool(forward), shape,
                     fft_axis, tiles)] += 1
     return y

@@ -21,10 +21,12 @@ inverse's scale (a round trip).
 The fused stage+codec kernels are held the same way for each codec, both
 directions, and a transform along axis 0, a middle axis and the last
 axis, on both routes (radix up to 8192, the generic stage at 1216, 608,
-76, 482 = 2*241, 722 = 2*19*19 and 361; direct past it); on
-the radix route the decode against the strided kernel on the decoded
-wire and the encode against the codec's encode of the strided kernel's
-output (bit for bit); the fused real plans against the unfused ones.
+76, 482 = 2*241, 722 = 2*19*19 and 361; the two-pass route past it, at
+12288, 16384, 9728 = 76*128 and 8194 = 34*241) and both forms (the
+column pass, and at cols = 1 the row form); the decode against the
+strided or row kernel on the decoded wire and the encode against the
+codec's encode of the strided or row kernel's output (bit for bit); the
+fused real plans against the unfused ones.
 """
 
 import numpy as np
@@ -217,12 +219,13 @@ def test_plans_on_the_card_match_the_cpu(card, shape, p):
 # ------------------------------------------------ fused stage+codec kernels
 
 # (shape, axis, tiles): axis 0 (lead 1), a middle axis with ragged
-# columns, the last axis (cols 1), a long radix length (8192), one on the
-# generic stage (1216 = 19*64) and one the strided kernel takes by its
-# two-pass route, which the fused kernels take by the direct one.
+# columns, the last axis (cols 1, the row form), a long radix length
+# (8192), one on the generic stage (1216 = 19*64) and lengths on the
+# two-pass route, with columns and at cols = 1.
 FUSED_SITES = [((64, 37, 3), 0, 4), ((3, 66, 37), 1, 2), ((5, 7, 128), 2, 4),
                ((2, 8192, 3), 1, 4), ((2, 1216, 3), 1, 4),
-               ((1, 12288, 3), 1, 4)]
+               ((1, 12288, 3), 1, 4), ((3, 16384), 1, 4),
+               ((2, 9728, 1), 1, 2)]
 LEVELS = {"bf16": None, "int8": 127, "split": 32767}
 
 
@@ -246,7 +249,7 @@ def test_fft_encode_kernel_matches_plain(card, codec, forward, shape, axis,
     kw = dict(fft_axis=axis, forward=forward, tile_axis=axis, tiles=tiles,
               wire_dtype=codec)
     before = cuda_fuse.fused_fft_encode.launches
-    how = cuda_fuse.fused_route(shape[axis])
+    how = cuda_fuse.fused_form(shape[axis], int(np.prod(shape[axis + 1:])))
     routed = cuda_fft.ROUTES[("fft_encode", how)]
     got = cuda_fuse.fused_fft_encode(x, **kw)
     torch.cuda.synchronize()
@@ -290,7 +293,7 @@ def test_decode_fft_kernel_matches_plain(card, codec, forward, shape, axis,
     kw = dict(fft_axis=axis, forward=forward, tile_axis=axis, tiles=tiles,
               wire_dtype=codec)
     before = cuda_fuse.fused_decode_fft.launches
-    how = cuda_fuse.fused_route(shape[axis])
+    how = cuda_fuse.fused_form(shape[axis], int(np.prod(shape[axis + 1:])))
     routed = cuda_fft.ROUTES[("decode_fft", how)]
     got = cuda_fuse.fused_decode_fft(parts, torch.complex64, **kw)
     torch.cuda.synchronize()
@@ -300,20 +303,34 @@ def test_decode_fft_kernel_matches_plain(card, codec, forward, shape, axis,
     assert _err(got, want) < C64 and _rel_l2(got, want) < C64
 
 
+def _twin(x, forward):
+    """The unfused kernel of a fused site over [lead, n, cols]: the row
+    kernel at cols = 1 (a last-axis site's), else the strided kernel."""
+    lead, n, cols = x.shape
+    if cols == 1:
+        return cuda_fft.fft_last(x.reshape(lead, n), forward).reshape(x.shape)
+    return cuda_fft.fft_axis0(x, forward)
+
+
 @pytest.mark.parametrize("codec", ["bf16", "int8", "split"])
 @pytest.mark.parametrize("forward", [True, False])
 @pytest.mark.parametrize("lead,n,cols", [(2, 512, 16), (2, 512, 257),
                                          (1, 510, 257), (3, 64, 7),
                                          (2, 608, 16), (1, 76, 37),
-                                         (2, 482, 3), (4, 722, 1)])
+                                         (2, 482, 3), (4, 722, 1),
+                                         (5, 76, 1), (3, 512, 1),
+                                         (2, 12288, 5), (3, 16384, 1),
+                                         (2, 9728, 3), (2, 8194, 1)])
 def test_fused_decode_equals_fft_axis0_of_the_decode(card, codec, forward,
                                                       lead, n, cols):
-    """The radix decode kernel runs the strided kernel's stages on the
-    exactly unpacked wire, so it equals fft_axis0(decode(parts)) (within
-    1e-6 L2; the shared stage code makes them equal to the bit), the
-    generic stage's variant included (608 = 8.4.19, 76 = 4.19, 482 =
-    2.241, 722 = 2.19.19 with one column). 257 columns put every other
-    int8 row segment at 2 mod 4 bytes."""
+    """The decode kernel runs its twin's passes (the strided kernel's, or
+    at cols = 1 the row kernel's; past 8192 their two) on the exactly
+    unpacked wire, so it equals the twin on decode(parts) bit for bit,
+    the generic stage's variant included (608 = 8.4.19, 76 = 4.19, 482 =
+    2.241, 722 = 2.19.19, 9728 = 76*128, 8194 = 34*241). 257 columns put
+    every other int8 row segment at 2 mod 4 bytes, as 76 and 8194 put
+    every other row at cols = 1 (the name is the test's own from before
+    the row form)."""
     from distributedfft_tpu_torch.ops import cuda_fuse
     from distributedfft_tpu_torch.parallel.exchange import wire_codec
 
@@ -323,11 +340,11 @@ def test_fused_decode_equals_fft_axis0_of_the_decode(card, codec, forward,
     parts = codec_.encode(y, tile_axis=1, tiles=2)
     kw = dict(fft_axis=1, forward=forward, tile_axis=1, tiles=2,
               wire_dtype=codec)
-    assert cuda_fft.route(n) == "radix"
+    assert cuda_fuse.fused_route(n) == cuda_fft.route(n)
     got = cuda_fuse.fused_decode_fft(parts, torch.complex64, **kw)
-    want = cuda_fft.fft_axis0(
-        codec_.decode(parts, torch.complex64, tile_axis=1, tiles=2), forward)
-    assert _rel_l2(got, want) <= 1e-6
+    want = _twin(codec_.decode(parts, torch.complex64, tile_axis=1,
+                               tiles=2), forward)
+    assert torch.equal(got, want)
 
 
 # (lead, n, cols, tiles) of the encode against its unfused form: every
@@ -340,10 +357,12 @@ def test_fused_decode_equals_fft_axis0_of_the_decode(card, codec, forward,
 ENCODE_TWINS = [(lead, n, cols, t)
                 for lead, n, cols in [(2, 512, 16), (2, 512, 257),
                                       (1, 510, 257), (3, 64, 7), (2, 96, 5),
-                                      (2, 608, 16), (1, 76, 37)]
+                                      (2, 608, 16), (1, 76, 37), (3, 512, 1),
+                                      (2, 12288, 5), (3, 16384, 1)]
                 for t in (1, 2, 3, 4) if n % t == 0] + [
     (1, 8192, 3, 4), (2, 512, 16, 8), (2, 96, 5, 6), (3, 482, 5, 2),
-    (4, 361, 1, 1)]
+    (4, 361, 1, 1), (5, 608, 1, 8), (2, 9728, 3, 8), (2, 9728, 1, 2),
+    (2, 8194, 1, 2)]
 
 
 @pytest.mark.parametrize("codec", ["bf16", "int8", "split"])
@@ -351,24 +370,26 @@ ENCODE_TWINS = [(lead, n, cols, t)
 @pytest.mark.parametrize("lead,n,cols,tiles", ENCODE_TWINS)
 def test_fused_encode_equals_codec_of_fft_axis0(card, codec, forward, lead,
                                                 n, cols, tiles):
-    """The radix encode runs the strided kernel's column pass and packs
-    (bf16) or stores and quantizes (int8, split) what it produces, so its
-    wire parts are the codec's encode of fft_axis0(x) on the same card,
-    payload and sidecar bit for bit."""
+    """The encode runs its twin's passes (the strided kernel's, or at
+    cols = 1 the row kernel's; past 8192 their two) and packs (bf16) or
+    stores and quantizes (int8, split) what the last one produces, so its
+    wire parts are the codec's encode of the twin's output on the same
+    card, payload and sidecar bit for bit (the name is the test's own
+    from before the row form)."""
     from distributedfft_tpu_torch.ops import cuda_fuse
     from distributedfft_tpu_torch.parallel.exchange import wire_codec
 
     shape = (lead, n, cols)
     x = _c64(n + cols + lead + tiles, shape, card)
-    assert cuda_fft.route(n) == "radix"
-    routed = cuda_fft.ROUTES[("fft_encode", "radix")]
+    how = cuda_fuse.fused_form(n, cols)
+    routed = cuda_fft.ROUTES[("fft_encode", how)]
     got = cuda_fuse.fused_fft_encode(x, fft_axis=1, forward=forward,
                                      tile_axis=1, tiles=tiles,
                                      wire_dtype=codec)
     torch.cuda.synchronize()
-    assert cuda_fft.ROUTES[("fft_encode", "radix")] == routed + 1
-    want = wire_codec(codec).encode(cuda_fft.fft_axis0(x, forward),
-                                    tile_axis=1, tiles=tiles)
+    assert cuda_fft.ROUTES[("fft_encode", how)] == routed + 1
+    want = wire_codec(codec).encode(_twin(x, forward), tile_axis=1,
+                                    tiles=tiles)
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape

@@ -4,7 +4,8 @@ the generic prime stage, on the CPU.
 Every eligible plane and every eligible fused length n <= 8192 takes the
 radix route (``cuda_fft.route2d``, ``cuda_fuse.fused_route``), a prime
 factor from 19 to 251 as a stage of ``csrc/radix.cuh:generic_stage``;
-the fused kernels keep the direct route only past 8192. On CPU tensors
+past 8192 the fused kernels take the two-pass route, as the strided
+kernel does. On CPU tensors
 the wrappers run the plain versions of that route. These tests check the
 routes at 76 = 4*19, 361 = 19*19 and 608 = 8.4.19; the plain versions
 against the JAX package's Pallas bodies run in interpret mode (the fused
@@ -78,12 +79,12 @@ def test_planes_off_the_smooth_lengths_take_the_radix_route(ny, nz):
 
 @pytest.mark.parametrize("n", [76, 361, 608, 8032, 9728, 12482])
 def test_fused_route_follows_the_strided_kernel_up_to_8192(n):
-    """The fused kernels take the radix route wherever ``fft_axis0`` does,
-    the direct route only where it takes the two-pass route."""
+    """The fused kernels take the route ``fft_axis0`` takes, the radix
+    route up to 8192 and the two-pass route past it (the name is the
+    test's own from before they had the two-pass route)."""
     how = cuda_fft.route(n)
     assert how == ("radix" if n <= 8192 else "radix2")
-    assert cuda_fuse.fused_route(n) == ("radix" if how == "radix"
-                                        else "direct")
+    assert cuda_fuse.fused_route(n) == how
 
 
 def test_plane_with_an_axis_past_8192_is_refused():

@@ -13,8 +13,8 @@ rounding on both sides, the sums in another order); and a slab and a
 pencil plan at a non-smooth shape on the port's ``cuda`` executor
 against the JAX package's ``pallas`` executor on the 8-device CPU mesh.
 The plane and fused kernels take the same radix route at these lengths
-(their plain versions are ``tests/test_torch_generic_fused.py``'s); the
-fused kernels keep the direct route past 8192.
+(their plain versions are ``tests/test_torch_generic_fused.py``'s), and
+the fused kernels the two-pass route past 8192.
 """
 
 import math
@@ -89,8 +89,8 @@ def test_every_eligible_length_takes_a_radix_route(lo, hi):
     plan (or each factor's of the split) multiplies out to n with the
     hand-written radices and primes 19..251 only, one stage only for a
     generic prime, a generic stage exactly where a prime factor is over
-    17; the fused kernels take the radix route up to 8192 and the direct
-    one past it, and a plane with such an axis takes the radix route."""
+    17; the fused kernels take the same route, and a plane with such an
+    axis takes the radix route."""
     generic = 0
     for n in range(lo, hi + 1):
         if not cuda_fft.eligible(n):
@@ -101,8 +101,7 @@ def test_every_eligible_length_takes_a_radix_route(lo, hi):
             _check_plan(m)
         smooth = _smooth(n)
         generic += not smooth
-        assert cuda_fuse.fused_route(n) == ("radix" if n <= 8192
-                                            else "direct"), n
+        assert cuda_fuse.fused_route(n) == how, n
         if n <= 8192:
             plan = radix.radix_plan(n)
             assert any(map(radix.is_generic, plan)) == (not smooth), n
@@ -130,7 +129,7 @@ def test_two_pass_splits_with_a_one_stage_factor(n, split, plans):
     assert cuda_fft.split_for(n) == split
     assert tuple(radix.radix_plan(m) for m in split) == plans
     assert cuda_fft.route(n) == "radix2"
-    assert cuda_fuse.fused_route(n) == "direct"
+    assert cuda_fuse.fused_route(n) == "radix2"
 
 
 @pytest.mark.parametrize("ny,nz", [(608, 608), (512, 608), (76, 64)])

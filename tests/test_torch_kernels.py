@@ -5,13 +5,12 @@ Each kernel of ``distributedfft_tpu_torch/ops/cuda_fft.py`` runs here,
 on CPU tensors, as its plain PyTorch version; the JAX side runs the
 Pallas kernel bodies of ``distributedfft_tpu/ops/pallas_fft.py`` in
 interpret mode, outside ``shard_map``, as ``tests/test_pallas.py`` does.
-The strided kernel's plain version computes the Pallas kernel's
-four-step sums with the same float64-built LUTs; the row and plane
-kernels' plain versions run the radix route's stages
+The plain versions run the radix route's stages
 (``tests/test_torch_radix.py``) at every length here, in float64 from
-complex64 tables. Either way both sides carry only fp32-level rounding,
-so they agree to 1e-5 relative; against numpy they hold the complex64
-tier, 5e-4.
+complex64 tables, and the Pallas kernels their four-step sums with the
+float64-built LUTs; both sides carry only fp32-level rounding, so they
+agree to 1e-5 relative; against numpy they hold the complex64 tier,
+5e-4.
 """
 
 import numpy as np
@@ -61,13 +60,18 @@ def test_eligible2d_matches_reference(ny, nz):
 @pytest.mark.parametrize("forward", [True, False])
 @pytest.mark.parametrize("n", [64, 66, 510, 512, 65536])
 def test_luts_bit_identical(n, forward):
+    """The four-step twiddle table T the two-pass route reads
+    (``tables_np_cached``, on the card as ``device_tt``: T transposed) is
+    the JAX package's LUT, bit for bit, at the split of every length."""
     n1, n2 = cuda_fft.split_for(n)
-    mine = cuda_fft.tables_np(n, forward)
-    ref = pallas_fft._tables_np_cached(n, n1, n2, forward, 1, 1)
-    for a, b in zip(mine, ref):
-        assert a.dtype == b.dtype == np.complex64
-        assert a.shape == b.shape
-        assert np.array_equal(a.view(np.uint32), b.view(np.uint32))
+    mine = cuda_fft.tables_np_cached(n, n1, n2, forward)[1]
+    ref = pallas_fft._tables_np_cached(n, n1, n2, forward, 1, 1)[1]
+    assert mine.dtype == ref.dtype == np.complex64
+    assert mine.shape == ref.shape == (n2, n1)
+    assert np.array_equal(mine.view(np.uint32), ref.view(np.uint32))
+    tt = cuda_fft.device_tt(n, forward, torch.device("cpu")).numpy()
+    assert np.array_equal(tt.view(np.uint32),
+                          np.ascontiguousarray(ref.T).view(np.uint32))
 
 
 @pytest.mark.parametrize("shape,dtype", [((8, 6, 4), np.complex64),

@@ -94,16 +94,16 @@ def test_lengths_off_the_radix_route(n):
     """Off the hand-written radices: a prime factor over 17 (76 = 4*19,
     1216 = 19*64) takes the generic stage on the radix route of every
     kernel, the plane's and the fused ones' included, or past 8192 (9728
-    = 19*512) the row and strided kernels' two-pass route and the fused
-    kernels' direct one; a smooth length the kernels do not take at all
-    (17^3) is direct for every kernel."""
+    = 19*512) the two-pass route of the row, strided and fused kernels; a
+    smooth length the kernels do not take at all (17^3) has no route
+    (``direct``) for any kernel."""
     from distributedfft_tpu_torch.ops import cuda_fuse
 
     if not cuda_fft.eligible(n):
         assert cuda_fft.route(n) == cuda_fuse.fused_route(n) == "direct"
         return
     assert cuda_fft.route(n) == ("radix" if n <= 8192 else "radix2")
-    assert cuda_fuse.fused_route(n) == ("radix" if n <= 8192 else "direct")
+    assert cuda_fuse.fused_route(n) == cuda_fft.route(n)
     plans = ([radix.radix_plan(n)] if n <= 8192
              else [radix.radix_plan(m) for m in cuda_fft.split_for(n)])
     assert any(radix.is_generic(r) for p in plans for r in p)
@@ -181,9 +181,12 @@ def test_radix_plain_matches_pallas_plane_kernel(ny, nz, forward):
 @pytest.mark.parametrize("forward", [True, False])
 def test_direct_route_keeps_the_four_step_sums(forward):
     """76 = 4*19: the row kernel's plain version is the radix stages (19
-    on the generic stage), the direct route's plain version (the fused
-    kernels' past 8192) keeps the four-step sums at any length it is
-    given, and a plane with one such axis takes the radix route whole."""
+    on the generic stage), the strided kernel's on the columns as rows is
+    the same stages bit for bit (``how="radix"``, the route every kernel,
+    the fused ones included, takes there), no plain version takes a route
+    the kernels have not (``direct``), and a plane with one such axis
+    takes the radix route whole (the name is the test's own from before
+    the fused kernels lost their four-step direct route)."""
     x = _c64(76, (3, 76))
     got = cuda_fft.fft_last_plain(torch.from_numpy(x), forward)
     want = radix.radix_plain(torch.from_numpy(x), forward)
@@ -191,12 +194,14 @@ def test_direct_route_keeps_the_four_step_sums(forward):
         want = want * (1.0 / 76)
     assert torch.equal(got, want)
     cols = torch.from_numpy(x).t().contiguous().reshape(1, 76, 3)
-    direct = cuda_fft.fft_axis0_plain(cols, forward, normalize=False,
-                                      how="direct")
-    four = cuda_fft.four_step_plain(torch.from_numpy(x), 76, forward)
-    assert torch.equal(direct, four.t().reshape(1, 76, 3))
-    assert _err(direct.reshape(76, 3).t(), np.fft.fft(x) if forward
+    strided = cuda_fft.fft_axis0_plain(cols, forward, normalize=False,
+                                       how="radix")
+    rows = radix.radix_plain(torch.from_numpy(x), forward)
+    assert torch.equal(strided, rows.t().reshape(1, 76, 3))
+    assert _err(strided.reshape(76, 3).t(), np.fft.fft(x) if forward
                 else np.fft.ifft(x) * 76) < C64
+    with pytest.raises(ValueError):
+        cuda_fft.fft_axis0_plain(cols, forward, how="direct")
     p = _c64(77, (2, 76, 64))
     ref = np.fft.fft2(p) if forward else np.fft.ifft2(p)
     assert _err(cuda_fft.fft2_last(torch.from_numpy(p), forward), ref) < C64

@@ -5,14 +5,14 @@ the radix route, on the CPU.
 route by the length alone (``cuda_fft.route``, ``cuda_fuse.fused_route``):
 the radix stages of ``csrc/radix.cuh`` for every eligible n <= 8192 (a
 prime factor from 19 to 251 on the generic stage), past 8192 two radix
-passes for the strided kernel and the four-step sums for the decode. On CPU tensors they run the plain
-version of that route (``fft_axis0_plain``; the codec's decode, then
+passes, for both. On CPU tensors they run the plain version of that
+route (``fft_axis0_plain``; the codec's decode, then
 ``fft_axis0_plain``). These tests hold the plain versions against the
 JAX package's Pallas bodies in interpret mode (``pallas_fft.fft_axis0``,
 ``fft_along_axis`` for a leading batch, ``pallas_fuse.fused_decode_fft``)
 at 1e-5 relative (fp32-level rounding on both sides, the sums in another
 order) and against numpy at the complex64 tier (5e-4), and check that
-the direct route keeps the four-step sums bit for bit.
+each route's plain version is its passes bit for bit.
 """
 
 import numpy as np
@@ -93,25 +93,29 @@ def test_fft_axis0_plain_runs_the_radix_stages(n, forward):
 @pytest.mark.parametrize("n", [19 * 64, 19 * 512])
 def test_direct_route_keeps_the_four_step_sums(n, forward):
     """1216 = 19*64 and 9728 = 19*512 (a prime factor over 17): the
-    strided kernel takes the generic stage (its radix or two-pass
-    route), as the fused kernels do at 1216, while the direct route,
-    which they take at 9728, keeps the four-step sums as its plain
-    version, bit for bit; both hold the complex64 tier against numpy."""
+    strided kernel takes the generic stage on its radix route (1216) or
+    its two-pass route (9728), and the fused kernels the same route; the
+    plain version on the route is ``radix_plain`` or ``two_pass_plain``
+    on the columns as rows, bit for bit, and holds the complex64 tier
+    against numpy (the name is the test's own from before the fused
+    kernels lost their four-step direct route)."""
     assert cuda_fft.eligible(n)
-    assert cuda_fuse.fused_route(n) == ("radix" if n <= 8192 else "direct")
-    assert cuda_fft.route(n) == ("radix" if n <= 8192 else "radix2")
+    how = cuda_fft.route(n)
+    assert how == ("radix" if n <= 8192 else "radix2")
+    assert cuda_fuse.fused_route(n) == how
     x = _c64(n + 2, (2, n, 3))
-    got = cuda_fft.fft_axis0_plain(torch.from_numpy(x), forward,
-                                   how="direct")
-    want = _cols_t(cuda_fft.four_step_plain(_rows_t(torch.from_numpy(x)), n,
-                                            forward), 2, 3)
+    got = cuda_fft.fft_axis0_plain(torch.from_numpy(x), forward, how=how)
+    rows = _rows_t(torch.from_numpy(x))
+    plain = (radix.radix_plain(rows, forward) if how == "radix"
+             else cuda_fft.two_pass_plain(rows, n, forward))
+    want = _cols_t(plain, 2, 3)
     if not forward:
         want = want * (1.0 / n)
     assert torch.equal(got, want)
     ref = np.fft.fft(x, axis=1) if forward else np.fft.ifft(x, axis=1)
     assert _err(got, ref) < C64
-    assert _err(cuda_fft.fft_axis0_plain(torch.from_numpy(x), forward),
-                ref) < C64
+    assert torch.equal(cuda_fft.fft_axis0_plain(torch.from_numpy(x),
+                                                forward), got)
 
 
 @pytest.mark.parametrize("forward", [True, False])

@@ -9,11 +9,11 @@ plain version against the JAX package's Pallas kernels in interpret mode
 (``pallas_fft._fft_eligible`` for the rows, ``pallas_fft.fft_axis0`` and
 ``fft_along_axis`` for the strided kernel) at 1e-5 relative (fp32-level
 rounding on both sides, the sums in another order) and against numpy at
-the complex64 tier (5e-4); check the route by length, the tables the
-route reads, and that the fused kernels, which have no two-pass form,
-count and run the direct route at these lengths (and the radix route up
-to 8192, where ``fft_axis0`` takes it). The lengths with a
-prime factor over 17 are ``tests/test_torch_generic_radix.py``'s.
+the complex64 tier (5e-4); check the route by length, the table the
+route reads, and that the fused kernels take the same route at every
+length (``tests/test_torch_fused_routes.py`` holds their forms). The
+lengths with a prime factor over 17 are
+``tests/test_torch_generic_radix.py``'s.
 """
 
 import math
@@ -70,19 +70,18 @@ def test_two_pass_lengths_take_the_new_route(n):
     assert cuda_fft.route(n) == "radix2"
     assert radix.radix_plan(n) is None
     assert radix.radix_plan(m1) and radix.radix_plan(m2)
-    assert cuda_fuse.fused_route(n) == "direct"
+    assert cuda_fuse.fused_route(n) == "radix2"
 
 
 @pytest.mark.parametrize("n", DIRECT)
 def test_lengths_with_a_prime_over_17_stay_direct(n):
     """A prime factor over 17: the row and strided kernels take the
     generic stage on their radix route (76, 1216) or their two-pass route
-    (9728 = 76 * 128); the fused kernels stay on the direct route only
-    past 8192 and take the generic stage below it (the name is the
-    test's own from before they had one)."""
+    (9728 = 76 * 128), and the fused kernels the same route (the name is
+    the test's own from before they had one)."""
     assert cuda_fft.eligible(n)
-    assert cuda_fuse.fused_route(n) == ("radix" if n <= 8192 else "direct")
     assert cuda_fft.route(n) == ("radix" if n <= 8192 else "radix2")
+    assert cuda_fuse.fused_route(n) == cuda_fft.route(n)
 
 
 def test_every_eligible_length_past_8192_has_the_rules_route():
@@ -90,13 +89,13 @@ def test_every_eligible_length_past_8192_has_the_rules_route():
     ``radix2``; both factors of the split have radix plans, of at least
     two stages when every prime factor is <= 17, of one stage only for a
     factor that is a prime over 17 (241 of 8194 = 34 * 241); the fused
-    kernels take the direct route."""
+    kernels take it too."""
     count = 0
     for n in range(8193, 65537):
         if not cuda_fft.eligible(n):
             continue
         assert cuda_fft.route(n) == "radix2", n
-        assert cuda_fuse.fused_route(n) == "direct", n
+        assert cuda_fuse.fused_route(n) == "radix2", n
         plans = [radix.radix_plan(m) for m in cuda_fft.split_for(n)]
         assert all(math.prod(p) == m
                    for p, m in zip(plans, cuda_fft.split_for(n))), n
@@ -110,8 +109,8 @@ def test_every_eligible_length_past_8192_has_the_rules_route():
 @pytest.mark.parametrize("forward", [True, False])
 @pytest.mark.parametrize("n", TWO_PASS[:3])
 def test_the_route_reads_jaxs_four_step_twiddle(n, forward):
-    """The pass-1 store multiplies by T of the direct route's tables,
-    which are the JAX package's, bit for bit."""
+    """The pass-1 store multiplies by T of ``tables_np_cached``, the JAX
+    package's four-step table, bit for bit."""
     m1, m2 = cuda_fft.split_for(n)
     mine = cuda_fft.tables_np_cached(n, m1, m2, forward)[1]
     ref = pallas_fft._tables_np_cached(n, m1, m2, forward, 1, 1)[1]
@@ -190,11 +189,14 @@ def test_plain_versions_run_the_two_passes(n, forward):
 @pytest.mark.parametrize("codec", ["bf16", "split"])
 @pytest.mark.parametrize("forward", [True, False])
 def test_fused_plain_runs_the_direct_route_past_8192(codec, forward):
-    """At a two-pass length the fused kernels take the direct route on
-    the card, and their plain versions run its four-step sums: the
-    decode's is ``fft_axis0_plain`` on the direct route of the codec's
-    decode, bit for bit, and agrees with the Pallas body."""
+    """At a two-pass length the fused kernels take the two-pass route on
+    the card, as ``fft_axis0`` does, and their plain versions run it: the
+    decode's is ``fft_axis0_plain`` on the two-pass route of the codec's
+    decode (``two_pass_plain`` on the columns as rows), bit for bit, and
+    agrees with the Pallas body (the name is the test's own from before
+    the fused two-pass route)."""
     shape, axis, tiles = (1, 12288, 3), 1, 4
+    assert cuda_fuse.fused_route(12288) == "radix2"
     y = _c64(11, shape)
     parts = jwire(codec).encode(jnp.asarray(y), tile_axis=axis, tiles=tiles)
     tparts = tuple(torch.from_numpy(np.asarray(p).astype(np.float32))
@@ -207,8 +209,11 @@ def test_fused_plain_runs_the_direct_route_past_8192(codec, forward):
     from distributedfft_tpu_torch.parallel.exchange import wire_codec
     dec = wire_codec(codec).decode(tparts, torch.complex64, tile_axis=axis,
                                    tiles=tiles)
-    assert torch.equal(got, cuda_fft.fft_axis0_plain(dec, forward,
-                                                     how="direct"))
+    want2 = cuda_fft.fft_axis0_plain(dec, forward, how="radix2")
+    assert torch.equal(got, want2)
+    rows = cuda_fft.two_pass_plain(dec[0].t().contiguous(), 12288, forward)
+    rows = rows if forward else rows * (1.0 / 12288)
+    assert torch.equal(got[0], rows.t())
     want = np.asarray(pallas_fuse.fused_decode_fft(parts, jnp.complex64,
                                                    **kw))
     assert testing.rel_error(got.numpy(), want) <= SAME_MATH
