@@ -134,10 +134,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dfft_decode_fft.argtypes = [p, p, p, ll, ll, i, i, ip, i, i, i, p,
                                     f, p]
     lib.dfft_decode_fft_2p.argtypes = [p] * 4 + [ll, ll, i, i] + two_pass
+    pp = ctypes.POINTER(ctypes.c_void_p)
+    lib.dfft_fft_two_level.argtypes = [p, p, p, ll, i, ip, ip, ip, i, pp, pp,
+                                       pp, ip, f, p]
     for fn in (lib.dfft_fft_rows, lib.dfft_fft_rows_2p, lib.dfft_fft_strided,
                lib.dfft_fft_strided_2p, lib.dfft_fft_plane,
                lib.dfft_fft_encode, lib.dfft_fft_encode_2p,
-               lib.dfft_decode_fft, lib.dfft_decode_fft_2p):
+               lib.dfft_decode_fft, lib.dfft_decode_fft_2p,
+               lib.dfft_fft_two_level):
         fn.restype = ctypes.c_int
 
 

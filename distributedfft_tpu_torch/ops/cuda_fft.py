@@ -35,9 +35,12 @@ transforms are unnormalized, inverse ones scaled by 1/n (numpy
 convention); ``normalize=False`` leaves the inverse unscaled.
 
 An axis longer than one kernel's reach whose length splits into two
-kernel lengths (:func:`outer_split`) runs the two-level transform of the
-JAX package's ``_fft_last_big``: the strided kernel, a twiddle, the row
-kernel and a transpose (:func:`_fft_last_big`).
+kernel lengths (:func:`outer_split`) runs the two-level transform
+(:func:`_fft_last_big`, the JAX package's ``_fft_last_big``): on the
+card, the passes of :func:`two_level_passes` (``csrc/two_level.cu``),
+short column passes whose stores carry the next step's twiddle and the
+reorder, then one rows pass whose store is the transpose to k order;
+its plain version :func:`two_level_passes_plain`.
 """
 
 from __future__ import annotations
@@ -71,7 +74,8 @@ FALLBACKS: Counter = Counter()
 #: Kernel launches by (wrapper, route): ``radix`` or ``radix2`` (the
 #: two-pass route past 8192); the fused wrappers count a last-axis site
 #: (cols = 1) under ``radix_rows`` or ``radix2_rows`` (their row form,
-#: ``cuda_fuse.fused_form``).
+#: ``cuda_fuse.fused_form``); the two-level route under
+#: ``("fft_last_big", "passes")``.
 ROUTES: Counter = Counter()
 
 #: Kernel launches by case: (wrapper, forward, shape), with
@@ -364,15 +368,6 @@ def plane_launch(x: torch.Tensor, forward: bool, chunk: int) -> torch.Tensor:
     return y
 
 
-fft_last.launches = 0
-fft_axis0.launches = 0
-fft2_last.launches = 0
-
-#: The kernel wrappers, by the name the launch counts are reported under.
-KERNELS = {"fft2_last": fft2_last, "fft_axis0": fft_axis0,
-           "fft_last": fft_last}
-
-
 def _case(name: str, forward: bool, shape, normalize: bool = True):
     """The :data:`CASES` key of a launch of wrapper ``name``."""
     key = (name, bool(forward), tuple(shape))
@@ -398,7 +393,9 @@ def launches() -> dict[str, int]:
 def outer_split(n: int) -> tuple[int, int] | None:
     """Balanced divisor pair with both factors kernel-eligible, n < 2^31:
     the two-level plan of the JAX package's ``_fft_last_big``
-    (``pallas_fft.outer_split``), or None."""
+    (``pallas_fft.outer_split``), or None. It decides which lengths take
+    the two-level route; the route's passes are :func:`two_level_passes`'
+    factoring, the port's own."""
     if n >= 1 << 31:
         return None
     for d in range(math.isqrt(n), 63, -1):
@@ -443,13 +440,14 @@ def _two_level_twiddle(b: torch.Tensor, n: int,
 
 def _two_level(x2: torch.Tensor, n: int, forward: bool, axis0,
                last) -> torch.Tensor:
-    """The two-level four-step over [batch, n] (``_fft_last_big``), its
-    two DFT stages ``axis0`` and ``last`` unnormalized: with n = m1*m2
-    (:func:`outer_split`), j = j1*m2 + j2 and k = k1 + m1*k2, the DFT over
-    j1 of each [m1, m2] block (the strided kernel), the twiddle
-    (:func:`_two_level_twiddle`), the DFT over j2 of the batch*m1 rows
-    (the row kernel), and the transpose to k order. Unnormalized both
-    ways: the inverse's 1/n is the caller's."""
+    """The JAX package's two-level four-step over [batch, n]
+    (``_fft_last_big``), its two DFT stages ``axis0`` and ``last``
+    unnormalized: with n = m1*m2 (:func:`outer_split`), j = j1*m2 + j2
+    and k = k1 + m1*k2, the DFT over j1 of each [m1, m2] block, the
+    twiddle (:func:`_two_level_twiddle`), the DFT over j2 of the batch*m1
+    rows, and the transpose to k order. Unnormalized both ways. The
+    card's route is :func:`_fft_last_big`'s passes; this composition is
+    its second plain reference (:func:`_fft_last_big_plain`)."""
     m1, m2 = outer_split(n)
     batch = x2.shape[0]
     b = axis0(x2.reshape(batch, m1, m2), forward, normalize=False)
@@ -458,17 +456,258 @@ def _two_level(x2: torch.Tensor, n: int, forward: bool, axis0,
     return c.reshape(batch, m1, m2).transpose(1, 2).reshape(batch, n)
 
 
-def _fft_last_big(x2: torch.Tensor, n: int, forward: bool) -> torch.Tensor:
-    """The two-level transform of [batch, n] complex64 rows through the
-    strided and row kernels (the JAX package's ``_fft_last_big``); on a
-    CPU tensor each kernel's plain version runs."""
-    return _two_level(x2, n, forward, fft_axis0, fft_last)
-
-
 def _fft_last_big_plain(x2: torch.Tensor, n: int,
                         forward: bool) -> torch.Tensor:
-    """:func:`_fft_last_big` with each stage's plain version."""
+    """The JAX package's two-level composition (``_fft_last_big``) with
+    each stage's plain version: the second reference of the route."""
     return _two_level(x2, n, forward, fft_axis0_plain, fft_last_plain)
+
+
+# ------------------------------------------------- the two-level route
+
+#: Most low bits of the two-table twiddle's index: the low table (2^bits
+#: complex64, 16 KB) sits in a column pass's shared memory.
+TWIDDLE_LOW_BITS = 11
+
+#: Most passes the two-level launcher takes (csrc/two_level.cu).
+MAX_PASSES = 16
+
+#: Longest last pass of the two-level route that holds 16 rows a group
+#: with its staged transpose in a block's shared memory (csrc/two_level.cu:
+#: rows_pass; 16 rows of 512 with the staging take 208 KB of 227).
+STAGED_MAX = 512
+
+
+def _divisors(n: int) -> list[int]:
+    small = [d for d in range(1, math.isqrt(n) + 1) if n % d == 0]
+    return sorted(set(small + [n // d for d in small]))
+
+
+def pass_length_ok(f: int) -> bool:
+    """Whether one radix pass takes length ``f``: a radix plan of two or
+    more stages, or one generic prime stage (``radix.cuh:valid_plan``;
+    a single hand-written stage is no pass)."""
+    plan = radix.radix_plan(f)
+    return bool(plan) and (len(plan) > 1 or radix.is_generic(plan[0]))
+
+
+@functools.lru_cache(maxsize=None)
+def _column_factors(m: int, cap: int, k: int) -> tuple[int, ...] | None:
+    """``m`` as ``k`` pass lengths of at most ``cap``, largest first, the
+    largest as small as can be (then the next, ...), or None."""
+    if k == 1:
+        return (m,) if m <= cap and pass_length_ok(m) else None
+    best = None
+    for d in _divisors(m):
+        if d > cap or not pass_length_ok(d):
+            continue
+        rest = _column_factors(m // d, min(cap, d), k - 1)
+        if rest is not None and (best is None or (d,) + rest < best):
+            best = (d,) + rest
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def two_level_passes(n: int, col_cap: int = MAX_FACTOR,
+                     row_cap: int = radix.MAX_N,
+                     staged_cap: int = STAGED_MAX
+                     ) -> tuple[tuple[int, ...], int] | None:
+    """The passes of the two-level route at length ``n``: column factors
+    (f1, ..., fk), each at most ``col_cap``, and the last length L, at
+    most ``row_cap``, with n = f1 * ... * fk * L; or None. The fewest
+    passes whose L is at most ``staged_cap`` (its rows pass holds 16 rows
+    a group and stores the transpose in runs of >= 128 bytes: a longer L
+    stores 8 bytes at a time, and measured 8-10x its one-pass bound on
+    the H100, PERF.md), else the fewest with any L; then the shortest L, then
+    the most even column factors. Every length :func:`outer_split`
+    accepts has one: both its factors are eligible, so n is a product of
+    at most four factors <= 256 with primes <= 251. The column factors
+    are short so that a group of a column pass holds >= 16 columns (runs
+    of >= 128 bytes, as the two-pass route's first pass)."""
+    if n < 2 or n >= 1 << 31:
+        return None
+    for cap in (min(staged_cap, row_cap), row_cap):
+        best = None
+        for length in _divisors(n):
+            if length > cap or not pass_length_ok(length):
+                continue
+            for k in range(1, MAX_PASSES):
+                cols = _column_factors(n // length, col_cap, k)
+                if cols is not None:
+                    if best is None or k < len(best[0]):
+                        best = (cols, length)
+                    break
+        if best is not None:
+            return best
+    return None
+
+
+def twiddle_bits(big_n: int) -> int:
+    """s of the two-table twiddle w_N^p = T_hi[p >> s] * T_lo[p & (2^s -
+    1)]: half the bits of N - 1 (rounded up), at most
+    :data:`TWIDDLE_LOW_BITS`."""
+    return max(1, min(TWIDDLE_LOW_BITS, ((big_n - 1).bit_length() + 1) // 2))
+
+
+@functools.lru_cache(maxsize=None)
+def twiddle_tables_np(big_n: int, forward: bool) -> tuple[np.ndarray,
+                                                          np.ndarray]:
+    """(T_hi, T_lo) of w_N^p, complex64 built in float64: T_lo[q] =
+    w_N^q for q < 2^s, T_hi[a] = w_N^(a 2^s) for a <= (N - 1) >> s
+    (s = :func:`twiddle_bits` (N)), about sqrt(N) entries each."""
+    s = twiddle_bits(big_n)
+    sign = -2j if forward else 2j
+    lo = np.arange(1 << s, dtype=np.int64)
+    hi = (np.arange(((big_n - 1) >> s) + 1, dtype=np.int64) << s) % big_n
+    c64 = lambda q: np.exp(sign * np.pi * q / big_n).astype(np.complex64)
+    return c64(hi), c64(lo)
+
+
+def two_table_twiddle(p, big_n: int, forward: bool) -> np.ndarray:
+    """w_N^p for integer array ``p`` (0 <= p < N) as the column passes
+    form it: T_hi[p >> s] * T_lo[p & (2^s - 1)] in complex64."""
+    hi, lo = twiddle_tables_np(big_n, forward)
+    s = twiddle_bits(big_n)
+    p = np.asarray(p, dtype=np.int64)
+    return hi[p >> s] * lo[p & ((1 << s) - 1)]
+
+
+def two_level_passes_plain(x2: torch.Tensor, n: int, forward: bool,
+                           scale: float = 1.0,
+                           passes=None) -> torch.Tensor:
+    """The two-level route's math on [rows, n] complex64 (``passes``:
+    :func:`two_level_passes` (n) unless given). With F the product of
+    the earlier passes' lengths and N the length still to transform, the
+    data is [rows, F, N]: block (b, K) holds the sequence of row b whose
+    earlier output keys compose to K. A column pass of length f splits
+    j = j_f * (N/f) + c, runs :func:`.radix.radix_plain` over j_f,
+    multiplies output (k, c) by w_N^(k c) (the complex64 tables of
+    :func:`twiddle_tables_np`) and stores it in block K + F*k; the rows
+    pass of length L runs ``radix_plain`` over the [rows*F, L] rows and
+    puts (K, k) at K + F*k, times ``scale``. Everything runs in
+    complex128 and is rounded to complex64 once, at the end."""
+    cols_f, length = passes or two_level_passes(n)
+    rows = x2.shape[0]
+    c128 = torch.complex128
+    y = x2.to(c128)
+    big_f, big_n = 1, n
+    for f in cols_f:
+        cols = big_n // f
+        a = y.reshape(rows * big_f, f, cols).transpose(1, 2).reshape(-1, f)
+        b = radix.radix_plain(a, forward).reshape(rows, big_f, cols, f)
+        hi, lo = (torch.from_numpy(t).to(x2.device, c128)
+                  for t in twiddle_tables_np(big_n, forward))
+        s = twiddle_bits(big_n)
+        p = (torch.arange(cols, device=x2.device)[:, None]
+             * torch.arange(f, device=x2.device)[None, :])
+        b = b * (hi[p >> s] * lo[p & ((1 << s) - 1)])
+        y = b.permute(0, 3, 1, 2).reshape(rows, n)       # [rows, f, F, cols]
+        big_f, big_n = big_f * f, cols
+    c = radix.radix_plain(y.reshape(-1, length), forward)
+    c = c.reshape(rows, big_f, length).transpose(1, 2).reshape(rows, n)
+    return (c * scale).to(x2.dtype)
+
+
+_DEVICE_TWO_TABLE: dict = {}
+
+
+def _device_two_table(big_n: int, forward: bool, device):
+    """:func:`twiddle_tables_np` on ``device``, uploaded once per (N,
+    direction, device)."""
+    key = (big_n, forward, str(device))
+    hit = _DEVICE_TWO_TABLE.get(key)
+    if hit is None:
+        hit = tuple(torch.from_numpy(t).to(device)
+                    for t in twiddle_tables_np(big_n, forward))
+        _DEVICE_TWO_TABLE[key] = hit
+    return hit
+
+
+def _arr(ctype, values):
+    values = list(values)
+    return (ctype * len(values))(*values)
+
+
+@functools.lru_cache(maxsize=64)
+def two_level_args(n: int, forward: bool, device, passes) -> tuple:
+    """The launcher's arguments after the batch for passes ``passes``
+    ((column factors, L)) of length ``n``: the pass count, lengths,
+    stage counts and radices, the direction, each pass's stage table
+    and each column pass's two twiddle tables and bits, the tables
+    uploaded to ``device`` here (once each, kept in the module's
+    caches), so that a launch copies nothing to the card; made once per
+    (n, direction, device, passes)."""
+    cols_f, length = passes
+    lengths = (*cols_f, length)
+    if len(lengths) > MAX_PASSES or math.prod(lengths) != n:
+        raise ValueError(f"two_level_args: passes {passes} do not make {n}")
+    plans = [radix.radix_plan(f) for f in lengths]
+    tables = [radix.device_twiddles(f, forward, device) for f in lengths]
+    his, los, bits, big_n = [], [], [], n
+    for f in cols_f:
+        hi, lo = _device_two_table(big_n, forward, device)
+        his.append(hi.data_ptr())
+        los.append(lo.data_ptr())
+        bits.append(twiddle_bits(big_n))
+        big_n //= f
+    vp = ctypes.c_void_p
+    return (len(lengths), _arr(ctypes.c_int, lengths),
+            _arr(ctypes.c_int, (len(p) for p in plans)),
+            _arr(ctypes.c_int, (r for p in plans for r in p)), int(forward),
+            _arr(vp, (t.data_ptr() for t in tables)), _arr(vp, his),
+            _arr(vp, los), _arr(ctypes.c_int, bits))
+
+
+def two_level_launch(x2: torch.Tensor, n: int, forward: bool,
+                     scale: float, passes) -> torch.Tensor:
+    """Launch the two-level route's passes ``passes`` ((column factors,
+    L)) over [rows, n] on the card (``csrc/two_level.cu:
+    dfft_fft_two_level``); counts nothing (:func:`_fft_last_big` does)."""
+    args = two_level_args(n, forward, x2.device, tuple(passes))
+    y = torch.empty_like(x2)
+    scratch = torch.empty_like(x2)
+    _launch("dfft_fft_two_level", x2, x2.data_ptr(), y.data_ptr(),
+            scratch.data_ptr(), x2.shape[0], *args, scale)
+    return y
+
+
+def _fft_last_big(x2: torch.Tensor, n: int, forward: bool,
+                  scale: float = 1.0) -> torch.Tensor:
+    """The two-level transform of [rows, n] complex64 (the JAX package's
+    ``_fft_last_big``), times ``scale``: on a CUDA tensor the route's
+    passes (:func:`two_level_launch`), counted in ``.launches``,
+    :data:`ROUTES` under ``("fft_last_big", "passes")`` and
+    :data:`CASES`; on a CPU tensor their plain version
+    (:func:`two_level_passes_plain`)."""
+    if x2.dtype != torch.complex64 or x2.dim() != 2 or x2.shape[1] != n:
+        raise ValueError(f"_fft_last_big: needs [rows, {n}] complex64, got "
+                         f"{tuple(x2.shape)} {x2.dtype}")
+    if not x2.is_contiguous() or x2.numel() == 0:
+        raise ValueError("_fft_last_big: needs a contiguous, non-empty "
+                         "tensor")
+    passes = two_level_passes(n)
+    if passes is None:
+        raise ValueError(f"_fft_last_big: no two-level passes for {n}")
+    if x2.device.type == "cpu":
+        return two_level_passes_plain(x2, n, forward, scale, passes)
+    if x2.device.type != "cuda":
+        raise ValueError(f"_fft_last_big: no kernel for device {x2.device}")
+    y = two_level_launch(x2, n, forward, scale, passes)
+    _fft_last_big.launches += 1
+    ROUTES[("fft_last_big", "passes")] += 1
+    CASES[_case("fft_last_big", forward, x2.shape,
+                forward or scale != 1.0)] += 1
+    return y
+
+
+fft_last.launches = 0
+fft_axis0.launches = 0
+fft2_last.launches = 0
+_fft_last_big.launches = 0
+
+#: The kernel wrappers, by the name the launch counts are reported under.
+KERNELS = {"fft2_last": fft2_last, "fft_axis0": fft_axis0,
+           "fft_last": fft_last, "fft_last_big": _fft_last_big}
 
 
 def fft_along_axis(x: torch.Tensor, axis: int,
@@ -480,7 +719,8 @@ def fft_along_axis(x: torch.Tensor, axis: int,
     kernel split nor a two-level one (:func:`outer_split`) runs
     :func:`.dft_matmul.fft_along_axis`, the reason counted in
     :data:`FALLBACKS`; a two-level length moves its axis last and runs
-    :func:`_fft_last_big` (no fallback: both stages are kernels)."""
+    :func:`_fft_last_big` (no fallback: its passes are kernels), the
+    inverse's 1/n in the last pass's store."""
     ax = axis % x.ndim
     n = x.shape[ax]
     if x.dtype != torch.complex64 or x.numel() == 0:
@@ -492,9 +732,8 @@ def fft_along_axis(x: torch.Tensor, axis: int,
             record_fallback(ax, "length")
             return dft_matmul.fft_along_axis(x, ax, forward)
         moved = x.movedim(ax, -1)
-        y = _fft_last_big(moved.reshape(-1, n).contiguous(), n, forward)
-        if not forward:
-            y = y * (1.0 / n)
+        y = _fft_last_big(moved.reshape(-1, n).contiguous(), n, forward,
+                          1.0 if forward else 1.0 / n)
         return y.reshape(moved.shape).movedim(-1, ax).contiguous()
     if ax < x.ndim - 1:
         lead = math.prod(shape[:ax])

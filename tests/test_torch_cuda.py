@@ -26,7 +26,9 @@ axis, on both routes (radix up to 8192, the generic stage at 1216, 608,
 column pass, and at cols = 1 the row form); the decode against the
 strided or row kernel on the decoded wire and the encode against the
 codec's encode of the strided or row kernel's output (bit for bit); the
-fused real plans against the unfused ones.
+fused real plans against the unfused ones. The two-level route (a
+length past 65536) is held on its default passes and at other pass
+plans against its plain version.
 """
 
 import numpy as np
@@ -447,17 +449,41 @@ def test_fft_encode_steps_match_the_codec_at_powers_of_two(card, codec):
 @pytest.mark.parametrize("batch,n", [(4, 1 << 20), (1, 5 ** 8),
                                      (2, 3 * 2 ** 17)])
 def test_two_level_axis_matches_plain_and_torch_fft(card, batch, n, forward):
-    """A length beyond one kernel's reach: the strided and row kernels
-    with the twiddle and transpose between them (``_fft_last_big``),
-    against its plain composition and torch.fft, one launch of each."""
+    """A length beyond one kernel's reach: the two-level route's passes
+    (``_fft_last_big``, ``csrc/two_level.cu``), one launch of the route,
+    counted under its own route, and no launch of the strided or row
+    kernel; against the route's plain version, the JAX-shaped plain
+    composition and torch.fft."""
     assert not cuda_fft.eligible(n) and cuda_fft.outer_split(n) is not None
     x = _c64(29, (batch, n), card)
     before = cuda_fft.launches()
+    routed = cuda_fft.ROUTES[("fft_last_big", "passes")]
     y = cuda_fft.fft_along_axis(x, 1, forward)
     after = cuda_fft.launches()
-    assert after["fft_axis0"] - before["fft_axis0"] == 1
-    assert after["fft_last"] - before["fft_last"] == 1
-    big = cuda_fft._fft_last_big(x, n, forward)
-    assert _err(big, cuda_fft._fft_last_big_plain(x, n, forward)) < C64
+    assert after["fft_last_big"] - before["fft_last_big"] == 1
+    assert cuda_fft.ROUTES[("fft_last_big", "passes")] == routed + 1
+    assert after["fft_axis0"] == before["fft_axis0"]
+    assert after["fft_last"] == before["fft_last"]
+    scale = 1.0 if forward else 1.0 / n
+    assert _err(y, cuda_fft.two_level_passes_plain(x, n, forward,
+                                                   scale)) < C64
+    assert _err(y, cuda_fft._fft_last_big_plain(x, n, forward) * scale) < C64
     f = torch.fft.fft if forward else torch.fft.ifft
     assert _err(y, f(x.to(torch.complex128), dim=1)) < C64
+
+
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("batch,n,passes", [
+    (3, 241 * 4096, ((241,), 4096)), (2, 95 * 64 * 608, ((95, 64), 608)),
+    (1, 256 * 8192, ((256,), 8192)), (2, 6 * 9 * 250 * 40, ((6, 9, 250), 40)),
+    (5, 127 * 128 * 64, ((127, 128), 64)), (1, 90000, ((15, 15, 10), 40))])
+def test_two_level_route_at_other_plans(card, batch, n, passes, forward):
+    """The launcher at pass plans the default caps do not pick: a
+    generic prime factor in a column pass (241, 95 = 5*19, 127) and in
+    the last (608), a last pass stored straight (4096, 8192) and staged
+    (40, 64), three and four passes, groups that cross a batch row."""
+    x = _c64(31, (batch, n), card)
+    scale = 1.0 if forward else 1.0 / n
+    y = cuda_fft.two_level_launch(x, n, forward, scale, passes)
+    want = cuda_fft.two_level_passes_plain(x, n, forward, scale, passes)
+    assert _err(y, want) < C64

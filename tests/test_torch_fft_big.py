@@ -1,9 +1,9 @@
 """The port's two-level long-axis transform against the JAX package's.
 
 An axis longer than one kernel's reach (65536) whose length splits into
-two kernel lengths runs ``_fft_last_big``: the strided kernel over one
-factor, unnormalized, an exact-phase twiddle, the row kernel over the
-other, and a transpose. Held here against ``pallas_fft.fft_along_axis``
+two kernel lengths runs ``_fft_last_big``: on the card the two-level
+route's passes (``tests/test_torch_two_level_route.py``), here their
+plain version. Held here against ``pallas_fft.fft_along_axis``
 (the Pallas bodies in interpret mode, as ``tests/test_pallas.py`` runs
 them) on the same seeded complex64 inputs, within the complex64 tier
 5e-4, on the last axis and on axis 0, forward and inverse; the split
@@ -69,11 +69,16 @@ def test_twiddle_angle_equals_jax_bits(n, forward):
 
 
 def test_fft_last_big_is_its_plain_composition():
+    """On the CPU the wrapper runs its route's plain version bit for bit,
+    within the tier of the JAX-shaped composition of the stages' plain
+    versions."""
     n = 90000
     x = torch.from_numpy(_c64((3, n)))
     for forward in (True, False):
-        assert torch.equal(cf._fft_last_big(x, n, forward),
-                           cf._fft_last_big_plain(x, n, forward))
+        got = cf._fft_last_big(x, n, forward)
+        assert torch.equal(got, cf.two_level_passes_plain(x, n, forward))
+        assert testing.rel_error(
+            got.numpy(), cf._fft_last_big_plain(x, n, forward).numpy()) < C64
 
 
 @pytest.mark.parametrize("n", [65536 * 2, 90000, 5 ** 8, 3 * 2 ** 17,

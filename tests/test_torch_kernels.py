@@ -160,7 +160,7 @@ def test_wrappers_count_no_launch_on_cpu():
     cuda_fft.fft_axis0(x)
     cuda_fft.fft_last(x.reshape(-1, 64))
     assert cuda_fft.launches() == {"fft2_last": 0, "fft_axis0": 0,
-                                   "fft_last": 0}
+                                   "fft_last": 0, "fft_last_big": 0}
 
 
 def test_plane_too_large_runs_per_axis_and_is_counted():
