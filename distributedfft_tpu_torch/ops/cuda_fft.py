@@ -55,6 +55,7 @@ import torch
 
 from .. import native
 from ..utils import metrics as _metrics
+from ..utils.trace import add_trace
 from . import dft_matmul, radix
 from ._build import check, library
 
@@ -337,14 +338,16 @@ def fft_axis0(x: torch.Tensor, forward: bool = True,
 
 def fft2_last(x: torch.Tensor, forward: bool = True) -> torch.Tensor:
     """2D DFT over the last two axes of ``x`` [batch, ny, nz] (the plane
-    kernel); the inverse is scaled 1/(ny*nz)."""
-    _check(x, 3, "fft2_last", x.shape[1], x.shape[2])
-    if route2d(x.shape[1], x.shape[2]) != "radix":
-        raise ValueError(f"fft2_last: an axis of the plane "
-                         f"{tuple(x.shape[1:])} is past {radix.MAX_N}")
-    if x.device.type == "cpu":
-        return fft2_last_plain(x, forward)
-    return plane_launch(x, forward, x.shape[0])
+    kernel); the inverse is scaled 1/(ny*nz). Runs under the span
+    ``fft_plane``."""
+    with add_trace("fft_plane"):
+        _check(x, 3, "fft2_last", x.shape[1], x.shape[2])
+        if route2d(x.shape[1], x.shape[2]) != "radix":
+            raise ValueError(f"fft2_last: an axis of the plane "
+                             f"{tuple(x.shape[1:])} is past {radix.MAX_N}")
+        if x.device.type == "cpu":
+            return fft2_last_plain(x, forward)
+        return plane_launch(x, forward, x.shape[0])
 
 
 def plane_launch(x: torch.Tensor, forward: bool, chunk: int) -> torch.Tensor:
@@ -720,25 +723,33 @@ def fft_along_axis(x: torch.Tensor, axis: int,
     :func:`.dft_matmul.fft_along_axis`, the reason counted in
     :data:`FALLBACKS`; a two-level length moves its axis last and runs
     :func:`_fft_last_big` (no fallback: its passes are kernels), the
-    inverse's 1/n in the last pass's store."""
+    inverse's 1/n in the last pass's store. Each call runs under one
+    span ``fft_axis[<route>]``: ``radix``, ``radix2``, ``two_level`` or
+    ``fallback``."""
     ax = axis % x.ndim
     n = x.shape[ax]
     if x.dtype != torch.complex64 or x.numel() == 0:
-        record_fallback(ax, "empty" if x.numel() == 0 else "dtype")
-        return dft_matmul.fft_along_axis(x, ax, forward)
-    shape = x.shape
-    if not eligible(n):
-        if outer_split(n) is None:
-            record_fallback(ax, "length")
-            return dft_matmul.fft_along_axis(x, ax, forward)
-        moved = x.movedim(ax, -1)
-        y = _fft_last_big(moved.reshape(-1, n).contiguous(), n, forward,
-                          1.0 if forward else 1.0 / n)
-        return y.reshape(moved.shape).movedim(-1, ax).contiguous()
-    if ax < x.ndim - 1:
-        lead = math.prod(shape[:ax])
-        cols = math.prod(shape[ax + 1:])
-        y = fft_axis0(x.reshape(lead, n, cols).contiguous(), forward)
+        reason = "empty" if x.numel() == 0 else "dtype"
+    elif not eligible(n) and outer_split(n) is None:
+        reason = "length"
     else:
-        y = fft_last(x.reshape(-1, n).contiguous(), forward)
-    return y.reshape(shape)
+        reason = None
+    if reason is not None:
+        with add_trace("fft_axis[fallback]"):
+            record_fallback(ax, reason)
+            return dft_matmul.fft_along_axis(x, ax, forward)
+    if not eligible(n):
+        with add_trace("fft_axis[two_level]"):
+            moved = x.movedim(ax, -1)
+            y = _fft_last_big(moved.reshape(-1, n).contiguous(), n, forward,
+                              1.0 if forward else 1.0 / n)
+            return y.reshape(moved.shape).movedim(-1, ax).contiguous()
+    shape = x.shape
+    with add_trace(f"fft_axis[{route(n)}]"):
+        if ax < x.ndim - 1:
+            lead = math.prod(shape[:ax])
+            cols = math.prod(shape[ax + 1:])
+            y = fft_axis0(x.reshape(lead, n, cols).contiguous(), forward)
+        else:
+            y = fft_last(x.reshape(-1, n).contiguous(), forward)
+        return y.reshape(shape)

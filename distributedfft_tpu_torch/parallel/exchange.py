@@ -425,7 +425,9 @@ def _start_dense(blocks: list, world: World, split_axis: int,
                  label=None) -> _Pending:
     """The tiled all-to-all within each group of ``mesh_axis``: a split
     and a concatenation per group on a loopback world, one
-    ``all_to_all_single`` on a process group."""
+    ``all_to_all_single`` on a process group, its stack under the span
+    ``a2a_pack`` and its concatenation (when it is waited on) under
+    ``a2a_unpack``."""
     p = world.axis_size(mesh_axis)
     if p == 1:
         return _done(list(blocks))
@@ -441,14 +443,20 @@ def _start_dense(blocks: list, world: World, split_axis: int,
                                      dim=concat_axis)
         return _done(out)
     (x,) = blocks
-    send = torch.stack(x.tensor_split(p, dim=split_axis))
-    raw = _as_bytes(send)
+    with add_trace("a2a_pack"):
+        send = torch.stack(x.tensor_split(p, dim=split_axis))
+        raw = _as_bytes(send)
     recv = torch.empty_like(raw)
     work = dist.all_to_all_single(recv, raw,
                                   group=world.axis_group(mesh_axis),
                                   async_op=True)
-    return _Pending(lambda: [torch.cat(_from_bytes(recv, send).unbind(0),
-                                       dim=concat_axis)], [work], (raw,))
+
+    def finish():
+        with add_trace("a2a_unpack"):
+            return [torch.cat(_from_bytes(recv, send).unbind(0),
+                              dim=concat_axis)]
+
+    return _Pending(finish, [work], (raw,))
 
 
 def _ragged_table(extent: int, p: int) -> tuple[int, list[int], list[int]]:

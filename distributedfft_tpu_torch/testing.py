@@ -23,6 +23,21 @@ def tolerance(dtype) -> float:
     return TOLERANCE[np.dtype(dtype)]
 
 
+#: Prefixes of the spans the port opens inside a stage, none of them a
+#: stage (the JAX package opens none of them): one kernel pass
+#: (``fft_plane``, ``fft_axis[<route>]``), a real transform's untangle
+#: (``r2c_untangle``, ``c2r_untangle``), the process-group all-to-all's
+#: copies (``a2a_pack``, ``a2a_unpack``) and a step that blocks the host
+#: on the card (``host_wait[<site>]``).
+PASS_SPANS = ("fft_plane", "fft_axis[", "r2c_untangle", "c2r_untangle",
+              "a2a_pack", "a2a_unpack", "host_wait[")
+
+
+def pass_span(name: str) -> bool:
+    """True for a span name of :data:`PASS_SPANS`."""
+    return name.startswith(PASS_SPANS)
+
+
 def make_world_data(shape, dtype=np.complex128, seed: int = 4242) -> np.ndarray:
     """Deterministic full-world input data, values in [0, 1)."""
     rng = np.random.default_rng(seed)

@@ -1,13 +1,15 @@
 """Event tracing: named spans around every stage, exchange and leg.
 
 The port of ``distributedfft_tpu/utils/trace.py``. :func:`add_trace` is
-a context manager that enters ``torch.profiler.record_function(name)``,
-so each span lands in a ``torch.profiler`` timeline (and the device
-work launched inside it is attributed to it there), and records a host
-wall-clock pair while a session is open (:func:`init_tracing`, or the
-environment: ``DFFT_TRACE=1``, ``DFFT_TRACE_ROOT``,
-``DFFT_TRACE_FORMAT``). :func:`finalize_tracing` writes one file per
-rank, ``<root>_<rank>.log`` (the per-rank text log) or ``.json`` (a
+a context manager that enters ``torch.profiler.record_function(name)``
+while a profiler records, so each span lands in a ``torch.profiler``
+timeline (and the device work launched inside it is attributed to it
+there), and records a host wall-clock pair while a session is open
+(:func:`init_tracing`, or the environment: ``DFFT_TRACE=1``,
+``DFFT_TRACE_ROOT``, ``DFFT_TRACE_FORMAT``); besides the stages, the
+port opens spans inside them around each kernel pass, untangle,
+all-to-all copy and host wait. :func:`finalize_tracing` writes one file
+per rank, ``<root>_<rank>.log`` (the per-rank text log) or ``.json`` (a
 Chrome trace), the rank being that of ``torch.distributed`` when it is
 initialized, else 0. The in-memory recorder is a ring of
 ``DFFT_TRACE_MAX_EVENTS`` events (0: unbounded) that evicts the oldest.
@@ -182,39 +184,50 @@ if os.environ.get("DFFT_TRACE", "") not in ("", "0"):
 
 @contextmanager
 def add_trace(name: str):
-    """One named span: always a ``torch.profiler`` range; a host
-    wall-clock pair when a session (or :func:`capture_events`) is open.
-    The pair brackets the host's launch of the work, not the device's
-    run of it; the profiler's timeline has the device side."""
-    with torch.profiler.record_function(name):
-        rec, cap, sess = _native_rec, _capture, _session
-        if rec is not None:
-            # The C table is process-global: a finalize or re-init inside
-            # the block would let a stale id land in the next session's
-            # table, so the session count drops such an end.
-            eid = rec.begin(name)
-            start = time.perf_counter() if cap is not None else 0.0
-            try:
-                yield
-            finally:
-                if cap is not None:
-                    cap.append((name, start, time.perf_counter()))
-                if _session == sess:
-                    rec.end(eid)
-            return
-        ev = _events
-        if ev is None and cap is None:
-            yield
-            return
-        start = time.perf_counter()
+    """One named span: a ``torch.profiler`` range while a profiler is
+    recording (entering one costs ~10 us of host time even when none
+    is, so it is skipped then); a host wall-clock pair when a session
+    (or :func:`capture_events`) is open. The pair brackets the host's
+    launch of the work, not the device's run of it; the profiler's
+    timeline has the device side."""
+    if torch.autograd._profiler_enabled():
+        with torch.profiler.record_function(name):
+            yield from _host_pair(name)
+    else:
+        yield from _host_pair(name)
+
+
+def _host_pair(name: str):
+    """The session's and capture's part of :func:`add_trace`: a
+    generator that yields once, around the span's body."""
+    rec, cap, sess = _native_rec, _capture, _session
+    if rec is not None:
+        # The C table is process-global: a finalize or re-init inside
+        # the block would let a stale id land in the next session's
+        # table, so the session count drops such an end.
+        eid = rec.begin(name)
+        start = time.perf_counter() if cap is not None else 0.0
         try:
             yield
         finally:
-            stop = time.perf_counter()
-            if ev is not None:
-                _push(ev, name, start, stop)
             if cap is not None:
-                cap.append((name, start, stop))
+                cap.append((name, start, time.perf_counter()))
+            if _session == sess:
+                rec.end(eid)
+        return
+    ev = _events
+    if ev is None and cap is None:
+        yield
+        return
+    start = time.perf_counter()
+    try:
+        yield
+    finally:
+        stop = time.perf_counter()
+        if ev is not None:
+            _push(ev, name, start, stop)
+        if cap is not None:
+            cap.append((name, start, stop))
 
 
 def record_span(name: str, start: float, stop: float) -> bool:

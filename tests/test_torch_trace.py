@@ -65,8 +65,13 @@ def test_log_file_per_rank(tmp_path, monkeypatch):
     assert lines[0] == "process 0 of 1"
     names = [ln.split()[-1] for ln in lines[1:]]
     assert names[:2] == ["inner", "outer"]
-    assert names[2:] == ["t0_fft_yz", "t1_pack", "t2_exchange_slab",
-                         "t3_fft_x", "execute_c2c_slab"]
+    stages = [n for n in names[2:] if not testing.pass_span(n)]
+    assert stages == ["t0_fft_yz", "t1_pack", "t2_exchange_slab",
+                      "t3_fft_x", "execute_c2c_slab"]
+    # 8 is below the kernels' lengths: each axis pass falls back, two
+    # ranks' t0 over two axes and t3 over one
+    assert [n for n in names[2:] if testing.pass_span(n)] == \
+        ["fft_axis[fallback]"] * 6
     assert ttr.finalize_tracing() is None
 
 
@@ -180,7 +185,8 @@ def test_plan_spans_match_jax(algorithm, k):
     x = torch.from_numpy(testing.make_world_data(shape, np.complex64, 2))
     with ttr.capture_events() as ev:
         plan(x)
-    assert [e[0] for e in ev] == want
+    assert [e[0] for e in ev if not testing.pass_span(e[0])] == want
+    assert any(testing.pass_span(e[0]) for e in ev)
     if (algorithm, k) == ("hierarchical", 2):
         assert want[2:8] == ["t2a_exchange_ici[0]", "t2a_exchange_ici[1]",
                              "t2b_exchange_dcn[0]", "t3_fft_x[0]",
