@@ -2,7 +2,9 @@
 """Smoke test of distributedfft_tpu_torch on one NVIDIA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``
-(``--route-cases``: only the fused cases at ``cols = 1`` and past 8192
+(``--real-rows``: only the fused real rows passes of REAL_ROWS_CASES, as
+phase 2 holds and times them; ``--route-cases``: only the fused cases at
+``cols = 1`` and past 8192
 of phase 3, the 608^3 and long paths of phase 5, the split fused pencil,
 the two-level calls at the TWO_LEVEL shapes and a digest of the output
 of every kernel 1-5 case phases 2 and 3 hold, on whichever package sits
@@ -24,7 +26,10 @@ compared bit for bit beside it). It
    and in one go; the GENERIC_CASES hold the generic prime stage of the
    row and strided kernels (608, 361 = 19 * 19, the two-pass 9728, 8194
    and 12482, whose 241 and 79 are one-stage passes) and of the plane
-   at [152, 608, 608], with the 608^3 slab's other cases;
+   at [152, 608, 608], with the 608^3 slab's other cases; the
+   REAL_ROWS_CASES hold the fused real rows passes (``csrc/real_rows.cu``)
+   against their plain version and torch.fft.rfft / irfft, timed beside
+   both and the bytes-once bound;
 3. holds the two fused stage+codec kernels (``csrc/fuse.cu``) against
    their plain versions at every shape and codec the compressed path
    gives them: sidecars bit-identical, mantissas at most one level apart,
@@ -357,6 +362,7 @@ SOURCE = "distributedfft_tpu_torch/csrc/four_step.cu"
 RADIX_SOURCE = "distributedfft_tpu_torch/csrc/radix.cuh"
 FUSE_SOURCE = "distributedfft_tpu_torch/csrc/fuse.cu"
 TWO_LEVEL_SOURCE = "distributedfft_tpu_torch/csrc/two_level.cu"
+REAL_ROWS_SOURCE = "distributedfft_tpu_torch/csrc/real_rows.cu"
 REPLACES = {
     "fft2_last": "distributedfft_tpu/ops/pallas_fft.py:488",
     "fft_axis0": "distributedfft_tpu/ops/pallas_fft.py:580",
@@ -364,6 +370,8 @@ REPLACES = {
     "fft_encode": "distributedfft_tpu/ops/pallas_fuse.py:254",
     "decode_fft": "distributedfft_tpu/ops/pallas_fuse.py:293",
     "fft_last_big": "distributedfft_tpu/ops/pallas_fft.py:682",
+    "r2c_half": "distributedfft_tpu/ops/realfft.py:50",
+    "c2r_half": "distributedfft_tpu/ops/realfft.py:79",
 }
 CODECS = ("bf16", "int8", "split")
 # The codecs' bounds of tests/test_a2q_fusion.py:308 (_ENC_BOUNDS): a
@@ -456,9 +464,10 @@ KERNEL_CASES = [
 # The two-level route's cases (``fft_last_big``, (batch, n)): long_cases'
 # first entries, held by time_two_level against both plain versions.
 TWO_LEVEL_CASES = []
-# Wrappers only the long 1D paths launch: the paths at 512^3 and the
-# like are not held to launch them.
-LONG_ONLY = ("fft_last_big",)
+# Wrappers only the long 1D paths launch, and the real wrappers, which
+# only R2C / C2R plans launch: the paths at 512^3 and the like are not
+# held to launch them.
+NOT_EVERY_PATH = ("fft_last_big", "r2c_half", "c2r_half")
 # Captures a traced run takes before it fails, each one after a capture
 # that lost the profiler's records of a stage's kernels.
 LOST_TRIES = 3
@@ -628,6 +637,93 @@ def check_kernels(torch, cf, radix, timing, rates, cases=None):
     return records
 
 
+# The fused real rows passes' cases (``cuda_fft.r2c_half`` /
+# ``c2r_half``, csrc/real_rows.cu): (forward, [rows, n] real, where), every
+# shape the counted paths give them (check_covered fails a path that
+# launches one at any other) and the generic prime stage (608 = 2 * 304,
+# 304 = 16 * 19), held only. The first pair is the records' shape.
+REAL_ROWS_CASES = [
+    (True, (262144, 512), "single r2c, C ABI single r2c"),
+    (False, (262144, 512), "single c2r, C ABI single c2r"),
+    (True, (65536, 512), "slab and pencil r2c t0"),
+    (False, (65536, 512), "slab and pencil c2r t0"),
+    (True, (131072, 512), "batch=2 slab r2c t0"),
+    (False, (131072, 512), "batch=2 slab c2r t0"),
+    (True, (65536, 608), "608 r2c t0"),
+    (False, (65536, 608), "608 c2r t0"),
+]
+
+
+def check_real_rows(torch, cf, timing, rates, card):
+    """The fused real rows passes against their plain version (the
+    packed-real trick around the row kernel, as the card ran it before the
+    fused pass) and torch.fft.rfft / irfft on the last axis, each case's
+    error <= TOL; times each (median of 10, CUDA events; and back to back)
+    beside its plain version, that library call, a device copy of the
+    larger side and the bytes-once bound (real side and half spectrum
+    each read or written once), and names the kernels it launched.
+    Returns the records of ``r2c_half`` and ``c2r_half``, as
+    :func:`check_kernels` returns its kernels'."""
+    hbm, _, _ = rates
+    dev = torch.device("cuda", torch.cuda.current_device())
+    records = {}
+    for i, (fwd, shape, where) in enumerate(REAL_ROWS_CASES):
+        rows, n = shape
+        x = seeded(torch, shape, dev, SEED + 50 + i).real.contiguous()
+        spec = torch.fft.rfft(x, dim=-1)
+        if fwd:
+            kernel = lambda: cf.r2c_half(x, -1)
+            plain = lambda: cf.r2c_half_plain(x, -1)
+            lib = lambda: torch.fft.rfft(x, dim=-1)
+        else:
+            kernel = lambda: cf.c2r_half(spec, n, -1)
+            plain = lambda: cf.c2r_half_plain(spec, n, -1)
+            lib = lambda: torch.fft.irfft(spec, n=n, dim=-1)
+        key = ("r2c_half" if fwd else "c2r_half", "fused")
+        routed = cf.ROUTES[key]
+        got = kernel()
+        torch.cuda.synchronize()
+        if cf.ROUTES[key] != routed + 1:
+            fail(f"real rows {where}: the call did not take the fused pass")
+        err, l2, abs_err = rel_err(torch, got, plain())
+        lib_err, lib_l2, _ = rel_err(torch, got, lib())
+        del got
+        label = (f"{'fwd' if fwd else 'inv'} [{rows},{n}] real "
+                 f"{'->' if fwd else '<-'} [{rows},{n // 2 + 1}] ({where})")
+        if not max(err, l2, lib_err, lib_l2) <= TOL:
+            fail(f"real rows {label}: rel err vs plain max {err:.3e} l2 "
+                 f"{l2:.3e}, vs torch.fft max {lib_err:.3e} l2 "
+                 f"{lib_l2:.3e} > {TOL}")
+        ms = timing.cuda_time_ms(kernel, iters=10)
+        plain_ms = timing.cuda_time_ms(plain, iters=10)
+        library_ms = timing.cuda_time_ms(lib, iters=10)
+        steady = (steady_ms(torch, kernel), steady_ms(torch, lib))
+        big = spec if spec.numel() * 8 >= x.numel() * 4 else x
+        out = torch.empty_like(big)
+        copy_ms = timing.cuda_time_ms(lambda: out.copy_(big), iters=10)
+        del out
+        bytes_moved = x.numel() * 4 + spec.numel() * 8
+        bound_ms = bytes_moved / hbm * 1e3
+        print(f"real rows {label}: route=fused max_rel_err={err:.3e} "
+              f"l2_rel_err={l2:.3e} max_abs_err={abs_err:.3e} "
+              f"vs_torch_fft_max_rel={lib_err:.3e} "
+              f"vs_torch_fft_l2_rel={lib_l2:.3e} kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+              f"copy_ms={copy_ms:.4f} kernel_steady_ms={steady[0]:.4f} "
+              f"library_steady_ms={steady[1]:.4f} bound_ms={bound_ms:.4f} "
+              f"(bytes) kernel_x_bound={ms / bound_ms:.3f}; kernels: "
+              f"{device_breakdown(torch, kernel)} [{card}]", flush=True)
+        rec = records.setdefault(key[0], dict(
+            name=key[0], route="cuda", source=REAL_ROWS_SOURCE,
+            replaces=REPLACES[key[0]], launches=0, max_abs_err=0.0, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+            library_ms=library_ms))
+        rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+        del x, spec
+        torch.cuda.empty_cache()
+    return records
+
+
 # The routes each wrapper may take on the paths whose lengths are all at
 # most 8192 (512, 510, 256, 608, ...): the radix route, and for the fused
 # kernels also its row form at cols = 1 (cuda_fuse.fused_form).
@@ -701,7 +797,9 @@ def check_covered(seen, path, extra=()):
 
     seen = set(seen) | set(cuda_fft.CASES) | set(extra)
     held = ({case_key(c) for c in KERNEL_CASES + TWO_LEVEL_CASES}
-            | {c[:6] for c in FUSED_CASES})
+            | {c[:6] for c in FUSED_CASES}
+            | {("r2c_half" if fwd else "c2r_half", fwd, shape)
+               for fwd, shape, _ in REAL_ROWS_CASES})
     missing = sorted(seen - held, key=str)
     if missing:
         fail(f"{path} launches kernels at cases no kernel phase checked: "
@@ -5809,6 +5907,14 @@ def main() -> None:
           f"); seconds per unit, all started together: "
           f"{getattr(_build, 'BUILD_SECONDS', 'not measured')}", flush=True)
 
+    if sys.argv[1:] == ["--real-rows"]:
+        # the fused real rows passes alone, on whichever package sits
+        # beside this script
+        check_real_rows(torch, cf, timing, rates, card)
+        print(f"chip_smoke.py --real-rows: "
+              f"{time.perf_counter() - t_script:.1f} s [{card}]", flush=True)
+        return
+
     if sys.argv[1:] == ["--route-cases"]:
         # the fused kernels' cases and paths at cols = 1 and past 8192
         # alone, on whichever package sits beside this script (a parent
@@ -5837,6 +5943,7 @@ def main() -> None:
     records = check_kernels(torch, cf, radix, timing, rates)
     records.update(check_fused_kernels(torch, cf, cfu, wire_codec, timing,
                                        rates))
+    records.update(check_real_rows(torch, cf, timing, rates, card))
     # the two-level route's record: its numbers are time_two_level's
     records["fft_last_big"] = dict(
         name="fft_last_big", route="cuda", source=TWO_LEVEL_SOURCE,
@@ -5877,7 +5984,7 @@ def main() -> None:
     check_routes(cf, "the main path", routes_single, dict(cf.ROUTES))
     check_covered(seen, "the main path")
     for k, v in counts.items():
-        if v <= 0 and k not in LONG_ONLY:
+        if v <= 0 and k not in NOT_EVERY_PATH:
             fail(f"kernel {k} was not launched on the main path")
         records[k]["launches"] = v
     print("exchange: loopback transports on one card (alltoall split/cat, "
@@ -6063,9 +6170,14 @@ def main() -> None:
     check_routes(cf, "the brick path", {}, dict(cf.ROUTES))
     check_covered(seen, "the brick path")
     batch_keys = {c[:3]: c[3] for c in batch_cases(512)}
+    batch_keys.update({("r2c_half" if fwd else "c2r_half", fwd, shape): where
+                       for fwd, shape, where in REAL_ROWS_CASES
+                       if where.startswith("batch=2")})
+    # the real wrappers' launches are in CASES alone (recording_cases does
+    # not see them), the others' in both
     print("launches on the brick path at the batch = 2 shapes: " + "; ".join(
         f"{k[0]} {'fwd' if k[1] else 'inv'} {list(k[2])} ({batch_keys[k]}):"
-        f" {seen[k]}" for k in batch_keys), flush=True)
+        f" {max(seen[k], cf.CASES[k])}" for k in batch_keys), flush=True)
     print(f"peak device memory of the brick path: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     for k in ("fft2_last", "fft_axis0", "fft_last"):
@@ -6214,7 +6326,7 @@ def main() -> None:
     check_routes(cf, "the measured-planning path", {}, dict(cf.ROUTES))
     check_covered(seen, "the measured-planning path")
     for k, v in path.items():
-        if v <= 0 and k not in LONG_ONLY:
+        if v <= 0 and k not in NOT_EVERY_PATH:
             fail(f"kernel {k} was not launched on the measured-planning "
                  f"path after calibrate()")
         records[k]["launches"] += v + cal.get(k, 0)
@@ -6240,7 +6352,7 @@ def main() -> None:
     check_routes(cf, "the explain path", {}, dict(cf.ROUTES))
     check_covered(seen, "the explain path")
     for k, v in path.items():
-        if v <= 0 and k not in LONG_ONLY:
+        if v <= 0 and k not in NOT_EVERY_PATH:
             fail(f"kernel {k} was not launched on the explain path")
         records[k]["launches"] += v
     if dict(cf.FALLBACKS) != before:
@@ -6277,7 +6389,7 @@ def main() -> None:
             fail(f"kernel {k} did not take its row form on the serving "
                  f"path")
     for k, v in path.items():
-        if v <= 0 and k not in LONG_ONLY:
+        if v <= 0 and k not in NOT_EVERY_PATH:
             fail(f"kernel {k} was not launched on the serving path")
         records[k]["launches"] += v
     if dict(cf.FALLBACKS) != before:

@@ -137,11 +137,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     pp = ctypes.POINTER(ctypes.c_void_p)
     lib.dfft_fft_two_level.argtypes = [p, p, p, ll, i, ip, ip, ip, i, pp, pp,
                                        pp, ip, f, p]
+    lib.dfft_r2c_rows.argtypes = [p, p, ll, i, i, ip, p, p, p]
+    lib.dfft_c2r_rows.argtypes = [p, p, ll, i, i, ip, p, p, f, p]
     for fn in (lib.dfft_fft_rows, lib.dfft_fft_rows_2p, lib.dfft_fft_strided,
                lib.dfft_fft_strided_2p, lib.dfft_fft_plane,
                lib.dfft_fft_encode, lib.dfft_fft_encode_2p,
                lib.dfft_decode_fft, lib.dfft_decode_fft_2p,
-               lib.dfft_fft_two_level):
+               lib.dfft_fft_two_level, lib.dfft_r2c_rows,
+               lib.dfft_c2r_rows):
         fn.restype = ctypes.c_int
 
 

@@ -41,6 +41,12 @@ card, the passes of :func:`two_level_passes` (``csrc/two_level.cu``),
 short column passes whose stores carry the next step's twiddle and the
 reorder, then one rows pass whose store is the transpose to k order;
 its plain version :func:`two_level_passes_plain`.
+
+The real transforms of the ``cuda`` executor, :func:`r2c_half` and
+:func:`c2r_half` (the packed-real trick of :mod:`.realfft`), run as one
+rows pass each way (``csrc/real_rows.cu``) on a CUDA tensor whose half
+length takes the radix route, with the untangle in that pass's store
+(R2C) or its first stage's reader (C2R); elsewhere their plain versions.
 """
 
 from __future__ import annotations
@@ -56,7 +62,7 @@ import torch
 from .. import native
 from ..utils import metrics as _metrics
 from ..utils.trace import add_trace
-from . import dft_matmul, radix
+from . import dft_matmul, radix, realfft
 from ._build import check, library
 
 # Largest per-stage factor: one kernel covers n <= 65536.
@@ -76,11 +82,13 @@ FALLBACKS: Counter = Counter()
 #: two-pass route past 8192); the fused wrappers count a last-axis site
 #: (cols = 1) under ``radix_rows`` or ``radix2_rows`` (their row form,
 #: ``cuda_fuse.fused_form``); the two-level route under
-#: ``("fft_last_big", "passes")``.
+#: ``("fft_last_big", "passes")``; every call of the real wrappers under
+#: ``("r2c_half" | "c2r_half", "fused" | "plain")``.
 ROUTES: Counter = Counter()
 
 #: Kernel launches by case: (wrapper, forward, shape), with
-#: "unnormalized" after an inverse left unscaled; the fused wrappers'
+#: "unnormalized" after an inverse left unscaled (the real wrappers'
+#: shape is the real side's [rows, n]); the fused wrappers'
 #: (wrapper, wire_dtype, forward, shape, fft_axis, tiles). A process
 #: that launches kernels out of sight of its caller (a load-generator
 #: worker) reports these, so the caller can tell which cases ran.
@@ -703,16 +711,6 @@ def _fft_last_big(x2: torch.Tensor, n: int, forward: bool,
     return y
 
 
-fft_last.launches = 0
-fft_axis0.launches = 0
-fft2_last.launches = 0
-_fft_last_big.launches = 0
-
-#: The kernel wrappers, by the name the launch counts are reported under.
-KERNELS = {"fft2_last": fft2_last, "fft_axis0": fft_axis0,
-           "fft_last": fft_last, "fft_last_big": _fft_last_big}
-
-
 def fft_along_axis(x: torch.Tensor, axis: int,
                    forward: bool = True) -> torch.Tensor:
     """C2C DFT along one axis through the kernels: the last axis by the
@@ -753,3 +751,101 @@ def fft_along_axis(x: torch.Tensor, axis: int,
         else:
             y = fft_last(x.reshape(-1, n).contiguous(), forward)
         return y.reshape(shape)
+
+
+# ------------------------------------------------ the real rows passes
+
+def _real_fused(t: torch.Tensor, n: int, dtype: torch.dtype) -> bool:
+    """Whether a length-``n`` real transform of ``t`` takes the fused rows
+    pass: a ``dtype`` (the real side float32, the spectrum complex64),
+    non-empty CUDA tensor whose half length takes the radix route."""
+    return (t.device.type == "cuda" and t.dtype == dtype and t.numel() > 0
+            and n % 2 == 0 and route(n // 2) == "radix")
+
+
+def r2c_half_plain(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """:func:`r2c_half`'s plain version: the packed-real trick of
+    :func:`.realfft.r2c_via_half_complex` with :func:`fft_along_axis` as
+    its C2C."""
+    return realfft.r2c_via_half_complex(x, axis, fft_along_axis)
+
+
+def c2r_half_plain(y: torch.Tensor, n: int, axis: int) -> torch.Tensor:
+    """:func:`c2r_half`'s plain version (:func:`.realfft.
+    c2r_via_half_complex` with :func:`fft_along_axis`)."""
+    return realfft.c2r_via_half_complex(y, n, axis, fft_along_axis)
+
+
+def r2c_half(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Real-to-complex DFT along ``axis`` (extent n even), n//2+1 outputs,
+    unnormalized, through the half-length complex transform. A float32
+    CUDA tensor whose half length h takes the radix route (:func:`route`)
+    runs one rows pass (``csrc/real_rows.cu:dfft_r2c_rows``: the real
+    rows read as [rows, h] complex64, the untangle in the store) under
+    the span ``r2c_untangle``; anything else runs :func:`r2c_half_plain`.
+    Each call counts in :data:`ROUTES` under ``("r2c_half", "fused")`` or
+    ``("r2c_half", "plain")``; a launch also in ``r2c_half.launches`` and
+    :data:`CASES` under ("r2c_half", True, (rows, n))."""
+    n = x.shape[axis]
+    if not _real_fused(x, n, torch.float32):
+        ROUTES[("r2c_half", "plain")] += 1
+        return r2c_half_plain(x, axis)
+    with add_trace("r2c_untangle"):
+        h = n // 2
+        xm = x.movedim(axis, -1)
+        x2 = xm.reshape(-1, n).contiguous()
+        if x2.data_ptr() % 8:           # read as complex64
+            x2 = x2.clone()
+        y = torch.empty((x2.shape[0], h + 1), dtype=torch.complex64,
+                        device=x.device)
+        _launch("dfft_r2c_rows", x, x2.data_ptr(), y.data_ptr(),
+                x2.shape[0], h, *_radices(h),
+                radix.device_twiddles(h, True, x.device).data_ptr(),
+                realfft.twiddle(n, torch.complex64, x.device).data_ptr())
+        r2c_half.launches += 1
+        ROUTES[("r2c_half", "fused")] += 1
+        CASES[_case("r2c_half", True, x2.shape)] += 1
+        return y.reshape(xm.shape[:-1] + (h + 1,)).movedim(-1, axis)
+
+
+def c2r_half(y: torch.Tensor, n: int, axis: int) -> torch.Tensor:
+    """Complex-to-real inverse DFT along ``axis`` back to extent ``n``
+    (even) from its n//2+1 hermitian half, scaled 1/n. A complex64 CUDA
+    tensor whose half length takes the radix route runs one rows pass
+    (``csrc/real_rows.cu:dfft_c2r_rows``: the packing in its first
+    stage's reader, the real rows stored as complex64) under the span
+    ``c2r_untangle``; anything else runs :func:`c2r_half_plain`. Counted
+    in :data:`ROUTES` under ``("c2r_half", "fused" | "plain")``; a launch
+    also in ``c2r_half.launches`` and :data:`CASES` under ("c2r_half",
+    False, (rows, n))."""
+    if y.shape[axis] != n // 2 + 1 or not _real_fused(y, n, torch.complex64):
+        ROUTES[("c2r_half", "plain")] += 1
+        return c2r_half_plain(y, n, axis)
+    with add_trace("c2r_untangle"):
+        h = n // 2
+        ym = y.movedim(axis, -1)
+        y2 = ym.reshape(-1, h + 1).contiguous().resolve_conj()
+        x = torch.empty((y2.shape[0], n), dtype=torch.float32,
+                        device=y.device)
+        _launch("dfft_c2r_rows", y, y2.data_ptr(), x.data_ptr(),
+                y2.shape[0], h, *_radices(h),
+                radix.device_twiddles(h, False, y.device).data_ptr(),
+                realfft.twiddle(n, torch.complex64, y.device).data_ptr(),
+                1.0 / h)
+        c2r_half.launches += 1
+        ROUTES[("c2r_half", "fused")] += 1
+        CASES[_case("c2r_half", False, x.shape)] += 1
+        return x.reshape(ym.shape[:-1] + (n,)).movedim(-1, axis)
+
+
+fft_last.launches = 0
+fft_axis0.launches = 0
+fft2_last.launches = 0
+_fft_last_big.launches = 0
+r2c_half.launches = 0
+c2r_half.launches = 0
+
+#: The kernel wrappers, by the name the launch counts are reported under.
+KERNELS = {"fft2_last": fft2_last, "fft_axis0": fft_axis0,
+           "fft_last": fft_last, "fft_last_big": _fft_last_big,
+           "r2c_half": r2c_half, "c2r_half": c2r_half}

@@ -8,7 +8,9 @@ The port of the registry, label algebra and scaling of
 - ``"cuda"`` (the JAX package's ``pallas``, the port's default): a
   trailing 2D plane goes to the plane kernel, every other axis to
   :func:`.cuda_fft.fft_along_axis`, which falls back to
-  :mod:`.dft_matmul` by the JAX package's routing rules;
+  :mod:`.dft_matmul` by the JAX package's routing rules; its real pair
+  is :func:`.cuda_fft.r2c_half` / :func:`.cuda_fft.c2r_half` (one fused
+  rows pass each way on the card where the half length allows);
 - ``"matmul"``: the DFT by matmuls of :mod:`.dft_matmul`;
 - ``"torch"`` (the JAX package's ``xla``): ``torch.fft``;
 - ``"torch_minor"`` (the JAX package's ``xla_minor``): ``torch.fft`` one
@@ -373,13 +375,14 @@ def _matmul_executor(x: torch.Tensor, axes: Sequence[int],
     return x
 
 
-def _half_or_promote_r2c(x: torch.Tensor, axis: int, c2c) -> torch.Tensor:
-    """Real-to-complex along ``axis`` through the C2C ``c2c``: the
-    half-length packed transform for even n > 2, else promote (to
-    complex128 from 8-byte reals), transform, slice."""
+def _half_or_promote_r2c(x: torch.Tensor, axis: int, half,
+                         c2c) -> torch.Tensor:
+    """Real-to-complex along ``axis``: the half-length packed transform
+    ``half(x, axis)`` for even n > 2, else promote (to complex128 from
+    8-byte reals), transform through the C2C ``c2c``, slice."""
     n = x.shape[axis]
     if n % 2 == 0 and n > 2 and not x.is_complex():
-        return r2c_via_half_complex(x, axis, c2c)
+        return half(x, axis)
     if not x.is_complex():
         x = x.to(torch.complex128 if x.element_size() >= 8
                  else torch.complex64)
@@ -387,13 +390,13 @@ def _half_or_promote_r2c(x: torch.Tensor, axis: int, c2c) -> torch.Tensor:
     return y.narrow(axis % y.ndim, 0, n // 2 + 1)
 
 
-def _half_or_mirror_c2r(y: torch.Tensor, n: int, axis: int,
+def _half_or_mirror_c2r(y: torch.Tensor, n: int, axis: int, half,
                         c2c) -> torch.Tensor:
     """Complex-to-real back to extent ``n`` along ``axis``, scaled 1/n:
-    the half-length packed inverse for even n > 2, else the mirrored
-    full spectrum through the inverse C2C."""
+    the half-length packed inverse ``half(y, n, axis)`` for even n > 2,
+    else the mirrored full spectrum through the inverse C2C ``c2c``."""
     if n % 2 == 0 and n > 2:
-        return c2r_via_half_complex(y, n, axis, c2c)
+        return half(y, n, axis)
     full = mirror_half_spectrum(y, n, axis=axis)
     return c2c(full.contiguous(), axis, False).real
 
@@ -401,9 +404,14 @@ def _half_or_mirror_c2r(y: torch.Tensor, n: int, axis: int,
 register_executor("matmul", _matmul_executor)
 register_real_executor(
     "matmul",
-    lambda x, axis: _half_or_promote_r2c(x, axis, dft_matmul.fft_along_axis),
-    lambda y, n, axis: _half_or_mirror_c2r(y, n, axis,
-                                           dft_matmul.fft_along_axis))
+    lambda x, axis: _half_or_promote_r2c(
+        x, axis, functools.partial(r2c_via_half_complex,
+                                   c2c=dft_matmul.fft_along_axis),
+        dft_matmul.fft_along_axis),
+    lambda y, n, axis: _half_or_mirror_c2r(
+        y, n, axis, functools.partial(c2r_via_half_complex,
+                                      c2c=dft_matmul.fft_along_axis),
+        dft_matmul.fft_along_axis))
 
 
 # -------------------------------------------------------------- cuda
@@ -462,6 +470,7 @@ def run_donated(name: str, x: torch.Tensor, axes: Sequence[int],
     return ex(x, rest, forward) if rest else x
 register_real_executor(
     "cuda",
-    lambda x, axis: _half_or_promote_r2c(x, axis, cuda_fft.fft_along_axis),
-    lambda y, n, axis: _half_or_mirror_c2r(y, n, axis,
+    lambda x, axis: _half_or_promote_r2c(x, axis, cuda_fft.r2c_half,
+                                         cuda_fft.fft_along_axis),
+    lambda y, n, axis: _half_or_mirror_c2r(y, n, axis, cuda_fft.c2r_half,
                                            cuda_fft.fft_along_axis))

@@ -11,12 +11,20 @@ the executor's own C2C engine, and untangled with one twiddle pass:
 
 for k = 0..h (with Z[h] = Z[0]): the n//2+1 non-redundant outputs. The
 inverse packs the hermitian half back into a half-length complex signal
-and runs the inverse C2C. Twiddles are built on the host in float64.
+and runs the inverse C2C. The twiddle table (:func:`twiddle`) is built on
+the host in float64 and uploaded once per (n, dtype, device), then kept.
 Odd n is the caller's promote-and-slice path.
+
+On the card, the ``cuda`` executor runs this math as one kernel each way
+where the half length takes the radix route (``cuda_fft.r2c_half`` /
+``c2r_half``, ``csrc/real_rows.cu``: the untangle in the rows pass's
+store, the packing in its first stage's reader); the functions here are
+that route's plain version and every other executor's real transform.
 
 Spans: ``r2c_untangle`` and ``c2r_untangle`` around each transform (the
 inner C2C opens its own), ``host_wait[rfft_twiddle]`` around the
-twiddle's upload, a copy from pageable memory that waits for the card.
+twiddle's first upload to a device, a copy from pageable memory that
+waits for the card.
 """
 
 from __future__ import annotations
@@ -37,14 +45,24 @@ def _cdtype(dtype: torch.dtype) -> torch.dtype:
                                          torch.complex128) else torch.complex64
 
 
-def _twiddle(n: int, cdtype: torch.dtype, device) -> torch.Tensor:
-    """e^{-2pi i k / n} for k = 0..n/2, host-exact float64."""
-    k = np.arange(n // 2 + 1)
-    w = np.exp(-2j * np.pi * k / n)
-    npdt = np.complex128 if cdtype == torch.complex128 else np.complex64
-    host = torch.from_numpy(w.astype(npdt))
-    with add_trace("host_wait[rfft_twiddle]"):
-        return host.to(device)
+_TWIDDLES: dict = {}
+
+
+def twiddle(n: int, cdtype: torch.dtype, device) -> torch.Tensor:
+    """e^{-2pi i k / n} for k = 0..n/2, host-exact float64 rounded to
+    ``cdtype``, on ``device``: uploaded once per (n, dtype, device) and
+    kept, so a warm transform copies nothing from the host."""
+    key = (n, cdtype, str(device))
+    hit = _TWIDDLES.get(key)
+    if hit is None:
+        k = np.arange(n // 2 + 1)
+        w = np.exp(-2j * np.pi * k / n)
+        npdt = np.complex128 if cdtype == torch.complex128 else np.complex64
+        host = torch.from_numpy(w.astype(npdt))
+        with add_trace("host_wait[rfft_twiddle]"):
+            hit = host.to(device)
+        _TWIDDLES[key] = hit
+    return hit
 
 
 def r2c_via_half_complex(x: torch.Tensor, axis: int,
@@ -70,7 +88,7 @@ def r2c_via_half_complex(x: torch.Tensor, axis: int,
         big = c2c(z.contiguous(), -1, True)
         zf = torch.cat([big, big[..., :1]], dim=-1)         # Z[h] = Z[0]
         zr = torch.conj(torch.flip(zf, dims=(-1,)))         # Z*[h-k]
-        w = _twiddle(n, cdtype, x.device)
+        w = twiddle(n, cdtype, x.device)
         out = 0.5 * (zf + zr) - 0.5j * w * (zf - zr)
         return torch.movedim(out, -1, axis)
 
@@ -95,7 +113,7 @@ def c2r_via_half_complex(y: torch.Tensor, n: int, axis: int,
         # E = (Y[k]+Y*[h-k])/2 holds FFT(even), O = (Y[k]-Y*[h-k])
         # e^{+2pi i k/n} / 2 holds FFT(odd); the packed half spectrum is
         # Z = E + iO.
-        w = torch.conj(_twiddle(n, cdtype, y.device))
+        w = torch.conj(twiddle(n, cdtype, y.device))
         e = 0.5 * (ym + yr)
         o = 0.5 * (ym - yr) * w
         big = (e + 1j * o)[..., :h]
