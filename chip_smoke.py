@@ -3,13 +3,15 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``
 (``--real-rows``: only the fused real rows passes of REAL_ROWS_CASES, as
-phase 2 holds and times them; ``--route-cases``: only the fused cases at
-``cols = 1`` and past 8192
-of phase 3, the 608^3 and long paths of phase 5, the split fused pencil,
-the two-level calls at the TWO_LEVEL shapes and a digest of the output
-of every kernel 1-5 case phases 2 and 3 hold, on whichever package sits
-beside the script, so that a parent commit's tree can be timed and
-compared bit for bit beside it). It
+phase 2 holds and times them; ``--plane-gate``: only PLANE_GATE_CASES and the
+planes past the plane gate, as phase 2 holds and times them, and their
+records; ``--route-cases``: only the
+fused cases at ``cols = 1`` and past 8192 of phase 3, the 608^3 and long
+paths of phase 5, the split fused pencil, the two-level calls at the
+TWO_LEVEL shapes and a digest of the output of every kernel 1-5 case
+phases 2 and 3 hold, on whichever package sits beside the script, so
+that a parent commit's tree can be timed and compared bit for bit beside
+it). It
 
 1. prints the card's name and power limit and builds the CUDA kernels
    from ``distributedfft_tpu_torch/csrc`` (nvcc, sm_90a);
@@ -29,7 +31,12 @@ compared bit for bit beside it). It
    at [152, 608, 608], with the 608^3 slab's other cases; the
    REAL_ROWS_CASES hold the fused real rows passes (``csrc/real_rows.cu``)
    against their plain version and torch.fft.rfft / irfft, timed beside
-   both and the bytes-once bound;
+   both and the bytes-once bound; the PLANE_GATE_CASES hold the single
+   1024^3 pair's passes (the (16, 8, 8) plan's radix-16 variants) and the
+   plane kernel at that size, each plain version past PLAIN_BLOCK
+   elements run in blocks; then the planes of PLANE_GATE_SHAPE, past the
+   plane gate, run through the plane kernel directly and per axis as the
+   gate has them, each against the other and torch.fft, timed;
 3. holds the two fused stage+codec kernels (``csrc/fuse.cu``) against
    their plain versions at every shape and codec the compressed path
    gives them: sidecars bit-identical, mantissas at most one level apart,
@@ -415,14 +422,38 @@ def seeded(torch, shape, device, seed=SEED):
                        dtype=torch.complex64)
 
 
+# The planes of the single 1024^3 grid, each 1024 x 1024 = 1048576
+# elements, past the plane gate (cuda_fft.eligible2d: at most 524288, the
+# JAX package's gate), so the cuda executor runs them per axis.
+PLANE_GATE_SHAPE = (1024, 1024, 1024)
+# The kernel calls of the single 1024^3 pair, three passes per axis on the
+# (16, 8, 8) plan's radix-16 variants, and the plane kernel that
+# check_plane_gate times beside them (no path launches it past the gate).
+PLANE_GATE_CASES = [
+    ("fft_axis0", True, (1, 1024, 1048576), "single 1024^3 fwd x"),
+    ("fft_axis0", False, (1, 1024, 1048576), "single 1024^3 bwd x"),
+    ("fft_axis0", True, PLANE_GATE_SHAPE, "single 1024^3 fwd y"),
+    ("fft_axis0", False, PLANE_GATE_SHAPE, "single 1024^3 bwd y"),
+    ("fft_last", True, (1048576, 1024), "single 1024^3 fwd z"),
+    ("fft_last", False, (1048576, 1024), "single 1024^3 bwd z"),
+    ("fft2_last", True, PLANE_GATE_SHAPE, "1024^3 plane past the gate"),
+    ("fft2_last", False, PLANE_GATE_SHAPE, "1024^3 plane past the gate"),
+]
+# A plain version runs whole on at most this many elements (every case at
+# 512^3) and past it in blocks of as many: run whole on an 8 GiB tensor,
+# its complex128 stages with their copies would not fit the card beside
+# the kernel's output.
+PLAIN_BLOCK = 2**27
+
+
 # Every (kernel, direction, shape) the counted paths launch, and where:
 # the slab chain at 512^3 and (510, 510, 512) on 4 ranks, the single
 # device at 512^3, the pencil chain at 512^3 on 2x2, and the R2C/C2R
 # plans (half-length rows, the 257-wide half spectrum and, on the
-# pencil, its 129-wide column split). The first case of each kernel is
-# its record's shape. Three more (marked "also") are the other direction
-# at a slab shape. check_covered fails a path that launches a case not
-# listed here.
+# pencil, its 129-wide column split), and PLANE_GATE_CASES. The first
+# case of each kernel is its record's shape. Three more (marked "also")
+# are the other direction at a slab shape. check_covered fails a path
+# that launches a case not listed here.
 KERNEL_CASES = [
     ("fft2_last", True, (128, 512, 512), "slab fwd t0"),
     ("fft2_last", False, (128, 512, 512), "also"),
@@ -459,7 +490,7 @@ KERNEL_CASES = [
     ("fft_last", False, (65536, 256), "slab c2r t0"),
     ("fft_last", True, (262144, 256), "single r2c"),
     ("fft_last", False, (262144, 256), "single c2r"),
-]
+] + PLANE_GATE_CASES
 
 # The two-level route's cases (``fft_last_big``, (batch, n)): long_cases'
 # first entries, held by time_two_level against both plain versions.
@@ -550,6 +581,22 @@ def route_flops(cf, radix, how, n):
     return 8 * n * (m1 + m2)
 
 
+def plain_in_blocks(torch, plain, x, name):
+    """``plain(x)``, past PLAIN_BLOCK elements block by block along an
+    axis whose entries the kernel transforms apart: the batch of
+    ``fft_last`` and ``fft2_last``, the ``lead`` of ``fft_axis0`` (its
+    columns where ``lead`` is 1)."""
+    if x.numel() <= PLAIN_BLOCK:
+        return plain(x)
+    dim = 2 if name == "fft_axis0" and x.shape[0] == 1 else 0
+    step = max(1, PLAIN_BLOCK * x.shape[dim] // x.numel())
+    out = torch.empty_like(x)
+    for i in range(0, x.shape[dim], step):
+        block = (slice(None),) * dim + (slice(i, i + step),)
+        out[block] = plain(x[block])
+    return out
+
+
 def check_kernels(torch, cf, radix, timing, rates, cases=None):
     """Phase 2: each kernel against its plain version at every shape the
     main path gives it (``cases``: KERNEL_CASES unless given). Returns one
@@ -561,7 +608,8 @@ def check_kernels(torch, cf, radix, timing, rates, cases=None):
         name, fwd, shape, where = case[:4]
         kw = {} if case_key(case) == tuple(case[:3]) else {"normalize": False}
         kernel = lambda x, f, _k=getattr(cf, name): _k(x, f, **kw)
-        plain = lambda x, f, _p=getattr(cf, f"{name}_plain"): _p(x, f, **kw)
+        plain = lambda x, f, _p=getattr(cf, f"{name}_plain"): (
+            plain_in_blocks(torch, lambda b: _p(b, f, **kw), x, name))
         lib = library_call(torch, name, fwd, not kw)
         label = (f"{'fwd' if fwd else 'inv'}{' unnormalized' if kw else ''} "
                  f"[{','.join(map(str, shape))}] ({where})")
@@ -722,6 +770,65 @@ def check_real_rows(torch, cf, timing, rates, card):
         del x, spec
         torch.cuda.empty_cache()
     return records
+
+
+def check_plane_gate(torch, cf, ex, timing, rates, card):
+    """The trailing planes of PLANE_GATE_SHAPE both ways through the plane
+    kernel directly (``fft2_last``: its launcher has no plane limit) and
+    through the route the gate chooses (the ``cuda`` executor over axes
+    (1, 2): one ``fft_along_axis`` pass per axis, a ``plane2d`` fallback
+    counted); each held against the other and against torch.fft (error <=
+    TOL) and timed (median of 10, CUDA events; and back to back) beside
+    torch.fft and the bytes-once bound: whether lifting the gate on the
+    card would pay. Every kernel call must be a case of PLANE_GATE_CASES,
+    which phase 2 holds against its plain version (check_covered on the
+    launches counted from 0)."""
+    hbm, fp32, _ = rates
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = seeded(torch, PLANE_GATE_SHAPE, dev, SEED + 90)
+    _, ny, nz = x.shape
+    t_bytes = 2 * x.numel() * 8 / hbm * 1e3
+    t_ops = 5.0 * x.numel() * math.log2(ny * nz) / fp32 * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    cf.reset_launches()
+    for fwd in (True, False):
+        direct = lambda: cf.fft2_last(x, fwd)
+        per_axis = lambda: ex(x, (1, 2), fwd)
+        lib = lambda: torch.fft.fft2(x) if fwd else torch.fft.ifft2(x)
+        label = f"{'fwd' if fwd else 'inv'} {list(x.shape)}"
+        refused = cf.FALLBACKS[(2, "plane2d")]
+        got = per_axis()
+        if cf.FALLBACKS[(2, "plane2d")] != refused + 1:
+            fail(f"plane gate {label}: the executor took the plane kernel")
+        want = direct()
+        errs = rel_err(torch, got, want)[:2]
+        del want
+        want = lib()
+        errs += rel_err(torch, got, want)[:2]
+        del got, want
+        if not max(errs) <= TOL:
+            fail(f"plane gate {label}: rel err per axis vs direct max / l2 "
+                 f"{errs[0]:.3e} / {errs[1]:.3e}, vs torch.fft "
+                 f"{errs[2]:.3e} / {errs[3]:.3e} > {TOL}")
+        ms = {k: timing.cuda_time_ms(fn, iters=10) for k, fn in
+              (("direct", direct), ("per_axis", per_axis), ("library", lib))}
+        steady = {k: steady_ms(torch, fn, reps=10) for k, fn in
+                  (("direct", direct), ("per_axis", per_axis))}
+        print(f"plane gate {label}: per_axis_vs_direct_max_rel={errs[0]:.3e} "
+              f"l2_rel={errs[1]:.3e} vs_torch_fft_max_rel={errs[2]:.3e} "
+              f"l2_rel={errs[3]:.3e} direct_ms={ms['direct']:.4f} "
+              f"per_axis_ms={ms['per_axis']:.4f} "
+              f"library_ms={ms['library']:.4f} "
+              f"direct_steady_ms={steady['direct']:.4f} "
+              f"per_axis_steady_ms={steady['per_axis']:.4f} "
+              f"bound_ms={bound_ms:.4f} "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}) "
+              f"per_axis_over_direct={ms['per_axis'] / ms['direct']:.3f}; "
+              f"kernels per axis: {device_breakdown(torch, per_axis, 3)} "
+              f"[{card}]", flush=True)
+    check_covered((), "the plane gate")
+    del x
+    torch.cuda.empty_cache()
 
 
 # The routes each wrapper may take on the paths whose lengths are all at
@@ -5877,6 +5984,7 @@ def main() -> None:
     import distributedfft_tpu_torch as dfft
     from distributedfft_tpu_torch.ops import _build, cuda_fft as cf
     from distributedfft_tpu_torch.ops import cuda_fuse as cfu, radix
+    from distributedfft_tpu_torch.ops.executors import get_executor
     from distributedfft_tpu_torch.parallel.exchange import wire_codec
     from distributedfft_tpu_torch.utils import timing
 
@@ -5915,6 +6023,15 @@ def main() -> None:
               f"{time.perf_counter() - t_script:.1f} s [{card}]", flush=True)
         return
 
+    if sys.argv[1:] == ["--plane-gate"]:
+        records = check_kernels(torch, cf, radix, timing, rates,
+                                PLANE_GATE_CASES)
+        check_plane_gate(torch, cf, get_executor("cuda"), timing, rates, card)
+        print(json.dumps({"kernels": list(records.values())}), flush=True)
+        print(f"chip_smoke.py --plane-gate: "
+              f"{time.perf_counter() - t_script:.1f} s [{card}]", flush=True)
+        return
+
     if sys.argv[1:] == ["--route-cases"]:
         # the fused kernels' cases and paths at cols = 1 and past 8192
         # alone, on whichever package sits beside this script (a parent
@@ -5944,6 +6061,7 @@ def main() -> None:
     records.update(check_fused_kernels(torch, cf, cfu, wire_codec, timing,
                                        rates))
     records.update(check_real_rows(torch, cf, timing, rates, card))
+    check_plane_gate(torch, cf, get_executor("cuda"), timing, rates, card)
     # the two-level route's record: its numbers are time_two_level's
     records["fft_last_big"] = dict(
         name="fft_last_big", route="cuda", source=TWO_LEVEL_SOURCE,

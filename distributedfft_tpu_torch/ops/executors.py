@@ -6,8 +6,9 @@ The port of the registry, label algebra and scaling of
 ``distributedfft_tpu/ops/executors.py``. Executors:
 
 - ``"cuda"`` (the JAX package's ``pallas``, the port's default): a
-  trailing 2D plane goes to the plane kernel, every other axis to
-  :func:`.cuda_fft.fft_along_axis`, which falls back to
+  trailing 2D plane goes to the plane kernel (one past the JAX
+  package's plane gate, :func:`.cuda_fft.eligible2d`, per axis), every
+  other axis to :func:`.cuda_fft.fft_along_axis`, which falls back to
   :mod:`.dft_matmul` by the JAX package's routing rules; its real pair
   is :func:`.cuda_fft.r2c_half` / :func:`.cuda_fft.c2r_half` (one fused
   rows pass each way on the card where the half length allows);
@@ -39,6 +40,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..utils.trace import add_trace
 from . import cuda_fft, dft_matmul
 from .realfft import (c2r_via_half_complex, mirror_half_spectrum,
                       r2c_via_half_complex)
@@ -418,7 +420,15 @@ register_real_executor(
 
 def _cuda_executor(x: torch.Tensor, axes: Sequence[int],
                    forward: bool = True) -> torch.Tensor:
+    """The trailing plane through the plane kernel where
+    :func:`.cuda_fft.eligible2d` takes it, every other axis through
+    :func:`.cuda_fft.fft_along_axis`. A trailing plane the gate refuses
+    runs per axis, in the same order, its two passes under one span
+    ``fft_plane[per_axis]`` (the refusal counted in ``FALLBACKS``). Each
+    pass rebinds ``x`` in this frame, so a pass's input is freed once
+    the next pass has run."""
     axes = tuple(a % x.ndim for a in axes)
+    plane = ()
     if (len(axes) >= 2 and x.dtype == torch.complex64 and x.numel() > 0
             and {axes[-2], axes[-1]} == {x.ndim - 2, x.ndim - 1}):
         if cuda_fft.eligible2d(x.shape[-2], x.shape[-1]):
@@ -426,11 +436,16 @@ def _cuda_executor(x: torch.Tensor, axes: Sequence[int],
             x = cuda_fft.fft2_last(
                 x.reshape((-1,) + tuple(shape[-2:])).contiguous(), forward)
             x = x.reshape(shape)
-            axes = axes[:-2]
         else:
             cuda_fft.record_fallback(axes[-1], "plane2d")
+            plane = axes[-2:]
+        axes = axes[:-2]
     for ax in axes:
         x = cuda_fft.fft_along_axis(x, ax, forward)
+    if plane:
+        with add_trace("fft_plane[per_axis]"):
+            for ax in plane:
+                x = cuda_fft.fft_along_axis(x, ax, forward)
     return x
 
 

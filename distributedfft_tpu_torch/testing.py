@@ -25,10 +25,12 @@ def tolerance(dtype) -> float:
 
 #: Prefixes of the spans the port opens inside a stage, none of them a
 #: stage (the JAX package opens none of them): one kernel pass
-#: (``fft_plane``, ``fft_axis[<route>]``), a real transform's untangle
-#: (``r2c_untangle``, ``c2r_untangle``), the process-group all-to-all's
-#: copies (``a2a_pack``, ``a2a_unpack``) and a step that blocks the host
-#: on the card (``host_wait[<site>]``).
+#: (``fft_plane``, and ``fft_plane[per_axis]`` around the two per-axis
+#: passes of a trailing plane the plane kernel does not take; then
+#: ``fft_axis[<route>]``), a real transform's untangle (``r2c_untangle``,
+#: ``c2r_untangle``), the process-group all-to-all's copies (``a2a_pack``,
+#: ``a2a_unpack``) and a step that blocks the host on the card
+#: (``host_wait[<site>]``).
 PASS_SPANS = ("fft_plane", "fft_axis[", "r2c_untangle", "c2r_untangle",
               "a2a_pack", "a2a_unpack", "host_wait[")
 

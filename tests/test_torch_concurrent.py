@@ -165,8 +165,9 @@ def test_concurrent_spans_show_interleave():
     # every span of the schedule but the passes inside its stages is
     # prefixed; stage_key drops the prefix
     assert {e[0] for e in ev if not testing.pass_span(e[0])} == set(cc)
+    # 16 and 8 are below the kernels' lengths: t0's planes run per axis
     assert {e[0] for e in ev if testing.pass_span(e[0])} == \
-        {"fft_axis[fallback]"}
+        {"fft_axis[fallback]", "fft_plane[per_axis]"}
     assert {stage_key(s) for s in cc} == {"t0", "t1", "t2", "t3"}
     assert stage_key("cc12:t2a_exchange_ici[3]") == "t2"
     assert stage_key("ccx:not_a_stage") is None

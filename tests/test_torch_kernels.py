@@ -52,7 +52,8 @@ def test_split_and_eligibility_match_reference(n):
 
 
 @pytest.mark.parametrize("ny,nz", [(64, 64), (64, 72), (512, 512),
-                                   (512, 1024), (1024, 1024), (16, 512)])
+                                   (512, 1024), (1024, 512), (1024, 1024),
+                                   (16, 512)])
 def test_eligible2d_matches_reference(ny, nz):
     assert cuda_fft.eligible2d(ny, nz) == pallas_fft.eligible2d(ny, nz)
 

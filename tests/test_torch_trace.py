@@ -69,9 +69,11 @@ def test_log_file_per_rank(tmp_path, monkeypatch):
     assert stages == ["t0_fft_yz", "t1_pack", "t2_exchange_slab",
                       "t3_fft_x", "execute_c2c_slab"]
     # 8 is below the kernels' lengths: each axis pass falls back, two
-    # ranks' t0 over two axes and t3 over one
+    # ranks' t0 over two axes (a refused plane: per axis, under one
+    # fft_plane[per_axis] each) and t3 over one
+    per_axis = ["fft_axis[fallback]"] * 2 + ["fft_plane[per_axis]"]
     assert [n for n in names[2:] if testing.pass_span(n)] == \
-        ["fft_axis[fallback]"] * 6
+        per_axis * 2 + ["fft_axis[fallback]"] * 2
     assert ttr.finalize_tracing() is None
 
 
